@@ -4,8 +4,9 @@ Each source is compiled by `nvcc` into a shared library with a plain C
 interface, at first use, into `build/paddle_tpu_torch/` at the root of the
 checkout (listed in `.gitignore`), under a name keyed by a hash of the
 source and the flags: an edited source builds anew, an unchanged one loads
-the library already built. The library is loaded with `ctypes`; every
-pointer and the stream travel as `c_void_p`.
+the library already built. `build_all` starts one `nvcc` per source, all
+at once, and waits for them together. A library is loaded with `ctypes`;
+every pointer and the stream travel as `c_void_p`.
 """
 
 from __future__ import annotations
@@ -17,21 +18,26 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "lib"]
+__all__ = ["BUILD_DIR", "SOURCES", "build", "build_all", "lib"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"attention": _CSRC / "attention.cu"}
+SOURCES = {"attention": _CSRC / "attention.cu",
+           "quantized_matmul": _CSRC / "quantized_matmul.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures (kernels/csrc/attention.cu)
+# C signatures (kernels/csrc/*.cu)
 _SIGNATURES = {
     "attention": {
         "pt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
         "pt_window_attention": [_P] * 5 + [_I] * 7 + [_F, _P],
         "pt_paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
+        "pt_paged_decode_attention_q8": [_P] * 8 + [_I] * 7 + [_F, _P],
+    },
+    "quantized_matmul": {
+        "pt_weight_only_matmul": [_P] * 5 + [_I] * 6 + [_P],
     },
 }
 
@@ -55,22 +61,51 @@ def _target(name):
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _start(name):
+    """(target, tmp, running nvcc) for source `name`, or (target, None,
+    None) when its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return out, None, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+    return out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+
+
+def _finish(name, out, tmp, proc):
+    if proc is None:
+        return out, ""
+    _, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
+                           f"{SOURCES[name]}:\n{err}")
+    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+    return out, err
+
+
 def build(name="attention"):
     """Compile source `name` unless its library is already built. Returns
     (path, compiler log); the log carries ptxas' register and shared-memory
     report, empty when the library was already there."""
-    out = _target(name)
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) building "
-                           f"{SOURCES[name]}:\n{res.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
-    return out, res.stderr
+    return _finish(name, *_start(name))
+
+
+def build_all():
+    """Build every source with one nvcc each, started together. Returns
+    {name: (path, compiler log)}; raises once every compiler has exited
+    if any failed."""
+    started = {n: _start(n) for n in SOURCES}
+    done, errors = {}, []
+    for n, job in started.items():
+        try:
+            done[n] = _finish(n, *job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return done
 
 
 def lib(name="attention"):

@@ -1,9 +1,11 @@
-"""Decode-time attention: the wrappers of kernels B4, B5, B6 and their plain
-PyTorch versions.
+"""Decode-time attention: the wrappers of kernels B4, B5, B6, B7 and their
+plain PyTorch versions.
 
   B4  `decode_attention`        replaces `_decode_kernel` (:253)
   B5  `window_attention`        replaces `_window_kernel` (:363)
   B6  `paged_decode_attention`  replaces `_paged_decode_kernel` (:529)
+  B7  `paged_decode_attention(..., k_scale=, v_scale=)` over an int8 pool
+                                replaces `_paged_decode_kernel_q8` (:595)
 
 (in paddle_tpu/kernels/quantized_matmul.py)
 
@@ -21,7 +23,8 @@ contiguous cache [b, nkv, len, hd], the page pool [num_pages, nkv, ps, hd]
 with block tables [b, P] (page i of row r holds its positions
 [i*ps, (i+1)*ps); unused entries point at the null page 0), per-row
 positions `pos` int32 [b] (or one int for every row). GQA is native: query
-head h reads kv head h // (nh // nkv).
+head h reads kv head h // (nh // nkv). An int8 pool carries per-(page, kv
+head) absmax scales [num_pages, nkv] f32: dequant = code * scale / 127.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ KERNEL_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = {"decode_attention": 0, "window_attention": 0,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 
 
 def reset_launches():
@@ -99,6 +102,22 @@ def _check_kernel(q, others, rows):
     if rows > WINDOW_MAX_ROWS:
         raise ValueError(f"{rows} query rows per kv head exceed the "
                          f"kernel's {WINDOW_MAX_ROWS}")
+
+
+def _check_scales(pool_k, pool_v, k_scale, v_scale):
+    """An int8 pool pair and its scales [num_pages, nkv] f32."""
+    if k_scale is None or v_scale is None:
+        raise ValueError("an int8 pool needs both k_scale and v_scale")
+    if pool_k.dtype != torch.int8 or pool_v.dtype != torch.int8:
+        raise TypeError(f"scaled pools must be int8 codes, got "
+                        f"{pool_k.dtype}/{pool_v.dtype}")
+    want = tuple(pool_k.shape[:2])
+    for t in (k_scale, v_scale):
+        if tuple(t.shape) != want:
+            raise ValueError(f"scales {tuple(t.shape)} are not [num_pages, "
+                             f"nkv] = {list(want)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"scales must be float32, got {t.dtype}")
 
 
 def _int32_on(x, b, device):
@@ -166,26 +185,34 @@ def window_attention_plain(q, cache_k, cache_v, pos, scale=None):
                                   _scale(scale, q.shape[-1]))
 
 
-def paged_gather(pool, block_tables, out_dtype=None):
+def paged_gather(pool, block_tables, scale=None, out_dtype=None):
     """Gather a pool [num_pages, nkv, ps, hd] through block tables [b, P]
     into the contiguous per-row layout [b, nkv, P*ps, hd]
-    (`quantized_matmul.paged_gather`, model-dtype pools): pages in table
-    order are the row's sequence."""
+    (`quantized_matmul.paged_gather`): pages in table order are the row's
+    sequence. With `scale` [num_pages, nkv] the pool is int8 and the
+    gather dequantizes in f32 (code * scale / 127), then casts to
+    `out_dtype` (default f32)."""
     b, P = block_tables.shape
     nkv, ps, hd = pool.shape[1:]
-    g = pool[block_tables.long()].transpose(1, 2)    # [b, nkv, P, ps, hd]
-    if out_dtype is not None:
+    bt = block_tables.long()
+    g = pool[bt].transpose(1, 2)                     # [b, nkv, P, ps, hd]
+    if scale is not None:
+        sc = scale[bt].transpose(1, 2)               # [b, nkv, P]
+        g = (g.float() * (sc / 127.0)[..., None, None]).to(
+            out_dtype or torch.float32)
+    elif out_dtype is not None:
         g = g.to(out_dtype)
     return g.reshape(b, nkv, P * ps, hd)
 
 
 def paged_decode_attention_plain(q, pool_k, pool_v, block_tables, pos,
-                                 scale=None):
-    """B6's plain version (`_paged_decode_attention_xla`): gather the
-    tables, then B4's plain version."""
+                                 scale=None, k_scale=None, v_scale=None):
+    """B6's and B7's plain version (`_paged_decode_attention_xla`): gather
+    the tables (dequantizing an int8 pool into q's dtype), then B4's plain
+    version."""
     return decode_attention_plain(
-        q, paged_gather(pool_k, block_tables, q.dtype),
-        paged_gather(pool_v, block_tables, q.dtype), pos, scale)
+        q, paged_gather(pool_k, block_tables, k_scale, q.dtype),
+        paged_gather(pool_v, block_tables, v_scale, q.dtype), pos, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -249,12 +276,16 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     return out
 
 
-def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None):
+def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
+                           k_scale=None, v_scale=None):
     """B6: single-query attention of q [b, 1, nh, hd] over the page pool
     [num_pages, nkv, ps, hd] through block tables [b, P], keys
     [0, pos[r]]. Table entries must be valid page ids; the kernel reads
-    only entries [0, pos[r] // ps]. Model-dtype pools (the int8 pool is
-    kernel B7, not ported yet)."""
+    only entries [0, pos[r] // ps].
+
+    B7: with k_scale / v_scale [num_pages, nkv] f32 the pools are int8
+    codes; the kernel dequantizes each key in shared memory (scale 0 reads
+    as zeros)."""
     b, s, nh, hd = q.shape
     if s != 1:
         raise ValueError(f"paged decode takes one query per row, got {s}")
@@ -267,19 +298,42 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None):
     nkv, ps = pool_k.shape[1], pool_k.shape[2]
     P = block_tables.shape[1]
     _check_gqa(q, nkv, pool_k.shape[3])
-    if not _on_card(q, pool_k, pool_v, block_tables):
+    quantized = k_scale is not None or v_scale is not None
+    if quantized:
+        _check_scales(pool_k, pool_v, k_scale, v_scale)
+    tensors = (q, pool_k, pool_v, block_tables) + (
+        (k_scale, v_scale) if quantized else ())
+    if not _on_card(*tensors):
         return paged_decode_attention_plain(q, pool_k, pool_v, block_tables,
-                                            pos, scale)
-    _check_kernel(q, (pool_k, pool_v), nh // nkv)
+                                            pos, scale, k_scale, v_scale)
+    if quantized:
+        _check_kernel(q, (), nh // nkv)
+        for t in (pool_k, pool_v, k_scale, v_scale):
+            if not t.is_contiguous():
+                raise ValueError("kernel inputs must be contiguous")
+        for t in (pool_k, pool_v):
+            if t.data_ptr() % 16:
+                raise ValueError("kernel K/V must be 16-byte aligned")
+    else:
+        _check_kernel(q, (pool_k, pool_v), nh // nkv)
     if block_tables.dtype != torch.int32 or not block_tables.is_contiguous():
         raise TypeError("block tables must be contiguous int32")
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
-    rc = _build.lib().pt_paged_decode_attention(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        block_tables.data_ptr(), pos_t.data_ptr(), out.data_ptr(), b, nh,
-        nkv, ps, P, hd, _DTYPES[q.dtype], _scale(scale, hd),
-        _stream(q.device))
-    _raise_on(rc, "paged_decode_attention")
-    launches["paged_decode_attention"] += 1
+    if quantized:
+        rc = _build.lib().pt_paged_decode_attention_q8(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
+            _DTYPES[q.dtype], _scale(scale, hd), _stream(q.device))
+        name = "paged_decode_attention_int8"
+    else:
+        rc = _build.lib().pt_paged_decode_attention(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            block_tables.data_ptr(), pos_t.data_ptr(), out.data_ptr(), b, nh,
+            nkv, ps, P, hd, _DTYPES[q.dtype], _scale(scale, hd),
+            _stream(q.device))
+        name = "paged_decode_attention"
+    _raise_on(rc, name)
+    launches[name] += 1
     return out

@@ -1,4 +1,4 @@
-// Decode-time attention kernels for Hopper (sm_90a): B4, B5 and B6.
+// Decode-time attention kernels for Hopper (sm_90a): B4, B5, B6 and B7.
 //
 // Each replaces one Pallas kernel of paddle_tpu/kernels/quantized_matmul.py:
 //
@@ -10,14 +10,22 @@
 //       row against the page pool [NP, nkv, ps, hd] through the block table
 //       bt[b, P]; key j of row r lives in page bt[r, j / ps] at offset j % ps,
 //       computed here, so no page past pos[r] / ps is ever read.
+//   paged_decode_attention_q8_kernel  <- _paged_decode_kernel_q8  (B7): B6 over
+//       an int8 pool with per-(page, kv head) absmax scales sk, sv [NP, nkv]
+//       (dequant = code * scale / 127).
 //
-// Design (one body for all three): one block of 256 threads per (kv head,
+// Design (one body for all four): one block of 256 threads per (kv head,
 // row). The block holds the R query rows that share the kv head (R = g for
 // B4/B6, s * g for B5, at most 64) in shared memory as f32 and walks the keys
 // up to the row's watermark in tiles (64 keys in bf16, 32 in f32). The K and
 // V rows of the next tile are loaded into registers, 16 bytes a thread, while
 // the current tile is computed, then parked in shared memory (rows padded by
-// one word so that a thread per key reads without bank conflicts). Per tile:
+// one word so that a thread per key reads without bank conflicts). B7 loads
+// 16 int8 codes a thread and parks them in q's dtype, each multiplied by its
+// own key's scale / 127: a scale belongs to a page and a tile of 64 keys spans up
+// to 64 / ps pages, so the scale is looked up per key (page bt[r, j / ps]),
+// never per tile, and fetched with the codes one tile ahead. A page whose scale is 0 (fresh, or the null page) reads as
+// zeros. The dequantized page exists only in shared memory. Per tile:
 // one thread per (row, key) computes the score over head_dim, one warp per
 // row runs the online max/sum, and each thread folds p * V into f32
 // accumulators for one head_dim column of its rows. Every kv-head key and
@@ -26,8 +34,9 @@
 // scores are -1e30 as in the reference; the output is written in q's dtype.
 //
 // What bounds it: bytes. A call moves sum_r (last_r + 1) * nkv * hd * 2 (K and
-// V) * itemsize bytes, which at Llama-2-7B widths (hd 128, bf16) and 2k-token
-// rows is megabytes against a few flops per byte. What the simple design
+// V) * itemsize bytes (B7: 1 byte a code, plus the scales of the pages read),
+// which at Llama-2-7B widths (hd 128) and 2k-token rows is megabytes against
+// a few flops per byte. What the simple design
 // leaves on the table: at b = 1 the grid has only nkv = 32 blocks for 132 SMs
 // (no split of the keys across blocks with a second reduction pass), a
 // ragged batch waits for its longest row, the staging goes through registers
@@ -37,6 +46,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -96,13 +106,66 @@ struct PagedKV {
   }
 };
 
-template <typename T, int HD>
+// int8 pages: PagedKV's addressing plus key j's (k, v) dequant factors
+struct PagedKVQ8 {
+  const int* bt_row;
+  const float* sk;       // [NP, nkv]
+  const float* sv;
+  int nkv, h, ps, hd;
+  __device__ __forceinline__ int64_t operator()(int j) const {
+    const int64_t page = bt_row[j / ps];
+    return ((page * nkv + h) * ps + j % ps) * (int64_t)hd;
+  }
+  __device__ __forceinline__ float2 scales(int j) const {
+    const int64_t i = (int64_t)bt_row[j / ps] * nkv + h;
+    return make_float2(sk[i] / 127.f, sv[i] / 127.f);
+  }
+};
+
+// 16 int8 codes (one 16-byte load) times their key's factor, stored as 16
+// elements of type SE (f32: 16 words; bf16: 8 words, rounded as the plain
+// version's gather rounds them). A code c becomes a float by bit assembly:
+// 0x4B0000xx with xx = c ^ 0x80 is 2^23 + c + 128, exact, so one byte permute
+// and one add replace the quarter-rate int-to-float conversion.
+template <typename SE>
+__device__ __forceinline__ void dequant16(const uint4& u, float s,
+                                          uint32_t* dst) {
+  const uint32_t w[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                         u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+  float f[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      f[i * 4 + b] =
+          (__uint_as_float(__byte_perm(w[i], 0x4B000000u, 0x7540u + b))
+           - 8388736.f) * s;
+  if constexpr (std::is_same<SE, float>::value) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[e] = __float_as_uint(f[e]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * e], f[2 * e + 1]);
+      dst[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+  }
+}
+
+// T: the q/out dtype; KVT: the K/V storage type (T, or int8_t for B7). K/V
+// are parked in shared memory as SE = T (int8 codes dequantized into it).
+template <typename T, typename KVT, int HD>
 struct Shape {
-  static constexpr int kTile = 128 / (int)sizeof(T);          // keys per tile
-  static constexpr int kRowWords = HD * (int)sizeof(T) / 4;   // words per row
+  static constexpr bool kQ8 = std::is_same<KVT, int8_t>::value;
+  using SE = T;
+  // keys per tile; int8 codes take 64 whatever T is, so that kChunks below
+  // stays whole at head_dim 64
+  static constexpr int kTile = kQ8 ? 64 : 128 / (int)sizeof(SE);
+  static constexpr int kRowWords = HD * (int)sizeof(SE) / 4;  // words per row
   static constexpr int kStride = kRowWords + 1;               // padded
-  static constexpr int kRowChunks = HD * (int)sizeof(T) / 16; // 16 B loads
+  static constexpr int kRowChunks = HD * (int)sizeof(KVT) / 16;  // 16 B loads
   static constexpr int kChunks = kTile * kRowChunks / kThreads;  // per thread
+  static constexpr int kChunkElems = 16 / (int)sizeof(KVT);
   static constexpr int kRowSplit = kThreads / HD;   // threads per column
   static constexpr int kAcc = kMaxRows / kRowSplit; // rows per thread
   // shared-memory words for R rows
@@ -113,12 +176,13 @@ struct Shape {
 
 // The shared body. Query row r of the block is query i = r / g of the window
 // for query head h * g + r % g; it sits at position qpos0 + i. Keys [0, last].
-template <typename T, int HD, typename KV>
+template <typename T, typename KVT, int HD, typename KV>
 __device__ __forceinline__ void attend(
-    const T* __restrict__ q, T* __restrict__ out, const T* __restrict__ kp,
-    const T* __restrict__ vp, KV kv, int rows, int g, int s, int nh, int b,
+    const T* __restrict__ q, T* __restrict__ out, const KVT* __restrict__ kp,
+    const KVT* __restrict__ vp, KV kv, int rows, int g, int s, int nh, int b,
     int h, int qpos0, int last, float scale) {
-  using S = Shape<T, HD>;
+  using S = Shape<T, KVT, HD>;
+  using SE = typename S::SE;
   constexpr int TILE = S::kTile;
   extern __shared__ __align__(16) uint32_t smem[];
   float* q_s = reinterpret_cast<float*>(smem);                  // [rows][HD]
@@ -144,6 +208,7 @@ __device__ __forceinline__ void attend(
   const int n_keys = last + 1;
   const int n_tiles = (n_keys + TILE - 1) / TILE;
   uint4 kreg[S::kChunks], vreg[S::kChunks];
+  float2 sreg[S::kChunks];   // B7: the chunk's key's (k, v) factors
   auto load = [&](int tile) {
     const int t0 = tile * TILE, tlen = min(TILE, n_keys - t0);
 #pragma unroll
@@ -151,9 +216,10 @@ __device__ __forceinline__ void attend(
       const int idx = tid + c * kThreads;
       const int t = idx / S::kRowChunks, col = idx % S::kRowChunks;
       if (t < tlen) {
-        const int64_t off = kv(t0 + t) + col * (16 / (int)sizeof(T));
+        const int64_t off = kv(t0 + t) + col * S::kChunkElems;
         kreg[c] = *reinterpret_cast<const uint4*>(kp + off);
         vreg[c] = *reinterpret_cast<const uint4*>(vp + off);
+        if constexpr (S::kQ8) sreg[c] = kv.scales(t0 + t);
       }
     }
   };
@@ -173,10 +239,20 @@ __device__ __forceinline__ void attend(
       const int idx = tid + c * kThreads;
       const int t = idx / S::kRowChunks, col = idx % S::kRowChunks;
       if (t < tlen) {
-        uint32_t* kd = k_s + t * S::kStride + col * 4;
-        uint32_t* vd = v_s + t * S::kStride + col * 4;
-        kd[0] = kreg[c].x; kd[1] = kreg[c].y; kd[2] = kreg[c].z; kd[3] = kreg[c].w;
-        vd[0] = vreg[c].x; vd[1] = vreg[c].y; vd[2] = vreg[c].z; vd[3] = vreg[c].w;
+        if constexpr (S::kQ8) {
+          constexpr int kWordsPerChunk = 16 * (int)sizeof(SE) / 4;
+          uint32_t* kd = k_s + t * S::kStride + col * kWordsPerChunk;
+          uint32_t* vd = v_s + t * S::kStride + col * kWordsPerChunk;
+          dequant16<SE>(kreg[c], sreg[c].x, kd);
+          dequant16<SE>(vreg[c], sreg[c].y, vd);
+        } else {
+          uint32_t* kd = k_s + t * S::kStride + col * 4;
+          uint32_t* vd = v_s + t * S::kStride + col * 4;
+          kd[0] = kreg[c].x; kd[1] = kreg[c].y;
+          kd[2] = kreg[c].z; kd[3] = kreg[c].w;
+          vd[0] = vreg[c].x; vd[1] = vreg[c].y;
+          vd[2] = vreg[c].z; vd[3] = vreg[c].w;
+        }
       }
     }
     if (n + 1 < n_tiles) load(n + 1);
@@ -189,12 +265,12 @@ __device__ __forceinline__ void attend(
       if (t < tlen && t0 + t <= qpos0 + r / g) {
         const uint32_t* kr = k_s + t * S::kStride;
         const float* qr = q_s + r * HD;
-        constexpr int kPairWords = 2 * (int)sizeof(T) / 4;  // 2 elements
+        constexpr int kPairWords = 2 * (int)sizeof(SE) / 4;  // 2 elements
         float dot0 = 0.f, dot1 = 0.f;   // two chains of dependent FMAs
 #pragma unroll 8
         for (int w = 0; w < S::kRowWords; w += kPairWords) {
-          const float2 kk = word2(kr + w, T());
-          const int e = w * 4 / (int)sizeof(T);
+          const float2 kk = word2(kr + w, SE());
+          const int e = w * 4 / (int)sizeof(SE);
           dot0 = fmaf(qr[e], kk.x, dot0);
           dot1 = fmaf(qr[e + 1], kk.y, dot1);
         }
@@ -231,8 +307,8 @@ __device__ __forceinline__ void attend(
     // 3. rescale and fold p * V into column d of this thread's rows (the
     // row loop stops at `rows`: uniform across a warp, so with one row the
     // other row slots cost nothing)
-    const T* vcol = reinterpret_cast<const T*>(v_s) + d;
-    constexpr int kStrideT = S::kStride * 4 / (int)sizeof(T);
+    const SE* vcol = reinterpret_cast<const SE*>(v_s) + d;
+    constexpr int kStrideT = S::kStride * 4 / (int)sizeof(SE);
 #pragma unroll
     for (int k = 0; k < S::kAcc; ++k) {
       const int r = rs + k * S::kRowSplit;
@@ -262,8 +338,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const int h = blockIdx.x, b = blockIdx.y, g = nh / nkv;
   const int p = pos[b];
   const ContiguousKV kv{((int64_t)b * nkv + h) * len * HD, HD};
-  attend<T, HD>(q, out, k, v, kv, g, g, 1, nh, b, h, p, min(p, len - 1),
-                scale);
+  attend<T, T, HD>(q, out, k, v, kv, g, g, 1, nh, b, h, p, min(p, len - 1),
+                   scale);
 }
 
 template <typename T, int HD>
@@ -276,8 +352,8 @@ __global__ void __launch_bounds__(kThreads) window_attention_kernel(
   const ContiguousKV kv{((int64_t)b * nkv + h) * len * HD, HD};
   // stop at the last query's watermark, clamped to the cache end: a window
   // may overhang the cache, and keys past it do not exist
-  attend<T, HD>(q, out, k, v, kv, s * g, g, s, nh, b, h, p,
-                min(p + s - 1, len - 1), scale);
+  attend<T, T, HD>(q, out, k, v, kv, s * g, g, s, nh, b, h, p,
+                   min(p + s - 1, len - 1), scale);
 }
 
 template <typename T, int HD>
@@ -289,21 +365,35 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_kernel(
   const int h = blockIdx.x, b = blockIdx.y, g = nh / nkv;
   const int p = pos[b];
   const PagedKV kv{bt + (int64_t)b * P, nkv, h, ps, HD};
-  attend<T, HD>(q, out, pk, pv, kv, g, g, 1, nh, b, h, p,
-                min(p, P * ps - 1), scale);
+  attend<T, T, HD>(q, out, pk, pv, kv, g, g, 1, nh, b, h, p,
+                   min(p, P * ps - 1), scale);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) paged_decode_attention_q8_kernel(
+    const T* __restrict__ q, const int8_t* __restrict__ pk,
+    const int8_t* __restrict__ pv, const float* __restrict__ sk,
+    const float* __restrict__ sv, const int* __restrict__ bt,
+    const int* __restrict__ pos, T* __restrict__ out, int nh, int nkv, int ps,
+    int P, float scale) {
+  const int h = blockIdx.x, b = blockIdx.y, g = nh / nkv;
+  const int p = pos[b];
+  const PagedKVQ8 kv{bt + (int64_t)b * P, sk, sv, nkv, h, ps, HD};
+  attend<T, int8_t, HD>(q, out, pk, pv, kv, g, g, 1, nh, b, h, p,
+                        min(p, P * ps - 1), scale);
 }
 
 // Dynamic shared memory for `rows` rows; above 48 KB the kernel must be
 // allowed it first (once per instantiation, at the most rows it can take).
-template <typename T, int HD, typename K>
+template <typename T, typename KVT, int HD, typename K>
 size_t smem_for(K kernel, int rows) {
   static bool opted_in = false;
   if (!opted_in) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         Shape<T, HD>::words(kMaxRows) * 4);
+                         Shape<T, KVT, HD>::words(kMaxRows) * 4);
     opted_in = true;
   }
-  return (size_t)Shape<T, HD>::words(rows) * 4;
+  return (size_t)Shape<T, KVT, HD>::words(rows) * 4;
 }
 
 template <typename T, int HD>
@@ -311,7 +401,7 @@ void launch_decode(const void* q, const void* k, const void* v,
                    const void* pos, void* out, int b, int nh, int nkv,
                    int len, float scale, cudaStream_t st) {
   auto kern = decode_attention_kernel<T, HD>;
-  kern<<<dim3(nkv, b), kThreads, smem_for<T, HD>(kern, nh / nkv), st>>>(
+  kern<<<dim3(nkv, b), kThreads, smem_for<T, T, HD>(kern, nh / nkv), st>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)pos, (T*)out, nh,
       nkv, len, scale);
 }
@@ -321,7 +411,7 @@ void launch_window(const void* q, const void* k, const void* v,
                    const void* pos, void* out, int b, int s, int nh, int nkv,
                    int len, float scale, cudaStream_t st) {
   auto kern = window_attention_kernel<T, HD>;
-  kern<<<dim3(nkv, b), kThreads, smem_for<T, HD>(kern, s * (nh / nkv)),
+  kern<<<dim3(nkv, b), kThreads, smem_for<T, T, HD>(kern, s * (nh / nkv)),
          st>>>((const T*)q, (const T*)k, (const T*)v, (const int*)pos,
                (T*)out, s, nh, nkv, len, scale);
 }
@@ -331,9 +421,21 @@ void launch_paged(const void* q, const void* pk, const void* pv,
                   const void* bt, const void* pos, void* out, int b, int nh,
                   int nkv, int ps, int P, float scale, cudaStream_t st) {
   auto kern = paged_decode_attention_kernel<T, HD>;
-  kern<<<dim3(nkv, b), kThreads, smem_for<T, HD>(kern, nh / nkv), st>>>(
+  kern<<<dim3(nkv, b), kThreads, smem_for<T, T, HD>(kern, nh / nkv), st>>>(
       (const T*)q, (const T*)pk, (const T*)pv, (const int*)bt,
       (const int*)pos, (T*)out, nh, nkv, ps, P, scale);
+}
+
+template <typename T, int HD>
+void launch_paged_q8(const void* q, const void* pk, const void* pv,
+                     const void* sk, const void* sv, const void* bt,
+                     const void* pos, void* out, int b, int nh, int nkv,
+                     int ps, int P, float scale, cudaStream_t st) {
+  auto kern = paged_decode_attention_q8_kernel<T, HD>;
+  kern<<<dim3(nkv, b), kThreads, smem_for<T, int8_t, HD>(kern, nh / nkv),
+         st>>>((const T*)q, (const int8_t*)pk, (const int8_t*)pv,
+               (const float*)sk, (const float*)sv, (const int*)bt,
+               (const int*)pos, (T*)out, nh, nkv, ps, P, scale);
 }
 
 bool shape_ok(int rows, int hd) {
@@ -388,5 +490,16 @@ extern "C" int pt_paged_decode_attention(const void* q, const void* pk,
     return (int)cudaErrorInvalidValue;
   PT_DISPATCH(launch_paged, q, pk, pv, bt, pos, out, b, nh, nkv, ps, P,
               scale, (cudaStream_t)stream)
+  return (int)cudaGetLastError();
+}
+
+extern "C" int pt_paged_decode_attention_q8(
+    const void* q, const void* pk, const void* pv, const void* sk,
+    const void* sv, const void* bt, const void* pos, void* out, int b, int nh,
+    int nkv, int ps, int P, int hd, int dtype, float scale, void* stream) {
+  if (nkv < 1 || nh % nkv || ps < 1 || P < 1 || !shape_ok(nh / nkv, hd))
+    return (int)cudaErrorInvalidValue;
+  PT_DISPATCH(launch_paged_q8, q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv,
+              ps, P, scale, (cudaStream_t)stream)
   return (int)cudaGetLastError();
 }

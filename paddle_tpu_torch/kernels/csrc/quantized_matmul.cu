@@ -1,0 +1,495 @@
+// Weight-only int8 matmul for Hopper (sm_90a): kernel B8.
+//
+// Replaces `_dqmm_kernel` of paddle_tpu/kernels/quantized_matmul.py (:101):
+// out[M, N] = (x[M, K] @ q[K, N]) * scale[N] / 127, with q the int8 codes of
+// `quantize_absmax`, x bf16 or f32, the sums in f32 and the output in x's
+// dtype. As in the Pallas kernel the weight stays int8 in device memory: each
+// code is widened in registers (every int8 is exact in bf16 and f32) and the
+// per-output-channel scale / 127 multiplies the f32 sum once, in the epilogue.
+// M, N and K are all masked: out-of-range x and weight elements are read as 0
+// (both operands of the K tail, as the reference zeroes both, :114-121) and
+// out-of-range outputs are not written.
+//
+// Three regimes, picked by shape only:
+//
+//   b8_gemv_kernel (M <= 16): decode. What bounds it: bytes. At Llama-2-7B
+//     width a decode step streams 6.6 GB of int8 weights, 2 * M flops a byte.
+//     Eight lanes share one K row and each loads 16 consecutive codes (8 when
+//     M > 8) in one 16-byte (8-byte) load, so a warp reads four whole 128-byte
+//     row segments; the block's 32 row groups walk K, each thread with four
+//     rows' loads in flight while it sums the previous four. Each code is read from
+//     device memory once. The M rows of x are staged in shared memory as f32 in
+//     chunks of K, and every thread keeps M x its columns f32 sums (at most
+//     128). Sums are reduced across the warp with shuffles and across the 8
+//     warps in shared memory. When N alone gives too few blocks to fill the
+//     card, K is split across blocks (gridDim.y); the blocks then write f32
+//     partial sums that b8_reduce_kernel adds in a fixed order and scales, so
+//     the result does not depend on block timing.
+//   b8_mma_kernel (M > 16, bf16): prefill. What bounds it: operations
+//     (2 M N K; a 2048-row prefill of the 4096 x 11008 FFN matrix is 185
+//     GFLOP, 0.19 ms at 989 TFLOP/s). 128 x 128 output tiles, 8 warps
+//     each with a 64 x 32 block of wmma 16x16x16 bf16 fragments with f32
+//     accumulators. Tiles of 32 K
+//     step through two shared-memory buffers: the next tile's x (16-byte
+//     loads) and int8 codes (16 codes a load, widened to bf16 before they are
+//     stored) are loaded into registers while the current tile is multiplied.
+//   b8_simt_kernel (M > 16, f32): 64 x 64 tiles on the CUDA cores in full f32.
+//     f32 activations serve the checks against the f32 plain version; the
+//     serving path computes in bf16 and never reaches it.
+//
+// What the simple design leaves: no cp.async/TMA pipeline and no wgmma (the
+// prefill tiles reach a fraction of the tensor-core peak), the GEMV keeps
+// only a few loads in flight per thread, and the K split costs a second
+// launch and an f32 round trip of the partial sums.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <mma.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// four int8 codes packed in a word, widened to f32. A code c becomes a float
+// by bit assembly: 0x4B0000xx with xx = c ^ 0x80 is 2^23 + c + 128, exact, so
+// a byte permute and an add replace the quarter-rate int-to-float conversion.
+__device__ __forceinline__ void widen4(uint32_t u, float* f) {
+  const uint32_t x = u ^ 0x80808080u;
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    f[b] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + b))
+           - 8388736.f;
+}
+
+// ---------------------------------------------------------------------------
+// decode: GEMV-shaped
+// ---------------------------------------------------------------------------
+
+constexpr int kGemvThreads = 256;
+constexpr int kGemvWarps = kGemvThreads / 32;
+constexpr int kLanesPerRow = 8;                           // lanes on one K row
+constexpr int kRowGroups = kGemvThreads / kLanesPerRow;   // K rows in flight
+constexpr int kXChunk = 512;                              // K rows of x staged
+constexpr int kDepth = 4;             // weight loads a thread has in flight
+
+// ROWS: the most rows of x this instantiation holds (M <= ROWS); COLS:
+// columns per thread. ROWS * COLS <= 128 sums a thread.
+template <typename T, int ROWS, int COLS>
+__global__ void __launch_bounds__(kGemvThreads) b8_gemv_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, T* __restrict__ out,
+    float* __restrict__ partial, int M, int K, int N, int k_per_split,
+    int vec) {
+  constexpr int kBlockCols = kLanesPerRow * COLS;
+  constexpr int kRedFloats = kGemvWarps * ROWS * kBlockCols;
+  constexpr int kXFloats = ROWS * kXChunk;
+  constexpr int kSmemFloats = kRedFloats > kXFloats ? kRedFloats : kXFloats;
+  __shared__ __align__(16) float smem[kSmemFloats];   // x chunk, then sums
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lig = tid % kLanesPerRow, group = tid / kLanesPerRow;
+  const int n_base = blockIdx.x * kBlockCols;
+  const int n0 = n_base + lig * COLS;
+  const int k_begin = blockIdx.y * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+
+  float acc[ROWS][COLS];
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) acc[m][c] = 0.f;
+
+  // this thread's codes of K row kk (COLS bytes packed in words), 0 past the
+  // chunk or the N edge
+  constexpr int kWords = COLS / 4;
+  auto fetch = [&](uint32_t* dst, int kk, int clen, int kc) {
+    if (kk < clen && n0 < N) {
+      const int8_t* row = w + (int64_t)(kc + kk) * N + n0;
+      if (vec) {   // N % 16 == 0 and w 16-byte aligned: n0 + COLS <= N
+        if constexpr (COLS == 16) {
+          const uint4 u = *reinterpret_cast<const uint4*>(row);
+          dst[0] = u.x; dst[1] = u.y; dst[2] = u.z; dst[3] = u.w;
+        } else {
+          const uint2 u = *reinterpret_cast<const uint2*>(row);
+          dst[0] = u.x; dst[1] = u.y;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) {
+          uint32_t v = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int c = i * 4 + b;
+            if (n0 + c < N) v |= (uint32_t)(uint8_t)row[c] << (8 * b);
+          }
+          dst[i] = v;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kWords; ++i) dst[i] = 0u;
+    }
+  };
+
+  for (int kc = k_begin; kc < k_end; kc += kXChunk) {
+    const int clen = min(kXChunk, k_end - kc);
+    __syncthreads();   // the previous chunk is no longer read
+    for (int i = tid; i < ROWS * kXChunk; i += kGemvThreads) {
+      const int m = i / kXChunk, kk = i % kXChunk;
+      smem[i] = (m < M && kk < clen) ? to_f(x[(int64_t)m * K + kc + kk])
+                                     : 0.f;
+    }
+    __syncthreads();
+    // kDepth rows in flight, the next kDepth fetched while these are summed
+    uint32_t cur[kDepth][kWords], nxt[kDepth][kWords];
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d)
+      fetch(cur[d], group + d * kRowGroups, clen, kc);
+    for (int r0 = group; r0 < clen; r0 += kDepth * kRowGroups) {
+      const int r1 = r0 + kDepth * kRowGroups;
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d)
+        fetch(nxt[d], r1 + d * kRowGroups, clen, kc);
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d) {
+        const int kk = r0 + d * kRowGroups;
+        float wf[COLS];
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) widen4(cur[d][i], wf + 4 * i);
+        // rows past the chunk hold codes 0 and x 0 (kk < kXChunk always)
+#pragma unroll
+        for (int m = 0; m < ROWS; ++m) {
+          const float xv = smem[m * kXChunk + min(kk, kXChunk - 1)];
+#pragma unroll
+          for (int c = 0; c < COLS; ++c)
+            acc[m][c] = fmaf(xv, wf[c], acc[m][c]);
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < kDepth; ++d)
+#pragma unroll
+        for (int i = 0; i < kWords; ++i) cur[d][i] = nxt[d][i];
+    }
+  }
+
+  // the four row groups of a warp that share this thread's columns
+#pragma unroll
+  for (int m = 0; m < ROWS; ++m)
+#pragma unroll
+    for (int c = 0; c < COLS; ++c) {
+      float v = acc[m][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[m][c] = v;
+    }
+  __syncthreads();   // the x chunk is no longer read: reuse it for the sums
+  float* red = smem;  // [warp][m][col]
+  if (lane < kLanesPerRow) {
+#pragma unroll
+    for (int m = 0; m < ROWS; ++m)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c)
+        red[(warp * ROWS + m) * kBlockCols + lig * COLS + c] = acc[m][c];
+  }
+  __syncthreads();
+  for (int i = tid; i < ROWS * kBlockCols; i += kGemvThreads) {
+    const int m = i / kBlockCols, col = i % kBlockCols, n = n_base + col;
+    if (m >= M || n >= N) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kGemvWarps; ++wi)
+      s += red[(wi * ROWS + m) * kBlockCols + col];
+    if (partial != nullptr)
+      partial[((int64_t)blockIdx.y * M + m) * N + n] = s;
+    else
+      out[(int64_t)m * N + n] = from_f<T>(s * (scale[n] / 127.f));
+  }
+}
+
+// out[m, n] = sum over splits of partial[s, m, n], in split order, scaled
+template <typename T>
+__global__ void b8_reduce_kernel(const float* __restrict__ partial,
+                              const float* __restrict__ scale,
+                              T* __restrict__ out, int M, int N, int splits) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t mn = (int64_t)M * N;
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int sp = 0; sp < splits; ++sp) s += partial[sp * mn + i];
+  out[i] = from_f<T>(s * (scale[i % N] / 127.f));
+}
+
+// ---------------------------------------------------------------------------
+// prefill: tensor cores (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 128, kBN = 128, kBK = 32;
+constexpr int kMmaThreads = 256;
+constexpr int kALd = kBK + 8;    // bf16 elements per row of the x tile
+constexpr int kBLd = kBN + 8;    // bf16 elements per row of the weight tile
+
+__global__ void __launch_bounds__(kMmaThreads) b8_mma_kernel(
+    const bf16* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, bf16* __restrict__ out, int M, int K,
+    int N, int vec_x, int vec_w) {
+  using namespace nvcuda;
+  __shared__ __align__(128) bf16 a_s[2][kBM * kALd];
+  __shared__ __align__(128) bf16 b_s[2][kBK * kBLd];
+  __shared__ __align__(128) float c_s[kMmaThreads / 32][16 * 16];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 4, wn = warp % 4;           // 2 x 4 warps
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int n_kt = (K + kBK - 1) / kBK;
+
+  // x tile: 128 rows x 32 K = 512 chunks of 8 bf16, two a thread;
+  // weight tile: 32 K x 128 codes = 256 chunks of 16 codes, one a thread
+  uint4 ra[2], rb;
+  auto load = [&](int kt) {
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kMmaThreads;
+      const int r = c / 4, kk = (c % 4) * 8;
+      const int m = m0 + r, k = k0 + kk;
+      const bf16* src = x + (int64_t)m * K + k;
+      if (vec_x) {   // K % 8 == 0: a chunk is all in or all out
+        ra[i] = (m < M && k < K) ? *reinterpret_cast<const uint4*>(src)
+                                 : make_uint4(0, 0, 0, 0);
+      } else {
+        __align__(16) bf16 e[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          e[j] = (m < M && k + j < K) ? src[j] : __float2bfloat16(0.f);
+        ra[i] = *reinterpret_cast<uint4*>(e);
+      }
+    }
+    const int r = tid / 8, nn = (tid % 8) * 16;
+    const int k = k0 + r, n = n0 + nn;
+    const int8_t* src = w + (int64_t)k * N + n;
+    if (vec_w) {     // N % 16 == 0: a chunk is all in or all out
+      rb = (k < K && n < N) ? *reinterpret_cast<const uint4*>(src)
+                            : make_uint4(0, 0, 0, 0);
+    } else {
+      __align__(16) int8_t e[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) e[j] = (k < K && n + j < N) ? src[j] : 0;
+      rb = *reinterpret_cast<uint4*>(e);
+    }
+  };
+  auto park = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = tid + i * kMmaThreads;
+      *reinterpret_cast<uint4*>(&a_s[buf][(c / 4) * kALd + (c % 4) * 8]) =
+          ra[i];
+    }
+    float f[16];
+    widen4(rb.x, f); widen4(rb.y, f + 4); widen4(rb.z, f + 8);
+    widen4(rb.w, f + 12);
+    __align__(16) bf16 h[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) h[j] = __float2bfloat16(f[j]);   // exact
+    uint4* dst = reinterpret_cast<uint4*>(
+        &b_s[buf][(tid / 8) * kBLd + (tid % 8) * 16]);
+    dst[0] = reinterpret_cast<uint4*>(h)[0];
+    dst[1] = reinterpret_cast<uint4*>(h)[1];
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  load(0);
+  park(0);
+  __syncthreads();
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < n_kt) load(kt + 1);
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(
+            fa[i], &a_s[cur][(wm * 64 + i * 16) * kALd + kk], kALd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(
+            fb[j], &b_s[cur][kk * kBLd + wn * 32 + j * 16], kBLd);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    if (kt + 1 < n_kt) park(cur ^ 1);
+    __syncthreads();
+  }
+
+  // epilogue: one fragment at a time through this warp's 16 x 16 scratch
+  float* cs = c_s[warp];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wmma::store_matrix_sync(cs, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int r = lane / 2, c0 = (lane % 2) * 8;
+      const int m = m0 + wm * 64 + i * 16 + r;
+      if (m < M) {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int n = n0 + wn * 32 + j * 16 + c0 + t;
+          if (n < N)
+            out[(int64_t)m * N + n] =
+                __float2bfloat16(cs[r * 16 + c0 + t] * (scale[n] / 127.f));
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// ---------------------------------------------------------------------------
+// M > 16 in f32: CUDA cores
+// ---------------------------------------------------------------------------
+
+constexpr int kSBM = 64, kSBN = 64, kSBK = 16;
+
+__global__ void __launch_bounds__(256) b8_simt_kernel(
+    const float* __restrict__ x, const int8_t* __restrict__ w,
+    const float* __restrict__ scale, float* __restrict__ out, int M, int K,
+    int N) {
+  __shared__ float a_s[kSBK][kSBM + 4];   // transposed: [k][m]
+  __shared__ float b_s[kSBK][kSBN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kSBM, n0 = blockIdx.x * kSBN;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += kSBK) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = tid + i * 256;
+      const int r = e / kSBK, kk = e % kSBK;          // x: [64 m][16 k]
+      const int m = m0 + r, k = k0 + kk;
+      a_s[kk][r] = (m < M && k < K) ? x[(int64_t)m * K + k] : 0.f;
+      const int kr = e / kSBN, nn = e % kSBN;          // w: [16 k][64 n]
+      const int k2 = k0 + kr, n = n0 + nn;
+      b_s[kr][nn] = (k2 < K && n < N) ? (float)w[(int64_t)k2 * N + n] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSBK; ++kk) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a_s[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = b_s[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < N) out[(int64_t)m * N + n] = acc[i][j] * (scale[n] / 127.f);
+    }
+  }
+}
+
+template <typename T, int ROWS, int COLS>
+void launch_gemv(const void* x, const int8_t* w, const float* scale, void* out,
+                 float* partial, int M, int K, int N, int k_per_split,
+                 int splits, cudaStream_t st) {
+  constexpr int kBlockCols = kLanesPerRow * COLS;
+  const int vec = (N % 16 == 0) && ((uintptr_t)w % 16 == 0);
+  dim3 grid((N + kBlockCols - 1) / kBlockCols, splits);
+  b8_gemv_kernel<T, ROWS, COLS><<<grid, kGemvThreads, 0, st>>>(
+      (const T*)x, w, scale, (T*)out, splits > 1 ? partial : nullptr, M, K, N,
+      k_per_split, vec);
+  if (splits > 1) {
+    const int64_t mn = (int64_t)M * N;
+    b8_reduce_kernel<T><<<(unsigned)((mn + 255) / 256), 256, 0, st>>>(
+        partial, scale, (T*)out, M, N, splits);
+  }
+}
+
+template <typename T>
+void dispatch_gemv(const void* x, const int8_t* w, const float* scale,
+                   void* out, float* partial, int M, int K, int N,
+                   int k_per_split, int splits, cudaStream_t st) {
+  if (M <= 1)
+    launch_gemv<T, 1, 16>(x, w, scale, out, partial, M, K, N, k_per_split,
+                          splits, st);
+  else if (M <= 4)
+    launch_gemv<T, 4, 16>(x, w, scale, out, partial, M, K, N, k_per_split,
+                          splits, st);
+  else if (M <= 8)
+    launch_gemv<T, 8, 16>(x, w, scale, out, partial, M, K, N, k_per_split,
+                          splits, st);
+  else
+    launch_gemv<T, 16, 8>(x, w, scale, out, partial, M, K, N, k_per_split,
+                          splits, st);
+}
+
+}  // namespace
+
+// Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
+// (x and out). M <= 16 takes the GEMV regime with `splits` blocks over K of
+// `k_per_split` rows each (partial: f32 [splits, M, N] when splits > 1, else
+// unused); M > 16 the tiled kernels. The columns a GEMV block covers (128 for
+// M <= 8, 64 above) and the split are the caller's (kernels/quantized_matmul.py
+// `_k_split`). Returns cudaGetLastError() after the launches.
+extern "C" int pt_weight_only_matmul(const void* x, const void* w,
+                                     const void* scale, void* out,
+                                     void* partial, int M, int K, int N,
+                                     int k_per_split, int splits, int dtype,
+                                     void* stream) {
+  if (M < 1 || K < 1 || N < 1 || splits < 1 || k_per_split < 1 ||
+      (long long)k_per_split * splits < K || (splits > 1 && !partial) ||
+      (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int8_t* wq = (const int8_t*)w;
+  const float* sc = (const float*)scale;
+  if (M <= 16) {
+    if (dtype == 1)
+      dispatch_gemv<bf16>(x, wq, sc, out, (float*)partial, M, K, N,
+                          k_per_split, splits, st);
+    else
+      dispatch_gemv<float>(x, wq, sc, out, (float*)partial, M, K, N,
+                           k_per_split, splits, st);
+  } else if (dtype == 1) {
+    const int vec_x = (K % 8 == 0) && ((uintptr_t)x % 16 == 0);
+    const int vec_w = (N % 16 == 0) && ((uintptr_t)w % 16 == 0);
+    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    b8_mma_kernel<<<grid, kMmaThreads, 0, st>>>((const bf16*)x, wq, sc,
+                                             (bf16*)out, M, K, N, vec_x,
+                                             vec_w);
+  } else {
+    dim3 grid((N + kSBN - 1) / kSBN, (M + kSBM - 1) / kSBM);
+    b8_simt_kernel<<<grid, 256, 0, st>>>((const float*)x, wq, sc,
+                                         (float*)out, M, K, N);
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,144 @@
+"""Weight-only int8 matmul: the wrapper of kernel B8 and its plain PyTorch
+version, and the absmax quantizer every int8 weight goes through.
+
+  B8  `weight_only_matmul`  replaces `_dqmm_kernel` (:101, launched by
+      `fused_dequant_matmul` :135, dispatched by `weight_only_matmul` :224)
+
+(in paddle_tpu/kernels/quantized_matmul.py)
+
+Convention (`quantize_absmax`, :202): a weight [..., K, N] becomes int8
+codes q [..., K, N] and a per-output-channel scale [..., N] f32 with
+dequant = q * scale / 127.
+
+The wrapper routes by device, as the attention wrappers do: a CPU tensor
+goes to `dequant_matmul_plain` (the reference's `_dequant_matmul_xla`:
+dequantize into x's dtype, then `@`), a CUDA tensor to the hand-written
+kernel in `csrc/quantized_matmul.cu`, checked first; nothing falls back.
+The kernel keeps the weight int8 in device memory, widens it in registers
+and applies scale / 127 once per output in the epilogue. It picks its
+regime by M (the flattened rows of x) only:
+
+  M <= 16          GEMV-shaped: each int8 byte streamed once, split over
+                   K across blocks when the grid would be too small (the
+                   wrapper allocates the f32 partial sums, a second launch
+                   of the same library reduces them in a fixed order);
+  M > 16, bf16 x   128x128 tiles on the tensor cores (wmma bf16, f32 sums);
+  M > 16, f32 x    64x64 tiles on the CUDA cores in f32 (f32 activations
+                   are a check of the arithmetic, not the serving path).
+
+`launches["weight_only_matmul"]` counts the wrapper's calls that launched
+the kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.kernels import _build
+
+__all__ = ["quantize_absmax", "dequant_matmul_plain", "weight_only_matmul",
+           "launches", "reset_launches", "GEMV_MAX_ROWS"]
+
+GEMV_MAX_ROWS = 16
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the split over K aims for this many blocks per SM (two waves)
+_WAVES = 2
+_MIN_K_PER_SPLIT = 512
+
+launches = {"weight_only_matmul": 0}
+_sm_count = {}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def quantize_absmax(w):
+    """Per-output-channel absmax int8 quantization of w [..., K, N]:
+    (q int8 [..., K, N], scale f32 [..., N]), dequant = q * scale / 127.
+    The reference's arithmetic: f32, scale floored at 1e-9, x / scale *
+    127 rounded half to even, clipped to [-127, 127]."""
+    a = w.float()
+    scale = a.abs().amax(dim=-2).clamp_min(1e-9)
+    q = torch.round(a / scale.unsqueeze(-2) * 127.0).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequant_matmul_plain(x, w_q, scale, out_dtype=None):
+    """B8's plain version (`_dequant_matmul_xla`): dequantize into x's
+    dtype (scale / 127 rounded to that dtype first, as the reference
+    does), then matmul."""
+    wf = w_q.to(x.dtype) * (scale.to(x.dtype) / 127.0)
+    out = x @ wf
+    return out.to(out_dtype) if out_dtype is not None else out
+
+
+def _gemv_cols(m):
+    """Output columns a GEMV block covers: 8 lanes share a K row, each
+    with 16 columns (8 when M > 8, so that a thread keeps 128 sums)."""
+    return 8 * (16 if m <= 8 else 8)
+
+
+def _k_split(m, k, n, device):
+    """(rows of K per block, number of splits) for the GEMV regime."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    blocks_n = -(-n // _gemv_cols(m))
+    want = -(-_WAVES * _sm_count[device] // blocks_n)
+    splits = max(1, min(want, k // _MIN_K_PER_SPLIT))
+    per = -(-k // splits)
+    per = -(-per // 32) * 32
+    return per, -(-k // per)
+
+
+def weight_only_matmul(x, w_q, scale, out_dtype=None):
+    """B8: x [..., K] @ (w_q [K, N] int8 * scale [N] / 127) -> [..., N] in
+    out_dtype (default x's dtype)."""
+    if w_q.dim() != 2 or x.shape[-1] != w_q.shape[0]:
+        raise ValueError(f"x {tuple(x.shape)} does not fit weight "
+                         f"{tuple(w_q.shape)} (want [..., K] @ [K, N])")
+    k, n = w_q.shape
+    if scale.shape != (n,):
+        raise ValueError(f"scale {tuple(scale.shape)} is not [{n}]")
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"weight must be int8 codes, got {w_q.dtype}")
+    devices = {t.device for t in (x, w_q, scale)}
+    if len(devices) != 1:
+        raise ValueError("tensors on different devices: "
+                         f"{sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return dequant_matmul_plain(x, w_q, scale, out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes bfloat16 or float32 x, got {x.dtype}")
+    if scale.dtype != torch.float32:
+        raise TypeError(f"scale must be float32, got {scale.dtype}")
+    for t in (x, w_q, scale):
+        if not t.is_contiguous():
+            raise ValueError("kernel inputs must be contiguous")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, k)
+    m = x2.shape[0]
+    out = torch.empty((m, n), dtype=x.dtype, device=dev)
+    if m and n:
+        partial, per, splits = None, k, 1
+        if m <= GEMV_MAX_ROWS:
+            per, splits = _k_split(m, k, n, dev)
+            if splits > 1:
+                partial = torch.empty((splits, m, n), dtype=torch.float32,
+                                      device=dev)
+        rc = _build.lib("quantized_matmul").pt_weight_only_matmul(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+            0 if partial is None else partial.data_ptr(), m, k, n, per,
+            splits, _DTYPES[x.dtype],
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"weight_only_matmul kernel launch failed: "
+                               f"CUDA error {rc}")
+        launches["weight_only_matmul"] += 1
+    out = out.reshape(*lead, n)
+    return out.to(out_dtype) if out_dtype is not None else out

@@ -1,9 +1,11 @@
 """Llama for serving: functional building blocks, the weights module,
-generation over stripe and paged caches, and the bridge from the JAX
-parameter tree."""
+generation over stripe and paged caches, weight-only int8 quantization,
+and the bridge from the JAX parameter tree."""
 
-from paddle_tpu_torch.models.generation import (decode_step, generate,
-                                                paged_decode_step, prefill)
+from paddle_tpu_torch.models.generation import (QuantizedKVPage,
+                                                QuantizedWeight, decode_step,
+                                                generate, paged_decode_step,
+                                                prefill, quantize_params)
 from paddle_tpu_torch.models.llama import Llama
 from paddle_tpu_torch.models.llama_functional import (LLAMA2_7B, LlamaArgs,
                                                       init_params)
@@ -11,4 +13,5 @@ from paddle_tpu_torch.models.weights import params_from_numpy
 
 __all__ = ["Llama", "LlamaArgs", "LLAMA2_7B", "init_params",
            "params_from_numpy", "generate", "prefill", "decode_step",
-           "paged_decode_step"]
+           "paged_decode_step", "quantize_params", "QuantizedWeight",
+           "QuantizedKVPage"]

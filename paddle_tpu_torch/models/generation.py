@@ -1,5 +1,5 @@
 """Autoregressive generation over a fixed-size or paged KV cache (port of
-`paddle_tpu/models/generation.py`, model-dtype weights and caches).
+`paddle_tpu/models/generation.py`).
 
 The reference traces a whole decode into one XLA program; PyTorch runs
 eagerly, so the layer scan is a Python loop over L and the decode scan a
@@ -10,7 +10,15 @@ Python loop over steps. What carries over unchanged is the cache design:
     and masked past it;
   - the paged cache is a pool [L, num_pages, nkv, page_size, hd] read
     through per-row block tables [b, P] (page i of row r holds positions
-    [i*ps, (i+1)*ps); unused entries point at the null page 0).
+    [i*ps, (i+1)*ps); unused entries point at the null page 0), in the
+    model dtype or as a `QuantizedKVPage` pair of int8 codes and
+    per-(page, kv head) absmax scales [L, num_pages, nkv] f32.
+
+Weights may be float or weight-only int8 (`quantize_params`:
+`QuantizedWeight` leaves, dequant = q * scale / 127). Every matmul goes
+through `_wmm`: a float weight takes the plain `@`, an int8 weight kernel
+B8 `weight_only_matmul` (`kernels/quantized_matmul.py`). The compute dtype
+is the embedding's.
 
 Where JAX returns fresh buffers (donated on the TPU), the port writes the
 caches and pools IN PLACE and returns the same tensors.
@@ -20,9 +28,10 @@ Attention dispatch (`_cached_attention`), by shape only:
   s * (nh // nkv) <= 64  -> kernel B5 `window_attention`;
   otherwise              -> plain masked attention (matmul + softmax), as
                             the reference computes it outside any kernel.
-The paged decode step always runs kernel B6 `paged_decode_attention`. Each
-wrapper routes a CPU tensor to its plain version and a CUDA tensor to the
-kernel (`kernels/attention.py`).
+The paged decode step always runs kernel B6 `paged_decode_attention`, or B7
+(the same wrapper with the pool's scales) over an int8 pool, after the
+running-absmax write `_kv_quant_write`. Each wrapper routes a CPU tensor to
+its plain version and a CUDA tensor to the kernel (`kernels/attention.py`).
 
 Sampling: the reference draws from JAX's threefry; the port from torch
 generators. The two never give the same tokens from one seed — parity is
@@ -33,6 +42,7 @@ batch-independence within the port.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -40,11 +50,110 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.device import check_device, resolve_device
 from paddle_tpu_torch.kernels import attention as attn_k
+from paddle_tpu_torch.kernels import quantized_matmul as qmm
 from paddle_tpu_torch.models import llama_functional as lf
 
-__all__ = ["generate", "prefill", "decode_step", "paged_decode_step"]
+__all__ = ["generate", "prefill", "decode_step", "paged_decode_step",
+           "QuantizedWeight", "QuantizedKVPage", "quantize_params"]
 
 NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# int8 weights and KV pages
+# ---------------------------------------------------------------------------
+
+
+class QuantizedWeight(NamedTuple):
+    """Weight-only int8 leaf: `q` int8 [..., K, N] with per-output-channel
+    absmax `scale` [..., N] f32 (dequant = q * scale / 127). Stacked
+    [L, ...] leaves index per layer like plain weights (`Llama.layer`)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+class QuantizedKVPage(NamedTuple):
+    """One half (K or V) of an int8 page pool: `q` int8 [..., num_pages,
+    nkv, page_size, hd] with per-(page, kv head) absmax `scale` [...,
+    num_pages, nkv] f32 (dequant = q * scale / 127)."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _layer_pool(pool, i):
+    """Layer i of a stacked pool (a tensor or a QuantizedKVPage), as views
+    that writes go through."""
+    if isinstance(pool, QuantizedKVPage):
+        return QuantizedKVPage(pool.q[i], pool.scale[i])
+    return pool[i]
+
+
+def _kv_quant_write(pool, page, off, new):
+    """Write one token's K or V rows `new` [b, nkv, hd] into an int8 page
+    pool at (page[r], :, off[r]), IN PLACE, keeping each (page, kv head)
+    absmax scale running: when the token's absmax exceeds the page's
+    scale, the page's codes are re-scaled (round(q * old / new)) before
+    the write. A write at offset 0 is a page's first (positions fill pages
+    in order), so the scale restarts there instead of inheriting the
+    previous owner's. Rows own their pages (the host COW gate), except the
+    null page 0, a garbage sink. The reference's arithmetic, in f32."""
+    q, scale = pool
+    b = page.shape[0]
+    newf = new.float()
+    tok_abs = newf.abs().amax(dim=-1)                          # [b, nkv]
+    old_s = torch.where(off[:, None] == 0, 0.0, scale[page])
+    new_s = torch.maximum(old_s, tok_abs)
+    safe = new_s.clamp_min(1e-9)
+    pg = q[page].float() * (old_s / safe)[:, :, None, None]
+    pg[torch.arange(b, device=pg.device), :, off] = \
+        newf / safe[..., None] * 127.0
+    q[page] = torch.round(pg).clamp_(-127, 127).to(torch.int8)
+    scale[page] = new_s
+    return pool
+
+
+def _quantize_weight(w):
+    """QuantizedWeight of w [..., K, N], one [K, N] matrix at a time so
+    that the f32 temporaries stay one matrix wide."""
+    if w.dim() == 2:
+        return QuantizedWeight(*qmm.quantize_absmax(w))
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((*w.shape[:-2], w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
+    for i in range(w.shape[0]):
+        q[i], scale[i] = _quantize_weight(w[i])
+    return QuantizedWeight(q, scale)
+
+
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def quantize_params(params):
+    """Weight-only int8 quantization (`generation.quantize_params`): every
+    per-layer matmul weight and the lm_head become QuantizedWeight leaves;
+    the embedding and the norms stay float. `params` is a `Llama` (the
+    result is a `Llama` on the same device, quantized there) or a
+    parameter tree (the result is a tree)."""
+    from paddle_tpu_torch.models.llama import Llama
+
+    if isinstance(params, Llama):
+        return Llama(params.args, quantize_params(params.tree()))
+    layers = {k: (_quantize_weight(v) if k in _QUANT_KEYS else v)
+              for k, v in params["layers"].items()}
+    return dict(params, layers=layers,
+                lm_head=_quantize_weight(params["lm_head"]))
+
+
+def _wmm(x, w):
+    """Matmul that understands QuantizedWeight leaves: a float weight takes
+    the plain `@`, an int8 weight kernel B8 (CPU tensors: its plain
+    version)."""
+    if isinstance(w, QuantizedWeight):
+        return qmm.weight_only_matmul(x.contiguous(), w.q, w.scale,
+                                      out_dtype=x.dtype)
+    return x @ w
 
 
 # ---------------------------------------------------------------------------
@@ -97,17 +206,17 @@ def _rope_rows(q, k, cos_r, sin_r):
 
 def _mlp_block(lp, h, args):
     hin = lf.rms_norm(h, lp["ln2"], args.rms_eps)
-    act = F.silu(hin @ lp["w_gate"]) * (hin @ lp["w_up"])
-    return h + act @ lp["w_down"]
+    act = F.silu(_wmm(hin, lp["w_gate"])) * _wmm(hin, lp["w_up"])
+    return h + _wmm(act, lp["w_down"])
 
 
 def _qkv(lp, h, args):
     b, s = h.shape[0], h.shape[1]
     hd = args.head_dim
     hin = lf.rms_norm(h, lp["ln1"], args.rms_eps)
-    q = (hin @ lp["wq"]).view(b, s, args.num_heads, hd)
-    k = (hin @ lp["wk"]).view(b, s, args.num_kv_heads, hd)
-    v = (hin @ lp["wv"]).view(b, s, args.num_kv_heads, hd)
+    q = _wmm(hin, lp["wq"]).view(b, s, args.num_heads, hd)
+    k = _wmm(hin, lp["wk"]).view(b, s, args.num_kv_heads, hd)
+    v = _wmm(hin, lp["wv"]).view(b, s, args.num_kv_heads, hd)
     return q, k, v
 
 
@@ -138,17 +247,18 @@ def _layer_step(lp, h, cache_k, cache_v, pos, cos, sin, args):
         cache_k[:, :, p:p + s] = k.transpose(1, 2)
         cache_v[:, :, p:p + s] = v.transpose(1, 2)
     attn = _cached_attention(q, cache_k, cache_v, pos)
-    h = h + attn.reshape(b, s, -1) @ lp["wo"]
+    h = h + _wmm(attn.reshape(b, s, -1), lp["wo"])
     return _mlp_block(lp, h, args)
 
 
 def _layer_step_paged(lp, h, pool_k_l, pool_v_l, bt, pos, cos, sin, args,
                       page_size):
     """One decoder layer's decode step (s == 1) over this layer's page pool
-    [num_pages, nkv, ps, hd]: row r's new k/v is written in place at
-    (bt[r, pos[r] // ps], pos[r] % ps) — rows own their tail pages (the
-    host-side COW gate), inactive rows write into the null page — then
-    kernel B6 attends through the block tables."""
+    [num_pages, nkv, ps, hd] (a tensor, or a QuantizedKVPage pair): row r's
+    new k/v is written in place at (bt[r, pos[r] // ps], pos[r] % ps) —
+    rows own their tail pages (the host-side COW gate), inactive rows
+    write into the null page — then kernel B6 (B7 over int8 pages) attends
+    through the block tables."""
     b, s = h.shape[0], h.shape[1]
     if s != 1:
         raise ValueError(f"paged decode requires s == 1 (got s={s})")
@@ -157,10 +267,17 @@ def _layer_step_paged(lp, h, pool_k_l, pool_v_l, bt, pos, cos, sin, args,
     q, k = _rope_rows(q, k, cos[pos_l], sin[pos_l])
     page = bt.long().gather(1, (pos_l // page_size)[:, None])[:, 0]
     off = pos_l % page_size
-    pool_k_l[page, :, off] = k[:, 0]
-    pool_v_l[page, :, off] = v[:, 0]
-    attn = attn_k.paged_decode_attention(q, pool_k_l, pool_v_l, bt, pos)
-    h = h + attn.reshape(b, 1, -1) @ lp["wo"]
+    if isinstance(pool_k_l, QuantizedKVPage):
+        _kv_quant_write(pool_k_l, page, off, k[:, 0])
+        _kv_quant_write(pool_v_l, page, off, v[:, 0])
+        attn = attn_k.paged_decode_attention(
+            q, pool_k_l.q, pool_v_l.q, bt, pos, k_scale=pool_k_l.scale,
+            v_scale=pool_v_l.scale)
+    else:
+        pool_k_l[page, :, off] = k[:, 0]
+        pool_v_l[page, :, off] = v[:, 0]
+        attn = attn_k.paged_decode_attention(q, pool_k_l, pool_v_l, bt, pos)
+    h = h + _wmm(attn.reshape(b, 1, -1), lp["wo"])
     return _mlp_block(lp, h, args)
 
 
@@ -177,7 +294,7 @@ def _logits(model, h, last_idx=None):
         idx = torch.as_tensor(last_idx, device=h.device).long()
         idx = idx.reshape(-1).expand(h.shape[0])
         hl = h[torch.arange(h.shape[0], device=h.device), idx]
-    return (hl @ model.lm_head).float()
+    return _wmm(hl, model.lm_head).float()
 
 
 @torch.no_grad()
@@ -199,12 +316,13 @@ def _forward_cached(model, ids, caches_k, caches_v, pos, cos, sin,
 def _paged_forward_decode(model, ids, pool_k, pool_v, bt, pos, cos, sin,
                           page_size):
     """ids [b, 1] -> (next-token logits [b, vocab] f32, pool_k, pool_v),
-    the pools [L, num_pages, nkv, ps, hd] written in place; bt int32
-    [b, P], pos int32 [b]."""
+    the pools [L, num_pages, nkv, ps, hd] (tensors or QuantizedKVPage
+    pairs) written in place; bt int32 [b, P], pos int32 [b]."""
     h = model.embedding[ids.long()]
     for i in range(model.args.num_layers):
-        h = _layer_step_paged(model.layer(i), h, pool_k[i], pool_v[i], bt,
-                              pos, cos, sin, model.args, page_size)
+        h = _layer_step_paged(model.layer(i), h, _layer_pool(pool_k, i),
+                              _layer_pool(pool_v, i), bt, pos, cos, sin,
+                              model.args, page_size)
     return _logits(model, h), pool_k, pool_v
 
 
@@ -219,8 +337,9 @@ def paged_decode_step(model, token, pool_k, pool_v, block_tables, pos,
     """One continuous-batching decode step over a paged KV cache: token
     [b] at per-row positions pos [b]; K/V pages [L, num_pages, nkv, ps,
     hd] indexed through block_tables [b, P] (unused entries: the null page
-    0). The pools are written in place. Returns (logits [b, vocab] f32,
-    pool_k, pool_v)."""
+    0), in the model dtype or as QuantizedKVPage pairs (int8 codes +
+    scales [L, num_pages, nkv]). The pools are written in place. Returns
+    (logits [b, vocab] f32, pool_k, pool_v)."""
     dev = _on_model_device(model, device)
     bt = torch.as_tensor(block_tables, dtype=torch.int32).to(dev).contiguous()
     pos = torch.as_tensor(pos, dtype=torch.int32).to(dev)

@@ -8,7 +8,9 @@
 
 Both share the iteration-level scheduler (`serving/scheduler.py`), the
 per-request sampler (`serving/sampler.py`) and the metrics
-(`serving/metrics.py`).
+(`serving/metrics.py`); `serving/trace.py` makes seeded arrival traces.
+`PagedEngine(kv_dtype="int8")` keeps an int8 page pool, and both engines
+serve weight-only int8 models (`models.quantize_params`).
 
     from paddle_tpu_torch.models import LLAMA2_7B, Llama, init_params
     from paddle_tpu_torch.serving import PagedEngine, Request
@@ -27,7 +29,8 @@ from paddle_tpu_torch.serving.paged_engine import PagedEngine
 from paddle_tpu_torch.serving.sampler import SlotSampler, pick
 from paddle_tpu_torch.serving.scheduler import (AdmissionQueue, SlotTable,
                                                 bucket_for, pages_for)
+from paddle_tpu_torch.serving.trace import make_trace
 
 __all__ = ["Engine", "PagedEngine", "Request", "Metrics", "BlockAllocator",
            "PrefixMatch", "NULL_PAGE", "AdmissionQueue", "SlotTable",
-           "SlotSampler", "pick", "bucket_for", "pages_for"]
+           "SlotSampler", "pick", "bucket_for", "pages_for", "make_trace"]

@@ -1,5 +1,5 @@
 """Paged-KV serving engine with radix prefix reuse (port of
-`paddle_tpu/serving/paged_engine.py`, model-dtype page pool).
+`paddle_tpu/serving/paged_engine.py`).
 
 `Engine` reserves a whole `max_len` stripe per slot; `PagedEngine` keeps
 ONE page pool [L, num_pages, nkv, page_size, hd] and a per-slot BLOCK
@@ -15,16 +15,22 @@ model), on the same iteration-level scheduler:
     the freshly computed pages back;
   - DECODE: one batched step through the block tables (kernel B6);
   - ADMISSION reserves the worst-case page count minus hits and defers
-    the FIFO head under page pressure.
+    the FIFO head under page pressure;
+  - INT8 POOL (`kv_dtype="int8"`): int8 pages with per-(page, kv head)
+    absmax scales (`generation.QuantizedKVPage`). Prefill gathers the
+    slot's pages dequantized into the scratch stripe and quantizes the
+    pages it writes back over their valid positions only; decode writes
+    keep a running absmax (`generation._kv_quant_write`) and attend
+    through kernel B7. KV bytes per page are about half of bf16's, so an
+    equal byte budget holds about twice the pages.
 
 The pool, the scratch stripe and the block tables live on the engine's
 device and are written in place. Greedy output is token-for-token the
 reference engine's.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tensor parallelism (`mesh=`), chunked prefill (`prefill_chunk=`),
-speculative decoding (`draft_params=`) and the int8 page pool
-(`kv_dtype="int8"`).
+tensor parallelism (`mesh=`), chunked prefill (`prefill_chunk=`) and
+speculative decoding (`draft_params=`).
 """
 
 from __future__ import annotations
@@ -41,26 +47,60 @@ from paddle_tpu_torch.serving.scheduler import bucket_for, pages_for
 __all__ = ["PagedEngine"]
 
 
+def _leaves(pool):
+    """The tensors of a pool half: itself, or the codes and scales."""
+    return tuple(pool) if isinstance(pool, gen.QuantizedKVPage) else (pool,)
+
+
+def _gather_pages(pool, idx, dtype):
+    """Pages `idx` of every layer as [L, n, nkv, ps, hd] in `dtype`; an
+    int8 pool dequantizes in f32 (code * scale / 127) before the cast."""
+    if isinstance(pool, gen.QuantizedKVPage):
+        raw = pool.q[:, idx].float()
+        return (raw * (pool.scale[:, idx] / 127.0)[..., None, None]).to(dtype)
+    return pool[:, idx]
+
+
+def _scatter_pages(pool, idx, new, valid):
+    """Write pages [L, n, nkv, ps, hd] into pages `idx` of the pool. An
+    int8 pool quantizes each (layer, page, kv head) by the absmax over the
+    positions where `valid` [n, ps] holds, and stores 0 elsewhere: the
+    scratch stripe past the window's last real token is padding and
+    forward junk that would inflate the scale."""
+    if not isinstance(pool, gen.QuantizedKVPage):
+        pool[:, idx] = new
+        return
+    x = torch.where(valid[None, :, None, :, None], new.float(), 0.0)
+    s = x.abs().amax(dim=(3, 4))                                # [L, n, nkv]
+    q = torch.round(x / s.clamp_min(1e-9)[..., None, None] * 127.0)
+    pool.q[:, idx] = q.clamp_(-127, 127).to(torch.int8)
+    pool.scale[:, idx] = s
+
+
 def _paged_prefill(model, ids, h, last_idx, pages, pk, pv, cos, sin,
                    page_size, pages_per_slot):
     """Prefill a window whose first `h` positions are already cached:
     gather the slot's seated `pages` into a contiguous scratch stripe
-    [L, 1, nkv, P*ps + sb, hd] (the bucket padding keeps the write at
-    [h, h+sb) inside it), forward the window ids [1, sb] at position h,
-    write the pages the window touched back into the pool. h may sit
-    mid-page (a radix hit): the straddled page's cached half [base, h) is
-    gathered and written back with the new tokens — the COW copy's content.
-    Returns the next-token logits [1, vocab]."""
-    L, _, nkv, ps, hd = pk.shape
+    [L, 1, nkv, P*ps + sb, hd] in the model dtype (the bucket padding
+    keeps the write at [h, h+sb) inside it), forward the window ids
+    [1, sb] at position h, write the pages the window touched back into
+    the pool. h may sit mid-page (a radix hit): the straddled page's
+    cached half [base, h) is gathered and written back with the new
+    tokens — the COW copy's content. Returns the next-token logits
+    [1, vocab]."""
+    L, _, nkv, ps, hd = _leaves(pk)[0].shape
     sb = ids.shape[1]
     n_seated = len(pages)
-    idx = torch.tensor(pages, dtype=torch.long, device=pk.device)
-    temp_k = pk.new_zeros((L, 1, nkv, pages_per_slot * ps + sb, hd))
+    idx = torch.tensor(pages, dtype=torch.long, device=model.device)
+    temp_k = torch.zeros((L, 1, nkv, pages_per_slot * ps + sb, hd),
+                         dtype=model.dtype, device=model.device)
     temp_v = torch.zeros_like(temp_k)
-    temp_k[:, 0, :, :n_seated * ps] = \
-        pk[:, idx].transpose(1, 2).reshape(L, nkv, n_seated * ps, hd)
-    temp_v[:, 0, :, :n_seated * ps] = \
-        pv[:, idx].transpose(1, 2).reshape(L, nkv, n_seated * ps, hd)
+    temp_k[:, 0, :, :n_seated * ps] = _gather_pages(
+        pk, idx, model.dtype).transpose(1, 2).reshape(L, nkv, n_seated * ps,
+                                                      hd)
+    temp_v[:, 0, :, :n_seated * ps] = _gather_pages(
+        pv, idx, model.dtype).transpose(1, 2).reshape(L, nkv, n_seated * ps,
+                                                      hd)
 
     logits, temp_k, temp_v = gen._forward_cached(
         model, ids, temp_k, temp_v, h, cos, sin, last_idx=last_idx)
@@ -69,10 +109,12 @@ def _paged_prefill(model, ids, h, last_idx, pages, pk, pv, cos, sin,
     n_touch = n_seated - first_page
     base = first_page * ps
     touched = idx[first_page:]
-    pk[:, touched] = temp_k[:, 0, :, base:base + n_touch * ps].reshape(
-        L, nkv, n_touch, ps, hd).transpose(1, 2)
-    pv[:, touched] = temp_v[:, 0, :, base:base + n_touch * ps].reshape(
-        L, nkv, n_touch, ps, hd).transpose(1, 2)
+    pos_abs = base + torch.arange(n_touch * ps, device=model.device)
+    valid = (pos_abs < h + last_idx + 1).reshape(n_touch, ps)
+    for pool, temp in ((pk, temp_k), (pv, temp_v)):
+        _scatter_pages(pool, touched,
+                       temp[:, 0, :, base:base + n_touch * ps].reshape(
+                           L, nkv, n_touch, ps, hd).transpose(1, 2), valid)
     return logits
 
 
@@ -87,6 +129,9 @@ class PagedEngine(Engine):
     max_len:   per-request cap (block tables hold max_len / page_size
                entries), not a per-slot reservation.
     prefix_policy: "radix" (default) or "hash" (full-page exact match).
+    kv_dtype:  None (pool in the model dtype) or "int8" (int8 pages with
+               per-(page, kv head) absmax scales; outputs track the model
+               dtype pool to an agreement bar, not bit for bit).
     device:    CUDA unless "cpu" is passed; the model must live there.
     """
 
@@ -106,13 +151,10 @@ class PagedEngine(Engine):
             raise NotImplementedError(
                 "speculative decoding (draft_params=) is not ported yet: "
                 "ROADMAP A4")
-        if kv_dtype == "int8":
-            raise NotImplementedError(
-                "the int8 page pool (kv_dtype='int8', kernel B7) is not "
-                "ported yet: ROADMAP A2")
-        if kv_dtype is not None:
+        if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r} must be None (the "
-                             "model dtype)")
+                             "model dtype) or 'int8'")
+        self.kv_dtype = kv_dtype
         if prefix_policy not in ("radix", "hash"):
             raise ValueError(f"prefix_policy={prefix_policy!r} must be "
                              "'radix' or 'hash'")
@@ -133,9 +175,19 @@ class PagedEngine(Engine):
         a = self.args
         shape = (a.num_layers, self.num_pages, a.num_kv_heads,
                  self.page_size, a.head_dim)
-        self._pk = torch.zeros(shape, dtype=self.model.dtype,
-                               device=self.device)
-        self._pv = torch.zeros_like(self._pk)
+        if self.kv_dtype == "int8":
+            # scales start at 0: the first write into a page sets them
+            def half():
+                return gen.QuantizedKVPage(
+                    torch.zeros(shape, dtype=torch.int8, device=self.device),
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=self.device))
+
+            self._pk, self._pv = half(), half()
+        else:
+            self._pk = torch.zeros(shape, dtype=self.model.dtype,
+                                   device=self.device)
+            self._pv = torch.zeros_like(self._pk)
         self.metrics.set_gauge("kv_pool_bytes", self._pool_bytes())
         # 2 * max_len: a suffix window writes [h, h + bucket), which can
         # reach past max_len before the mask trims it
@@ -149,13 +201,15 @@ class PagedEngine(Engine):
         self._reserved_total = 0
 
     def _pool_bytes(self):
-        return 2 * self._pk.numel() * self._pk.element_size()
+        """K and V pools together, codes and scales of an int8 pool."""
+        return 2 * sum(t.numel() * t.element_size()
+                       for t in _leaves(self._pk))
 
     def _copy_page(self, src, dst):
         """Device half of copy-on-write: clone page src into dst across
-        every layer, in place."""
-        self._pk[:, dst] = self._pk[:, src]
-        self._pv[:, dst] = self._pv[:, src]
+        every layer, in place (an int8 pool's codes and scales)."""
+        for t in _leaves(self._pk) + _leaves(self._pv):
+            t[:, dst] = t[:, src]
 
     # -- admission ----------------------------------------------------------
     def submit(self, req):

@@ -69,6 +69,7 @@ def test_init_params_is_seeded_and_shaped():
         return Llama(TARGS, tlf.init_params(TARGS, g, device=CPU))
 
     a, b, c = make(3), make(3), make(4)
+    assert len(list(a.parameters())) == 3 + len(tlf.LAYER_KEYS)
     for (name, x), y, z in zip(a.named_parameters(), b.parameters(),
                                c.parameters()):
         torch.testing.assert_close(x, y, rtol=0, atol=0)

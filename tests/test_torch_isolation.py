@@ -31,7 +31,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import sys\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models, "
         "paddle_tpu_torch.serving, paddle_tpu_torch.kernels.attention, "
-        "paddle_tpu_torch.kernels._build, paddle_tpu_torch.observability\n"
+        "paddle_tpu_torch.kernels.quantized_matmul, "
+        "paddle_tpu_torch.kernels._build, paddle_tpu_torch.observability, "
+        "paddle_tpu_torch.serving.trace\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"

@@ -8,7 +8,8 @@ reference engines, on the CPU, in f32.
   - the port's stripe `Engine` equals sequential `generate`;
   - the copied host-side pieces (radix allocator, buckets, page math)
     behave as the reference's on the same inputs;
-  - options not ported yet raise, naming their ROADMAP item.
+  - options not ported yet raise, naming their ROADMAP item, and an
+    unknown KV dtype raises ValueError, as the reference does.
 
 The reference's stripe-Engine EOS path is a known reference failure
 (ROADMAP §C) and is not used as an oracle.
@@ -209,11 +210,18 @@ def test_buckets_and_page_math_match_reference():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(mesh=object()), "A9"), (dict(prefill_chunk=16), "A1"),
-    (dict(draft_params=object()), "A4"), (dict(kv_dtype="int8"), "A2")])
+    (dict(draft_params=object()), "A4")])
 def test_unported_options_raise(model, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         PagedEngine(model, max_slots=1, max_len=32, page_size=8, device=CPU,
                     **kw)
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp8", "bfloat16"])
+def test_unknown_kv_dtype_raises(model, kv_dtype):
+    with pytest.raises(ValueError, match="kv_dtype"):
+        PagedEngine(model, max_slots=1, max_len=32, page_size=8, device=CPU,
+                    kv_dtype=kv_dtype)
 
 
 def test_engines_check_their_device(model):
