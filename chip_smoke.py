@@ -11,7 +11,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                   inputs, each error beside its bar: B4 decode, B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
                   GQA), B8 weight-only int8 matmul (the four decode shapes,
-                  prefill M 512 and 2048, ragged M/K/N), in bf16 and f32.
+                  prefill M 512 and 2048, ragged M/K/N), in bf16 and f32; B1
+                  flash forward and B2 + B3 flash backward (the 7B leg's
+                  micro-batch, GQA, non-causal, cross-length, ragged, rows
+                  that see no key, head_dim 64, f32), each output vector
+                  within its own bar; then planted faults that the B1-B3 bar
+                  must reject.
+  2a. train-check the loss and full grad tree of `forward_and_loss` (B1-B3,
+                  fused CE) at Llama-2-7B width, 2 layers, s 1024, against an
+                  f32 forward written here (materialized attention, unfused
+                  CE, plain autograd): f32 weights, then the same weights in
+                  bf16 through the bf16 kernels, beside the plain bf16
+                  attention (use_flash=False).
+  2b. train       `HybridParallelEngine` on the 7B-width training leg of
+                  bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
+                  loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
+                  timed steps, B1-B3 launched L·M = 8 times each a step; then
+                  2 steps under torch.profiler (where the time goes).
+  2c. train-h2048 the same for bench.py's primary leg (h2048, 16 layers, b8
+                  s1024, 2 micro-batches).
   3. engine       `PagedEngine` at Llama-2-7B width (32 layers, bf16, random
                   weights from a seed) serves 12 requests with a shared system
                   prefix (radix hits, one mid-page COW split), a short suffix
@@ -38,8 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   bf16 pool against the int8 pool of the same bytes on one
                   48-request trace; sustained slots must reach >= 1.8x.
   9. timing       CUDA-event medians of each kernel, its plain version and one
-                  PyTorch library call at the serving shapes, beside the bound
-                  the card's memory rate or peak sets.
+                  PyTorch library call at the serving shapes (B1-B3: the 7B
+                  training leg's micro-batch), beside the bound the card's
+                  memory rate or peak sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -61,8 +80,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 ATTN_SRC = "paddle_tpu_torch/kernels/csrc/attention.cu"
 QMM_SRC = "paddle_tpu_torch/kernels/csrc/quantized_matmul.cu"
+FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
 REF = "paddle_tpu/kernels/quantized_matmul.py"
+FLASH_REF = "paddle_tpu/kernels/flash_attention.py"
 KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
+    "flash_fwd": ("B1 flash_fwd", FLASH_SRC, f"{FLASH_REF}:112"),
+    "flash_bwd_dq": ("B2 flash_bwd_dq", FLASH_SRC, f"{FLASH_REF}:215"),
+    "flash_bwd_dkv": ("B3 flash_bwd_dkv", FLASH_SRC, f"{FLASH_REF}:260"),
     "decode_attention": ("B4 decode_attention", ATTN_SRC, f"{REF}:253"),
     "window_attention": ("B5 window_attention", ATTN_SRC, f"{REF}:363"),
     "paged_decode_attention": ("B6 paged_decode_attention", ATTN_SRC,
@@ -71,8 +95,8 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
                                     ATTN_SRC, f"{REF}:595"),
     "weight_only_matmul": ("B8 weight_only_matmul", QMM_SRC, f"{REF}:101"),
 }
-# kernel vs plain version: max |difference| <= TOL * max(1, max |plain|).
-# bf16: two units in the last place at the largest output (2 * 2^-7); the
+# kernel vs plain version: max |difference| <= TOL * max(1, max |plain|)
+# (B1-B3: per vector, `flash_row_ratio`). bf16: two units in the last place at the largest output (2 * 2^-7); the
 # attention plain versions round scores, probabilities and (B7) the
 # dequantized K/V to bf16 where the kernels keep f32; B8's plain version
 # rounds every dequantized weight and its output to bf16 where the kernel
@@ -90,16 +114,19 @@ def log(msg):
 def launch_counts():
     """Every wrapper's launch count, by key of KERNELS."""
     from paddle_tpu_torch.kernels import attention as at
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import quantized_matmul as qm
 
-    return {**at.launches, **qm.launches}
+    return {**fa.launches, **at.launches, **qm.launches}
 
 
 def reset_launches():
     from paddle_tpu_torch.kernels import attention as at
+    from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import quantized_matmul as qm
 
     at.reset_launches()
+    fa.reset_launches()
     qm.reset_launches()
 
 
@@ -278,7 +305,482 @@ def phase_parity(torch, dev):
                   qm.weight_only_matmul, qm.dequant_matmul_plain,
                   matmul_case(torch, dev, dtype, m, k, n),
                   main and (m, k, n) == (8, 4096, 11008))
+    main_err.update(phase_flash_parity(torch, dev))
+    phase_flash_bar_teeth(torch, dev)
     return main_err
+
+
+# B1-B3 parity cases: (label, b, sq, sk, h, hk, d, causal, dtype); the first
+# is the 7B leg's micro-batch, whose errors go into the JSON line
+FLASH_CASES = (
+    ("bf16 causal b2 h32 s2048 d128", 2, 2048, 2048, 32, 32, 128, True,
+     "bfloat16"),
+    ("bf16 causal GQA nh32/nkv8 s1024", 1, 1024, 1024, 32, 8, 128, True,
+     "bfloat16"),
+    ("bf16 non-causal h16 s1024", 1, 1024, 1024, 16, 16, 128, False,
+     "bfloat16"),
+    ("bf16 causal cross-length sq384/sk1024", 2, 384, 1024, 8, 8, 128, True,
+     "bfloat16"),
+    ("bf16 causal ragged s1000 GQA 8/4", 1, 1000, 1000, 8, 4, 128, True,
+     "bfloat16"),
+    ("bf16 causal sq1000 > sk300 (fully masked rows)", 1, 1000, 300, 8, 8,
+     128, True, "bfloat16"),
+    ("bf16 causal hd64 ragged s777 GQA 4/2", 2, 777, 777, 4, 2, 64, True,
+     "bfloat16"),
+    ("f32 causal s512 d128 GQA 4/2", 1, 512, 512, 4, 2, 128, True,
+     "float32"),
+    ("f32 non-causal sq300/sk200 d64", 1, 300, 200, 4, 4, 64, False,
+     "float32"),
+    ("f32 causal sq300 > sk100 d128 (fully masked rows)", 1, 300, 100, 4, 2,
+     128, True, "float32"),
+)
+
+
+def flash_case(torch, dev, b, sq, sk, h, hk, d, dtype, seed=5):
+    """q, k, v, do ~ N(0, 1) in `dtype` on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    return rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d), \
+        rnd(b, sq, h, d)
+
+
+# B1-B3 against their plain versions, vector by vector: out and dq for each
+# (query, head), dk and dv for each (key, kv head), each within TOL of that
+# vector's largest |plain| entry (2 bf16 units in its last place). One bar
+# for the whole tensor would be set by the causal extremes (query 0 sees one
+# key, so its out is a row of v) and would pass a kernel that is wrong for
+# the queries that average hundreds of keys. No bar is below FLASH_FLOOR *
+# the tensor's max |plain| (what summation order alone leaves in f32, so the
+# f32 cases keep the whole-tensor rule): a vector whose plain values are ~0
+# by cancellation (dq of query 0 under causal attention: its one key gives
+# dS = P(dP - delta) = 0) differs by f32 rounding only. lse is f32 on both
+# sides: each entry within FLASH_LSE_TOL * max(1, |plain|).
+FLASH_FLOOR = 1e-5
+FLASH_LSE_TOL = 1e-5
+
+
+def flash_row_ratio(torch, got, ref, tol):
+    """The worst vector's max |got - ref| over its bar, tol * its max |ref|
+    (over the last dim) or FLASH_FLOOR * max |ref|, the larger; the kernel
+    passes at <= 1. Where the plain version is 0 throughout (no query sees
+    a key), the kernel's must be 0."""
+    d = (got.float() - ref.float()).abs().amax(-1)
+    top = ref.float().abs().amax(-1)
+    bar = (tol * top).clamp_min(FLASH_FLOOR * top.max().item())
+    return (d / bar.clamp_min(1e-30)).max().item()
+
+
+def flash_lse_ratio(torch, got, ref):
+    bar = FLASH_LSE_TOL * ref.float().abs().clamp_min(1.0)
+    return ((got.float() - ref.float()).abs() / bar).max().item()
+
+
+def planted_flash_faults(torch, fa, q, k, v, do, causal, tile=64):
+    """B1-B3 outputs with a fault planted, built from the plain versions:
+    [(fault, output name, faulty, right)]. The bar must reject each."""
+    g = q.shape[2] // k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    out, lse = fa.flash_fwd_plain(q, k, v, causal)
+    dq, dk, _ = fa.flash_bwd_plain(q, k, v, out, lse, do, causal)
+    v_tail0 = v.clone()
+    v_tail0[:, -tile:] = 0
+    faults = [
+        ("sm_scale 1% high", "out",
+         fa.flash_fwd_plain(q, k, v, causal, scale * 1.01)[0], out),
+        ("the last key tile's V read as zeros", "out",
+         fa.flash_fwd_plain(q, k, v_tail0, causal)[0], out),
+        ("delta left out of dS", "dq",
+         fa.flash_bwd_dq_plain(q, k, v, do, lse, torch.zeros_like(lse),
+                               causal), dq)]
+    if g > 1:
+        kr, vr = (t.repeat_interleave(g, dim=2) for t in (k, v))
+        faults.append(("dk of one query head a group (no GQA sum)", "dk",
+                       fa.flash_bwd_plain(q, kr, vr, out, lse, do,
+                                          causal)[1][:, :, ::g], dk))
+    return faults
+
+
+def phase_flash_bar_teeth(torch, dev, case=1):
+    """The B1-B3 bar rejects planted faults at a parity shape (the GQA case
+    by default), each beside the ratio the whole-tensor rule (TOL * max(1,
+    max |plain|)) would give it."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    label, b, sq, sk, h, hk, d, causal, dname = FLASH_CASES[case]
+    q, k, v, do = flash_case(torch, dev, b, sq, sk, h, hk, d,
+                             getattr(torch, dname))
+    for fault, name, wrong, right in planted_flash_faults(torch, fa, q, k, v,
+                                                          do, causal):
+        ratio = flash_row_ratio(torch, wrong, right, TOL[dname])
+        whole = ((wrong.float() - right.float()).abs().max()
+                 / (TOL[dname] * right.float().abs().max().clamp_min(1.0))
+                 ).item()
+        log(f"[parity] flash bar, planted fault at {label}: {fault} ({name})"
+            f" is at {ratio:.2f} of the bar (the whole-tensor rule: "
+            f"{whole:.2f})")
+        if not ratio > 1.0:
+            raise AssertionError(f"the flash bar passes a planted fault: "
+                                 f"{fault} at {ratio}")
+    torch.cuda.empty_cache()
+
+
+def phase_flash_parity(torch, dev):
+    """B1, and B2 + B3 through `flash_bwd`, against their plain versions on
+    the card (`flash_row_ratio`); returns the first case's max |error| by
+    launch key."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main_err = {}
+    for i, (label, b, sq, sk, h, hk, d, causal, dname) in enumerate(
+            FLASH_CASES):
+        dtype = getattr(torch, dname)
+        q, k, v, do = flash_case(torch, dev, b, sq, sk, h, hk, d, dtype)
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+        # the backward from the plain forward's outputs, so that B2/B3 are
+        # held to their plain versions on the same inputs
+        dq, dk, dv = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal)
+        rdq, rdk, rdv = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do,
+                                           causal)
+        torch.cuda.synchronize()
+        masked = ref_lse <= -1e29
+        lse_ok = bool(((lse <= -1e29) == masked).all().item())
+        errs = {}
+        for name, got, ref in (("out", out, ref_out),
+                               ("lse", torch.where(masked, 0.0, lse),
+                                torch.where(masked, 0.0, ref_lse)),
+                               ("dq", dq, rdq), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+            err = (got.float() - ref.float()).abs().max().item()
+            ratio = (flash_lse_ratio(torch, got, ref) if name == "lse"
+                     else flash_row_ratio(torch, got, ref, TOL[dname]))
+            errs[name] = err
+            log(f"[parity] flash {label}: {name} max_abs_err {err:.3e}, "
+                f"worst {'entry' if name == 'lse' else 'row'} at "
+                f"{ratio:.3f} of its bar")
+            if not (math.isfinite(ratio) and ratio <= 1.0):
+                raise AssertionError(f"flash {label}: {name} disagrees with "
+                                     f"the plain version (worst at {ratio} "
+                                     "of its bar)")
+        if not lse_ok:
+            raise AssertionError(f"flash {label}: the fully masked rows "
+                                 "differ")
+        if i == 0:
+            main_err = {"flash_fwd": errs["out"], "flash_bwd_dq": errs["dq"],
+                        "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
+        del q, k, v, do, out, lse, ref_out, ref_lse, dq, dk, dv, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return main_err
+
+
+# ---------------------------------------------------------------------------
+# training: the engine's step at bench.py's training legs
+# ---------------------------------------------------------------------------
+
+
+# bench.py::_candidate_configs (:150) as `LlamaConfig` keywords, and how
+# `_bench` (:95) drives each: (config, batch, seq, micro-batches)
+H4096 = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+             num_hidden_layers=4, num_attention_heads=32,
+             max_position_embeddings=2048)
+H2048 = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5504,
+             num_hidden_layers=16, num_attention_heads=16,
+             max_position_embeddings=2048)
+TRAIN_LEGS = {"train": (H4096, 4, 2048, 2),          # bench.py:186
+              "train-h2048": (H2048, 8, 1024, 2)}    # bench.py:169
+# train-check bars, f32 weights (set before the first run): both sides
+# compute in f32 with TF32 off and differ in the order of their sums (B1-B3
+# stream online softmax, the fused CE sums chunk by chunk)
+TRAIN_CHECK_BARS = {"loss_rel": 1e-5, "grad_rel": 1e-3}
+# its bf16 leg: the same weights rounded to bf16, through B1-B3 and through
+# the plain bf16 attention (use_flash=False), each against the f32
+# reference. Both legs round the same weights and activations; the kernels
+# may not leave the worst grad leaf further from the reference than
+# BF16_VS_PLAIN times the plain leg's, and neither leg may pass the bars
+# (the loss bar set from a first reading: rel 1.2e-4 through B1-B3, 6.3e-5
+# through the plain attention; worst grad leaves 2.4e-2 and 3.2e-2).
+TRAIN_CHECK_BF16_BARS = {"loss_rel": 1e-3, "grad_rel": 5e-2}
+BF16_VS_PLAIN = 1.5
+PEAK_SEEN = []   # device memory peaks read before a phase resets the peak
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k],
+                                                         f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def reference_train_loss(torch, params, ids, labels, args):
+    """Mean next-token CE of one sequence (ids, labels [1, T]) in f32,
+    sharing no code with the port: norms, RoPE and the SwiGLU written out,
+    materialized causal attention (`_attention`), the full [T, vocab]
+    logits and an unfused CE, differentiated by plain autograd."""
+    import torch.nn.functional as F
+
+    T, hd = ids.shape[1], args.head_dim
+    f32, dev = torch.float32, ids.device
+    inv = 1.0 / (args.rope_theta ** (torch.arange(0, hd, 2, device=dev,
+                                                  dtype=f32) / hd))
+    ang = torch.outer(torch.arange(T, device=dev, dtype=f32), inv)
+    cos = torch.cat([ang, ang], -1).cos()[:, None]
+    sin = torch.cat([ang, ang], -1).sin()[:, None]
+
+    def norm(x, w):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True)
+                               + args.rms_eps) * w
+
+    def rope(x):
+        x1, x2 = x.chunk(2, dim=-1)
+        return x * cos + torch.cat([-x2, x1], dim=-1) * sin
+
+    lay = params["layers"]
+    h = params["embedding"][ids[0]]
+    for i in range(args.num_layers):
+        x = norm(h, lay["ln1"][i])
+        q = (x @ lay["wq"][i]).view(T, args.num_heads, hd)
+        k = (x @ lay["wk"][i]).view(T, args.num_kv_heads, hd)
+        v = (x @ lay["wv"][i]).view(T, args.num_kv_heads, hd)
+        h = h + _attention(torch, rope(q), rope(k), v).reshape(T, -1) \
+            @ lay["wo"][i]
+        x = norm(h, lay["ln2"][i])
+        h = h + (F.silu(x @ lay["w_gate"][i]) * (x @ lay["w_up"][i])) \
+            @ lay["w_down"][i]
+    logits = norm(h, params["final_norm"]) @ params["lm_head"]
+    true = logits.gather(-1, labels[0][:, None])[:, 0]
+    return (torch.logsumexp(logits, dim=-1) - true).mean()
+
+
+def _worst_grad(params, ref_params):
+    """(leaf path, ||grad - ref grad|| / ||ref grad||) of the worst leaf."""
+    worst = ("", 0.0)
+    for (path, p), (_, r) in zip(_leaves(params), _leaves(ref_params)):
+        rel = ((p.grad.float() - r.grad).norm() / r.grad.norm()).item()
+        if not math.isfinite(rel) or rel > worst[1]:
+            worst = (path, rel)
+    return worst
+
+
+def _bf16_copy(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _bf16_copy(torch, v) for k, v in tree.items()}
+    return tree.detach().to(torch.bfloat16).requires_grad_(True)
+
+
+def phase_train_check(torch, dev, seq=1024, loss_chunk=128):
+    """The port's loss and grad tree (B1-B3, the fused CE) against
+    `reference_train_loss` at Llama-2-7B width, 2 layers: f32 weights (the
+    f32 kernels), then the same weights in bf16 through the bf16 kernels
+    the training legs run, beside the plain bf16 attention."""
+    import numpy as np
+    from paddle_tpu_torch.models import LLAMA2_7B, init_params
+    from paddle_tpu_torch.models import llama_functional as lf
+
+    args = LLAMA2_7B._replace(num_layers=2)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(args, gen, device=dev, dtype=torch.float32)
+    ref_params = {"embedding": params["embedding"].clone(),
+                  "layers": {k: v.clone()
+                             for k, v in params["layers"].items()},
+                  "final_norm": params["final_norm"].clone(),
+                  "lm_head": params["lm_head"].clone()}
+    for tree in (params, ref_params):
+        for _, t in _leaves(tree):
+            t.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, args.vocab_size, (1, seq)).astype(np.int64)).to(dev)
+        for _ in range(2))
+    ref = reference_train_loss(torch, ref_params, ids, labels, args)
+    ref.backward()
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    bars = TRAIN_CHECK_BARS
+    readings = {}
+    for leg, tree, use_flash in (("f32", params, True),
+                                 ("bf16", _bf16_copy(torch, ref_params), True),
+                                 ("bf16 plain attention",
+                                  _bf16_copy(torch, ref_params), False)):
+        reset_launches()
+        loss = lf.forward_and_loss(tree, ids, labels,
+                                   args._replace(use_flash=use_flash),
+                                   remat=False, loss_chunk=loss_chunk)
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        launches = {k: launch_counts()[k] for k in flash}
+        loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+        worst = _worst_grad(tree, ref_params)
+        readings[leg] = (loss_rel, worst[1])
+        log(f"[train-check] Llama-2-7B width, 2 layers, {leg}, s {seq}, "
+            f"loss_chunk {loss_chunk}: loss {loss.item():.6f} vs the f32 "
+            f"reference {ref.item():.6f}, rel {loss_rel:.3e}; worst grad "
+            f"leaf {worst[0]} ||d||/||ref|| {worst[1]:.3e}; launches "
+            f"{launches}")
+        want = args.num_layers if use_flash else 0
+        if not (math.isfinite(loss_rel) and math.isfinite(worst[1])
+                and all(n == want for n in launches.values())):
+            raise AssertionError(f"train-check {leg}: loss rel {loss_rel}, "
+                                 f"grad {worst}, launches {launches}")
+        del tree, loss
+    f32, bf, plain = (readings[k] for k in ("f32", "bf16",
+                                            "bf16 plain attention"))
+    bf_bars = TRAIN_CHECK_BF16_BARS
+    grad_bar = min(bf_bars["grad_rel"], BF16_VS_PLAIN * plain[1])
+    log(f"[train-check] bars: f32 loss rel {bars['loss_rel']}, grad "
+        f"{bars['grad_rel']}; bf16 loss rel {bf_bars['loss_rel']}, grad "
+        f"{bf_bars['grad_rel']}, and through B1-B3 grad {grad_bar:.3e} "
+        f"({BF16_VS_PLAIN}x the plain attention's)")
+    if not (f32[0] <= bars["loss_rel"] and f32[1] <= bars["grad_rel"]):
+        raise AssertionError(f"train-check f32: {f32} over {bars}")
+    if not (max(bf[0], plain[0]) <= bf_bars["loss_rel"]
+            and plain[1] <= bf_bars["grad_rel"] and bf[1] <= grad_bar):
+        raise AssertionError(f"train-check bf16: B1-B3 {bf}, the plain "
+                             f"attention {plain}, bars {bf_bars}, grad "
+                             f"{grad_bar}")
+
+
+MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+TRAIN_RANGES = ("fused_ce", "adamw_update")
+
+
+def phase_train_profile(torch, dev, eng, params, opt, ids, labels, label,
+                        n_steps=2):
+    """Where a step's device time goes: n_steps under torch.profiler. The
+    port runs the fused CE and the AdamW update inside the named ranges
+    TRAIN_RANGES; a kernel belongs to a range when it runs inside the
+    range's span on the device. Kernels split into attention (B1-B3),
+    matrix products outside the CE (cuBLAS), the fused CE (its matmuls
+    included), the optimizer, and the rest (norms, RoPE, SwiGLU, embedding,
+    grad accumulation and casts). Reports "not measured" when the profiler
+    sees no device activity, and fails when it sees kernels but not both
+    ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            loss, params, opt = eng.train_batch(params, opt, ids, labels)
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_card = [e for e in prof.events()
+               if str(e.device_type).endswith("CUDA")]
+    spans = [e for e in on_card if e.name in TRAIN_RANGES]
+    kern = [e for e in on_card if e.name not in TRAIN_RANGES
+            and e.time_range.end > e.time_range.start]
+    if not kern:
+        log(f"[{label}] device time not measured: the profiler saw no "
+            "device activity")
+        return None
+    missing = set(TRAIN_RANGES) - {r.name for r in spans}
+    if missing:
+        raise AssertionError(f"{label}: the profiler saw no device span of "
+                             f"the port's ranges {sorted(missing)}")
+
+    def us(kernels):
+        return sum(e.time_range.end - e.time_range.start for e in kernels)
+
+    def within(name):
+        rs = [(r.time_range.start, r.time_range.end) for r in spans
+              if r.name == name]
+        return [k for k in kern if any(a <= k.time_range.start
+                                       and k.time_range.end <= b
+                                       for a, b in rs)]
+
+    def is_mm(name):
+        return any(f in name for f in MATMUL_NAMES)
+
+    busy = us(kern)
+    ce_k, opt_k = within("fused_ce"), within("adamw_update")
+    ce_ids = {id(k) for k in ce_k}
+    shares = {"matmul": us(k for k in kern
+                           if is_mm(k.name) and id(k) not in ce_ids),
+              "attention B1-B3": us(k for k in kern if "flash_" in k.name),
+              "fused CE": us(ce_k), "optimizer": us(opt_k)}
+    shares["other"] = busy - sum(shares.values())
+    per = n_steps * 1e3
+    log(f"[{label}] {n_steps} profiled steps: wall {wall_us / per:.1f} ms a "
+        f"step, device busy {busy / per:.1f} ms ({busy / wall_us:.1%}); of "
+        "device time: " + ", ".join(
+            f"{k} {v / busy:.1%} ({v / per:.1f} ms)"
+            for k, v in shares.items())
+        + f"; the fused CE's matmuls {us(k for k in ce_k if is_mm(k.name)) / busy:.1%}")
+    top = [e for e in prof.key_averages()
+           if str(e.device_type).endswith("CUDA")
+           and e.key not in TRAIN_RANGES and e.self_device_time_total > 0]
+    for e in sorted(top, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[{label}]   {e.self_device_time_total / busy:6.1%} "
+            f"{e.count / n_steps:5.0f}/step  {e.key[:90]}")
+    for kid in ("B1", "B2", "B3"):
+        frags = PROFILE_NAMES[kid]
+        t = us(k for k in kern if any(f in k.name for f in frags))
+        log(f"[{label}]   {kid}: {t / busy:.1%} of device time, "
+            f"{t / per:.3f} ms a step")
+    return {"wall_ms": wall_us / per, "busy_ms": busy / per}
+
+
+def phase_train(torch, dev, name, label, warmup=2, steps=8):
+    """bench.py's `_bench` on the port: `HybridParallelEngine` at one
+    training leg, bf16 params from seed 0, numpy ids/labels from seed 0;
+    2 warm-up and `steps` timed steps ending in a synchronise. Returns the
+    launch counts of the timed steps."""
+    import types
+
+    import numpy as np
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.distributed.hybrid_engine import flops_per_token
+
+    cfg_kw, batch, seq, mb = TRAIN_LEGS[label]
+    torch.cuda.empty_cache()
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = types.SimpleNamespace(**cfg_kw)    # the reference's names
+    eng = HybridParallelEngine(cfg, dp=1, pp=1, mp=1, micro_batches=mb,
+                               dtype=torch.bfloat16, remat=False, lr=1e-4,
+                               loss_chunk=128, moments="f32", device=dev)
+    args = eng.args
+    params, opt = eng.init_state(0)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, args.vocab_size, (batch, seq)).astype(np.int32)
+    labels = rng.integers(0, args.vocab_size, (batch, seq)).astype(np.int32)
+    ids, labels = eng.shard_batch(ids, labels)
+    first = None
+    for _ in range(warmup):
+        loss, params, opt = eng.train_batch(params, opt, ids, labels)
+        first = loss if first is None else first
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss, params, opt = eng.train_batch(params, opt, ids, labels)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    final = loss.item()
+    tps = batch * seq * steps / secs
+    mfu = tps * flops_per_token(args, seq) / peaks(name)[1]
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    per_step = {k: launches[k] / steps
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"[{label}] hidden {args.hidden_size}, {args.num_layers} layers, b"
+        f"{batch} s{seq}, {mb} micro-batches, bf16, no remat, loss_chunk "
+        f"128, f32 moments: {tps:.0f} tokens/s, {secs / steps * 1e3:.1f} ms "
+        f"a step, MFU {mfu:.1%} (model FLOPs over the bf16 peak), peak "
+        f"device memory {peak:.1f} GiB; loss {first.item():.4f} at the "
+        f"first step, {final:.4f} at the last (one batch, repeated, as "
+        f"bench.py trains); B1/B2/B3 "
+        f"launches a step {per_step}")
+    want = args.num_layers * mb
+    if not (math.isfinite(final) and all(n == want
+                                         for n in per_step.values())):
+        raise AssertionError(f"{label}: loss {final}, launches a step "
+                             f"{per_step} (want {want})")
+    phase_train_profile(torch, dev, eng, params, opt, ids, labels,
+                        f"{label}-profile")
+    return launches
 
 
 def cuda_ms(torch, fn, iters=20, flush=None):
@@ -327,14 +829,16 @@ def phase_timing(torch, dev, name, main_err, launches):
     rows = []
 
     def record(wrapper, fn, plain, library, nbytes, flops, label, row=True):
-        """Times one shape; the kernel's JSON row when `row`. Returns the
-        kernel's ms and the bound's."""
+        """Times one shape; the kernel's JSON row when `row`. `library`: a
+        callable, or its time in ms measured already. Returns the kernel's
+        ms and the bound's."""
         ms = cuda_ms(torch, fn, flush=flush)
         log(f"[timing] {label}: back-to-back kernel "
             f"{cuda_ms_loop(torch, fn):.4f} ms, plain "
             f"{cuda_ms_loop(torch, plain):.4f} ms")
         plain_ms = cuda_ms(torch, plain, flush=flush)
-        lib_ms = cuda_ms(torch, library, flush=flush)
+        lib_ms = (library if isinstance(library, float)
+                  else cuda_ms(torch, library, flush=flush))
         t_bytes = nbytes / bw * 1e3
         t_ops = flops / flops_peak * 1e3
         bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
@@ -351,6 +855,48 @@ def phase_timing(torch, dev, name, main_err, launches):
                          "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by, "library_ms": lib_ms})
         return ms, bound
+
+    # B1-B3 at the 7B training leg's micro-batch (b2 h32 s2048 d128, causal,
+    # bf16); bounds count the visible (query, key) pairs. The library call
+    # is SDPA: its forward beside B1, its backward (dq, dk and dv together)
+    # beside both B2 and B3
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    b, s, h, d = 2, 2048, 32, 128
+    q, k, v, do = flash_case(torch, dev, b, s, s, h, h, d, torch.bfloat16)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa._delta(out, do)
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    lq, lk, lv = (x.clone().requires_grad_() for x in (qt, kt, vt))
+    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+
+    def sdpa_backward():
+        return torch.autograd.grad(lout, (lq, lk, lv), dot,
+                                   retain_graph=True)
+
+    sdpa_bwd_ms = cuda_ms(torch, sdpa_backward, flush=flush)
+
+    flops = 2 * d * b * h * s * (s + 1) // 2       # one product
+    t16, vec = b * s * h * d * 2, b * h * s * 4     # a bf16 [B,S,H,D]; lse
+    label = f"b{b} h{h} s{s} d{d} causal bf16"
+    record("flash_fwd", lambda: fa.flash_fwd(q, k, v, True),
+           lambda: fa.flash_fwd_plain(q, k, v, True),
+           lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+           4 * t16 + vec, 2 * flops, f"B1 {label}")
+    record("flash_bwd_dq",
+           lambda: fa._launch_dq(q, k, v, do, lse, delta, True, scale),
+           lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                         scale),
+           sdpa_bwd_ms, 5 * t16 + 2 * vec, 3 * flops, f"B2 {label}")
+    record("flash_bwd_dkv",
+           lambda: fa._launch_dkv(q, k, v, do, lse, delta, True, scale),
+           lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True,
+                                          scale),
+           sdpa_bwd_ms, 4 * t16 + 2 * vec + 2 * 2 * t16, 4 * flops,
+           f"B3 {label}")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv, lout
+    torch.cuda.empty_cache()
 
     # B6 and B4 at the engine's decode shape: 8 rows, ragged up to 2048
     q, pk, pv, bt, pos = paged_case(torch, dev, torch.bfloat16)
@@ -551,7 +1097,9 @@ def phase_engine(torch, dev, model, kv_dtype=None, label="engine",
 
 
 # kernel-name fragments of each ported kernel in a profiler trace
-PROFILE_NAMES = {"B6": ("paged_decode_attention_kernel",),
+PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
+                 "B3": ("flash_bwd_dkv",),
+                 "B6": ("paged_decode_attention_kernel",),
                  "B7": ("paged_decode_attention_q8_kernel",),
                  "B8": ("b8_gemv_kernel", "b8_reduce_kernel",
                         "b8_mma_kernel", "b8_simt_kernel")}
@@ -1003,8 +1551,9 @@ def _add(total, launches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,parity,engine,logits,generate,engine-int8,"
-                    "logits-int8,capacity,timing",
+                    default="build,parity,train-check,train,train-h2048,"
+                    "engine,logits,generate,engine-int8,logits-int8,capacity,"
+                    "timing",
                     help="comma-separated subset of the phases, in order")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1039,6 +1588,14 @@ def main(argv=None):
         phase_build()
     if "parity" in phases:
         main_err = phase_parity(torch, dev)
+    if "train-check" in phases:
+        phase_train_check(torch, dev)
+        torch.cuda.empty_cache()
+    if "train" in phases:
+        _add(launches, phase_train(torch, dev, name, "train"))
+    if "train-h2048" in phases:
+        phase_train(torch, dev, name, "train-h2048")
+    torch.cuda.empty_cache()
     model = None
     if {"engine", "logits", "generate", "engine-int8", "logits-int8",
             "capacity"} & set(phases):
@@ -1103,7 +1660,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"engine", "generate", "engine-int8", "capacity"}
+    main_path = {"train", "engine", "generate", "engine-int8", "capacity"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items() if v == 0]
         if missing:
@@ -1116,7 +1673,8 @@ def main(argv=None):
     if "timing" in phases:
         rows = phase_timing(torch, dev, name, main_err, launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        f"{max(PEAK_SEEN + [torch.cuda.max_memory_allocated(dev)]) / 2**30:.1f}"
+        " GiB")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,10 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.serving, paddle_tpu_torch.kernels.attention, "
         "paddle_tpu_torch.kernels.quantized_matmul, "
         "paddle_tpu_torch.kernels._build, paddle_tpu_torch.observability, "
-        "paddle_tpu_torch.serving.trace\n"
+        "paddle_tpu_torch.serving.trace, "
+        "paddle_tpu_torch.kernels.flash_attention, "
+        "paddle_tpu_torch.distributed, paddle_tpu_torch.core.numerics, "
+        "paddle_tpu_torch.core.tree\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -82,6 +85,9 @@ def _tiny():
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
     from paddle_tpu_torch.models import (Llama, generate, init_params,
                                          params_from_numpy)
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.models import (adamw_state_from_numpy,
+                                         tree_from_numpy)
     from paddle_tpu_torch.serving import Engine, PagedEngine
 
     args = _tiny()
@@ -102,6 +108,18 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         generate(model, ids, max_new_tokens=2)
     assert generate(model, ids, max_new_tokens=2, device="cpu").shape == (1, 5)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HybridParallelEngine(args)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HybridParallelEngine(args, device="cuda")
+    eng = HybridParallelEngine(args, device="cpu")
+    params, opt = eng.init_state(0)
+    assert {p.device.type for p in (params["embedding"], opt["m"]["lm_head"])} \
+        == {"cpu"}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tree_from_numpy(tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        adamw_state_from_numpy({"m": tree, "v": tree, "step": 0})
     for cls in (Engine, PagedEngine):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(model, max_slots=1, max_len=16)

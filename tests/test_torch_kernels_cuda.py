@@ -1,8 +1,9 @@
-"""Kernels B4-B8 of the PyTorch port on an NVIDIA card: each kernel
+"""Kernels B1-B8 of the PyTorch port on an NVIDIA card: each kernel
 agrees with its plain PyTorch version on the same inputs, counts its
 launches, and rejects what it does not take. Marked `cuda`; the tests skip
 where there is no card. This file imports neither JAX nor the reference
-package, so the card's machine runs it without them:
+package, so the card's machine runs it without them, from the repo's root
+(B1-B3 are held to `chip_smoke.py`'s bar, which it imports from there):
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_kernels_cuda.py
@@ -11,7 +12,9 @@ package, so the card's machine runs it without them:
 import pytest
 import torch
 
+import chip_smoke as cs
 from paddle_tpu_torch.kernels import attention as at
+from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import quantized_matmul as qm
 
 pytestmark = pytest.mark.cuda
@@ -170,3 +173,96 @@ def test_quantized_kernel_checks_on_card(cuda):
         at.paged_decode_attention(torch.randn(2, 1, 4, 96, device=cuda),
                                   pk96, pk96, bt, pos, k_scale=sk96,
                                   v_scale=sk96)
+
+
+# B1-B3 at the shapes of chip_smoke.py's parity phase:
+# (b, sq, sk, h, hk, d, causal, dtype)
+FLASH_SHAPES = [
+    (2, 2048, 2048, 32, 32, 128, True, torch.bfloat16),
+    (1, 1024, 1024, 32, 8, 128, True, torch.bfloat16),
+    (1, 1024, 1024, 16, 16, 128, False, torch.bfloat16),
+    (2, 384, 1024, 8, 8, 128, True, torch.bfloat16),
+    (1, 1000, 1000, 8, 4, 128, True, torch.bfloat16),
+    (1, 1000, 300, 8, 8, 128, True, torch.bfloat16),
+    (2, 777, 777, 4, 2, 64, True, torch.bfloat16),
+    (1, 512, 512, 4, 2, 128, True, torch.float32),
+    (1, 300, 200, 4, 4, 64, False, torch.float32),
+    (1, 300, 100, 4, 2, 128, True, torch.float32),
+]
+
+
+def _flash_inputs(cuda, b, sq, sk, h, hk, d, dtype, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+
+    return rnd(b, sq, h, d), rnd(b, sk, hk, d), rnd(b, sk, hk, d), \
+        rnd(b, sq, h, d)
+
+
+def _flash_ratio(got, ref, dtype):
+    """chip_smoke.py's bar for B1-B3: the worst head_dim vector's error
+    over 2^-6 (bf16) or 1e-5 (f32) of its own max |ref|; passes at <= 1."""
+    tol = cs.TOL[str(dtype).replace("torch.", "")]
+    return cs.flash_row_ratio(torch, got, ref, tol)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hk,d,causal,dtype", FLASH_SHAPES)
+def test_flash_kernels_match_plain_on_card(cuda, b, sq, sk, h, hk, d, causal,
+                                           dtype):
+    """B1, and B2 + B3 through `flash_bwd` fed the plain forward's out and
+    lse; a row that sees no key (sq > sk) gives out 0, lse -1e30."""
+    q, k, v, do = _flash_inputs(cuda, b, sq, sk, h, hk, d, dtype)
+    before = dict(fa.launches)
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    dq, dk, dv = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, causal)
+    refs = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, causal)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    masked = ref_lse <= -1e29
+    assert torch.equal(lse <= -1e29, masked)
+    assert masked.any().item() == (sq > sk and causal)
+    assert out.dtype == dq.dtype == dtype
+    assert dk.dtype == dv.dtype == torch.float32
+    lse, ref_lse = (torch.where(masked, 0.0, t) for t in (lse, ref_lse))
+    assert cs.flash_lse_ratio(torch, lse, ref_lse) <= 1.0
+    for got, ref in zip((out, dq, dk, dv), (ref_out, *refs)):
+        assert torch.isfinite(got).all()
+        assert _flash_ratio(got, ref, dtype) <= 1.0
+
+
+def test_flash_autograd_round_trip_on_card(cuda):
+    """flash_attention_fwd under autograd (B1 forward, B2 + B3 backward)
+    against the plain versions' autograd-free composition."""
+    q, k, v, do = _flash_inputs(cuda, 2, 512, 512, 8, 2, 128,
+                                torch.bfloat16, seed=6)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(fa.launches)
+    out = fa.flash_attention_fwd(*leaves, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True)
+    assert _flash_ratio(out, ref_out, torch.bfloat16) <= 1.0
+    refs = fa.flash_bwd_plain(q, k, v, out.detach(), ref_lse, do, True)
+    for t, ref in zip(leaves, refs):
+        assert t.grad.dtype == torch.bfloat16
+        assert _flash_ratio(t.grad, ref.to(torch.bfloat16),
+                            torch.bfloat16) <= 1.0
+
+
+def test_flash_kernel_checks_on_card(cuda):
+    q = torch.randn(1, 64, 4, 128, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.randn(1, 64, 4, 96, device=cuda)
+        fa.flash_fwd(x, x, x)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_fwd(q, q[:, :, :3].contiguous(), q[:, :, :3].contiguous())
