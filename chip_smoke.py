@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
 
-  1. build        compile the CUDA sources of `paddle_tpu_torch/kernels/csrc`,
-                  one nvcc each, all started together.
+  1. build        compile the four CUDA sources of
+                  `paddle_tpu_torch/kernels/csrc`, one nvcc each, all started
+                  together.
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode, B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
@@ -16,7 +17,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   micro-batch, GQA, non-causal, cross-length, ragged, rows
                   that see no key, head_dim 64, f32), each output vector
                   within its own bar; then planted faults that the B1-B3 bar
-                  must reject.
+                  must reject; B9 and B10 (RMSNorm forward and backward) at
+                  the training legs' micro-batches, the decode rows, a ragged
+                  row count and in f32, each row of y and dx within its bar,
+                  then planted faults their bars must reject.
   2a. train-check the loss and full grad tree of `forward_and_loss` (B1-B3,
                   fused CE) at Llama-2-7B width, 2 layers, s 1024, against an
                   f32 forward written here (materialized attention, unfused
@@ -26,21 +30,31 @@ Phases, in order; any failure raises and the script exits non-zero:
   2b. train       `HybridParallelEngine` on the 7B-width training leg of
                   bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
                   loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
-                  timed steps, B1-B3 launched L·M = 8 times each a step; then
-                  2 steps under torch.profiler (where the time goes).
+                  timed steps, B1-B3 launched L·M = 8 times each a step and
+                  B9/B10 (2L+1)·M = 18; then 2 steps under torch.profiler
+                  (where the time goes, the norms' share among it).
   2c. train-h2048 the same for bench.py's primary leg (h2048, 16 layers, b8
                   s1024, 2 micro-batches).
   3. engine       `PagedEngine` at Llama-2-7B width (32 layers, bf16, random
                   weights from a seed) serves 12 requests with a shared system
                   prefix (radix hits, one mid-page COW split), a short suffix
                   (B5 in paged prefill) and two sampled requests; the kernel
-                  launch counters must grow. Then a profiled decode window.
+                  launch counters must grow. Then a profiled decode window
+                  (B9 once a norm: 65 launches a decode step).
   4. logits       one request's prompt + generated tokens through prefill and
                   `paged_decode_step` against a plain f32 full-sequence forward
                   of the same bf16 weights; then the same with the weights in
                   f32, to a bar that leaves room only for summation order.
   5. generate     `generate` at b=4 (48- and 128-token prompts), the stripe
                   path that runs B4 and B5.
+  5a. chunked     chunked prefill against monolithic prefill on the mixed
+                  trace at bench.py's TPU settings (a 2 x 1536-token burst in
+                  32 short prompts): short-request TTFT, chunk counts.
+  5b. spec        speculative decoding at bench.py's settings (h2048, 16
+                  layers, a 4-layer draft): f32 output equal to plain greedy,
+                  bf16 tokens/s of both; then at Llama-2-7B width with its
+                  4-layer draft, the block tables after all-rejected rounds
+                  held to a plain engine's.
   6. engine-int8  `quantize_params` of the bf16 model, on the card, serving the
                   same traffic through `PagedEngine(kv_dtype="int8")`: B5, B7
                   and B8 must launch, the prefix-cache counters equal the bf16
@@ -56,9 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   bf16 pool against the int8 pool of the same bytes on one
                   48-request trace; sustained slots must reach >= 1.8x.
   9. timing       CUDA-event medians of each kernel, its plain version and one
-                  PyTorch library call at the serving shapes (B1-B3: the 7B
-                  training leg's micro-batch), beside the bound the card's
-                  memory rate or peak sets.
+                  PyTorch library call at the serving shapes (B1-B3, B9, B10:
+                  the 7B training leg's micro-batch; B9/B10 also at the
+                  decode rows), beside the bound the card's memory rate or
+                  peak sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -81,8 +96,10 @@ ROOT = Path(__file__).resolve().parent
 ATTN_SRC = "paddle_tpu_torch/kernels/csrc/attention.cu"
 QMM_SRC = "paddle_tpu_torch/kernels/csrc/quantized_matmul.cu"
 FLASH_SRC = "paddle_tpu_torch/kernels/csrc/flash_attention.cu"
+RMS_SRC = "paddle_tpu_torch/kernels/csrc/rms_norm.cu"
 REF = "paddle_tpu/kernels/quantized_matmul.py"
 FLASH_REF = "paddle_tpu/kernels/flash_attention.py"
+RMS_REF = "paddle_tpu/kernels/rms_norm.py"
 KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
     "flash_fwd": ("B1 flash_fwd", FLASH_SRC, f"{FLASH_REF}:112"),
     "flash_bwd_dq": ("B2 flash_bwd_dq", FLASH_SRC, f"{FLASH_REF}:215"),
@@ -94,6 +111,8 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
     "paged_decode_attention_int8": ("B7 paged_decode_attention (int8 pool)",
                                     ATTN_SRC, f"{REF}:595"),
     "weight_only_matmul": ("B8 weight_only_matmul", QMM_SRC, f"{REF}:101"),
+    "rms_norm_fwd": ("B9 rms_norm_fwd", RMS_SRC, f"{RMS_REF}:34"),
+    "rms_norm_bwd": ("B10 rms_norm_bwd", RMS_SRC, f"{RMS_REF}:42"),
 }
 # kernel vs plain version: max |difference| <= TOL * max(1, max |plain|)
 # (B1-B3: per vector, `flash_row_ratio`). bf16: two units in the last place at the largest output (2 * 2^-7); the
@@ -116,18 +135,21 @@ def launch_counts():
     from paddle_tpu_torch.kernels import attention as at
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.kernels import rms_norm as rn
 
-    return {**fa.launches, **at.launches, **qm.launches}
+    return {**fa.launches, **at.launches, **qm.launches, **rn.launches}
 
 
 def reset_launches():
     from paddle_tpu_torch.kernels import attention as at
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.kernels import rms_norm as rn
 
     at.reset_launches()
     fa.reset_launches()
     qm.reset_launches()
+    rn.reset_launches()
 
 
 def peaks(name):
@@ -307,6 +329,137 @@ def phase_parity(torch, dev):
                   main and (m, k, n) == (8, 4096, 11008))
     main_err.update(phase_flash_parity(torch, dev))
     phase_flash_bar_teeth(torch, dev)
+    main_err.update(phase_rms_parity(torch, dev))
+    return main_err
+
+
+# B9/B10 parity cases: (label, rows, H, dtype); the first is the 7B leg's
+# micro-batch (b4 s2048 over 2 micro-batches: 4096 rows), whose errors go
+# into the JSON line
+RMS_CASES = (("7B micro-batch", 4096, 4096, "bfloat16"),
+             ("h2048 micro-batch", 4096, 2048, "bfloat16"),
+             ("decode", 8, 4096, "bfloat16"),
+             ("ragged rows", 4097, 4096, "bfloat16"),
+             ("f32", 4096, 4096, "float32"),
+             ("f32 ragged", 1001, 2048, "float32"))
+# B9/B10 against their plain versions, set before the first run on the
+# card. y and dx, row by row, within RMS_ROW_TOL of the row's max |plain|:
+# bf16 two units in the last place of the row's largest entry (2^-6). y
+# rounds twice on both sides, rnd(rnd(x r) w), and an r that differs in its
+# last f32 bit (the two sum x^2 in different orders) can move the first
+# rounding by a unit, which the multiply by w carries into the second; dx
+# rounds once from f32 values that differ by summation order. f32: 1e-5,
+# summation order only. r (f32 on both sides) each entry within
+# RMS_R_TOL of |plain|: its relative error is half that of the sum of
+# squares, ~sqrt(H) f32 roundings (~1e-6 at 4096). dw, summed over the
+# rows in f32 in another order and then rounded to w's dtype: max |d| <=
+# RMS_DW_TOL of max |plain dw| (bf16: one unit in the last place at the
+# largest entry; f32: 1e-5).
+RMS_ROW_TOL = {"bfloat16": 2.0**-6, "float32": 1e-5}
+RMS_R_TOL = 1e-5
+RMS_DW_TOL = {"bfloat16": 2.0**-7, "float32": 1e-5}
+RMS_EPS = 1e-6
+
+
+def rms_case(torch, dev, rows, h, dtype, seed=6):
+    """x with rows at scales 10^U(-4, 1) (eps matters in the small ones),
+    w ~ N(1, 0.5^2), g ~ N(0, 1), in `dtype` on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 10.0 ** (torch.rand(rows, 1, generator=gen, device=dev) * 5 - 4)
+    x = (torch.randn(rows, h, generator=gen, device=dev) * scale).to(dtype)
+    w = (torch.randn(h, generator=gen, device=dev) * 0.5 + 1).to(dtype)
+    g = torch.randn(rows, h, generator=gen, device=dev).to(dtype)
+    return x, w, g
+
+
+def rms_ratios(torch, got, ref, dname):
+    """Each output's worst error over its bar (the kernel passes at <= 1):
+    got/ref are {name: tensor} of y, r, dx, dw (any subset)."""
+    out = {}
+    for name, a in got.items():
+        a, b = a.float(), ref[name].float()
+        d = (a - b).abs()
+        if name in ("y", "dx"):
+            bar = RMS_ROW_TOL[dname] * b.abs().amax(-1)
+            out[name] = (d.amax(-1) / bar.clamp_min(1e-30)).max().item()
+        elif name == "r":
+            out[name] = (d / (RMS_R_TOL * b.abs())).max().item()
+        else:
+            out[name] = (d.max() / (RMS_DW_TOL[dname]
+                                    * b.abs().max())).item()
+    return out
+
+
+def planted_rms_faults(torch, rn, x, w, g, strip):
+    """B9/B10 outputs with a fault planted, built from the plain versions:
+    [(fault, {output: faulty}, {output: right})]. The bars must reject each
+    on at least one output."""
+    h = x.shape[1]
+    y, r = rn.rms_norm_fwd_plain(x, w, RMS_EPS)
+    dx, dw = rn.rms_norm_bwd_plain(x, w, r, g)
+    x32 = x.float()
+
+    def fwd_with(rr):
+        return (x32 * rr[:, None]).to(x.dtype) * w
+
+    y_e, r_e = rn.rms_norm_fwd_plain(x, w, 0.0)
+    r_h = torch.rsqrt((x32 * x32).sum(-1) / (h - 1) + RMS_EPS)
+    r_o = r.roll(1)
+    _, dw_s = rn.rms_norm_bwd_plain(x[strip:], w, r[strip:], g[strip:])
+    right = {"y": y, "r": r, "dx": dx, "dw": dw}
+    return [("eps dropped", {"y": y_e, "r": r_e}, right),
+            ("the mean taken over H - 1", {"y": fwd_with(r_h), "r": r_h},
+             right),
+            ("r from another row", {"y": fwd_with(r_o), "r": r_o,
+                                    "dx": rn.rms_norm_bwd_plain(
+                                        x, w, r_o, g)[0]}, right),
+            ("dw missing one strip of rows", {"dw": dw_s}, right)]
+
+
+def phase_rms_parity(torch, dev):
+    """B9 and B10 against their plain versions on the card, each output
+    within its bar (`rms_ratios`); then planted faults the bars must
+    reject, at the 7B case and the f32 case. Returns the first case's max
+    |error| by launch key (y for B9, dx and dw for B10)."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    main_err = {}
+    for i, (label, rows, h, dname) in enumerate(RMS_CASES):
+        x, w, g = rms_case(torch, dev, rows, h, getattr(torch, dname))
+        y, r = rn.rms_norm_fwd(x, w, RMS_EPS)
+        ry, rr = rn.rms_norm_fwd_plain(x, w, RMS_EPS)
+        # B10 from the plain forward's r, so that it is held to its plain
+        # version on the same inputs
+        dx, dw = rn.rms_norm_bwd(x, w, rr, g)
+        rdx, rdw = rn.rms_norm_bwd_plain(x, w, rr, g)
+        torch.cuda.synchronize()
+        got = {"y": y, "r": r, "dx": dx, "dw": dw}
+        ref = {"y": ry, "r": rr, "dx": rdx, "dw": rdw}
+        ratios = rms_ratios(torch, got, ref, dname)
+        errs = {k: (got[k].float() - ref[k].float()).abs().max().item()
+                for k in got}
+        log(f"[parity] rms_norm {label} [{rows}, {h}] {dname}: " + ", ".join(
+            f"{k} max_abs_err {errs[k]:.3e} at {ratios[k]:.3f} of its bar"
+            for k in got))
+        if not all(math.isfinite(v) and v <= 1.0 for v in ratios.values()):
+            raise AssertionError(f"rms_norm {label}: a kernel disagrees with "
+                                 f"its plain version: {ratios}")
+        if i == 0:
+            main_err = {"rms_norm_fwd": errs["y"],
+                        "rms_norm_bwd": max(errs["dx"], errs["dw"])}
+        if label in ("7B micro-batch", "f32"):
+            strip = rn._strips(rows, x.device)[0]
+            for fault, wrong, right in planted_rms_faults(torch, rn, x, w, g,
+                                                          strip):
+                bad = rms_ratios(torch, wrong, right, dname)
+                log(f"[parity] rms_norm bar, planted fault at {label}: "
+                    f"{fault}: " + ", ".join(f"{k} at {v:.2f} of its bar"
+                                             for k, v in bad.items()))
+                if not max(bad.values()) > 1.0:
+                    raise AssertionError(f"the rms_norm bars pass a planted "
+                                         f"fault: {fault} at {bad}")
+        del x, w, g, y, r, ry, rr, dx, dw, rdx, rdw, got, ref
+        torch.cuda.empty_cache()
     return main_err
 
 
@@ -609,7 +762,7 @@ def phase_train_check(torch, dev, seq=1024, loss_chunk=128):
                                    remat=False, loss_chunk=loss_chunk)
         loss.backward()
         torch.cuda.synchronize(dev)
-        launches = {k: launch_counts()[k] for k in flash}
+        launches = {k: launch_counts()[k] for k in flash + NORMS}
         loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
         worst = _worst_grad(tree, ref_params)
         readings[leg] = (loss_rel, worst[1])
@@ -618,9 +771,10 @@ def phase_train_check(torch, dev, seq=1024, loss_chunk=128):
             f"reference {ref.item():.6f}, rel {loss_rel:.3e}; worst grad "
             f"leaf {worst[0]} ||d||/||ref|| {worst[1]:.3e}; launches "
             f"{launches}")
-        want = args.num_layers if use_flash else 0
+        want = dict.fromkeys(flash, args.num_layers if use_flash else 0)
+        want.update(dict.fromkeys(NORMS, 2 * args.num_layers + 1))
         if not (math.isfinite(loss_rel) and math.isfinite(worst[1])
-                and all(n == want for n in launches.values())):
+                and launches == want):
             raise AssertionError(f"train-check {leg}: loss rel {loss_rel}, "
                                  f"grad {worst}, launches {launches}")
         del tree, loss
@@ -642,6 +796,7 @@ def phase_train_check(torch, dev, seq=1024, loss_chunk=128):
 
 
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+NORMS = ("rms_norm_fwd", "rms_norm_bwd")
 TRAIN_RANGES = ("fused_ce", "adamw_update")
 
 
@@ -699,6 +854,7 @@ def phase_train_profile(torch, dev, eng, params, opt, ids, labels, label,
     shares = {"matmul": us(k for k in kern
                            if is_mm(k.name) and id(k) not in ce_ids),
               "attention B1-B3": us(k for k in kern if "flash_" in k.name),
+              "norms B9/B10": us(k for k in kern if "rms_norm_" in k.name),
               "fused CE": us(ce_k), "optimizer": us(opt_k)}
     shares["other"] = busy - sum(shares.values())
     per = n_steps * 1e3
@@ -714,7 +870,7 @@ def phase_train_profile(torch, dev, eng, params, opt, ids, labels, label,
     for e in sorted(top, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[{label}]   {e.self_device_time_total / busy:6.1%} "
             f"{e.count / n_steps:5.0f}/step  {e.key[:90]}")
-    for kid in ("B1", "B2", "B3"):
+    for kid in ("B1", "B2", "B3", "B9", "B10"):
         frags = PROFILE_NAMES[kid]
         t = us(k for k in kern if any(f in k.name for f in frags))
         log(f"[{label}]   {kid}: {t / busy:.1%} of device time, "
@@ -763,19 +919,20 @@ def phase_train(torch, dev, name, label, warmup=2, steps=8):
     tps = batch * seq * steps / secs
     mfu = tps * flops_per_token(args, seq) / peaks(name)[1]
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    per_step = {k: launches[k] / steps
-                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    per_step = {k: launches[k] / steps for k in flash + NORMS}
     log(f"[{label}] hidden {args.hidden_size}, {args.num_layers} layers, b"
         f"{batch} s{seq}, {mb} micro-batches, bf16, no remat, loss_chunk "
         f"128, f32 moments: {tps:.0f} tokens/s, {secs / steps * 1e3:.1f} ms "
         f"a step, MFU {mfu:.1%} (model FLOPs over the bf16 peak), peak "
         f"device memory {peak:.1f} GiB; loss {first.item():.4f} at the "
         f"first step, {final:.4f} at the last (one batch, repeated, as "
-        f"bench.py trains); B1/B2/B3 "
+        f"bench.py trains); B1/B2/B3/B9/B10 "
         f"launches a step {per_step}")
-    want = args.num_layers * mb
-    if not (math.isfinite(final) and all(n == want
-                                         for n in per_step.values())):
+    # B1-B3 once a layer, B9/B10 once a norm (2L + 1), each micro-batch
+    want = dict.fromkeys(flash, args.num_layers * mb)
+    want.update(dict.fromkeys(NORMS, (2 * args.num_layers + 1) * mb))
+    if not (math.isfinite(final) and per_step == want):
         raise AssertionError(f"{label}: loss {final}, launches a step "
                              f"{per_step} (want {want})")
     phase_train_profile(torch, dev, eng, params, opt, ids, labels,
@@ -815,6 +972,31 @@ def cuda_ms_loop(torch, fn, iters=50):
     e.record()
     e.synchronize()
     return a.elapsed_time(e) / iters
+
+
+def graph_ms(torch, fn, reps=200):
+    """Mean device time of fn() with no host work between calls: `reps`
+    calls captured into one CUDA graph, replayed once (the caches stay as
+    the previous call left them). For calls that take less device time
+    than the host takes to launch them, which `cuda_ms` cannot separate."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    e.record()
+    e.synchronize()
+    return a.elapsed_time(e) / reps
 
 
 def phase_timing(torch, dev, name, main_err, launches):
@@ -986,6 +1168,51 @@ def phase_timing(torch, dev, name, main_err, launches):
     n_calls = sum(c for *_, c in DECODE_MATMULS)
     log(f"[timing] B8 over one decode step at M=8 ({n_calls} calls): "
         f"{step_ms:.3f} ms of kernel time, bound {step_bound:.3f} ms")
+
+    # B9 and B10 at the 7B training leg's micro-batch (the JSON rows) and
+    # at the decode step's 8 rows, bf16; the library calls are
+    # F.rms_norm's forward and its autograd backward
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    for n, h in ((4096, 4096), (8, 4096)):
+        x, w, g = rms_case(torch, dev, n, h, torch.bfloat16)
+        _, r = rn.rms_norm_fwd(x, w, RMS_EPS)
+        xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yl = F.rms_norm(xl, (h,), wl, RMS_EPS)
+
+        def lib_backward():
+            return torch.autograd.grad(yl, (xl, wl), g, retain_graph=True)
+
+        t16 = n * h * 2
+        main = n == 4096
+        record("rms_norm_fwd", lambda: rn.rms_norm_fwd(x, w, RMS_EPS),
+               lambda: rn.rms_norm_fwd_plain(x, w, RMS_EPS),
+               lambda: F.rms_norm(x, (h,), w, RMS_EPS),
+               2 * t16 + h * 2 + n * 4, 4 * n * h,
+               f"B9 [{n}, {h}] bf16", row=main)
+        record("rms_norm_bwd", lambda: rn.rms_norm_bwd(x, w, r, g),
+               lambda: rn.rms_norm_bwd_plain(x, w, r, g), lib_backward,
+               3 * t16 + 2 * h * 2 + n * 4, 9 * n * h,
+               f"B10 [{n}, {h}] bf16", row=main)
+
+        def lib_both():
+            xg = x.detach().requires_grad_()
+            wg = w.detach().requires_grad_()
+            return torch.autograd.grad(F.rms_norm(xg, (h,), wg, RMS_EPS),
+                                       (xg, wg), g)
+
+        # device time alone, from CUDA graphs: at 8 rows the host launches
+        # a call slower than the card runs it
+        log(f"[timing] B9/B10 [{n}, {h}] bf16 from CUDA graphs (device "
+            f"time, no host launch work): B9 "
+            f"{graph_ms(torch, lambda: rn.rms_norm_fwd(x, w, RMS_EPS)):.4f}"
+            f" ms, F.rms_norm "
+            f"{graph_ms(torch, lambda: F.rms_norm(x, (h,), w, RMS_EPS)):.4f}"
+            f" ms; B10 "
+            f"{graph_ms(torch, lambda: rn.rms_norm_bwd(x, w, r, g)):.4f} ms"
+            f", F.rms_norm forward and backward "
+            f"{graph_ms(torch, lib_both):.4f} ms")
+        del x, w, g, r, xl, wl, yl
     return rows
 
 
@@ -1102,7 +1329,13 @@ PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
                  "B6": ("paged_decode_attention_kernel",),
                  "B7": ("paged_decode_attention_q8_kernel",),
                  "B8": ("b8_gemv_kernel", "b8_reduce_kernel",
-                        "b8_mma_kernel", "b8_simt_kernel")}
+                        "b8_mma_kernel", "b8_simt_kernel"),
+                 "B9": ("rms_norm_fwd_kernel",),
+                 "B10": ("rms_norm_bwd_kernel", "rms_norm_dw_kernel")}
+
+
+# kernel launches a decode step in the last run before B9 (PERF.md)
+LAUNCHES_BEFORE_B9 = {"profile": 1682, "profile-int8": 3218}
 
 
 def phase_profile(torch, dev, eng, label="profile", n_steps=8,
@@ -1124,6 +1357,7 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
         eng.step()
     eng.step()                                   # one unprofiled decode
     torch.cuda.synchronize(dev)
+    before = launch_counts()["rms_norm_fwd"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1131,7 +1365,12 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
             eng.step()
         torch.cuda.synchronize(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
+    norms = (launch_counts()["rms_norm_fwd"] - before) / n_steps
     eng.run_until_idle()
+    want = 2 * eng.args.num_layers + 1
+    if norms != want:
+        raise AssertionError(f"{label}: B9 launched {norms} times a decode "
+                             f"step, want {want} (one a norm)")
     kern = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")
             and e.self_device_time_total > 0]
@@ -1146,7 +1385,8 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
         f"{prompt_len}-token prompts: wall {wall_us / n_steps / 1e3:.2f} ms "
         f"a step, device busy {busy_us / n_steps / 1e3:.2f} ms a step "
         f"({busy_us / wall_us:.1%}), {n_launch / n_steps:.0f} kernel "
-        f"launches a step")
+        f"launches a step ({LAUNCHES_BEFORE_B9[label]} in another run "
+        f"before the norms were fused), B9 {norms:.0f} a step")
     for e in top:
         log(f"[{label}]   {e.self_device_time_total / busy_us:6.1%} "
             f"{e.count / n_steps:5.0f}/step  {e.key[:90]}")
@@ -1236,13 +1476,23 @@ def int8_pool_attention(torch, n, page_size):
     return attend
 
 
+def _norm(torch, x, w, eps):
+    """RMSNorm written out, sharing no code with the port: normalise in
+    f32, cast back to x's dtype (an f64 forward's norms round through f32),
+    scale by w."""
+    x32 = x.float()
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * r).to(x.dtype) * w
+
+
 def reference_logits(torch, model, ids, attend=None, dtype=None):
     """Plain full-sequence forward with no cache, in f32 from the model's
     weights (upcast, or dequantized, one layer at a time): logits
-    [T, vocab] f32. `attend(q, k, v)` ([T, heads, hd] each) replaces causal
-    attention over the unrounded K/V (`int8_pool_attention`); `dtype`
-    float64 runs the matmuls and the attention in f64 (the norms and RoPE
-    still round through f32)."""
+    [T, vocab] f32. The norms are written here (`_norm`), not the port's
+    B9. `attend(q, k, v)` ([T, heads, hd] each) replaces causal attention
+    over the unrounded K/V (`int8_pool_attention`); `dtype` float64 runs
+    the matmuls and the attention in f64 (the norms and RoPE still round
+    through f32)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.models import llama_functional as lf
 
@@ -1254,16 +1504,16 @@ def reference_logits(torch, model, ids, attend=None, dtype=None):
     h = model.embedding[ids.long()].to(dtype)[None]
     for i in range(a.num_layers):
         lp = {k: _widen(v, dtype) for k, v in model.layer(i).items()}
-        x = lf.rms_norm(h, lp["ln1"], a.rms_eps)
+        x = _norm(torch, h, lp["ln1"], a.rms_eps)
         q = (x @ lp["wq"]).view(1, T, a.num_heads, hd)
         k = (x @ lp["wk"]).view(1, T, a.num_kv_heads, hd)
         v = (x @ lp["wv"]).view(1, T, a.num_kv_heads, hd)
         q, k = lf.apply_rope(q, k, cos, sin)
         o = attend(q[0], k[0], v[0])
         h = h + o.reshape(1, T, -1) @ lp["wo"]
-        x = lf.rms_norm(h, lp["ln2"], a.rms_eps)
+        x = _norm(torch, h, lp["ln2"], a.rms_eps)
         h = h + (F.silu(x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
-    h = lf.rms_norm(h, model.final_norm.to(dtype), a.rms_eps)
+    h = _norm(torch, h, model.final_norm.to(dtype), a.rms_eps)
     return (h @ _widen(model.lm_head, dtype))[0].float()
 
 
@@ -1477,6 +1727,255 @@ def phase_generate(torch, dev, model, b=4, lengths=(48, 128), new_tokens=32,
     return launches
 
 
+def _quantile(xs, q):
+    """bench.py's quantile (`_bench_chunked_prefill` :576)."""
+    xs = sorted(xs)
+    return xs[min(int(q * len(xs)), len(xs) - 1)]
+
+
+def phase_chunked(torch, dev, model, seed=0):
+    """Chunked prefill against monolithic prefill at the reference's TPU
+    settings (bench.py `_bench_chunked_prefill` :537-546): 16 slots,
+    max_len 2048, pages of 64, chunks of 256, buckets from 64; a burst of 2
+    long prompts (1536 tokens) dropped into 32 short ones (24-96 tokens),
+    arriving 2.5 steps apart, 32 new tokens each. Holds: every request
+    completes with its tokens, 2 chunked prefills, the chunk count the
+    prompts imply. Records the short requests' TTFT (p50, p99) of both runs
+    and their p99 ratio (the reference's bar, <= 0.5 on its TPU, is
+    recorded, not held), tokens/s, and the greedy agreement of the two runs.
+    Returns the launch counts of the chunked run."""
+    from paddle_tpu_torch.serving import (PagedEngine, make_mixed_trace,
+                                          trace_stats)
+
+    slots, max_len, ps, chunk, min_bucket = 16, 2048, 64, 256, 64
+    trace = make_mixed_trace(seed=seed, n_short=32,
+                             short_len_choices=(24, 40, 57, 96), n_long=2,
+                             long_len=1536, mean_interarrival_steps=2.5,
+                             new_tokens_choices=(32,), long_new_tokens=32,
+                             vocab_size=model.args.vocab_size)
+    long_ids = {t["request_id"] for t in trace if t["long"]}
+    runs = {}
+    for mode, prefill_chunk in (("monolithic", None), ("chunked", chunk)):
+        eng = PagedEngine(model, max_slots=slots, max_len=max_len,
+                          page_size=ps, min_bucket=min_bucket,
+                          prefill_chunk=prefill_chunk, device=dev)
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = eng.replay(trace)
+        torch.cuda.synchronize(dev)
+        secs = time.perf_counter() - t0
+        launches = launch_counts()
+        m = eng.metrics.summary()
+        c = m["counters"]
+        short = [r.ttft_s for r in reqs if r.request_id not in long_ids]
+        long_max = max(r.ttft_s for r in reqs if r.request_id in long_ids)
+        toks = sum(len(r.token_ids) for r in reqs)
+        runs[mode] = {"reqs": reqs, "launches": launches,
+                      "p50": _quantile(short, 0.5),
+                      "p99": _quantile(short, 0.99)}
+        obs = m["observations"]
+        pre, dec = obs["prefill_s"], obs["decode_step_s"]
+        log(f"[chunked] {mode}: {len(reqs)} requests, {toks} tokens in "
+            f"{secs:.2f} s ({toks / secs:.1f} tokens/s), {eng.step_count} "
+            f"steps: {pre['count']} prefill windows (mean "
+            f"{pre['mean'] * 1e3:.1f} ms, max {pre['max'] * 1e3:.1f} ms, "
+            f"{pre['sum']:.2f} s in all), {dec['count']} decode steps (mean "
+            f"{dec['mean'] * 1e3:.1f} ms, {dec['sum']:.2f} s in all); "
+            f"short TTFT p50 {runs[mode]['p50'] * 1e3:.1f} ms, p99 "
+            f"{runs[mode]['p99'] * 1e3:.1f} ms; long TTFT max "
+            f"{long_max * 1e3:.1f} ms; chunked prefills "
+            f"{c.get('chunked_prefills', 0)}, chunks "
+            f"{c.get('prefill_chunks', 0)}, prefill stall steps "
+            f"{int(m['gauges'].get('prefill_stall_steps', {}).get('max', 0))}"
+            f"; launches {launches}")
+        for r in reqs:
+            if not (r.finished and len(r.token_ids) == r.max_new_tokens):
+                raise AssertionError(f"chunked ({mode}): request "
+                                     f"{r.request_id} did not complete")
+        if prefill_chunk:
+            want = sum(-(-len(t["prompt"]) // chunk) for t in trace
+                       if len(t["prompt"]) > chunk)
+            if c.get("chunked_prefills", 0) != len(long_ids) or \
+                    c.get("prefill_chunks", 0) != want:
+                raise AssertionError(f"chunked: {c.get('chunked_prefills')} "
+                                     f"streams, {c.get('prefill_chunks')} "
+                                     f"chunks (want {len(long_ids)}, {want})")
+        del eng
+        torch.cuda.empty_cache()
+    mono, chk = runs["monolithic"], runs["chunked"]
+    same = [x.token_ids == y.token_ids for x, y in zip(mono["reqs"],
+                                                       chk["reqs"])]
+    agree = [sum(a == b for a, b in zip(x.token_ids, y.token_ids))
+             / len(x.token_ids) for x, y in zip(mono["reqs"], chk["reqs"])]
+    log(f"[chunked] trace {trace_stats(trace)}; short TTFT p99 chunked / "
+        f"monolithic {chk['p99'] / mono['p99']:.3f} (the reference's bar "
+        f"on its TPU was <= 0.5: recorded, not held); greedy tokens of the "
+        f"two runs: {sum(same)} of {len(same)} requests equal, mean token "
+        f"agreement {sum(agree) / len(agree):.3f} (bf16: recorded; the "
+        f"CPU tests hold exactness)")
+    need = ("rms_norm_fwd", "window_attention", "paged_decode_attention")
+    if not all(chk["launches"][k] > 0 for k in need):
+        raise AssertionError(f"chunked: {need} not all launched: "
+                             f"{chk['launches']}")
+    return chk["launches"]
+
+
+def spec_model(torch, dev, dtype, draft_layers=4):
+    """`_bench_speculative`'s target at its TPU settings (bench.py
+    :629-639): h2048, 16 layers, 16 heads, vocab 32000, random weights
+    from seed 0 whose later layers' wo and w_down are damped to 0.02 (a
+    stand-in for a trained draft's agreement), and its 4-layer draft."""
+    from paddle_tpu_torch.models import Llama, LlamaArgs, init_params
+    from paddle_tpu_torch.models import draft_from_params
+
+    args = LlamaArgs(vocab_size=32000, hidden_size=2048,
+                     intermediate_size=5504, num_layers=16, num_heads=16,
+                     num_kv_heads=16, rope_theta=1e4, rms_eps=1e-6,
+                     use_flash=False)
+    gen_ = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(args, gen_, device=dev, dtype=dtype)
+    damp = torch.tensor([1.0] * draft_layers
+                        + [0.02] * (args.num_layers - draft_layers),
+                        device=dev).reshape(-1, 1, 1).to(dtype)
+    for k in ("wo", "w_down"):
+        params["layers"][k] = params["layers"][k] * damp
+    target = Llama(args, params)
+    return target, draft_from_params(target, draft_layers)
+
+
+def _serve_trace(torch, dev, model, trace, **kw):
+    """One replay of `trace` through a PagedEngine at the speculative leg's
+    settings: (requests, seconds, metrics summary, launches)."""
+    from paddle_tpu_torch.serving import PagedEngine
+
+    eng = PagedEngine(model, max_slots=8, max_len=1024, page_size=64,
+                      min_bucket=64, device=dev, **kw)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = eng.replay(trace)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    return reqs, secs, eng.metrics.summary(), launch_counts()
+
+
+def phase_spec(torch, dev, model):
+    """Speculative decoding. (a) parity: `_bench_speculative`'s settings
+    (`spec_model`, spec_tokens 4, 8 slots, max_len 1024, pages of 64,
+    make_trace seed 0: 24 requests of 24-96 tokens, 128 new tokens each) in
+    f32, plain greedy against speculative: equal token for token, as
+    bench.py asserts (:682-685). (b) speed: the same in bf16, tokens/s of
+    both and their ratio (the reference's bar, >= 1.5x on its TPU, is
+    recorded, not held). (c) Llama-2-7B width: the engine phase's model
+    with its 4-layer draft, 4 greedy requests x 32 tokens, one at a time,
+    beside a plain engine brought to the same positions after each round:
+    the block tables, refcounts and reservations must be equal after every
+    round (a random 7B draft is rejected in most rounds, so this holds the
+    all-rejected rollback at full width).
+    Returns the launch counts of (b)'s speculative run."""
+    import numpy as np
+    from paddle_tpu_torch.models import draft_from_params
+    from paddle_tpu_torch.serving import PagedEngine, Request, make_trace
+
+    trace = make_trace(seed=0, n_requests=24, mean_interarrival_steps=0.5,
+                       prompt_len_choices=(24, 40, 57, 96),
+                       new_tokens_choices=(128,), vocab_size=32000)
+    spec_launches = None
+    for leg, dtype in (("(a) parity, f32", torch.float32),
+                       ("(b) speed, bf16", torch.bfloat16)):
+        target, draft = spec_model(torch, dev, dtype)
+        greedy, g_secs, _, _ = _serve_trace(torch, dev, target, trace)
+        spec, s_secs, m, launches = _serve_trace(
+            torch, dev, target, trace, draft_params=draft, spec_tokens=4)
+        c = m["counters"]
+        toks = sum(len(r.token_ids) for r in spec)
+        equal = [x.token_ids == y.token_ids for x, y in zip(greedy, spec)]
+        acc = c.get("draft_tokens_accepted", 0) / max(
+            c.get("draft_tokens_proposed", 1), 1)
+        log(f"[spec] {leg}: h2048, 16 layers, 4-layer draft, spec_tokens "
+            f"4: greedy {toks / g_secs:.1f} tokens/s, speculative "
+            f"{toks / s_secs:.1f} tokens/s, ratio {g_secs / s_secs:.3f} (the "
+            f"reference's bar on its TPU was >= 1.5: recorded, not held); "
+            f"acceptance rate {acc:.3f}, {c.get('spec_rounds', 0)} rounds, "
+            f"{c.get('spec_pages_rewound', 0)} pages rewound; "
+            f"{sum(equal)} of {len(equal)} requests equal to plain greedy; "
+            f"launches {launches}")
+        if not all(r.finished and len(r.token_ids) == r.max_new_tokens
+                   for r in spec):
+            raise AssertionError(f"spec {leg}: unfinished requests")
+        if dtype == torch.float32 and not all(equal):
+            first = equal.index(False)
+            raise AssertionError(
+                f"spec {leg}: speculative decoding broke greedy parity "
+                f"(request {spec[first].request_id})")
+        need = ("rms_norm_fwd", "decode_attention", "window_attention")
+        if not all(launches[k] > 0 for k in need):
+            raise AssertionError(f"spec {leg}: {need} not all launched: "
+                                 f"{launches}")
+        spec_launches = launches
+        del target, draft, greedy, spec
+        torch.cuda.empty_cache()
+
+    # (c) Llama-2-7B width
+    draft = draft_from_params(model, 4)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(1, model.args.vocab_size, size=n).astype(np.int32)
+               for n in (40, 77, 130, 300)]
+    kw = dict(max_slots=8, max_len=2048, page_size=16, min_bucket=16,
+              device=dev)
+    plain = PagedEngine(model, **kw)
+    spec = PagedEngine(model, draft_params=draft, spec_tokens=4, **kw)
+
+    def state(eng):
+        return (tuple(tuple(row) for row in eng._bt),
+                tuple(tuple(eng._alloc.refcount(pg) for pg in row)
+                      for row in eng._bt),
+                eng._alloc.free_count, eng._alloc.available,
+                dict(eng._resv), eng._reserved_total)
+
+    def held(what):
+        if state(plain) != state(spec):
+            raise AssertionError(f"spec 7B: after {what} the block tables, "
+                                 "refcounts or reservations differ from a "
+                                 "plain engine's at the same positions")
+
+    rounds = rejected = 0
+    agree = []
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        rp = plain.submit(Request(p, 32, request_id=i))
+        rs = spec.submit(Request(p, 32, request_id=i))
+        plain.step(), spec.step()                         # prefill
+        held("a prefill")
+        while not rs.finished:
+            (committed,) = spec.step()["tokens"].values()
+            rounds += 1
+            rejected += len(committed) == 1
+            while len(rp.token_ids) < len(rs.token_ids):
+                plain.step()
+            held(f"round {rounds} ({len(committed)} tokens committed)")
+        agree.append(sum(a == b for a, b in zip(rp.token_ids, rs.token_ids))
+                     / len(rs.token_ids))
+    secs = time.perf_counter() - t0
+    c = spec.metrics.summary()["counters"]
+    acc = c.get("draft_tokens_accepted", 0) / max(
+        c.get("draft_tokens_proposed", 1), 1)
+    log(f"[spec] (c) Llama-2-7B width, 4-layer draft, 4 requests x 32 "
+        f"tokens, one at a time, in {secs:.2f} s beside the plain engine: "
+        f"{rounds} rounds, {rejected} of them rejecting every draft, "
+        f"acceptance rate {acc:.3f}, "
+        f"{c.get('spec_pages_rewound', 0)} pages rewound; block tables, "
+        f"refcounts and reservations equal to the plain engine's after "
+        f"every round; token agreement with plain greedy "
+        f"{[round(a, 3) for a in agree]} (bf16: recorded)")
+    if not (rejected > 0 and spec._alloc.pages_in_use == 0
+            and c.get("spec_pages_rewound", 0) > 0):
+        raise AssertionError("spec 7B: no all-rejected round, no page "
+                             "rewound, or pages still held")
+    return spec_launches
+
+
 def phase_capacity(torch, dev, model, seed=0):
     """The reference's equal-KV-bytes leg at its TPU settings (bench.py
     `_bench_int8_kv_pool`): page size 64, max_len 1024, 24 slots, buckets
@@ -1552,8 +2051,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,train-check,train,train-h2048,"
-                    "engine,logits,generate,engine-int8,logits-int8,capacity,"
-                    "timing",
+                    "engine,logits,generate,chunked,spec,engine-int8,"
+                    "logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -1597,8 +2096,8 @@ def main(argv=None):
         phase_train(torch, dev, name, "train-h2048")
     torch.cuda.empty_cache()
     model = None
-    if {"engine", "logits", "generate", "engine-int8", "logits-int8",
-            "capacity"} & set(phases):
+    if {"engine", "logits", "generate", "chunked", "spec", "engine-int8",
+            "logits-int8", "capacity"} & set(phases):
         t0 = time.perf_counter()
         gen_ = torch.Generator(device=dev).manual_seed(0)
         model = Llama(LLAMA2_7B, init_params(LLAMA2_7B, gen_, device=dev,
@@ -1617,6 +2116,12 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "generate" in phases:
         _add(launches, phase_generate(torch, dev, model))
+    if "chunked" in phases:
+        _add(launches, phase_chunked(torch, dev, model))
+        torch.cuda.empty_cache()
+    if "spec" in phases:
+        _add(launches, phase_spec(torch, dev, model))
+        torch.cuda.empty_cache()
     qmodel = qreqs = None
     if {"engine-int8", "logits-int8"} & set(phases):
         t0 = time.perf_counter()
@@ -1660,7 +2165,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"train", "engine", "generate", "engine-int8", "capacity"}
+    main_path = {"train", "engine", "generate", "chunked", "spec",
+                 "engine-int8", "capacity"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items() if v == 0]
         if missing:

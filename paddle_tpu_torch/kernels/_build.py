@@ -23,7 +23,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "build_all", "lib"]
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"attention": _CSRC / "attention.cu",
            "quantized_matmul": _CSRC / "quantized_matmul.cu",
-           "flash_attention": _CSRC / "flash_attention.cu"}
+           "flash_attention": _CSRC / "flash_attention.cu",
+           "rms_norm": _CSRC / "rms_norm.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -44,6 +45,10 @@ _SIGNATURES = {
         "pt_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
         "pt_flash_bwd_dq": [_P] * 7 + [_I] * 8 + [_F, _P],
         "pt_flash_bwd_dkv": [_P] * 8 + [_I] * 8 + [_F, _P],
+    },
+    "rms_norm": {
+        "pt_rms_norm_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
+        "pt_rms_norm_bwd": [_P] * 7 + [_I] * 7 + [_P],
     },
 }
 

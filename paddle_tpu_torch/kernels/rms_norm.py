@@ -1,0 +1,236 @@
+"""Fused RMSNorm: the wrappers of kernels B9 and B10, their plain PyTorch
+versions, and the autograd operator every norm of the port goes through.
+
+  B9   `rms_norm_fwd`  replaces `_fwd_kernel` (:34, launched by `_fwd_call`)
+  B10  `rms_norm_bwd`  replaces `_bwd_kernel` (:42, launched by `_bwd_call`)
+
+(in paddle_tpu/kernels/rms_norm.py)
+
+The reference dispatches neither: on the TPU a `pallas_call` is an XLA
+fusion barrier and the compiled composite won. The port runs eagerly, where
+the composite costs eight launches and ~36 bytes an element per norm, so
+every norm of the port (`llama_functional.rms_norm`) runs B9, and every
+norm's backward B10 (the counterpart of the reference Paddle's CUDA
+`fused_rms_norm`).
+
+Routing is by the tensors' device, as for the other kernels: CPU tensors
+go to the plain versions, CUDA tensors to the hand-written kernels in
+`csrc/rms_norm.cu` or to an error. The kernels take x, w (and g) of one
+dtype, bf16 or f32, a contiguous last dim H with H % 8 == 0 and
+H <= 16384, rows 16-byte aligned, any row count. Nothing falls back.
+
+Rounding: B9 and its plain version round as the composite does,
+y = rnd(rnd(x * r) * w) in x's dtype (the Pallas kernel rounds once,
+rnd(x * r * w); ROADMAP C). B10 and its plain version compute in f32,
+dx = r * (gw - x * r^2 * mean(gw * x)) with gw = g * w, dw = sum_rows(g *
+x * r), dx rounded to x's dtype and dw to w's.
+
+`launches["rms_norm_fwd"]` / `["rms_norm_bwd"]` count the wrappers' calls
+that launched a kernel (a plain call counts nothing).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.attention import _on_card, _raise_on, _stream
+
+__all__ = ["rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
+           "rms_norm_bwd_plain", "rms_norm", "launches", "reset_launches",
+           "MAX_HIDDEN"]
+
+MAX_HIDDEN = 16384
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# B10 gives each block a strip of rows: about this many blocks per SM
+_STRIPS_PER_SM = 4
+
+launches = {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
+_sm_count = {}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _wide(t):
+    """t in f32, or in f64 when it is f64 (the gradient checks)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def rms_norm_fwd_plain(x2d, w, eps, save_r=True):
+    """B9's plain version, the composite the port ran before B9:
+    normalise in f32, cast to x's dtype, then multiply by w in the working
+    dtype. Returns (y [rows, H], r [rows] f32 or None); f64 inputs
+    compute in f64."""
+    x32 = _wide(x2d)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + eps)
+    y = (x32 * r).to(x2d.dtype) * w
+    return y, (r[:, 0] if save_r else None)
+
+
+def rms_norm_bwd_plain(x2d, w, r, g2d):
+    """B10's plain version (the formula of `_bwd_kernel`, :42-60) in f32
+    (f64 for f64 inputs): (dx [rows, H] in x's dtype, dw [H] in w's
+    dtype)."""
+    x = _wide(x2d)
+    g = _wide(g2d)
+    rr = _wide(r)[:, None]
+    gw = g * _wide(w)
+    m = (gw * x).mean(dim=-1, keepdim=True)
+    dx = rr * (gw - x * (rr * rr) * m)
+    dw = (g * x * rr).sum(dim=0)
+    return dx.to(x2d.dtype), dw.to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_shapes(x2d, w, *others):
+    if x2d.dim() != 2 or w.shape != (x2d.shape[1],):
+        raise ValueError(f"x {tuple(x2d.shape)} and w {tuple(w.shape)} are "
+                         "not [rows, H] and [H]")
+    for t in others:
+        if t.shape != x2d.shape:
+            raise ValueError(f"{tuple(t.shape)} does not fit x "
+                             f"{tuple(x2d.shape)}")
+
+
+def _check_kernel(w, *rows):
+    """What the kernels take: one dtype, bf16 or f32; H % 8 == 0 and
+    H <= MAX_HIDDEN; rows with a unit last stride, 16-byte aligned."""
+    h = w.shape[0]
+    if w.dtype not in _DTYPES:
+        raise TypeError(f"kernel takes bfloat16 or float32, got {w.dtype}")
+    if h % 8 or h > MAX_HIDDEN:
+        raise ValueError(f"kernel takes H % 8 == 0 and H <= {MAX_HIDDEN}, "
+                         f"got {h}")
+    if not w.is_contiguous() or w.data_ptr() % 16:
+        raise ValueError("w must be contiguous and 16-byte aligned")
+    for t in rows:
+        if t.dtype != w.dtype:
+            raise TypeError(f"dtype mismatch: {t.dtype} vs w {w.dtype}")
+        if t.stride(1) != 1 or (t.shape[0] > 1 and t.stride(0) % 8) or \
+                t.data_ptr() % 16:
+            raise ValueError("kernel rows must have a unit last stride and "
+                             "start 16-byte aligned")
+
+
+def _ld(t):
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def rms_norm_fwd(x2d, w, eps, save_r=True):
+    """B9: y = rnd(rnd(x * r) * w) over x [rows, H], r = rsqrt(mean(x^2) +
+    eps) in f32. Returns (y [rows, H] in x's dtype, r [rows] f32 when
+    save_r, else None)."""
+    _check_shapes(x2d, w)
+    if not _on_card(x2d, w):
+        return rms_norm_fwd_plain(x2d, w, eps, save_r)
+    _check_kernel(w, x2d)
+    rows, h = x2d.shape
+    y = torch.empty((rows, h), dtype=x2d.dtype, device=x2d.device)
+    r = (torch.empty(rows, dtype=torch.float32, device=x2d.device)
+         if save_r else None)
+    rc = _build.lib("rms_norm").pt_rms_norm_fwd(
+        x2d.data_ptr(), w.data_ptr(), y.data_ptr(),
+        0 if r is None else r.data_ptr(), rows, h, _ld(x2d),
+        _DTYPES[w.dtype], float(eps), _stream(x2d.device))
+    _raise_on(rc, "rms_norm_fwd")
+    launches["rms_norm_fwd"] += 1
+    return y, r
+
+
+def _strips(rows, device):
+    """(rows a strip, strips) for B10's grid."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    want = max(1, min(rows, _STRIPS_PER_SM * _sm_count[device]))
+    per = -(-rows // want) if rows else 1
+    return per, max(1, -(-rows // per))
+
+
+def rms_norm_bwd(x2d, w, r, g2d):
+    """B10: (dx [rows, H] in x's dtype, dw [H] in w's dtype) of y =
+    rms_norm(x, w) under the cotangent g [rows, H], from the r [rows] f32
+    that B9 stored."""
+    _check_shapes(x2d, w, g2d)
+    if r.shape != (x2d.shape[0],):
+        raise ValueError(f"r {tuple(r.shape)} is not [{x2d.shape[0]}]")
+    if not _on_card(x2d, w, r, g2d):
+        return rms_norm_bwd_plain(x2d, w, r, g2d)
+    _check_kernel(w, x2d, g2d)
+    if r.dtype != torch.float32 or not r.is_contiguous():
+        raise TypeError("r must be contiguous float32")
+    rows, h = x2d.shape
+    dev = x2d.device
+    per, strips = _strips(rows, dev)
+    dx = torch.empty((rows, h), dtype=x2d.dtype, device=dev)
+    dw = torch.empty(h, dtype=w.dtype, device=dev)
+    part = torch.empty((strips, h), dtype=torch.float32, device=dev)
+    rc = _build.lib("rms_norm").pt_rms_norm_bwd(
+        x2d.data_ptr(), w.data_ptr(), r.data_ptr(), g2d.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, h, _ld(x2d),
+        _ld(g2d), per, strips, _DTYPES[w.dtype], _stream(dev))
+    _raise_on(rc, "rms_norm_bwd")
+    launches["rms_norm_bwd"] += 1
+    return dx, dw
+
+
+# ---------------------------------------------------------------------------
+# autograd: one custom operator, visible to selective checkpointing
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("paddle_tpu_torch::rms_norm", mutates_args=())
+def _rms_norm_op(x: torch.Tensor, w: torch.Tensor, eps: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    y, r = rms_norm_fwd(x.reshape(-1, x.shape[-1]), w, eps, save_r=True)
+    return y.reshape(x.shape), r
+
+
+@_rms_norm_op.register_fake
+def _(x, w, eps):
+    rows = x.numel() // x.shape[-1]
+    return (x.new_empty(x.shape, dtype=torch.promote_types(x.dtype, w.dtype)),
+            x.new_empty((rows,), dtype=torch.promote_types(x.dtype,
+                                                           torch.float32)))
+
+
+def _setup(ctx, inputs, output):
+    x, w, _ = inputs
+    ctx.save_for_backward(x, w, output[1])
+    ctx.set_materialize_grads(False)
+
+
+def _backward(ctx, g_y, _g_r):
+    x, w, r = ctx.saved_tensors
+    if g_y is None:
+        return None, None, None
+    h = x.shape[-1]
+    dx, dw = rms_norm_bwd(x.reshape(-1, h), w, r, g_y.reshape(-1, h))
+    return dx.reshape(x.shape), dw, None
+
+
+_rms_norm_op.register_autograd(_backward, setup_context=_setup)
+
+
+def rms_norm(x, w, eps):
+    """RMSNorm over the last dim of x [..., H] with weight w [H]: B9 on a
+    CUDA tensor (its plain version on a CPU one). Differentiable through
+    the custom operator, whose backward is B10; without a gradient to
+    take, the wrapper runs alone and stores no r."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _rms_norm_op(x, w, float(eps))[0]
+    y, _ = rms_norm_fwd(x.reshape(-1, x.shape[-1]), w, eps, save_r=False)
+    return y.reshape(x.shape)

@@ -30,8 +30,11 @@ Attention dispatch (`_cached_attention`), by shape only:
                             the reference computes it outside any kernel.
 The paged decode step always runs kernel B6 `paged_decode_attention`, or B7
 (the same wrapper with the pool's scales) over an int8 pool, after the
-running-absmax write `_kv_quant_write`. Each wrapper routes a CPU tensor to
-its plain version and a CUDA tensor to the kernel (`kernels/attention.py`).
+running-absmax write `_kv_quant_write`. The speculative verify window
+(`_paged_forward_verify`) writes its tokens into the tail pages, gathers
+the row's pages and takes `_cached_attention`'s per-row branch. Each
+wrapper routes a CPU tensor to its plain version and a CUDA tensor to the
+kernel (`kernels/attention.py`).
 
 Sampling: the reference draws from JAX's threefry; the port from torch
 generators. The two never give the same tokens from one seed — parity is
@@ -54,7 +57,8 @@ from paddle_tpu_torch.kernels import quantized_matmul as qmm
 from paddle_tpu_torch.models import llama_functional as lf
 
 __all__ = ["generate", "prefill", "decode_step", "paged_decode_step",
-           "QuantizedWeight", "QuantizedKVPage", "quantize_params"]
+           "QuantizedWeight", "QuantizedKVPage", "quantize_params",
+           "draft_from_params"]
 
 NEG_INF = -1e30
 
@@ -144,6 +148,24 @@ def quantize_params(params):
               for k, v in params["layers"].items()}
     return dict(params, layers=layers,
                 lm_head=_quantize_weight(params["lm_head"]))
+
+
+def draft_from_params(model, num_layers):
+    """A draft model for speculative decoding (`draft_from_params` :137):
+    a `Llama` whose decoder layers are the target's first `num_layers`,
+    as views of its weights (nothing is copied), with the embedding, the
+    final norm and the head shared. Works on float and int8 models."""
+    from paddle_tpu_torch.models.llama import Llama
+
+    n = int(num_layers)
+    if not 1 <= n <= model.args.num_layers:
+        raise ValueError(f"draft must keep 1..{model.args.num_layers} "
+                         f"layers, got {num_layers}")
+    tree = model.tree()
+    layers = {k: (QuantizedWeight(v.q[:n], v.scale[:n])
+                  if isinstance(v, QuantizedWeight) else v[:n])
+              for k, v in tree["layers"].items()}
+    return Llama(model.args._replace(num_layers=n), dict(tree, layers=layers))
 
 
 def _wmm(x, w):
@@ -281,6 +303,45 @@ def _layer_step_paged(lp, h, pool_k_l, pool_v_l, bt, pos, cos, sin, args,
     return _mlp_block(lp, h, args)
 
 
+def _layer_step_paged_verify(lp, h, pool_k_l, pool_v_l, bt, pos, limit, cos,
+                             sin, args, page_size):
+    """One decoder layer over a speculation window of s tokens against the
+    paged cache (`_layer_step_paged_verify` :400): query i of row r sits at
+    pos[r] + i. The window's k/v are written into the row's tail pages
+    before attention (the host has made them writable through
+    min(pos + s - 1, limit)); writes past limit[r], the row's last legal
+    KV index, go to the null page. An int8 pool takes them one token at a
+    time through the running-absmax write. Attention gathers the row's
+    table (dequantized from an int8 pool) and runs `_cached_attention`'s
+    per-row branch: kernel B5 when s * (nh // nkv) <= 64 on the card."""
+    b, s = h.shape[0], h.shape[1]
+    q, k, v = _qkv(lp, h, args)
+    prow = pos.long()[:, None] + torch.arange(s, device=h.device)[None, :]
+    q, k = lf.apply_rope_bcast(q, k, cos[prow][:, :, None, :],
+                               sin[prow][:, :, None, :])
+    col = (prow // page_size).clamp_(max=bt.shape[1] - 1)
+    page = torch.where(prow <= limit.long()[:, None],
+                       bt.long().gather(1, col), 0)
+    off = prow % page_size
+    if isinstance(pool_k_l, QuantizedKVPage):
+        for i in range(s):
+            _kv_quant_write(pool_k_l, page[:, i], off[:, i], k[:, i])
+            _kv_quant_write(pool_v_l, page[:, i], off[:, i], v[:, i])
+        ck = attn_k.paged_gather(pool_k_l.q, bt, pool_k_l.scale, q.dtype)
+        cv = attn_k.paged_gather(pool_v_l.q, bt, pool_v_l.scale, q.dtype)
+    else:
+        nkv, hd = k.shape[2], k.shape[3]
+        pool_k_l[page.reshape(-1), :, off.reshape(-1)] = \
+            k.reshape(b * s, nkv, hd)
+        pool_v_l[page.reshape(-1), :, off.reshape(-1)] = \
+            v.reshape(b * s, nkv, hd)
+        ck = attn_k.paged_gather(pool_k_l, bt)
+        cv = attn_k.paged_gather(pool_v_l, bt)
+    attn = _cached_attention(q, ck, cv, pos)
+    h = h + _wmm(attn.reshape(b, s, -1), lp["wo"])
+    return _mlp_block(lp, h, args)
+
+
 # ---------------------------------------------------------------------------
 # forwards
 # ---------------------------------------------------------------------------
@@ -324,6 +385,22 @@ def _paged_forward_decode(model, ids, pool_k, pool_v, bt, pos, cos, sin,
                               _layer_pool(pool_v, i), bt, pos, cos, sin,
                               model.args, page_size)
     return _logits(model, h), pool_k, pool_v
+
+
+@torch.no_grad()
+def _paged_forward_verify(model, ids, pool_k, pool_v, bt, pos, limit, cos,
+                          sin, page_size):
+    """The speculative verify forward (`_paged_forward_verify` :490): ids
+    [b, s] (the last committed token, then s - 1 draft tokens; token i of
+    row r at position pos[r] + i) -> (logits [b, s, vocab] f32 at every
+    window position, pool_k, pool_v), the pools written in place."""
+    h = model.embedding[ids.long()]
+    for i in range(model.args.num_layers):
+        h = _layer_step_paged_verify(model.layer(i), h, _layer_pool(pool_k, i),
+                                     _layer_pool(pool_v, i), bt, pos, limit,
+                                     cos, sin, model.args, page_size)
+    h = lf.rms_norm(h, model.final_norm, model.args.rms_eps)
+    return _wmm(h, model.lm_head).float(), pool_k, pool_v
 
 
 def _on_model_device(model, device):
@@ -400,19 +477,23 @@ def _mix64(x):
     return (x ^ (x >> 31)) >> 1          # a non-negative int64
 
 
-def _row_uniforms(seeds, pos, vocab, device):
+def _row_uniforms(seeds, pos, vocab, device, salt=0):
     """Uniforms [b, vocab] in [1e-20, 1): row r's are a pure function of
     (seeds[r], pos[r]) — one torch generator per row seeded from the
     pair — so a request's draws do not depend on its batch-mates (the
-    port's counterpart of the reference's `_row_keys`). Torch's
-    generators differ between CPU and CUDA, so the draws do too."""
+    port's counterpart of the reference's `_row_keys`). A nonzero `salt`
+    gives another stream of the same pair (speculative decoding's accept
+    and resample decisions). Torch's generators differ between CPU and
+    CUDA, so the draws do too."""
     seeds = np.asarray(seeds, np.int64).reshape(-1)
     pos = np.broadcast_to(np.asarray(pos, np.int64).reshape(-1), seeds.shape)
     rows = []
     for sd, p in zip(seeds, pos):
+        key = ((int(sd) & 0x7FFFFFFF) << 32) | (int(p) & 0xFFFFFFFF)
+        if salt:
+            key ^= _mix64(int(salt))
         g = torch.Generator(device=device)
-        g.manual_seed(_mix64(((int(sd) & 0x7FFFFFFF) << 32)
-                             | (int(p) & 0xFFFFFFFF)))
+        g.manual_seed(_mix64(key))
         rows.append(torch.rand(vocab, generator=g, device=device))
     return torch.stack(rows).clamp_(min=1e-20)
 

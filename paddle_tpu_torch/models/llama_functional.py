@@ -19,6 +19,7 @@ stacked leaves, with the reference's remat modes on
 `torch.utils.checkpoint`) -> final norm -> `fused_linear_cross_entropy`
 (or the unfused `parallel_cross_entropy`). Attention is flash attention
 (kernels B1-B3 on the card) when `args.use_flash`, else `sdpa_reference`.
+Every norm is `rms_norm`: kernel B9 forward and B10 backward on the card.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import rms_norm as rn
 
 __all__ = ["LlamaArgs", "LLAMA2_7B", "init_params", "rms_norm",
            "rope_tables", "apply_rope_bcast", "apply_rope", "LAYER_KEYS",
@@ -126,11 +128,11 @@ def init_params(args: LlamaArgs, generator=None, *, device=None,
 
 
 def rms_norm(x, w, eps):
-    """The reference's rounding order: normalise in f32, cast to x's dtype,
-    then scale by w in the working dtype."""
-    x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+    """RMSNorm over the last dim in the reference's rounding order:
+    normalise in f32, cast to x's dtype, then scale by w in the working
+    dtype. Kernel B9 on a CUDA tensor, its backward B10
+    (`kernels/rms_norm.py`); their plain versions on a CPU one."""
+    return rn.rms_norm(x, w, eps)
 
 
 def rope_tables(seq_len, head_dim, theta, device=None):

@@ -29,8 +29,10 @@ from paddle_tpu_torch.serving.paged_engine import PagedEngine
 from paddle_tpu_torch.serving.sampler import SlotSampler, pick
 from paddle_tpu_torch.serving.scheduler import (AdmissionQueue, SlotTable,
                                                 bucket_for, pages_for)
-from paddle_tpu_torch.serving.trace import make_trace
+from paddle_tpu_torch.serving.trace import (make_mixed_trace, make_trace,
+                                            trace_stats)
 
 __all__ = ["Engine", "PagedEngine", "Request", "Metrics", "BlockAllocator",
            "PrefixMatch", "NULL_PAGE", "AdmissionQueue", "SlotTable",
-           "SlotSampler", "pick", "bucket_for", "pages_for", "make_trace"]
+           "SlotSampler", "pick", "bucket_for", "pages_for", "make_trace",
+           "make_mixed_trace", "trace_stats"]

@@ -175,18 +175,26 @@ class Engine:
         return ev
 
     def _step_action(self):
+        """This iteration's unit of work (subclass hook: the paged engine
+        interleaves chunked-prefill streams and swaps decode for
+        speculate-and-verify)."""
         if self._can_prefill():
             self._note_prefill_stall()
             return self._prefill_step()
-        if self.slots.active_slots:
+        if self._decodable_slots():
             return self._decode_step()
         return {"type": "idle"}
 
     def _note_prefill_stall(self):
         """Count a prefill step taken while decodable slots waited."""
-        if self.slots.active_slots:
+        if self._decodable_slots():
             self._stall_steps += 1
             self.metrics.set_gauge("prefill_stall_steps", self._stall_steps)
+
+    def _decodable_slots(self):
+        """Slots a batched decode step advances (subclass hook: the paged
+        engine leaves out slots whose prompt is still mid-chunked-prefill)."""
+        return self.slots.active_slots
 
     def _can_prefill(self):
         """True when the queue head can be admitted this step (subclass
@@ -307,7 +315,7 @@ class Engine:
         return bucket, first
 
     def _decode_step(self):
-        active = self.slots.active_slots
+        active = self._decodable_slots()
         nxt = self._decode_device(active)
         emitted = {}
         for slot in active:

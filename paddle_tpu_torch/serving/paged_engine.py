@@ -1,5 +1,5 @@
-"""Paged-KV serving engine with radix prefix reuse (port of
-`paddle_tpu/serving/paged_engine.py`).
+"""Paged-KV serving engine with radix prefix reuse, chunked prefill and
+speculative decoding (port of `paddle_tpu/serving/paged_engine.py`).
 
 `Engine` reserves a whole `max_len` stripe per slot; `PagedEngine` keeps
 ONE page pool [L, num_pages, nkv, page_size, hd] and a per-slot BLOCK
@@ -22,15 +22,28 @@ model), on the same iteration-level scheduler:
     pages it writes back over their valid positions only; decode writes
     keep a running absmax (`generation._kv_quant_write`) and attend
     through kernel B7. KV bytes per page are about half of bf16's, so an
-    equal byte budget holds about twice the pages.
+    equal byte budget holds about twice the pages;
+  - CHUNKED PREFILL (`prefill_chunk=`): a prompt suffix longer than the
+    chunk becomes a STREAM of page-aligned windows, and the scheduler
+    alternates one chunk with one unit of other work (an admission, a
+    decode or speculation step), so a long prompt no longer stalls every
+    decoding slot for its whole prefill. While a stream is in flight a
+    short prompt may pass queued long ones (the anti-convoy bypass);
+  - SPECULATIVE DECODING (`draft_params=`, a draft `Llama` such as
+    `generation.draft_from_params(model, n)`): a decode step becomes a
+    round of `serving/spec_decode.py::SpecDecoder`: the draft proposes
+    `spec_tokens` tokens, the target verifies them in one paged window
+    forward, greedy rows commit the longest exact match plus the target's
+    next token (the target's greedy output, token for token), sampling
+    rows accept by rejection sampling. A chunk-streamed prompt is mirrored
+    into the draft's cache window by window, never ahead of the target.
 
 The pool, the scratch stripe and the block tables live on the engine's
 device and are written in place. Greedy output is token-for-token the
 reference engine's.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-tensor parallelism (`mesh=`), chunked prefill (`prefill_chunk=`) and
-speculative decoding (`draft_params=`).
+Not ported yet (raises NotImplementedError naming its ROADMAP item):
+tensor parallelism (`mesh=`).
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from paddle_tpu_torch.models import llama_functional as lf
 from paddle_tpu_torch.serving.block_manager import NULL_PAGE, BlockAllocator
 from paddle_tpu_torch.serving.engine import Engine, Request
 from paddle_tpu_torch.serving.scheduler import bucket_for, pages_for
+from paddle_tpu_torch.serving.spec_decode import SpecDecoder
 
 __all__ = ["PagedEngine"]
 
@@ -132,25 +146,24 @@ class PagedEngine(Engine):
     kv_dtype:  None (pool in the model dtype) or "int8" (int8 pages with
                per-(page, kv head) absmax scales; outputs track the model
                dtype pool to an agreement bar, not bit for bit).
+    prefill_chunk: None, or the chunk length (a positive multiple of
+               page_size): prompt suffixes longer than it prefill in chunks
+               interleaved with decode steps.
+    draft_params: None, or a draft `Llama` on the same device with the
+               target's vocabulary: decode steps become speculation rounds
+               of `spec_tokens` drafts.
     device:    CUDA unless "cpu" is passed; the model must live there.
     """
 
     def __init__(self, model, *, max_slots=4, max_len=256, page_size=16,
                  num_pages=None, min_bucket=16, pad_id=0, metrics=None,
                  prefix_policy="radix", kv_dtype=None, mesh=None,
-                 prefill_chunk=None, draft_params=None, device=None):
+                 prefill_chunk=None, draft_params=None, spec_tokens=4,
+                 device=None):
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh=) is not ported yet: "
                 "ROADMAP A9")
-        if prefill_chunk is not None:
-            raise NotImplementedError(
-                "chunked prefill (prefill_chunk=) is not ported yet: "
-                "ROADMAP A1")
-        if draft_params is not None:
-            raise NotImplementedError(
-                "speculative decoding (draft_params=) is not ported yet: "
-                "ROADMAP A4")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r} must be None (the "
                              "model dtype) or 'int8'")
@@ -166,6 +179,23 @@ class PagedEngine(Engine):
         self.pages_per_slot = int(max_len) // self.page_size
         self.num_pages = (int(num_pages) if num_pages is not None
                           else int(max_slots) * self.pages_per_slot + 1)
+        if prefill_chunk is not None:
+            prefill_chunk = int(prefill_chunk)
+            if prefill_chunk < 1 or prefill_chunk % self.page_size:
+                raise ValueError(f"prefill_chunk={prefill_chunk} must be a "
+                                 f"positive multiple of page_size="
+                                 f"{page_size}")
+        self.prefill_chunk = prefill_chunk
+        self.draft_params = draft_params
+        self.spec_tokens = int(spec_tokens)
+        if draft_params is not None:
+            if self.spec_tokens < 1:
+                raise ValueError("spec_tokens must be >= 1")
+            if draft_params.args.vocab_size != model.args.vocab_size:
+                raise ValueError("draft and target must share a vocab")
+            if draft_params.device != model.device:
+                raise ValueError(f"draft on {draft_params.device}, target "
+                                 f"on {model.device}")
         super().__init__(model, max_slots=max_slots, max_len=max_len,
                          min_bucket=min_bucket, pad_id=pad_id,
                          metrics=metrics, device=device)
@@ -199,6 +229,14 @@ class PagedEngine(Engine):
         self._bt = [[] for _ in range(self.max_slots)]   # host block tables
         self._resv = {}            # slot -> pages still reserved for decode
         self._reserved_total = 0
+        self._chunk_streams = {}   # slot -> state of its chunked prefill
+        self._chunk_turn = False
+        self._admit_idx = None     # _can_prefill's admission scan
+        self._spec = SpecDecoder(self) if self.spec_enabled else None
+
+    @property
+    def spec_enabled(self):
+        return self.draft_params is not None
 
     def _pool_bytes(self):
         """K and V pools together, codes and scales of an int8 pool."""
@@ -224,11 +262,46 @@ class PagedEngine(Engine):
                 f"page_size={self.page_size})")
         return super().submit(req)
 
+    def _peek_hits(self, req):
+        """The prefix match of a queued request, without side effects,
+        memoized on the allocator's prefix_version: the anti-convoy scan
+        runs every step while a chunk stream is in flight, and the answer
+        only changes when the prefix index does (a registration, split or
+        eviction bumps the version)."""
+        ver = self._alloc.prefix_version
+        cached = getattr(req, "_hits_memo", None)
+        if cached is not None and cached[0] == ver:
+            return cached[1]
+        peek = self._alloc.match_prefix(req.prompt_ids, commit=False)
+        req._hits_memo = (ver, peek)
+        return peek
+
+    def _admission_index(self):
+        """Queue index to admit next: FIFO, except while a chunk stream is
+        in flight, when the first prompt whose suffix fits one chunk passes
+        queued long ones (a streaming long prefill must not convoy every
+        short one behind the next long). Longs keep FIFO order among
+        themselves, and the bypass exists only while a stream is active,
+        so they cannot starve."""
+        if not self.queue:
+            return None
+        if not (self.prefill_chunk and self._chunk_streams):
+            return 0
+        for i in range(len(self.queue)):
+            req = self.queue.peek_at(i)
+            if (req.prompt_ids.size - self._peek_hits(req).matched
+                    <= self.prefill_chunk):
+                return i
+        return 0
+
     def _can_prefill(self):
+        self._admit_idx = None
         if not (self.queue and self.slots.free_count):
             return False
-        req = self.queue.peek()
-        peek = self._alloc.match_prefix(req.prompt_ids, commit=False)
+        # the scan is kept for the _prefill_step that follows a True answer
+        self._admit_idx = self._admission_index()
+        req = self.queue.peek_at(self._admit_idx)
+        peek = self._peek_hits(req)
         # reviving a cached (refcount-0) hit consumes availability like a
         # fresh alloc; an actively shared hit is free. A mid-page partial
         # hit nets out: its COW copy costs one alloc but saves one page of
@@ -241,11 +314,41 @@ class PagedEngine(Engine):
                           self.page_size) - len(peek.pages) + revive)
         return need <= self._alloc.available - self._reserved_total
 
+    # -- the interleaving scheduler -----------------------------------------
+    def _step_action(self):
+        """While a prompt is mid-stream, alternate one chunk with one unit
+        of other work (admit a waiting request, or run a decode step: a
+        speculation round when a draft model is loaded)."""
+        if self._chunk_streams and self._chunk_turn:
+            self._chunk_turn = False
+            self._note_prefill_stall()
+            return self._chunk_step()
+        if self._can_prefill():
+            self._chunk_turn = True
+            self._note_prefill_stall()
+            return self._prefill_step()
+        if self._decodable_slots():
+            self._chunk_turn = True
+            if self.spec_enabled:
+                return self._spec.step()
+            return self._decode_step()
+        if self._chunk_streams:
+            return self._chunk_step()
+        return {"type": "idle"}
+
+    def _decodable_slots(self):
+        active = self.slots.active_slots
+        if not self._chunk_streams:
+            return active
+        return [s for s in active if s not in self._chunk_streams]
+
     # -- prefill ------------------------------------------------------------
     def _begin_paged_prefill(self, req, slot, n):
         """Match prefix hits, seat the block table, and reserve the
-        request's remaining worst-case pages. Returns h — the cached token
-        count the window starts at."""
+        request's remaining worst-case pages (the prompt pages still to be
+        written draw from it chunk by chunk, the decode tail at page
+        boundaries). Returns h — the cached token count the first window
+        starts at."""
         ps = self.page_size
         hit = self._alloc.match_prefix(req.prompt_ids)   # refs hit pages
         h = hit.matched
@@ -270,9 +373,13 @@ class PagedEngine(Engine):
         return h
 
     def _window_prefill_device(self, req, slot, start, end, n):
-        """Run the prefill window [start, end) of the prompt through the
-        suffix forward. Returns (bucket, token); the final window
-        (end == n) also registers the prompt's full pages."""
+        """Run the prefill window [start, end) of the prompt (the whole
+        suffix, or one chunk of it) through the suffix forward. A window
+        that starts mid-page rewrites the straddled page from the gathered
+        stripe plus its new tokens (the partial hit's COW copy on a first
+        window, the slot's own tail page on later chunks). Returns (bucket,
+        token); the token means something for the final window (end == n)
+        only, which also registers the prompt's full pages."""
         ps = self.page_size
         n_now = -(-end // ps) - len(self._bt[slot])
         new_pages = [self._alloc.alloc() for _ in range(n_now)]
@@ -294,17 +401,90 @@ class PagedEngine(Engine):
             # the prompt's FULL pages become hittable at once; the partial
             # tail page waits for _retire (decode keeps writing into it)
             self._alloc.register_prefix(req.prompt_ids, pages[:n // ps])
+            # a chunk-streamed prompt is mirrored into the draft window by
+            # window (_chunk_step) instead
+            if self.spec_enabled and slot not in self._chunk_streams:
+                self._spec.prefill_slot(req, slot, n)
         return sb, first
 
     def _prefill_device(self, req, slot, n):
+        """Monolithic prefill (no chunking, or a suffix within a chunk)."""
         h = self._begin_paged_prefill(req, slot, n)
         return self._window_prefill_device(req, slot, h, n, n)
+
+    def _prefill_step(self):
+        """Admit the request `_can_prefill` chose; a suffix longer than
+        `prefill_chunk` becomes a chunk stream that later steps advance."""
+        if self.prefill_chunk is None:
+            return super()._prefill_step()
+        idx = self._admit_idx if self._admit_idx is not None \
+            else self._admission_index()
+        req = self.queue.pop_at(idx)
+        slot = self._admit(req)
+        n = int(req.prompt_ids.size)
+        h = self._begin_paged_prefill(req, slot, n)
+        if n - h <= self.prefill_chunk:
+            bucket, first = self._window_prefill_device(req, slot, h, n, n)
+            self.metrics.observe("chunks_per_prompt", 1)
+            return self._complete_prefill(req, slot, bucket, first, n)
+        self._chunk_streams[slot] = {"req": req, "n": n, "done": h,
+                                     "ddone": 0, "chunks": 0,
+                                     "bucket": None, "first": None}
+        self.metrics.inc("chunked_prefills")
+        return self._chunk_step()
+
+    def _chunk_step(self):
+        """Advance the oldest chunk stream by one bounded unit of prefill:
+        a target chunk or, under speculation when the draft's mirror lags
+        the target, one draft window of the same size (the mirror never
+        runs ahead of the target, and never in one piece)."""
+        slot = next(iter(self._chunk_streams))
+        st = self._chunk_streams[slot]
+        req, n = st["req"], st["n"]
+        if self.spec_enabled and st["ddone"] < n and \
+                (st["ddone"] < st["done"] or st["done"] == n):
+            dstart = st["ddone"]
+            dend = min(dstart + self.prefill_chunk, n)
+            self._spec.prefill_window(req, slot, dstart, dend)
+            st["ddone"] = dend
+            self.metrics.inc("draft_prefill_chunks")
+            if dend < n or st["done"] < n:
+                return {"type": "draft_prefill_chunk",
+                        "request_id": req.request_id, "slot": slot,
+                        "from": dstart, "to": dend}
+            return self._finish_stream(slot, st)
+        start = st["done"]
+        end = min(start + self.prefill_chunk, n)
+        bucket, first = self._window_prefill_device(req, slot, start, end, n)
+        st["done"] = end
+        st["chunks"] += 1
+        self.metrics.inc("prefill_chunks")
+        self.metrics.inc("prefill_chunk_tokens", end - start)
+        if end == n:
+            st["bucket"], st["first"] = bucket, first
+            # the target's prompt KV is complete; the first token is
+            # emitted at _finish_stream, which may wait for the draft
+            self._record_prefill_done(req)
+            if not (self.spec_enabled and st["ddone"] < n):
+                return self._finish_stream(slot, st)
+        return {"type": "prefill_chunk", "request_id": req.request_id,
+                "slot": slot, "from": start, "to": end}
+
+    def _finish_stream(self, slot, st):
+        """The target's chunks and (under speculation) the draft's mirror
+        are complete: close the stream and emit the first token."""
+        del self._chunk_streams[slot]
+        self.metrics.observe("chunks_per_prompt", st["chunks"])
+        return self._complete_prefill(st["req"], slot, st["bucket"],
+                                      st["first"], st["n"])
 
     # -- decode -------------------------------------------------------------
     def _ensure_tail_pages(self, slot, top):
         """Make the slot's KV positions [npos, top] writable: COW the
         current tail page if it is shared or registered, then draw
-        page-boundary allocations from the slot's reservation."""
+        page-boundary allocations from the slot's reservation. Plain
+        decode (top == npos) and the speculation window (top == min(npos
+        + g, limit)) both go through it."""
         ps = self.page_size
         pages = self._bt[slot]
         pi = int(self._npos[slot]) // ps
@@ -350,7 +530,55 @@ class PagedEngine(Engine):
             self._alloc.release(p)
         self._bt[slot] = []
         self._reserved_total -= self._resv.pop(slot, 0)
+        if self.spec_enabled:
+            self._spec.retire(slot)
         super()._retire(slot)
+
+    # -- preemption ---------------------------------------------------------
+    def preempt(self, slot):
+        """Evict a DECODING request from its slot without losing work: the
+        returned state holds its block table (the page refs stay held, so
+        the pages are neither handed out nor evicted), its write position
+        and last token. `resume` re-seats it, and the continuation is the
+        one it would have had. The slot's remaining page reservation is
+        refunded while it waits."""
+        req = self.slots.owner(slot)
+        if slot in self._chunk_streams:
+            raise ValueError(f"slot {slot} is mid-prefill-stream; only "
+                             "decoding slots are preemptible")
+        if self.spec_enabled:
+            raise ValueError("preemption with speculative decoding is "
+                             "unsupported (the draft's stripe cache is "
+                             "not checkpointed)")
+        state = {"req": req, "pages": self._bt[slot],
+                 "npos": int(self._npos[slot]),
+                 "last_tok": int(self._last_tok[slot]),
+                 "resv": self._resv.get(slot, 0)}
+        self._bt[slot] = []
+        self._reserved_total -= self._resv.pop(slot, 0)
+        self.slots.retire(slot)
+        self._npos[slot] = 0
+        self._last_tok[slot] = self.pad_id
+        self.sampler.clear(slot)
+        self.metrics.inc("preemptions")
+        return state
+
+    def can_resume(self, state):
+        return bool(self.slots.free_count) and \
+            state["resv"] <= self._alloc.available - self._reserved_total
+
+    def resume(self, state):
+        """Re-seat a preempted request (see `preempt`); returns its new
+        slot. The caller checks `can_resume` first."""
+        req = state["req"]
+        slot = self._admit(req)
+        self._bt[slot] = state["pages"]
+        self._resv[slot] = state["resv"]
+        self._reserved_total += state["resv"]
+        self._npos[slot] = state["npos"]
+        self._last_tok[slot] = state["last_tok"]
+        self.metrics.inc("resumes")
+        return slot
 
     def reset(self):
         """Forget all requests, block tables AND the prefix cache (the
@@ -363,3 +591,7 @@ class PagedEngine(Engine):
         self._bt = [[] for _ in range(self.max_slots)]
         self._resv = {}
         self._reserved_total = 0
+        self._chunk_streams = {}
+        self._chunk_turn = False
+        if self.spec_enabled:
+            self._spec.reset()

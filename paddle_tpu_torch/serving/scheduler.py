@@ -68,6 +68,18 @@ class AdmissionQueue:
         the head's page demand before committing a prefill step)."""
         return self._q[0]
 
+    def peek_at(self, i):
+        """Entry i without removing it (the chunked-prefill anti-convoy
+        scan: a short prompt may pass queued longs while a chunk stream is
+        in flight)."""
+        return self._q[i]
+
+    def pop_at(self, i):
+        req = self._q[i]
+        del self._q[i]
+        self._gauge()
+        return req
+
     def __len__(self):
         return len(self._q)
 

@@ -1,9 +1,10 @@
-"""Kernels B1-B8 of the PyTorch port on an NVIDIA card: each kernel
+"""Kernels B1-B10 of the PyTorch port on an NVIDIA card: each kernel
 agrees with its plain PyTorch version on the same inputs, counts its
 launches, and rejects what it does not take. Marked `cuda`; the tests skip
 where there is no card. This file imports neither JAX nor the reference
 package, so the card's machine runs it without them, from the repo's root
-(B1-B3 are held to `chip_smoke.py`'s bar, which it imports from there):
+(B1-B3 and B9/B10 are held to `chip_smoke.py`'s bars, which it imports
+from there):
 
     python -m pytest --noconftest -p no:cacheprovider -q \
         tests/test_torch_kernels_cuda.py
@@ -16,6 +17,7 @@ import chip_smoke as cs
 from paddle_tpu_torch.kernels import attention as at
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import quantized_matmul as qm
+from paddle_tpu_torch.kernels import rms_norm as rn
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +268,73 @@ def test_flash_kernel_checks_on_card(cuda):
         fa.flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_fwd(q, q[:, :, :3].contiguous(), q[:, :, :3].contiguous())
+
+
+def _rms_check(x, w, g, dname):
+    """B9 and B10 on x, w, g against their plain versions (chip_smoke's
+    bars); returns the kernels' (y, r)."""
+    y, r = rn.rms_norm_fwd(x, w, cs.RMS_EPS)
+    ry, rr = rn.rms_norm_fwd_plain(x, w, cs.RMS_EPS)
+    dx, dw = rn.rms_norm_bwd(x, w, rr, g)
+    rdx, rdw = rn.rms_norm_bwd_plain(x, w, rr, g)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dw.dtype == x.dtype
+    ratios = cs.rms_ratios(torch, {"y": y, "r": r, "dx": dx, "dw": dw},
+                           {"y": ry, "r": rr, "dx": rdx, "dw": rdw}, dname)
+    assert max(ratios.values()) <= 1.0, ratios
+    return y, r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,h", [(8, 4096), (1, 128), (4097, 2048),
+                                    (300, 16384), (33, 8), (700, 11008)])
+def test_rms_norm_kernels_match_plain_on_card(cuda, dtype, rows, h):
+    x, w, g = cs.rms_case(torch, cuda, rows, h, dtype)
+    before = dict(rn.launches)
+    y, _ = _rms_check(x, w, g, str(dtype).replace("torch.", ""))
+    assert {k: rn.launches[k] - before[k] for k in before} == {
+        "rms_norm_fwd": 1, "rms_norm_bwd": 1}
+    # rows with a stride of their own (a view of a wider tensor), and no r
+    wide = torch.zeros(rows, h + 8, dtype=dtype, device=cuda)
+    wide[:, :h] = x
+    y2, r2 = rn.rms_norm_fwd(wide[:, :h], w, cs.RMS_EPS, save_r=False)
+    torch.cuda.synchronize()
+    assert r2 is None and torch.equal(y, y2)
+
+
+def test_rms_norm_autograd_on_card(cuda):
+    """`rms_norm` under autograd: B9 forward, B10 backward, against the
+    plain versions."""
+    x, w, g = cs.rms_case(torch, cuda, 64, 4096, torch.bfloat16)
+    xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = dict(rn.launches)
+    y = rn.rms_norm(xl.view(4, 16, 4096), wl, cs.RMS_EPS)
+    y.backward(g.view(4, 16, 4096))
+    torch.cuda.synchronize()
+    assert {k: rn.launches[k] - before[k] for k in before} == {
+        "rms_norm_fwd": 1, "rms_norm_bwd": 1}
+    ry, rr = rn.rms_norm_fwd_plain(x, w, cs.RMS_EPS)
+    rdx, rdw = rn.rms_norm_bwd_plain(x, w, rr, g)
+    ratios = cs.rms_ratios(
+        torch, {"y": y.detach().view(64, 4096), "dx": xl.grad, "dw": wl.grad},
+        {"y": ry, "dx": rdx, "dw": rdw}, "bfloat16")
+    assert max(ratios.values()) <= 1.0, ratios
+
+
+def test_rms_norm_kernel_checks_on_card(cuda):
+    x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        rn.rms_norm_fwd(x.half(), w.half(), 1e-6)
+    with pytest.raises(TypeError, match="dtype mismatch"):
+        rn.rms_norm_fwd(x.float(), w, 1e-6)
+    with pytest.raises(ValueError, match="H % 8"):
+        rn.rms_norm_fwd(x[:, :60], w[:60], 1e-6)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rn.rms_norm_fwd(torch.randn(4, 80, device=cuda,
+                                    dtype=torch.bfloat16)[:, 1:65], w, 1e-6)
+    with pytest.raises(ValueError, match="different devices"):
+        rn.rms_norm_fwd(x, w.cpu(), 1e-6)
+    r = torch.ones(4, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        rn.rms_norm_bwd(x, w, r.double(), x)
