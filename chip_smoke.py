@@ -7,20 +7,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. build        compile the four CUDA sources of
                   `paddle_tpu_torch/kernels/csrc`, one nvcc each, all started
-                  together.
+                  together; count the HGMMA (wgmma) instructions of B1's and
+                  B8's TMA kernels in their SASS (cuobjdump).
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode, B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
                   GQA), B8 weight-only int8 matmul (the four decode shapes,
-                  prefill M 512 and 2048, ragged M/K/N), in bf16 and f32; B1
-                  flash forward and B2 + B3 flash backward (the 7B leg's
-                  micro-batch, GQA, non-causal, cross-length, ragged, rows
-                  that see no key, head_dim 64, f32), each output vector
-                  within its own bar; then planted faults that the B1-B3 bar
-                  must reject; B9 and B10 (RMSNorm forward and backward) at
-                  the training legs' micro-batches, the decode rows, a ragged
-                  row count and in f32, each row of y and dx within its bar,
-                  then planted faults their bars must reject.
+                  prefill M 512 and 2048, ragged M/K/N), in bf16 and f32;
+                  B8's prefill routes in bf16 at their tile edges (M 17-2047
+                  with the four serving (K, N), a ragged shape on the TMA
+                  gate, two off it: K % 8 != 0, x 2 bytes off alignment),
+                  each call's route read off the counters, then planted
+                  faults B8's bar must reject (a K tile of the weight left
+                  out, one column tile's scales from its neighbour, the /127
+                  missing); B1 flash forward and B2 + B3 flash backward (the
+                  7B leg's micro-batch, GQA, non-causal, cross-length,
+                  ragged, rows that see no key, 129 rows over 127 keys,
+                  head_dim 64, f32), each output vector within its own bar;
+                  then planted faults that the B1-B3 bar must reject; B9 and
+                  B10 (RMSNorm forward and backward) at the training legs'
+                  micro-batches, the decode rows, a ragged row count and in
+                  f32, each row of y and dx within its bar, then planted
+                  faults their bars must reject.
   2a. train-check the loss and full grad tree of `forward_and_loss` (B1-B3,
                   fused CE) at Llama-2-7B width, 2 layers, s 1024, against an
                   f32 forward written here (materialized attention, unfused
@@ -57,7 +65,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                   held to a plain engine's.
   6. engine-int8  `quantize_params` of the bf16 model, on the card, serving the
                   same traffic through `PagedEngine(kv_dtype="int8")`: B5, B7
-                  and B8 must launch, the prefix-cache counters equal the bf16
+                  and B8 must launch (B8's TMA route > 0 times, its off-gate
+                  route 0 times), the prefix-cache counters equal the bf16
                   run's, the pool holds <= 0.51x its bytes. Then a profiled
                   decode window and `generate` over the int8 weights (B4, B8).
   7. logits-int8  as 4 for the int8 weights, against the f32 forward of their
@@ -111,6 +120,8 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
     "paged_decode_attention_int8": ("B7 paged_decode_attention (int8 pool)",
                                     ATTN_SRC, f"{REF}:595"),
     "weight_only_matmul": ("B8 weight_only_matmul", QMM_SRC, f"{REF}:101"),
+    "weight_only_matmul_prefill": ("B8 weight_only_matmul (prefill M=2048)",
+                                   QMM_SRC, f"{REF}:101"),
     "rms_norm_fwd": ("B9 rms_norm_fwd", RMS_SRC, f"{RMS_REF}:34"),
     "rms_norm_bwd": ("B10 rms_norm_bwd", RMS_SRC, f"{RMS_REF}:42"),
 }
@@ -122,6 +133,9 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
 # sums exact codes in f32 and rounds once. They may differ by a rounding or
 # two. f32: both compute in f32 and sum in different orders.
 TOL = {"bfloat16": 2.0**-6, "float32": 1e-5}
+# launch counters that must read 0 after the main path: B8's wmma tiles
+# serve only shapes off the TMA gate, which no main-path shape is
+OFF_PATH = ("weight_only_matmul_offgate",)
 # published peaks (NVIDIA data sheets, dense): bytes/s and bf16 flop/s
 PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100": (3.35e12, 989e12)}
 
@@ -249,6 +263,40 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build] {line.strip()}")
+    sass_check(built)
+
+
+# the kernels that must run on wgmma, by library: name fragments
+WGMMA_KERNELS = {"quantized_matmul": ("b8_tma_kernel",),
+                 "flash_attention": ("flash_fwd_tma_kernel",)}
+
+
+def sass_check(built):
+    """HGMMA (wgmma) instructions in each redesigned kernel's SASS, read
+    with cuobjdump from the libraries just built; raises when one has
+    none. Skipped, and said so, where the toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        log("[build] HGMMA count not checked: no cuobjdump")
+        return
+    for lib, frags in WGMMA_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(built[lib][0])],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = line.split("Function :")[1].strip()
+            elif fn and "HGMMA" in line:
+                counts[fn] = counts.get(fn, 0) + 1
+        for frag in frags:
+            mine = {f: c for f, c in counts.items() if frag in f}
+            log(f"[build] {frag}: HGMMA instructions by instantiation "
+                f"{sorted(mine.values())}")
+            if not mine:
+                raise AssertionError(f"{frag}: no HGMMA in its SASS")
 
 
 def phase_parity(torch, dev):
@@ -327,10 +375,102 @@ def phase_parity(torch, dev):
                   qm.weight_only_matmul, qm.dequant_matmul_plain,
                   matmul_case(torch, dev, dtype, m, k, n),
                   main and (m, k, n) == (8, 4096, 11008))
+    main_err.update(phase_b8_routes(torch, dev, check))
+    phase_b8_bar_teeth(torch, dev)
     main_err.update(phase_flash_parity(torch, dev))
     phase_flash_bar_teeth(torch, dev)
     main_err.update(phase_rms_parity(torch, dev))
     return main_err
+
+
+# B8's prefill regime at the edges of its tiles (128 rows, 128 or 256
+# columns, 64 K a stage): every M with the main path's four (K, N) pairs,
+# then a ragged shape on the TMA gate and two off it, each with the route
+# it must take
+B8_EDGE_M = (17, 100, 129, 512, 1500, 2047)
+B8_PAIRS = tuple((k, n) for k, n, _ in DECODE_MATMULS)
+
+
+def b8_offset_x(torch, x):
+    """x's values in a view whose data starts 2 bytes past a 16-byte
+    boundary: contiguous, but no TMA copy can read it."""
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    view = buf[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def phase_b8_routes(torch, dev, check):
+    """B8 bf16 on each route at its edges, within TOL of the plain version,
+    each call's route read off the launch counters. Returns the error of
+    the prefill row's shape (M=2048, K=4096, N=11008)."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+
+    cases = [(m, k, n, "tma") for m in B8_EDGE_M for k, n in B8_PAIRS]
+    cases += [(2048, 4096, 11008, "tma"), (333, 1000, 1008, "tma"),
+              (300, 1001, 4096, "mma"), (512, 4096, 4096, "mma offset")]
+    errs = {}
+    for m, k, n, want in cases:
+        x, w, s = matmul_case(torch, dev, torch.bfloat16, m, k, n)
+        if want == "mma offset":
+            x = b8_offset_x(torch, x)
+        way = qm.route(m, k, n, x.dtype, x.data_ptr(), w.data_ptr())
+        label = (f"B8 bfloat16 M={m} K={k} N={n}, route {way}"
+                 + (f", tile {qm.tile(m, n, qm._sms(dev))}"
+                    if way == "tma" else "")
+                 + (", x 2 bytes off 16-byte alignment"
+                    if want == "mma offset" else ""))
+        before = dict(qm.launches)
+        check(label, "weight_only_matmul", qm.weight_only_matmul,
+              qm.dequant_matmul_plain, (x, w, s))
+        took = {key: qm.launches[key] - before[key] for key in before}
+        expect = {"weight_only_matmul": 1,
+                  "weight_only_matmul_prefill": int(want == "tma"),
+                  "weight_only_matmul_offgate": int(want != "tma")}
+        if way != want.split()[0] or took != expect:
+            raise AssertionError(f"{label}: launches {took}, want the "
+                                 f"{want} route")
+        if (m, k, n) == (2048, 4096, 11008):
+            errs["weight_only_matmul_prefill"] = (
+                qm.weight_only_matmul(x, w, s).float()
+                - qm.dequant_matmul_plain(x, w, s).float()
+            ).abs().max().item()
+        del x, w, s
+    torch.cuda.empty_cache()
+    return errs
+
+
+def planted_b8_faults(torch, qm, x, w, s, k_tile=64, n_tile=128):
+    """B8 outputs with a fault planted, built from the plain version:
+    [(fault, faulty, right)]. The bar must reject each."""
+    right = qm.dequant_matmul_plain(x, w, s)
+    w_gap = w.clone()
+    w_gap[k_tile:2 * k_tile] = 0
+    s_shift = s.clone()
+    s_shift[n_tile:2 * n_tile] = s[:n_tile]
+    return [(f"one {k_tile}-row K tile of the weight left out",
+             qm.dequant_matmul_plain(x, w_gap, s), right),
+            (f"the scales of one {n_tile}-column tile taken from its "
+             "neighbour", qm.dequant_matmul_plain(x, w, s_shift), right),
+            ("the /127 missing", right * 127.0, right)]
+
+
+def phase_b8_bar_teeth(torch, dev, shape=(2048, 4096, 11008)):
+    """B8's bar (TOL * max(1, max |plain|)) rejects planted faults at the
+    prefill row's shape, each printed beside its ratio to the bar."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+
+    x, w, s = matmul_case(torch, dev, torch.bfloat16, *shape)
+    for fault, wrong, right in planted_b8_faults(torch, qm, x, w, s):
+        bar = TOL["bfloat16"] * max(1.0, right.float().abs().max().item())
+        ratio = (wrong.float() - right.float()).abs().max().item() / bar
+        log(f"[parity] B8 bar, planted fault at M={shape[0]} K={shape[1]} "
+            f"N={shape[2]}: {fault} is at {ratio:.2f} of the bar")
+        if not ratio > 1.0:
+            raise AssertionError(f"the B8 bar passes a planted fault: "
+                                 f"{fault} at {ratio}")
+    del x, w, s
+    torch.cuda.empty_cache()
 
 
 # B9/B10 parity cases: (label, rows, H, dtype); the first is the 7B leg's
@@ -479,6 +619,11 @@ FLASH_CASES = (
     ("bf16 causal sq1000 > sk300 (fully masked rows)", 1, 1000, 300, 8, 8,
      128, True, "bfloat16"),
     ("bf16 causal hd64 ragged s777 GQA 4/2", 2, 777, 777, 4, 2, 64, True,
+     "bfloat16"),
+    # one row past a 128-row Q tile, one key short of a 128-key tile
+    ("bf16 causal sq129/sk127 GQA 4/2 (rows 0-1 see no key)", 2, 129, 127,
+     4, 2, 128, True, "bfloat16"),
+    ("bf16 non-causal hd64 sq129/sk127", 1, 129, 127, 4, 4, 64, False,
      "bfloat16"),
     ("f32 causal s512 d128 GQA 4/2", 1, 512, 512, 4, 2, 128, True,
      "float32"),
@@ -1011,9 +1156,10 @@ def phase_timing(torch, dev, name, main_err, launches):
     rows = []
 
     def record(wrapper, fn, plain, library, nbytes, flops, label, row=True):
-        """Times one shape; the kernel's JSON row when `row`. `library`: a
-        callable, or its time in ms measured already. Returns the kernel's
-        ms and the bound's."""
+        """Times one shape; the kernel's JSON row when `row` (True: under
+        the wrapper's key of KERNELS; a string: under that key). `library`:
+        a callable, or its time in ms measured already. Returns the
+        kernel's ms and the bound's."""
         ms = cuda_ms(torch, fn, flush=flush)
         log(f"[timing] {label}: back-to-back kernel "
             f"{cuda_ms_loop(torch, fn):.4f} ms, plain "
@@ -1030,10 +1176,11 @@ def phase_timing(torch, dev, name, main_err, launches):
             f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
             f"{bound / ms:.1%} of bound")
         if row:
-            js, src, replaces = KERNELS[wrapper]
+            key = row if isinstance(row, str) else wrapper
+            js, src, replaces = KERNELS[key]
             rows.append({"name": js, "route": "cuda", "source": src,
-                         "replaces": replaces, "launches": launches[wrapper],
-                         "max_abs_err": main_err[wrapper], "ms": ms,
+                         "replaces": replaces, "launches": launches[key],
+                         "max_abs_err": main_err[key], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
                          "bound_by": by, "library_ms": lib_ms})
         return ms, bound
@@ -1149,19 +1296,28 @@ def phase_timing(torch, dev, name, main_err, launches):
     del ck, cv
 
     # B8: one call per shape of the decode step at M = 8 (the JSON row: the
-    # FFN's 4096 x 11008), then prefill at M = 2048; the library call is
+    # FFN's 4096 x 11008), then prefill at M = 2048 (its own row) and at
+    # the int8 engine's prompt lengths 512 and 1500; the library call is
     # torch.matmul with the weight already dequantized to bf16
     step_ms = step_bound = 0.0
     for m, k, n, calls in [(8, k, n, c) for k, n, c in DECODE_MATMULS] + [
-            (2048, 4096, 11008, 0)]:
+            (2048, 4096, 11008, 0), (512, 4096, 4096, 0),
+            (512, 4096, 11008, 0), (1500, 4096, 4096, 0),
+            (1500, 4096, 11008, 0)]:
         x, w, s = matmul_case(torch, dev, torch.bfloat16, m, k, n)
         wd = w.to(torch.bfloat16) * (s.to(torch.bfloat16) / 127.0)
+        way = qm.route(m, k, n, x.dtype, x.data_ptr(), w.data_ptr())
+        if way == "tma":
+            way += f", tile {qm.tile(m, n, qm._sms(dev))}"
+        row = ("weight_only_matmul_prefill" if (m, k, n) == (2048, 4096,
+                                                             11008)
+               else (m, k, n) == (8, 4096, 11008))
         ms, bound = record(
             "weight_only_matmul", lambda: qm.weight_only_matmul(x, w, s),
             lambda: qm.dequant_matmul_plain(x, w, s),
             lambda: torch.matmul(x, wd),
             k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
-            f"B8 M={m} K={k} N={n}", row=(m, k, n) == (8, 4096, 11008))
+            f"B8 M={m} K={k} N={n} ({way})", row=row)
         step_ms += calls * ms
         step_bound += calls * bound
         del x, w, s, wd
@@ -1311,6 +1467,10 @@ def phase_engine(torch, dev, model, kv_dtype=None, label="engine",
               "pages returned": eng._alloc.pages_in_use == 0}
     if model.quantized:
         checks["B8 launched"] = launches["weight_only_matmul"] > 0
+        checks["B8 prefill (TMA) route launched"] = \
+            launches["weight_only_matmul_prefill"] > 0
+        checks["B8 off-gate route not launched"] = \
+            launches["weight_only_matmul_offgate"] == 0
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{label} phase: {failed}")
@@ -1329,7 +1489,7 @@ PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
                  "B6": ("paged_decode_attention_kernel",),
                  "B7": ("paged_decode_attention_q8_kernel",),
                  "B8": ("b8_gemv_kernel", "b8_reduce_kernel",
-                        "b8_mma_kernel", "b8_simt_kernel"),
+                        "b8_tma_kernel", "b8_mma_kernel", "b8_simt_kernel"),
                  "B9": ("rms_norm_fwd_kernel",),
                  "B10": ("rms_norm_bwd_kernel", "rms_norm_dw_kernel")}
 
@@ -2168,10 +2328,15 @@ def main(argv=None):
     main_path = {"train", "engine", "generate", "chunked", "spec",
                  "engine-int8", "capacity"}
     if main_path <= set(phases):
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = [k for k, v in launches.items()
+                   if v == 0 and k not in OFF_PATH]
         if missing:
             raise AssertionError(f"kernels never launched on the main path: "
                                  f"{missing}")
+        stray = {k: launches[k] for k in OFF_PATH if launches[k]}
+        if stray:
+            raise AssertionError(f"off-path kernels launched on the main "
+                                 f"path: {stray}")
     log(f"[main path] launches {launches}")
     model = None
     torch.cuda.empty_cache()

@@ -3,9 +3,10 @@
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface, at first use, into `build/paddle_tpu_torch/` at the root of the
 checkout (listed in `.gitignore`), under a name keyed by a hash of the
-source and the flags: an edited source builds anew, an unchanged one loads
-the library already built. `build_all` starts one `nvcc` per source, all
-at once, and waits for them together. A library is loaded with `ctypes`;
+source, the headers beside it (`csrc/*.cuh`) and the flags: an edited
+source or header builds anew, an unchanged one loads the library already
+built. `build_all` starts one `nvcc` per source, all at once, and waits
+for them together. A library is loaded with `ctypes`;
 every pointer and the stream travel as `c_void_p`.
 """
 
@@ -39,7 +40,7 @@ _SIGNATURES = {
         "pt_paged_decode_attention_q8": [_P] * 8 + [_I] * 7 + [_F, _P],
     },
     "quantized_matmul": {
-        "pt_weight_only_matmul": [_P] * 5 + [_I] * 6 + [_P],
+        "pt_weight_only_matmul": [_P] * 5 + [_I] * 9 + [_P],
     },
     "flash_attention": {
         "pt_flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
@@ -68,7 +69,10 @@ def _nvcc():
 
 def _target(name):
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_FLAGS).encode())
+    # the headers of csrc/ too: an edited header builds every source anew
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 

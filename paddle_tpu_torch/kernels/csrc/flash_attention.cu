@@ -2,8 +2,9 @@
 //
 // Each replaces one Pallas kernel of paddle_tpu/kernels/flash_attention.py:
 //
-//   flash_fwd_kernel      <- _fwd_kernel     (B1, :112): out and the f32 lse of
-//       causal or full online-softmax attention.
+//   flash_fwd_tma_kernel  <- _fwd_kernel     (B1, :112): out and the f32 lse of
+//       causal or full online-softmax attention (bf16; flash_fwd_f32_kernel
+//       in f32).
 //   flash_bwd_dq_kernel   <- _bwd_dq_kernel  (B2, :215): dq = scale * sum_j
 //       p * (dp - delta) * k, P rebuilt from lse.
 //   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel (B3, :260): dk, dv of one kv head,
@@ -19,20 +20,37 @@
 // writes out 0 and lse -1e30 (:159-166). Rows and keys past Sq / Sk are
 // zero-filled in shared memory and masked.
 //
-// bf16 design: one block of 4 warps per (64-row tile, head, batch) for B1 and
+// B1, bf16 (flash_fwd_tma_kernel): what bounds it is operations (68.7 GFLOP
+// at the 7B leg's shape, 0.07 ms at 989 TFLOP/s), and only wgmma reaches
+// that rate. One block of three warpgroups per (128-row Q tile, head, batch),
+// long rows first. Warpgroup 2 gives up its registers (setmaxnreg) and one
+// of its threads issues every copy by TMA over 4-D tensor maps of the public
+// [B, S, H, D] layout, boxes of 1 x 128 rows x 1 x 64 columns in the 128-byte
+// swizzle (D = 128 takes two): Q once, then K and V tiles of 128 keys through
+// a 2-stage ring, each tile on its own mbarrier so that Q.K^T starts before V
+// lands; rows past Sq and Sk arrive as zeros. Each consumer warpgroup owns 64
+// rows: S = Q.K^T by wgmma SS (K the K-major B operand), the online softmax on
+// the f32 scores in registers (scale * log2 e folded into one FMA before
+// exp2), P rounded to bf16 in registers as the A operand of wgmma RS for
+// P.V, V the MN-major B operand: P never touches shared memory. Only the key
+// tiles that the offset diagonal or the Sk tail crosses run the mask (the
+// first ones of the loop, which walks the key tiles backwards); the other
+// iterations run none. The two warpgroups run unsynchronised, so one's
+// softmax overlaps the other's products.
+//
+// B2, B3 (bf16): one block of 4 warps per (64-row tile, head, batch) for
 // B2, per (64-key tile, kv head, batch) for B3. Every product runs on the
 // tensor cores as mma.sync m16n8k16 (bf16 in, f32 accumulators) with the
 // fragment layouts of the PTX ISA, so the score tile and the accumulators stay
 // in registers: the softmax statistics are per-row f32 values reduced across a
-// quad of lanes, and P (B1, B2) or dS (B2, B3) becomes the next product's A
+// quad of lanes, and P (B2) or dS (B2, B3) becomes the next product's A
 // operand in place, rounded to bf16 where the reference rounds
-// (p.astype(v.dtype), ds.astype(k.dtype), p.astype(do.dtype)). (wmma's
-// accumulator layout is opaque, which would force the per-row rescale of the
-// output through shared memory.) Tiles stream through a double-buffered ring
-// in shared memory filled by cp.async (16 bytes a thread, zero-fill past the
-// end): K/V tiles of 64 keys for B1/B2, Q/dO tiles of 32 rows for B3. B3 keeps
-// dk and dv of its 64 keys in registers across the whole group and all q
-// tiles, so the sum over the group needs no atomics and is deterministic.
+// (p.astype(v.dtype), ds.astype(k.dtype), p.astype(do.dtype)). Tiles stream
+// through a double-buffered ring in shared memory filled by cp.async (16
+// bytes a thread, zero-fill past the end): K/V tiles of 64 keys for B2, Q/dO
+// tiles of 32 rows for B3. B3 keeps dk and dv of its 64 keys in registers
+// across the whole group and all q tiles, so the sum over the group needs no
+// atomics and is deterministic.
 //
 // f32 (the parity checks and the f32 training check only): the same three
 // functions on the CUDA cores in full f32, 32 x 32 tiles, 256 threads, one
@@ -40,14 +58,23 @@
 //
 // What bounds them: operations. At the 7B leg's shape (b2 h32 s2048 d128,
 // causal) B1 does 68.7 GFLOP, B2 103, B3 137: 0.07-0.14 ms at 989 TFLOP/s,
-// against ~0.04 ms of bytes. What the simple design leaves: mma.sync reaches
-// about two thirds of the wgmma rate, there is no TMA or warp specialisation,
-// V and the strided operands are read from shared memory two bf16 at a time
-// (no ldmatrix), and a diagonal tile computes its masked half.
+// against ~0.04 ms of bytes. What B1's design leaves: a warpgroup waits for
+// its own products (a software pipeline that issues tile j's Q.K^T beside
+// tile j - 1's P.V measured slower: the consumer code is held to the 168
+// registers of the block's launch bound, setmaxnreg notwithstanding, and it
+// spilled), the block is not persistent, and the two warpgroups are not
+// scheduled against each other (FA3's ping-pong). What B2/B3's
+// simple design leaves: mma.sync reaches about two thirds of the wgmma rate,
+// there is no TMA or warp specialisation, V and the strided operands are
+// read from shared memory two bf16 at a time (no ldmatrix), and a diagonal
+// tile computes its masked half.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -200,148 +227,217 @@ __device__ __forceinline__ int key_tiles(int i0, int Sk, int causal,
 }
 
 // ---------------------------------------------------------------------------
-// B1: forward, bf16
+// B1: forward, bf16 (TMA + wgmma)
 // ---------------------------------------------------------------------------
 
+constexpr int kFwdRows = 128;     // query rows a block: 64 a warpgroup
+constexpr int kFwdKeys = 128;     // keys a tile
+constexpr int kFwdStages = 2;
+constexpr int kFwdThreads = 384;  // consumer warpgroups 0, 1; producer 2
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out,
+constexpr size_t fwd_smem() {
+  // Q, then K and V per stage; mbarriers: q, 2 x (full K, full V, empty)
+  return (size_t)(kFwdRows + 2 * kFwdStages * kFwdKeys) * D * 2 +
+         (1 + 3 * kFwdStages) * 8 + 1024;
+}
+
+// the A operand of k16 step kk of P.V from the score accumulator (columns
+// 16 kk .. 16 kk + 15), rounded to bf16 (p.astype(v.dtype))
+__device__ __forceinline__ void acc_to_a16(uint32_t* a, const float* p,
+                                           int kk) {
+  a[0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
+  a[1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
+  a[2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
+  a[3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
+}
+
+// one block per (128-row Q tile, head, batch); key tiles of 128 walked from
+// the last (the ones the causal diagonal or the Sk tail cross) to the first
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
+    const __grid_constant__ CUtensorMap tmap_q,
+    const __grid_constant__ CUtensorMap tmap_k,
+    const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hk, int causal,
     float scale) {
-  constexpr int LD = D + 8;
-  constexpr int kTile = 64 * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kTile;        // [2][64][LD]
-  bf16* Vs = Ks + 2 * kTile;    // [2][64][LD]
+  using namespace hopper;
+  constexpr int kAtoms = D / 64;                    // 64-wide column blocks
+  constexpr int kQAtom = kFwdRows * 128;            // bytes of one block
+  constexpr int kKVAtom = kFwdKeys * 128;
+  constexpr int kKVBytes = kAtoms * kKVAtom;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* Ks = Qs + kAtoms * kQAtom;               // [stage][atom][key][64]
+  uint8_t* Vs = Ks + kFwdStages * kKVBytes;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + kFwdStages * kKVBytes);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + kFwdStages;
+  uint64_t* empty = vfull + kFwdStages;
 
-  const int n_qt = (Sq + 63) / 64;
-  const int i0 = (n_qt - 1 - (int)blockIdx.x) * 64;   // long rows first
+  const int n_qt = (Sq + kFwdRows - 1) / kFwdRows;
+  const int i0 = (n_qt - 1 - (int)blockIdx.x) * kFwdRows;   // long rows first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
   const int off = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int iA = i0 + warp * 16 + g, iB = iA + 8;   // this thread's rows
-  const int n_kt = key_tiles(i0, Sk, causal, off);
-
-  load_rows<D, 64>(Qs, q, b, i0, Sq, H, h, tid);
-  if (n_kt > 0) {
-    load_rows<D, 64>(Ks, k, b, 0, Sk, Hk, hk, tid);
-    load_rows<D, 64>(Vs, v, b, 0, Sk, Hk, hk, tid);
+  int n_kt = (Sk + kFwdKeys - 1) / kFwdKeys;
+  if (causal) {
+    const int last = i0 + kFwdRows - 1 + off;
+    n_kt = min(n_kt, last < 0 ? 0 : last / kFwdKeys + 1);
   }
-  cp_async_commit();
-
-  float o[D / 8][4];
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float mA = kNegInf, mB = kNegInf, lA = 0.f, lB = 0.f;
-
-  for (int n = 0; n < n_kt; ++n) {
-    const int cur = n & 1;
-    if (n + 1 < n_kt) {
-      load_rows<D, 64>(Ks + (cur ^ 1) * kTile, k, b, (n + 1) * 64, Sk, Hk, hk,
-                       tid);
-      load_rows<D, 64>(Vs + (cur ^ 1) * kTile, v, b, (n + 1) * 64, Sk, Hk, hk,
-                       tid);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 256);   // every consumer thread releases
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kc = Ks + cur * kTile;
-    const bf16* Vc = Vs + cur * kTile;
-
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      frag_a(a, Qs, LD, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bb[2];
-        frag_bt(bb, Kc, LD, j * 8, kk, g, t);
-        mma16816(s[j], a, bb);
-      }
-    }
-
-    // masked scores sit at -1e30: out of the max, p = 0 by select
-    const int j0 = n * 64;
-    float tmA = kNegInf, tmB = kNegInf;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j0 + j * 8 + 2 * t + e;
-        s[j][e] = visible(iA, col, Sq, Sk, causal, off) ? s[j][e] * scale
-                                                        : kNegInf;
-        s[j][2 + e] = visible(iB, col, Sq, Sk, causal, off)
-                          ? s[j][2 + e] * scale : kNegInf;
-        tmA = fmaxf(tmA, s[j][e]);
-        tmB = fmaxf(tmB, s[j][2 + e]);
-      }
-    const float mnA = fmaxf(mA, quad_max(tmA));
-    const float mnB = fmaxf(mB, quad_max(tmB));
-    const float alphaA = exp2f((mA - mnA) * kLog2e);
-    const float alphaB = exp2f((mB - mnB) * kLog2e);
-    float sumA = 0.f, sumB = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float pa = s[j][e] == kNegInf
-                             ? 0.f : exp2f((s[j][e] - mnA) * kLog2e);
-        const float pb = s[j][2 + e] == kNegInf
-                             ? 0.f : exp2f((s[j][2 + e] - mnB) * kLog2e);
-        s[j][e] = pa;
-        s[j][2 + e] = pb;
-        sumA += pa;
-        sumB += pb;
-      }
-    lA = lA * alphaA + quad_sum(sumA);
-    lB = lB * alphaB + quad_sum(sumB);
-    mA = mnA;
-    mB = mnB;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= alphaA; o[i][1] *= alphaA;
-      o[i][2] *= alphaB; o[i][3] *= alphaB;
-    }
-    // O += P V, P rounded to bf16 (p.astype(v.dtype))
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t bb[2];
-        frag_b(bb, Vc, LD, kk * 16, dt * 8, g, t);
-        mma16816(o[dt], a, bb);
-      }
-    }
-    __syncthreads();   // the next iteration refills this buffer
+    fence_barrier_init();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  const float invA = lA > 0.f ? 1.f / lA : 0.f;
-  const float invB = lB > 0.f ? 1.f / lB : 0.f;
-  if (t == 0) {
-    float* lrow = lse + ((int64_t)b * H + h) * Sq;
-    if (iA < Sq) lrow[iA] = lA > 0.f ? mA + logf(lA) : kNegInf;
-    if (iB < Sq) lrow[iB] = lB > 0.f ? mB + logf(lB) : kNegInf;
-  }
+  if (wg == 2) {
+    // producer: Q once, then K and V tiles through the ring; rows past Sq
+    // and Sk arrive as zeros
+    setmaxnreg_dec<40>();
+    if (t == 0) {
+      mbar_expect_tx(qbar, kAtoms * kQAtom);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (iA < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * Sq + iA) * H + h) * D + col) =
-          __floats2bfloat162_rn(o[dt][0] * invA, o[dt][1] * invA);
-    if (iB < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          out + (((int64_t)b * Sq + iB) * H + h) * D + col) =
-          __floats2bfloat162_rn(o[dt][2] * invB, o[dt][3] * invB);
+      for (int a = 0; a < kAtoms; ++a)
+        tma_load_4d(Qs + a * kQAtom, &tmap_q, qbar, a * 64, h, i0, b);
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % kFwdStages, j0 = (n_kt - 1 - it) * kFwdKeys;
+        if (it >= kFwdStages) mbar_wait(&empty[s], (it / kFwdStages - 1) & 1);
+        mbar_expect_tx(&kfull[s], kKVBytes);
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(Ks + s * kKVBytes + a * kKVAtom, &tmap_k, &kfull[s],
+                      a * 64, hk, j0, b);
+        mbar_expect_tx(&vfull[s], kKVBytes);
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(Vs + s * kKVBytes + a * kKVAtom, &tmap_v, &vfull[s],
+                      a * 64, hk, j0, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int warp = t / 32, g = (t % 32) / 4, q4 = t % 4;
+    const int rA = i0 + wg * 64 + warp * 16 + g, rB = rA + 8;  // this thread's
+    const float sl2 = scale * kLog2e;
+    float o[D / 2], sc[kFwdKeys / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // running max of the raw scores, per-thread partial row sums
+    float mA = -INFINITY, mB = -INFINITY, lA = 0.f, lB = 0.f;
+    const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128;
+    mbar_wait(qbar, 0);
+
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % kFwdStages, j0 = (n_kt - 1 - it) * kFwdKeys;
+      const int par = (it / kFwdStages) & 1;
+      // S = Q K^T: K as the K-major B operand
+      mbar_wait(&kfull[s], par);
+      const uint32_t k_addr = smem_u32(Ks + s * kKVBytes);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int a = kk / 4, c = (kk % 4) * 32;
+        wgmma_ss_n128<0>(sc, sw128_desc(q_addr + a * kQAtom + c, 16, 1024),
+                         sw128_desc(k_addr + a * kKVAtom + c, 16, 1024),
+                         kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // masks only where the offset diagonal or the Sk tail crosses the
+      // tile: a select to -inf before the max, so that exp2 gives exactly 0
+      // (a select, never a product with a 0/1 mask)
+      if (j0 + kFwdKeys > Sk || (causal && j0 + kFwdKeys - 1 > i0 + off)) {
+#pragma unroll
+        for (int i = 0; i < kFwdKeys / 2; ++i) {
+          const int col = j0 + 8 * (i / 4) + 2 * q4 + (i % 2);
+          const int row = ((i / 2) % 2) ? rB : rA;
+          if (col >= Sk || (causal && col > row + off)) sc[i] = -INFINITY;
+        }
+      }
+      float tA = -INFINITY, tB = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kFwdKeys / 2; ++i) {
+        if ((i / 2) % 2) tB = fmaxf(tB, sc[i]);
+        else tA = fmaxf(tA, sc[i]);
+      }
+      const float mnA = fmaxf(mA, quad_max(tA));
+      const float mnB = fmaxf(mB, quad_max(tB));
+      // exp2(s * scale * log2 e - m * scale * log2 e) as one FMA; a row
+      // that has seen no key yet keeps m = -inf and subtracts 0
+      const float bA = mnA == -INFINITY ? 0.f : mnA * sl2;
+      const float bB = mnB == -INFINITY ? 0.f : mnB * sl2;
+      const float alphaA = exp2f(fmaf(mA, sl2, -bA));
+      const float alphaB = exp2f(fmaf(mB, sl2, -bB));
+      float sumA = 0.f, sumB = 0.f;
+#pragma unroll
+      for (int i = 0; i < kFwdKeys / 2; ++i) {
+        if ((i / 2) % 2) {
+          sc[i] = exp2f(fmaf(sc[i], sl2, -bB));
+          sumB += sc[i];
+        } else {
+          sc[i] = exp2f(fmaf(sc[i], sl2, -bA));
+          sumA += sc[i];
+        }
+      }
+      lA = lA * alphaA + sumA;
+      lB = lB * alphaB + sumB;
+      mA = mnA;
+      mB = mnB;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= ((i / 2) % 2) ? alphaB : alphaA;
+
+      // O += P V: P from registers (bf16), V as the MN-major B operand
+      uint32_t pa[kFwdKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) acc_to_a16(pa[kk], sc, kk);
+      mbar_wait(&vfull[s], par);
+      const uint32_t v_addr = smem_u32(Vs + s * kKVBytes);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
+        const uint64_t dv = sw128_desc(v_addr + kk * 2048, kKVAtom, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+        else
+          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      mbar_arrive(&empty[s]);
+    }
+
+    lA = quad_sum(lA);
+    lB = quad_sum(lB);
+    const float invA = lA > 0.f ? 1.f / lA : 0.f;
+    const float invB = lB > 0.f ? 1.f / lB : 0.f;
+    if (q4 == 0) {
+      float* lrow = lse + ((int64_t)b * H + h) * Sq;
+      if (rA < Sq) lrow[rA] = lA > 0.f ? mA * scale + logf(lA) : kNegInf;
+      if (rB < Sq) lrow[rB] = lB > 0.f ? mB * scale + logf(lB) : kNegInf;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int col = 8 * (i / 4) + 2 * q4;
+      const bool upper = (i / 2) % 2;
+      const int row = upper ? rB : rA;
+      const float inv = upper ? invB : invA;
+      if (row < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (((int64_t)b * Sq + row) * H + h) * D + col) =
+            __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+    }
   }
 }
 
@@ -921,8 +1017,6 @@ void allow_smem(K kernel, size_t bytes) {
 }
 
 template <int D>
-constexpr size_t fwd_smem() { return (size_t)5 * 64 * (D + 8) * 2; }
-template <int D>
 constexpr size_t dq_smem() { return (size_t)6 * 64 * (D + 8) * 2; }
 template <int D>
 constexpr size_t dkv_smem() {
@@ -947,14 +1041,33 @@ struct Dims {
 };
 
 template <int D>
-void launch_fwd(const void* q, const void* k, const void* v, void* out,
-                void* lse, Dims m, int dtype, cudaStream_t st) {
+int launch_fwd(const void* q, const void* k, const void* v, void* out,
+               void* lse, Dims m, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    auto kern = flash_fwd_kernel<D>;
+    // 4-D maps over [B, S, heads, D] (innermost first), boxes of one
+    // (batch, head) x 128 rows x 64 columns, 128-byte swizzle
+    CUtensorMap tq, tk, tv;
+    const cuuint64_t qd[4] = {D, (cuuint64_t)m.H, (cuuint64_t)m.Sq,
+                              (cuuint64_t)m.B};
+    const cuuint64_t qs[3] = {D * 2, (cuuint64_t)m.H * D * 2,
+                              (cuuint64_t)m.Sq * m.H * D * 2};
+    const cuuint64_t kd[4] = {D, (cuuint64_t)m.Hk, (cuuint64_t)m.Sk,
+                              (cuuint64_t)m.B};
+    const cuuint64_t ks[3] = {D * 2, (cuuint64_t)m.Hk * D * 2,
+                              (cuuint64_t)m.Sk * m.Hk * D * 2};
+    const cuuint32_t qb[4] = {64, 1, kFwdRows, 1};
+    const cuuint32_t kb[4] = {64, 1, kFwdKeys, 1};
+    const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+    const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
+    if (!hopper::make_map(&tq, bf, 4, q, qd, qs, qb, sw) ||
+        !hopper::make_map(&tk, bf, 4, k, kd, ks, kb, sw) ||
+        !hopper::make_map(&tv, bf, 4, v, kd, ks, kb, sw))
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_fwd_tma_kernel<D>;
     allow_smem(kern, fwd_smem<D>());
-    kern<<<dim3((m.Sq + 63) / 64, m.H, m.B), kThreads, fwd_smem<D>(), st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out,
-        (float*)lse, m.Sq, m.Sk, m.H, m.Hk, m.causal, m.scale);
+    kern<<<dim3((m.Sq + kFwdRows - 1) / kFwdRows, m.H, m.B), kFwdThreads,
+           fwd_smem<D>(), st>>>(tq, tk, tv, (bf16*)out, (float*)lse, m.Sq,
+                                m.Sk, m.H, m.Hk, m.causal, m.scale);
   } else {
     auto kern = flash_fwd_f32_kernel<D>;
     allow_smem(kern, fwd_f32_smem<D>());
@@ -963,6 +1076,7 @@ void launch_fwd(const void* q, const void* k, const void* v, void* out,
                  (float*)out, (float*)lse, m.Sq, m.Sk, m.H, m.Hk, m.causal,
                  m.scale);
   }
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -1027,11 +1141,11 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             float scale, void* stream) {
   if (!dims_ok(B, Sq, Sk, H, Hk, D, dtype)) return (int)cudaErrorInvalidValue;
   const Dims m{B, Sq, Sk, H, Hk, causal, scale};
-  if (D == 128)
-    launch_fwd<128>(q, k, v, out, lse, m, dtype, (cudaStream_t)stream);
-  else
-    launch_fwd<64>(q, k, v, out, lse, m, dtype, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  return D == 128
+             ? launch_fwd<128>(q, k, v, out, lse, m, dtype,
+                               (cudaStream_t)stream)
+             : launch_fwd<64>(q, k, v, out, lse, m, dtype,
+                              (cudaStream_t)stream);
 }
 
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,

@@ -10,7 +10,7 @@
 // (both operands of the K tail, as the reference zeroes both, :114-121) and
 // out-of-range outputs are not written.
 //
-// Three regimes, picked by shape only:
+// Four kernels, picked by shape only (the caller's `route`):
 //
 //   b8_gemv_kernel (M <= 16): decode. What bounds it: bytes. At Llama-2-7B
 //     width a decode step streams 6.6 GB of int8 weights, 2 * M flops a byte.
@@ -25,27 +25,57 @@
 //     card, K is split across blocks (gridDim.y); the blocks then write f32
 //     partial sums that b8_reduce_kernel adds in a fixed order and scales, so
 //     the result does not depend on block timing.
-//   b8_mma_kernel (M > 16, bf16): prefill. What bounds it: operations
-//     (2 M N K; a 2048-row prefill of the 4096 x 11008 FFN matrix is 185
-//     GFLOP, 0.19 ms at 989 TFLOP/s). 128 x 128 output tiles, 8 warps
+//   b8_tma_kernel (M > 16, bf16, on the TMA gate): prefill. What bounds it:
+//     operations (2 M N K; a 2048-row prefill of the 4096 x 11008 FFN matrix
+//     is 185 GFLOP, 0.19 ms at 989 TFLOP/s), and only wgmma reaches that
+//     rate. A block of three warpgroups owns a BM x BN output tile (256 x
+//     128, 128 x 256 or 128 x 128: the caller picks what fills the card at
+//     the shape). Warpgroup 2 gives up its registers (setmaxnreg) and one of
+//     its threads keeps a ring of 3-4 stages full by TMA, each stage guarded
+//     by a full and an empty mbarrier: x [BM x 64 K] bf16, K-major, 128-byte
+//     swizzle, and the int8 codes [64 K x BN], N contiguous, zero-filled past
+//     M, N and K by the copy itself. Nothing else in the block spends an
+//     instruction on addresses. wgmma reads B only from shared memory, so the
+//     codes are widened there (route (a); route (b), the operands swapped
+//     with the codes as a register A operand, would need the codes in the A
+//     fragment order, K-pairs of one N row, which an N-contiguous tile does
+//     not give without a byte transpose): the two consumer warpgroups widen
+//     the landed codes into a bf16 tile, MN-major in 128-byte swizzled
+//     [64 K x 64 N] blocks, by byte permutes (each code exact, no rounding
+//     conversion), then each runs wgmma.m64n{128|64}k16 SS twice a k16 step
+//     over its 128 rows, f32 sums in registers. At BM = 256 each warpgroup
+//     owns 128 rows and widens half the K rows of the codes; at BM = 128 each
+//     owns half the columns and widens those. A warpgroup widens stage k + 1
+//     while stage k's products run; a stage is refilled only when every
+//     consumer warp has seen its products done. The epilogue multiplies the
+//     sums by scale[n] / 127 in their registers (the accumulator layout of
+//     hopper.cuh) and stores bf16 pairs. Measured (kernels/sweep_b8.py):
+//     the TMA copies alone (L2 to shared memory) take most of the kernel's
+//     time, and the widening is the next cost, which 256-row tiles halve
+//     per product.
+//   b8_mma_kernel (M > 16, bf16, off the TMA gate: K % 8 != 0, N % 16 != 0
+//     or a pointer not 16-byte aligned): 128 x 128 output tiles, 8 warps
 //     each with a 64 x 32 block of wmma 16x16x16 bf16 fragments with f32
-//     accumulators. Tiles of 32 K
-//     step through two shared-memory buffers: the next tile's x (16-byte
-//     loads) and int8 codes (16 codes a load, widened to bf16 before they are
-//     stored) are loaded into registers while the current tile is multiplied.
+//     accumulators. Tiles of 32 K step through two shared-memory buffers:
+//     the next tile's x and int8 codes (widened to bf16 before they are
+//     stored) are loaded into registers while the current tile is
+//     multiplied. No shape of the serving path takes it.
 //   b8_simt_kernel (M > 16, f32): 64 x 64 tiles on the CUDA cores in full f32.
 //     f32 activations serve the checks against the f32 plain version; the
 //     serving path computes in bf16 and never reaches it.
 //
-// What the simple design leaves: no cp.async/TMA pipeline and no wgmma (the
-// prefill tiles reach a fraction of the tensor-core peak), the GEMV keeps
-// only a few loads in flight per thread, and the K split costs a second
-// launch and an f32 round trip of the partial sums.
+// What the design still leaves: the TMA kernel is not persistent (one tile a
+// block, so a tile's epilogue does not overlap the next one's loads) and
+// widens on the same warpgroups that issue wgmma; the GEMV keeps only a few
+// loads in flight per thread, and its K split costs a second launch and an
+// f32 round trip of the partial sums.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -365,6 +395,230 @@ __global__ void __launch_bounds__(kMmaThreads) b8_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// prefill: TMA + wgmma (bf16, on the gate)
+// ---------------------------------------------------------------------------
+
+constexpr int kTBK = 64;        // K per stage: one 128-byte swizzle row of x
+constexpr int kTThreads = 384;  // consumer warpgroups 0, 1; producer 2
+
+// Tiles BM x BN: 128 x 128, 128 x 256 or 256 x 128. A consumer warpgroup
+// always runs two m64 products a k16 step, over 128 rows x kCols columns:
+// at BM = 128 the warpgroups split the columns (each widens its own half of
+// the codes), at BM = 256 the rows (each widens half the K rows of the
+// codes, and both wait for the whole tile).
+template <int BM, int BN>
+struct TmaTile {
+  static constexpr bool kSplitRows = BM == 256;
+  static constexpr int kCols = kSplitRows ? BN : BN / 2;
+  static constexpr int kAcc = kCols / 2;           // f32 sums per m64 product
+  static constexpr int kABytes = BM * kTBK * 2;    // x tile
+  static constexpr int kWBytes = kTBK * BN;        // int8 codes [64 K][BN]
+  static constexpr int kBBytes = kTBK * BN * 2;    // widened codes
+  // widest stage ring that fits the 227 KB a block may hold
+  static constexpr int kStages =
+      (232448 - 2048) / (kABytes + kWBytes + kBBytes) > 4
+          ? 4 : (232448 - 2048) / (kABytes + kWBytes + kBBytes);
+  static constexpr size_t kSmem =
+      (size_t)kStages * (kABytes + kWBytes + kBBytes) + 2 * kStages * 8 +
+      1024;   // + mbarriers + slack to align the swizzle atoms
+  static_assert(kCols == 64 || kCols == 128, "tile");
+};
+
+// two codes (bytes b, b + 1 of x = codes ^ 0x80808080) as a bf16 pair: the
+// f32 bit patterns 2^23 + c + 128 by byte permutes, one exact subtract, and
+// the top halves permuted together (c is exact in bf16: no rounding)
+__device__ __forceinline__ uint32_t widen2_bf16(uint32_t x, int b) {
+  const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + b))
+                   - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541u + b)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+}
+
+// out tile [BM, BN] at (blockIdx.x * BM, blockIdx.y * BN)
+template <int BM, int BN>
+__global__ void __launch_bounds__(kTThreads, 1) b8_tma_kernel(
+    const __grid_constant__ CUtensorMap tmap_x,
+    const __grid_constant__ CUtensorMap tmap_w,
+    const float* __restrict__ scale, bf16* __restrict__ out, int M, int K,
+    int N) {
+  using namespace hopper;
+  using T = TmaTile<BM, BN>;
+  constexpr int kStages = T::kStages, kAcc = T::kAcc, kCols = T::kCols;
+  constexpr int kABytes = T::kABytes, kWBytes = T::kWBytes;
+  constexpr int kBBytes = T::kBBytes;
+  // the 16-code chunks of the codes a warpgroup widens, and per K row
+  constexpr int kRowChunks = (T::kSplitRows ? BN : BN / 2) / 16;
+  constexpr int kChunks = (T::kSplitRows ? kTBK / 2 : kTBK) * kRowChunks;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* As = align1024(smem_raw);
+  uint8_t* Ws = As + kStages * kABytes;
+  uint8_t* Bs = Ws + kStages * kWBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + kStages * kBBytes);
+  uint64_t* empty = full + kStages;
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int n_kt = (K + kTBK - 1) / kTBK;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);     // one arrival a consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full; TMA zero-fills past M, N, K
+    setmaxnreg_dec<40>();
+    if (t == 0) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], (kt / kStages - 1) & 1);
+        mbar_expect_tx(&full[s], kABytes + kWBytes);
+        tma_load_2d(As + s * kABytes, &tmap_x, &full[s], kt * kTBK, m0);
+        tma_load_2d(Ws + s * kWBytes, &tmap_w, &full[s], n0, kt * kTBK);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    // this warpgroup's rows of the x tile, columns of the widened codes
+    const int row0 = T::kSplitRows ? wg * 128 : 0;
+    const int col0 = T::kSplitRows ? 0 : wg * kCols;
+    float acc[2][kAcc];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[h][i] = 0.f;
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+
+    // a consumer warp releases a stage once its products are done
+    auto release = [&](int st) {
+      __syncwarp();
+      if (t % 32 == 0) mbar_arrive(&empty[st]);
+    };
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      // widen this warpgroup's part of the codes into bf16, MN-major:
+      // 64-N blocks of [64 K][64 N], 128-byte swizzled
+      const uint8_t* w = Ws + s * kWBytes;
+      uint8_t* b = Bs + s * kBBytes;
+#pragma unroll
+      for (int i = 0; i < kChunks / 128; ++i) {
+        const int id = i * 128 + t;
+        const int k = id / kRowChunks + (T::kSplitRows ? wg * kTBK / 2 : 0);
+        const int nc = id % kRowChunks + (T::kSplitRows ? 0 : col0 / 16);
+        const uint4 u = *reinterpret_cast<const uint4*>(w + k * BN + nc * 16);
+        const uint32_t words[4] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u,
+                                   u.z ^ 0x80808080u, u.w ^ 0x80808080u};
+        uint32_t h[8];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          h[2 * j] = widen2_bf16(words[j], 0);
+          h[2 * j + 1] = widen2_bf16(words[j], 2);
+        }
+        const int jb = nc / 4, c0 = (nc % 4) * 2;
+        uint8_t* row = b + jb * (kTBK * 128) + k * 128;
+        // odd blocks store their second chunk first: the 8 threads of a
+        // store phase then cover all 8 chunk positions (no bank conflict)
+        const int first = c0 + (jb & 1), second = c0 + 1 - (jb & 1);
+        *reinterpret_cast<uint4*>(row + ((first ^ (k & 7)) << 4)) =
+            (jb & 1) ? make_uint4(h[4], h[5], h[6], h[7])
+                     : make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(row + ((second ^ (k & 7)) << 4)) =
+            (jb & 1) ? make_uint4(h[0], h[1], h[2], h[3])
+                     : make_uint4(h[4], h[5], h[6], h[7]);
+      }
+      fence_proxy_async();
+      if constexpr (T::kSplitRows)
+        named_sync(1, 256);            // both halves of the codes widened
+      else
+        named_sync(1 + wg, 128);       // this warpgroup's columns widened
+
+      const uint32_t a_addr = smem_u32(As + s * kABytes) + row0 * 128;
+      const uint32_t b_addr = smem_u32(b) + (col0 / 64) * (kTBK * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTBK / 16; ++kk) {
+        const uint64_t db = sw128_desc(b_addr + kk * 2048, kTBK * 128, 1024);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint64_t da =
+              sw128_desc(a_addr + h * 64 * 128 + kk * 32, 16, 1024);
+          if constexpr (kCols == 128)
+            wgmma_ss_n128<1>(acc[h], da, db, 1);
+          else
+            wgmma_ss_n64<1>(acc[h], da, db, 1);
+        }
+      }
+      wgmma_commit();
+      // the previous stage's products are done; this stage's stay in
+      // flight while the next stage is widened (nothing but wgmma touches
+      // the sums inside the loop, so no register fence here: one would
+      // serialise the products)
+      wgmma_wait<1>();
+      if (kt > 0) release((kt - 1) % kStages);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+
+    // epilogue: scale[n] / 127 in f32 on the sums in their registers, bf16
+    // pairs straight to device memory
+    const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
+    const int ncol0 = n0 + col0 + 2 * q;
+    float2 sc[kAcc / 4];
+#pragma unroll
+    for (int j = 0; j < kAcc / 4; ++j) {
+      const int n = ncol0 + 8 * j;
+      sc[j] = n < N ? make_float2(scale[n] / 127.f, scale[n + 1] / 127.f)
+                    : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < kAcc; i += 2) {
+        const int m = m0 + row0 + h * 64 + warp * 16 + g + 8 * ((i / 2) % 2);
+        const int n = ncol0 + 8 * (i / 4);
+        if (m < M && n < N)
+          *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)m * N + n) =
+              __floats2bfloat162_rn(acc[h][i] * sc[i / 4].x,
+                                    acc[h][i + 1] * sc[i / 4].y);
+      }
+  }
+}
+
+template <int BM, int BN>
+int launch_tma(const void* x, const void* w, const float* scale, void* out,
+               int M, int K, int N, cudaStream_t st) {
+  CUtensorMap tx, tw;
+  const cuuint64_t xd[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t xs[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t xb[2] = {kTBK, BM};
+  const cuuint64_t wd[2] = {(cuuint64_t)N, (cuuint64_t)K};
+  const cuuint64_t ws[1] = {(cuuint64_t)N};
+  const cuuint32_t wb[2] = {BN, kTBK};
+  if (!hopper::make_map(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xd, xs,
+                        xb, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !hopper::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wd, ws, wb,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  auto kern = b8_tma_kernel<BM, BN>;
+  constexpr size_t smem = TmaTile<BM, BN>::kSmem;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  // M fastest: the blocks in flight share few weight tiles, each read from
+  // device memory about once while x stays in L2
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  kern<<<grid, kTThreads, smem, st>>>(tx, tw, scale, (bf16*)out, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // M > 16 in f32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -452,18 +706,34 @@ void dispatch_gemv(const void* x, const int8_t* w, const float* scale,
                           splits, st);
 }
 
+int launch_tiled(const void* x, const void* w, const float* sc, void* out,
+                 int M, int K, int N, int tile_m, int tile_n,
+                 cudaStream_t st) {
+  if (tile_m == 256) return launch_tma<256, 128>(x, w, sc, out, M, K, N, st);
+  return tile_n == 256 ? launch_tma<128, 256>(x, w, sc, out, M, K, N, st)
+                       : launch_tma<128, 128>(x, w, sc, out, M, K, N, st);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
-// (x and out). M <= 16 takes the GEMV regime with `splits` blocks over K of
-// `k_per_split` rows each (partial: f32 [splits, M, N] when splits > 1, else
-// unused); M > 16 the tiled kernels. The columns a GEMV block covers (128 for
-// M <= 8, 64 above) and the split are the caller's (kernels/quantized_matmul.py
-// `_k_split`). Returns cudaGetLastError() after the launches.
+// (x and out). route, chosen by the caller from the shape before the launch
+// (kernels/quantized_matmul.py `route`):
+//   0 GEMV (M <= 16), with `splits` blocks over K of `k_per_split` rows each
+//     (partial: f32 [splits, M, N] when splits > 1, else unused); the
+//     columns a block covers (128 for M <= 8, 64 above) and the split are the
+//     caller's (`_k_split`);
+//   1 TMA + wgmma (bf16; K % 8 == 0, N % 16 == 0, x and w 16-byte aligned),
+//     output tiles tile_m x tile_n: 128 x 128, 128 x 256 or 256 x 128;
+//   2 wmma tiles (bf16, any shape: the shapes the TMA cannot take);
+//   3 CUDA-core tiles (f32).
+// A route the shape does not fit returns cudaErrorInvalidValue; otherwise
+// cudaGetLastError() after the launches.
 extern "C" int pt_weight_only_matmul(const void* x, const void* w,
                                      const void* scale, void* out,
                                      void* partial, int M, int K, int N,
                                      int k_per_split, int splits, int dtype,
+                                     int route, int tile_m, int tile_n,
                                      void* stream) {
   if (M < 1 || K < 1 || N < 1 || splits < 1 || k_per_split < 1 ||
       (long long)k_per_split * splits < K || (splits > 1 && !partial) ||
@@ -472,24 +742,42 @@ extern "C" int pt_weight_only_matmul(const void* x, const void* w,
   cudaStream_t st = (cudaStream_t)stream;
   const int8_t* wq = (const int8_t*)w;
   const float* sc = (const float*)scale;
-  if (M <= 16) {
-    if (dtype == 1)
-      dispatch_gemv<bf16>(x, wq, sc, out, (float*)partial, M, K, N,
-                          k_per_split, splits, st);
-    else
-      dispatch_gemv<float>(x, wq, sc, out, (float*)partial, M, K, N,
-                           k_per_split, splits, st);
-  } else if (dtype == 1) {
-    const int vec_x = (K % 8 == 0) && ((uintptr_t)x % 16 == 0);
-    const int vec_w = (N % 16 == 0) && ((uintptr_t)w % 16 == 0);
-    dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-    b8_mma_kernel<<<grid, kMmaThreads, 0, st>>>((const bf16*)x, wq, sc,
-                                             (bf16*)out, M, K, N, vec_x,
-                                             vec_w);
-  } else {
-    dim3 grid((N + kSBN - 1) / kSBN, (M + kSBM - 1) / kSBM);
-    b8_simt_kernel<<<grid, 256, 0, st>>>((const float*)x, wq, sc,
-                                         (float*)out, M, K, N);
+  switch (route) {
+    case 0:
+      if (M > 16) return (int)cudaErrorInvalidValue;
+      if (dtype == 1)
+        dispatch_gemv<bf16>(x, wq, sc, out, (float*)partial, M, K, N,
+                            k_per_split, splits, st);
+      else
+        dispatch_gemv<float>(x, wq, sc, out, (float*)partial, M, K, N,
+                             k_per_split, splits, st);
+      break;
+    case 1:
+      if (dtype != 1 || K % 8 != 0 || N % 16 != 0 ||
+          (uintptr_t)x % 16 != 0 || (uintptr_t)w % 16 != 0 ||
+          !((tile_m == 128 && (tile_n == 128 || tile_n == 256)) ||
+            (tile_m == 256 && tile_n == 128)))
+        return (int)cudaErrorInvalidValue;
+      return launch_tiled(x, w, sc, out, M, K, N, tile_m, tile_n, st);
+    case 2: {
+      if (dtype != 1) return (int)cudaErrorInvalidValue;
+      const int vec_x = (K % 8 == 0) && ((uintptr_t)x % 16 == 0);
+      const int vec_w = (N % 16 == 0) && ((uintptr_t)w % 16 == 0);
+      dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+      b8_mma_kernel<<<grid, kMmaThreads, 0, st>>>((const bf16*)x, wq, sc,
+                                                  (bf16*)out, M, K, N, vec_x,
+                                                  vec_w);
+      break;
+    }
+    case 3: {
+      if (dtype != 0) return (int)cudaErrorInvalidValue;
+      dim3 grid((N + kSBN - 1) / kSBN, (M + kSBM - 1) / kSBM);
+      b8_simt_kernel<<<grid, 256, 0, st>>>((const float*)x, wq, sc,
+                                           (float*)out, M, K, N);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -13,21 +13,26 @@ dequant = q * scale / 127.
 The wrapper routes by device, as the attention wrappers do: a CPU tensor
 goes to `dequant_matmul_plain` (the reference's `_dequant_matmul_xla`:
 dequantize into x's dtype, then `@`), a CUDA tensor to the hand-written
-kernel in `csrc/quantized_matmul.cu`, checked first; nothing falls back.
-The kernel keeps the weight int8 in device memory, widens it in registers
-and applies scale / 127 once per output in the epilogue. It picks its
-regime by M (the flattened rows of x) only:
+kernels in `csrc/quantized_matmul.cu`, checked first; nothing falls back.
+The kernels keep the weight int8 in device memory, widen it on the chip and
+apply scale / 127 once per output in the epilogue. `route` picks the kernel
+from the shape, the dtype and the pointers' alignment before the launch
+(the C entry point refuses a route the shape does not fit):
 
-  M <= 16          GEMV-shaped: each int8 byte streamed once, split over
-                   K across blocks when the grid would be too small (the
-                   wrapper allocates the f32 partial sums, a second launch
-                   of the same library reduces them in a fixed order);
-  M > 16, bf16 x   128x128 tiles on the tensor cores (wmma bf16, f32 sums);
-  M > 16, f32 x    64x64 tiles on the CUDA cores in f32 (f32 activations
-                   are a check of the arithmetic, not the serving path).
+  "gemv"  M <= 16: each int8 byte streamed once, split over K across blocks
+          when the grid would be too small (the wrapper allocates the f32
+          partial sums, a second launch of the same library reduces them in
+          a fixed order);
+  "tma"   M > 16, bf16 x, K % 8 == 0, N % 16 == 0, x and w 16-byte aligned
+          (what a TMA copy needs): TMA ring + wgmma, the output tile
+          from `tile`;
+  "mma"   M > 16, bf16 x, any other shape: wmma tiles (off the gate);
+  "simt"  M > 16, f32 x: 64x64 tiles on the CUDA cores in f32 (f32
+          activations are a check of the arithmetic, not the serving path).
 
-`launches["weight_only_matmul"]` counts the wrapper's calls that launched
-the kernel.
+`launches["weight_only_matmul"]` counts every launch of the kernel;
+`launches["weight_only_matmul_prefill"]` the "tma" ones and
+`launches["weight_only_matmul_offgate"]` the "mma" ones among them.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ import torch
 from paddle_tpu_torch.kernels import _build
 
 __all__ = ["quantize_absmax", "dequant_matmul_plain", "weight_only_matmul",
-           "launches", "reset_launches", "GEMV_MAX_ROWS"]
+           "route", "tile", "TILES", "launches", "reset_launches",
+           "GEMV_MAX_ROWS"]
 
 GEMV_MAX_ROWS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,7 +51,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _WAVES = 2
 _MIN_K_PER_SPLIT = 512
 
-launches = {"weight_only_matmul": 0}
+_ROUTES = {"gemv": 0, "tma": 1, "mma": 2, "simt": 3}
+
+launches = {"weight_only_matmul": 0, "weight_only_matmul_prefill": 0,
+            "weight_only_matmul_offgate": 0}
 _sm_count = {}
 
 
@@ -74,6 +83,43 @@ def dequant_matmul_plain(x, w_q, scale, out_dtype=None):
     return out.to(out_dtype) if out_dtype is not None else out
 
 
+def route(m, k, n, dtype, x_ptr=0, w_ptr=0):
+    """The kernel a call takes, from its shape, x's dtype and the data
+    pointers of x and w: "gemv", "tma", "mma" or "simt" (module doc)."""
+    if m <= GEMV_MAX_ROWS:
+        return "gemv"
+    if dtype == torch.float32:
+        return "simt"
+    if k % 8 == 0 and n % 16 == 0 and x_ptr % 16 == 0 and w_ptr % 16 == 0:
+        return "tma"
+    return "mma"
+
+
+# the TMA route's output tiles (rows, columns), and the time one takes
+# against a 256 x 128 tile's (kernels/sweep_b8.py on an H100, at the
+# serving shapes): a 128 x 256 tile widens twice the codes a product
+# needs, a 128 x 128 tile does half the work with narrower wgmma products
+TILES = {(256, 128): 1.0, (128, 256): 1.13, (128, 128): 0.72}
+
+
+def tile(m, n, sms):
+    """(rows, columns) of the "tma" route's output tile: the one that ends
+    the grid soonest, counting whole waves of `sms` blocks; the first of
+    TILES on a tie."""
+    def cost(rc):
+        tiles = -(-m // rc[0]) * -(-n // rc[1])
+        return -(-tiles // sms) * TILES[rc]
+
+    return min(TILES, key=cost)
+
+
+def _sms(device):
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_count[device]
+
+
 def _gemv_cols(m):
     """Output columns a GEMV block covers: 8 lanes share a K row, each
     with 16 columns (8 when M > 8, so that a thread keeps 128 sums)."""
@@ -82,11 +128,8 @@ def _gemv_cols(m):
 
 def _k_split(m, k, n, device):
     """(rows of K per block, number of splits) for the GEMV regime."""
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
     blocks_n = -(-n // _gemv_cols(m))
-    want = -(-_WAVES * _sm_count[device] // blocks_n)
+    want = -(-_WAVES * _sms(device) // blocks_n)
     splits = max(1, min(want, k // _MIN_K_PER_SPLIT))
     per = -(-k // splits)
     per = -(-per // 32) * 32
@@ -125,20 +168,27 @@ def weight_only_matmul(x, w_q, scale, out_dtype=None):
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     if m and n:
-        partial, per, splits = None, k, 1
-        if m <= GEMV_MAX_ROWS:
+        partial, per, splits, tiling = None, k, 1, (0, 0)
+        way = route(m, k, n, x.dtype, x2.data_ptr(), w_q.data_ptr())
+        if way == "gemv":
             per, splits = _k_split(m, k, n, dev)
             if splits > 1:
                 partial = torch.empty((splits, m, n), dtype=torch.float32,
                                       device=dev)
+        elif way == "tma":
+            tiling = tile(m, n, _sms(dev))
         rc = _build.lib("quantized_matmul").pt_weight_only_matmul(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             0 if partial is None else partial.data_ptr(), m, k, n, per,
-            splits, _DTYPES[x.dtype],
+            splits, _DTYPES[x.dtype], _ROUTES[way], *tiling,
             torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"weight_only_matmul kernel launch failed: "
-                               f"CUDA error {rc}")
+            raise RuntimeError(f"weight_only_matmul kernel launch failed "
+                               f"({way} route): CUDA error {rc}")
         launches["weight_only_matmul"] += 1
+        if way == "tma":
+            launches["weight_only_matmul_prefill"] += 1
+        elif way == "mma":
+            launches["weight_only_matmul_offgate"] += 1
     out = out.reshape(*lead, n)
     return out.to(out_dtype) if out_dtype is not None else out

@@ -149,6 +149,42 @@ def test_weight_only_matmul_matches_plain_on_card(cuda, dtype, m, k, n):
     assert (out.float() - ref.float()).abs().max().item() <= bar
 
 
+# B8 bf16 on each route at its tile edges: (m, k, n, the route it must
+# take, x shifted 2 bytes off 16-byte alignment)
+B8_ROUTE_CASES = [(m, k, n, "tma", False) for m in cs.B8_EDGE_M
+                  for k, n in ((4096, 4096), (4096, 11008))] + [
+    (333, 1000, 1008, "tma", False), (300, 1001, 4096, "mma", False),
+    (100, 520, 300, "mma", False), (512, 4096, 4096, "mma", True)]
+
+
+@pytest.mark.parametrize("m,k,n,want,offset", B8_ROUTE_CASES)
+def test_weight_only_matmul_routes_on_card(cuda, m, k, n, want, offset):
+    """The TMA + wgmma kernel on the gate, the wmma tiles off it, each
+    within the bf16 bar of the plain version; the counters say which
+    kernel ran."""
+    x, w, s = cs.matmul_case(torch, cuda, torch.bfloat16, m, k, n)
+    if offset:
+        x = cs.b8_offset_x(torch, x)
+    assert qm.route(m, k, n, x.dtype, x.data_ptr(), w.data_ptr()) == want
+    before = dict(qm.launches)
+    out = qm.weight_only_matmul(x, w, s)
+    ref = qm.dequant_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert {key: qm.launches[key] - before[key] for key in before} == {
+        "weight_only_matmul": 1,
+        "weight_only_matmul_prefill": int(want == "tma"),
+        "weight_only_matmul_offgate": int(want == "mma")}
+    assert torch.isfinite(out.float()).all()
+    assert (out.float() - ref.float()).abs().max().item() <= _bf16_bar(ref)
+
+
+def test_weight_only_matmul_bar_rejects_planted_faults_on_card(cuda):
+    x, w, s = cs.matmul_case(torch, cuda, torch.bfloat16, 512, 4096, 4096)
+    for fault, wrong, right in cs.planted_b8_faults(torch, qm, x, w, s):
+        err = (wrong.float() - right.float()).abs().max().item()
+        assert err > _bf16_bar(right), fault
+
+
 def test_quantized_kernel_checks_on_card(cuda):
     x = torch.randn(4, 64, device=cuda)
     w, s = qm.quantize_absmax(torch.randn(64, 32, device=cuda))
@@ -158,6 +194,17 @@ def test_quantized_kernel_checks_on_card(cuda):
         qm.weight_only_matmul(x, w.t().contiguous().t(), s)
     with pytest.raises(TypeError, match="float32"):
         qm.weight_only_matmul(x, w, s.double())
+    # the C entry point refuses the TMA route for a shape it cannot take
+    xb = torch.randn(64, 1001, device=cuda).to(torch.bfloat16)
+    wb, sb = qm.quantize_absmax(torch.randn(1001, 64, device=cuda))
+    out = torch.empty(64, 64, dtype=torch.bfloat16, device=cuda)
+    lib = qm._build.lib("quantized_matmul")
+    for k_, tile in ((1001, 256), (1000, 64)):
+        rc = lib.pt_weight_only_matmul(
+            xb.data_ptr(), wb.data_ptr(), sb.data_ptr(), out.data_ptr(), 0,
+            64, k_, 64, k_, 1, 1, 1, 128, tile,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 1   # cudaErrorInvalidValue
     g = torch.Generator(device=cuda).manual_seed(3)
     pk, sk = _q8_pool(g, cuda, 5, 2, 8, 128)
     q = torch.randn(2, 1, 4, 128, device=cuda)
@@ -187,6 +234,8 @@ FLASH_SHAPES = [
     (1, 1000, 1000, 8, 4, 128, True, torch.bfloat16),
     (1, 1000, 300, 8, 8, 128, True, torch.bfloat16),
     (2, 777, 777, 4, 2, 64, True, torch.bfloat16),
+    (2, 129, 127, 4, 2, 128, True, torch.bfloat16),
+    (1, 129, 127, 4, 4, 64, False, torch.bfloat16),
     (1, 512, 512, 4, 2, 128, True, torch.float32),
     (1, 300, 200, 4, 4, 64, False, torch.float32),
     (1, 300, 100, 4, 2, 128, True, torch.float32),
