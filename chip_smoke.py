@@ -7,8 +7,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. build        compile the four CUDA sources of
                   `paddle_tpu_torch/kernels/csrc`, one nvcc each, all started
-                  together; count the HGMMA (wgmma) instructions of B1's and
-                  B8's TMA kernels in their SASS (cuobjdump).
+                  together; count the HGMMA (wgmma) instructions of every
+                  instantiation of the TMA kernels (B1, B2, B3, B8) in their
+                  SASS (cuobjdump); B2's and B3's must compile without
+                  spills (ptxas' report).
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode, B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
@@ -21,9 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   faults B8's bar must reject (a K tile of the weight left
                   out, one column tile's scales from its neighbour, the /127
                   missing); B1 flash forward and B2 + B3 flash backward (the
-                  7B leg's micro-batch, GQA, non-causal, cross-length,
-                  ragged, rows that see no key, 129 rows over 127 keys,
-                  head_dim 64, f32), each output vector within its own bar;
+                  7B leg's micro-batch, GQA up to groups of 8, non-causal,
+                  cross-length, ragged, rows that see no key, 129 rows over
+                  127 keys and 65 over 129, head_dim 64, f32), each output
+                  vector within its own bar;
                   then planted faults that the B1-B3 bar must reject; B9 and
                   B10 (RMSNorm forward and backward) at the training legs'
                   micro-batches, the decode rows, a ragged row count and in
@@ -80,9 +83,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   48-request trace; sustained slots must reach >= 1.8x.
   9. timing       CUDA-event medians of each kernel, its plain version and one
                   PyTorch library call at the serving shapes (B1-B3, B9, B10:
-                  the 7B training leg's micro-batch; B9/B10 also at the
-                  decode rows), beside the bound the card's memory rate or
-                  peak sets.
+                  the 7B training leg's micro-batch; B2/B3 also at the h2048
+                  leg's, B9/B10 also at the decode rows), beside the bound
+                  the card's memory rate or peak sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -263,18 +266,52 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build] {line.strip()}")
+    spill_check(built["flash_attention"][1])
     sass_check(built)
 
 
 # the kernels that must run on wgmma, by library: name fragments
 WGMMA_KERNELS = {"quantized_matmul": ("b8_tma_kernel",),
-                 "flash_attention": ("flash_fwd_tma_kernel",)}
+                 "flash_attention": ("flash_fwd_tma_kernel",
+                                     "flash_bwd_dq_tma_kernel",
+                                     "flash_bwd_dkv_tma_kernel")}
+# the kernels whose every instantiation must compile without spills
+SPILL_FREE = ("flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel")
+
+
+def spill_check(report):
+    """Spill bytes of each SPILL_FREE kernel's instantiations, read from
+    ptxas' report (-Xptxas=-v); raises when one spills or is missing. An
+    empty report (the library was built before) is said so and skipped."""
+    import re
+
+    if not report:
+        log("[build] spills not checked: the library was already built")
+        return
+    spills, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )([^' ]+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            spills[fn] = int(m.group(1)) + int(m.group(2))
+    for frag in SPILL_FREE:
+        mine = {f: n for f, n in spills.items() if frag in f}
+        log(f"[build] {frag}: spill bytes by instantiation "
+            f"{sorted(mine.values())}")
+        if len(mine) < 2 or any(mine.values()):
+            raise AssertionError(f"{frag}: spills or no ptxas report for "
+                                 f"both head dims: {mine}")
 
 
 def sass_check(built):
     """HGMMA (wgmma) instructions in each redesigned kernel's SASS, read
-    with cuobjdump from the libraries just built; raises when one has
-    none. Skipped, and said so, where the toolkit has no cuobjdump."""
+    with cuobjdump from the libraries just built; raises when an
+    instantiation has none. Skipped, and said so, where the toolkit has no
+    cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -289,14 +326,16 @@ def sass_check(built):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
+                counts[fn] = 0
             elif fn and "HGMMA" in line:
-                counts[fn] = counts.get(fn, 0) + 1
+                counts[fn] += 1
         for frag in frags:
             mine = {f: c for f, c in counts.items() if frag in f}
             log(f"[build] {frag}: HGMMA instructions by instantiation "
                 f"{sorted(mine.values())}")
-            if not mine:
-                raise AssertionError(f"{frag}: no HGMMA in its SASS")
+            if not mine or not all(mine.values()):
+                raise AssertionError(f"{frag}: an instantiation without "
+                                     f"HGMMA in its SASS: {mine}")
 
 
 def phase_parity(torch, dev):
@@ -624,6 +663,14 @@ FLASH_CASES = (
     ("bf16 causal sq129/sk127 GQA 4/2 (rows 0-1 see no key)", 2, 129, 127,
      4, 2, 128, True, "bfloat16"),
     ("bf16 non-causal hd64 sq129/sk127", 1, 129, 127, 4, 4, 64, False,
+     "bfloat16"),
+    # the backward's tile edges: Sq and Sk off the 128- and 64-row tiles, a
+    # GQA group of 8, and rows past Sk without the causal mask
+    ("bf16 causal sq192/sk320 GQA 8/2", 1, 192, 320, 8, 2, 128, True,
+     "bfloat16"),
+    ("bf16 causal hd64 sq65/sk129", 1, 65, 129, 4, 4, 64, True, "bfloat16"),
+    ("bf16 causal s256 GQA 8/1", 1, 256, 256, 8, 1, 128, True, "bfloat16"),
+    ("bf16 non-causal sq300 > sk200 GQA 8/4", 1, 300, 200, 8, 4, 128, False,
      "bfloat16"),
     ("f32 causal s512 d128 GQA 4/2", 1, 512, 512, 4, 2, 128, True,
      "float32"),
@@ -1186,46 +1233,55 @@ def phase_timing(torch, dev, name, main_err, launches):
         return ms, bound
 
     # B1-B3 at the 7B training leg's micro-batch (b2 h32 s2048 d128, causal,
-    # bf16); bounds count the visible (query, key) pairs. The library call
-    # is SDPA: its forward beside B1, its backward (dq, dk and dv together)
-    # beside both B2 and B3
+    # bf16: the JSON rows), then B2 and B3 at the h2048 leg's (b4 h16 s1024,
+    # log lines only); bounds count the visible (query, key) pairs. The
+    # library call is SDPA: its forward beside B1, its backward (dq, dk and
+    # dv together) beside both B2 and B3
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    b, s, h, d = 2, 2048, 32, 128
-    q, k, v, do = flash_case(torch, dev, b, s, s, h, h, d, torch.bfloat16)
-    scale = 1.0 / math.sqrt(d)
-    out, lse = fa.flash_fwd(q, k, v, True)
-    delta = fa._delta(out, do)
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    lq, lk, lv = (x.clone().requires_grad_() for x in (qt, kt, vt))
-    lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    for b, s, h, d in ((2, 2048, 32, 128), (4, 1024, 16, 128)):
+        main = s == 2048
+        q, k, v, do = flash_case(torch, dev, b, s, s, h, h, d,
+                                 torch.bfloat16)
+        scale = 1.0 / math.sqrt(d)
+        out, lse = fa.flash_fwd(q, k, v, True)
+        delta = fa._delta(out, do)
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous()
+                           for x in (q, k, v, do))
+        lq, lk, lv = (x.clone().requires_grad_() for x in (qt, kt, vt))
+        lout = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
 
-    def sdpa_backward():
-        return torch.autograd.grad(lout, (lq, lk, lv), dot,
-                                   retain_graph=True)
+        def sdpa_backward():
+            return torch.autograd.grad(lout, (lq, lk, lv), dot,
+                                       retain_graph=True)
 
-    sdpa_bwd_ms = cuda_ms(torch, sdpa_backward, flush=flush)
+        sdpa_bwd_ms = cuda_ms(torch, sdpa_backward, flush=flush)
+        log(f"[timing] SDPA backward (dq, dk, dv) b{b} h{h} s{s} d{d} "
+            f"causal bf16: {sdpa_bwd_ms:.4f} ms")
 
-    flops = 2 * d * b * h * s * (s + 1) // 2       # one product
-    t16, vec = b * s * h * d * 2, b * h * s * 4     # a bf16 [B,S,H,D]; lse
-    label = f"b{b} h{h} s{s} d{d} causal bf16"
-    record("flash_fwd", lambda: fa.flash_fwd(q, k, v, True),
-           lambda: fa.flash_fwd_plain(q, k, v, True),
-           lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-           4 * t16 + vec, 2 * flops, f"B1 {label}")
-    record("flash_bwd_dq",
-           lambda: fa._launch_dq(q, k, v, do, lse, delta, True, scale),
-           lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True,
-                                         scale),
-           sdpa_bwd_ms, 5 * t16 + 2 * vec, 3 * flops, f"B2 {label}")
-    record("flash_bwd_dkv",
-           lambda: fa._launch_dkv(q, k, v, do, lse, delta, True, scale),
-           lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True,
-                                          scale),
-           sdpa_bwd_ms, 4 * t16 + 2 * vec + 2 * 2 * t16, 4 * flops,
-           f"B3 {label}")
-    del q, k, v, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv, lout
-    torch.cuda.empty_cache()
+        flops = 2 * d * b * h * s * (s + 1) // 2       # one product
+        t16, vec = b * s * h * d * 2, b * h * s * 4     # a bf16 [B,S,H,D]
+        label = f"b{b} h{h} s{s} d{d} causal bf16"
+        if main:
+            record("flash_fwd", lambda: fa.flash_fwd(q, k, v, True),
+                   lambda: fa.flash_fwd_plain(q, k, v, True),
+                   lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True),
+                   4 * t16 + vec, 2 * flops, f"B1 {label}")
+        record("flash_bwd_dq",
+               lambda: fa._launch_dq(q, k, v, do, lse, delta, True, scale),
+               lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                             scale),
+               sdpa_bwd_ms, 5 * t16 + 2 * vec, 3 * flops, f"B2 {label}",
+               row=main)
+        record("flash_bwd_dkv",
+               lambda: fa._launch_dkv(q, k, v, do, lse, delta, True, scale),
+               lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True,
+                                              scale),
+               sdpa_bwd_ms, 4 * t16 + 2 * vec + 2 * 2 * t16, 4 * flops,
+               f"B3 {label}", row=main)
+        del q, k, v, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv, lout
+        torch.cuda.empty_cache()
 
     # B6 and B4 at the engine's decode shape: 8 rows, ragged up to 2048
     q, pk, pv, bt, pos = paged_case(torch, dev, torch.bfloat16)

@@ -8,6 +8,11 @@ source or header builds anew, an unchanged one loads the library already
 built. `build_all` starts one `nvcc` per source, all at once, and waits
 for them together. A library is loaded with `ctypes`;
 every pointer and the stream travel as `c_void_p`.
+
+`launch` is how every wrapper calls a kernel: under a guard of its tensors'
+device, so that the first call's build and load, the launch and the
+shared-memory opt-in all happen on that device and not on the CUDA
+runtime's current one, with that device's current stream.
 """
 
 from __future__ import annotations
@@ -19,7 +24,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build", "build_all", "lib"]
+import torch
+
+__all__ = ["BUILD_DIR", "SOURCES", "build", "build_all", "lib", "launch"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"attention": _CSRC / "attention.cu",
@@ -134,3 +141,12 @@ def lib(name="attention"):
             f.restype = ctypes.c_int
         _loaded[name] = so
     return _loaded[name]
+
+
+def launch(name, fn, device, *args):
+    """Call C entry point `fn` of library `name` with `args` and the current
+    stream of `device`, under a guard of `device` (the tensors' device);
+    returns the entry point's CUDA error code."""
+    with torch.cuda.device(device):
+        return getattr(lib(name), fn)(
+            *args, torch.cuda.current_stream(device).cuda_stream)

@@ -131,10 +131,6 @@ def _int32_on(x, b, device):
     return t.contiguous()
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _raise_on(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -238,11 +234,11 @@ def decode_attention(q, cache_k, cache_v, pos, scale=None):
     _check_kernel(q, (cache_k, cache_v), nh // nkv)
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
-    rc = _build.lib().pt_decode_attention(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, max_len, hd,
-        _DTYPES[q.dtype],
-        _scale(scale, hd), _stream(q.device))
+    rc = _build.launch(
+        "attention", "pt_decode_attention", q.device, q.data_ptr(),
+        cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
+        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype],
+        _scale(scale, hd))
     _raise_on(rc, "decode_attention")
     launches["decode_attention"] += 1
     return out
@@ -266,11 +262,11 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     _check_kernel(q, (cache_k, cache_v), s * (nh // nkv))
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
-    rc = _build.lib().pt_window_attention(
-        q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        pos_t.data_ptr(), out.data_ptr(), b, s, nh, nkv, max_len, hd,
-        _DTYPES[q.dtype],
-        _scale(scale, hd), _stream(q.device))
+    rc = _build.launch(
+        "attention", "pt_window_attention", q.device, q.data_ptr(),
+        cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
+        out.data_ptr(), b, s, nh, nkv, max_len, hd, _DTYPES[q.dtype],
+        _scale(scale, hd))
     _raise_on(rc, "window_attention")
     launches["window_attention"] += 1
     return out
@@ -321,18 +317,19 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
     if quantized:
-        rc = _build.lib().pt_paged_decode_attention_q8(
+        rc = _build.launch(
+            "attention", "pt_paged_decode_attention_q8", q.device,
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
             pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], _scale(scale, hd), _stream(q.device))
+            _DTYPES[q.dtype], _scale(scale, hd))
         name = "paged_decode_attention_int8"
     else:
-        rc = _build.lib().pt_paged_decode_attention(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            block_tables.data_ptr(), pos_t.data_ptr(), out.data_ptr(), b, nh,
-            nkv, ps, P, hd, _DTYPES[q.dtype], _scale(scale, hd),
-            _stream(q.device))
+        rc = _build.launch(
+            "attention", "pt_paged_decode_attention", q.device, q.data_ptr(),
+            pool_k.data_ptr(), pool_v.data_ptr(), block_tables.data_ptr(),
+            pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
+            _DTYPES[q.dtype], _scale(scale, hd))
         name = "paged_decode_attention"
     _raise_on(rc, name)
     launches[name] += 1

@@ -384,14 +384,19 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_q8_kernel(
 }
 
 // Dynamic shared memory for `rows` rows; above 48 KB the kernel must be
-// allowed it first (once per instantiation, at the most rows it can take).
+// allowed it first, on each device it runs on (the attribute is the
+// current device's): once per instantiation and device, at the most rows it
+// can take. One bit a device; devices past 63 opt in before every launch.
 template <typename T, typename KVT, int HD, typename K>
 size_t smem_for(K kernel, int rows) {
-  static bool opted_in = false;
-  if (!opted_in) {
+  static uint64_t opted_in = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (!(opted_in & bit)) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          Shape<T, KVT, HD>::words(kMaxRows) * 4);
-    opted_in = true;
+    opted_in |= bit;
   }
   return (size_t)Shape<T, KVT, HD>::words(rows) * 4;
 }

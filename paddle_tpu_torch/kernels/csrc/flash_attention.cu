@@ -5,10 +5,12 @@
 //   flash_fwd_tma_kernel  <- _fwd_kernel     (B1, :112): out and the f32 lse of
 //       causal or full online-softmax attention (bf16; flash_fwd_f32_kernel
 //       in f32).
-//   flash_bwd_dq_kernel   <- _bwd_dq_kernel  (B2, :215): dq = scale * sum_j
-//       p * (dp - delta) * k, P rebuilt from lse.
-//   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel (B3, :260): dk, dv of one kv head,
-//       summed over the g query heads of its group inside one block.
+//   flash_bwd_dq_tma_kernel  <- _bwd_dq_kernel  (B2, :215): dq = scale *
+//       sum_j p * (dp - delta) * k, P rebuilt from lse (bf16;
+//       flash_bwd_dq_f32_kernel in f32).
+//   flash_bwd_dkv_tma_kernel <- _bwd_dkv_kernel (B3, :260): dk, dv of one kv
+//       head, summed over the g query heads of its group inside one block
+//       (bf16; flash_bwd_dkv_f32_kernel in f32).
 //
 // Layout: the public one, read through strides with no copies: q, do, out, dq
 // [B, Sq, H, D]; k, v [B, Sk, Hk, D]; dk, dv [B, Sk, Hk, D] f32; lse, delta
@@ -38,19 +40,29 @@
 // iterations run none. The two warpgroups run unsynchronised, so one's
 // softmax overlaps the other's products.
 //
-// B2, B3 (bf16): one block of 4 warps per (64-row tile, head, batch) for
-// B2, per (64-key tile, kv head, batch) for B3. Every product runs on the
-// tensor cores as mma.sync m16n8k16 (bf16 in, f32 accumulators) with the
-// fragment layouts of the PTX ISA, so the score tile and the accumulators stay
-// in registers: the softmax statistics are per-row f32 values reduced across a
-// quad of lanes, and P (B2) or dS (B2, B3) becomes the next product's A
-// operand in place, rounded to bf16 where the reference rounds
-// (p.astype(v.dtype), ds.astype(k.dtype), p.astype(do.dtype)). Tiles stream
-// through a double-buffered ring in shared memory filled by cp.async (16
-// bytes a thread, zero-fill past the end): K/V tiles of 64 keys for B2, Q/dO
-// tiles of 32 rows for B3. B3 keeps dk and dv of its 64 keys in registers
-// across the whole group and all q tiles, so the sum over the group needs no
-// atomics and is deterministic.
+// B2, B3 (bf16, flash_bwd_dq_tma_kernel, flash_bwd_dkv_tma_kernel): B1's
+// building blocks, two consumer warpgroups a block. B2: one block per (128-row
+// Q tile, head, batch), long rows first; Q and dO land once by TMA, K and V
+// tiles of 64 keys stream through a 2-stage ring (each on its own mbarrier)
+// filled by a producer warp, walked from the last; each warpgroup owns 64 rows:
+// S = Q.K^T and dP = dO.V^T by wgmma SS (K, V K-major), P = exp2(S * scale *
+// log2 e - lse * log2 e) and dS = P (dP - delta) in f32 registers, dS rounded
+// to bf16 in registers (ds.astype(k.dtype)) as the A operand of dQ += dS.K by
+// wgmma RS, K read again as the MN-major B operand of the same swizzled tile.
+// B3: the transposed form, one block per (128-key tile, kv head, batch), low
+// keys first; K and V land once, Q and dO tiles of 64 rows and their lse and
+// delta stream through the ring for every head of the GQA group and every q
+// tile from the diagonal's first, four stages filled by warp 0 (no producer
+// warp: 8 warps a block leave a thread 255 registers, 9 only 168, and dK and dV
+// alone take 128); S^T = K.Q^T and dP^T = V.dO^T by wgmma SS (lse and delta per
+// column, from shared memory), then dV += P^T.dO and dK += dS^T.Q by wgmma RS
+// from registers (p.astype(do.dtype), ds.astype(q.dtype)), dO and Q as MN-major
+// B operands: nothing is transposed through shared memory. dK and dV stay in
+// registers across the whole group, so the sum over the group needs no atomics
+// and is deterministic. Rows past Sq carry lse = +inf, so their P is exactly 0;
+// the masks (selects after the exp) run only on the tiles that the offset
+// diagonal (or, in B2, the Sk tail) crosses, and a warpgroup skips a tile that
+// lies wholly past its diagonal.
 //
 // f32 (the parity checks and the f32 training check only): the same three
 // functions on the CUDA cores in full f32, 32 x 32 tiles, 256 threads, one
@@ -63,11 +75,14 @@
 // tile j - 1's P.V measured slower: the consumer code is held to the 168
 // registers of the block's launch bound, setmaxnreg notwithstanding, and it
 // spilled), the block is not persistent, and the two warpgroups are not
-// scheduled against each other (FA3's ping-pong). What B2/B3's
-// simple design leaves: mma.sync reaches about two thirds of the wgmma rate,
-// there is no TMA or warp specialisation, V and the strided operands are
-// read from shared memory two bf16 at a time (no ldmatrix), and a diagonal
-// tile computes its masked half.
+// scheduled against each other (FA3's ping-pong). B2 and B3: each
+// warpgroup waits for its own products before the exp and again before the
+// accumulation, and the blocks are not persistent. Taken apart on an H100
+// (7B leg's shape), the TMA copies and barriers alone take about half of
+// either kernel's time: every block streams its K, V (B2) or Q, dO (B3)
+// tiles from L2 again, 570 MB each. Issuing S and dP as two groups (the exp
+// beside dP's product) and turns between the warpgroups for the products
+// (ping-pong) both measured slower and were left out.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -86,119 +101,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 // tensor-core and copy helpers
 // ---------------------------------------------------------------------------
 
-// c[16x8] += a[16x16] @ b[16x8]. Fragments (lane = 4 * g + t):
-//   a[0]: row g,   k 2t..2t+1    a[1]: row g+8, k 2t..2t+1
-//   a[2]: row g,   k 2t+8..+9    a[3]: row g+8, k 2t+8..+9
-//   b[0]: k 2t..2t+1, col g      b[1]: k 2t+8..+9, col g
-//   c[0..1]: row g, cols 2t, 2t+1; c[2..3]: row g+8, cols 2t, 2t+1
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// two consecutive bf16 (the lower index in the low half)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-// two bf16 one row apart
-__device__ __forceinline__ uint32_t ld_pair_strided(const bf16* p, int ld) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + ld);
-  return lo | (hi << 16);
-}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// A fragment of rows [r0, r0+16), k [k0, k0+16) of a row-major smem tile
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int ld,
-                                       int r0, int k0, int g, int t) {
-  const bf16* p = s + (r0 + g) * ld + k0 + 2 * t;
-  a[0] = ld_pair(p);
-  a[1] = ld_pair(p + 8 * ld);
-  a[2] = ld_pair(p + 8);
-  a[3] = ld_pair(p + 8 * ld + 8);
-}
-// B fragment with B[k][n] = s[n0 + n][k0 + k] (a row-major tile, transposed)
-__device__ __forceinline__ void frag_bt(uint32_t* b, const bf16* s, int ld,
-                                        int n0, int k0, int g, int t) {
-  const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld_pair(p);
-  b[1] = ld_pair(p + 8);
-}
-// B fragment with B[k][n] = s[k0 + k][n0 + n] (a row-major tile as it is)
-__device__ __forceinline__ void frag_b(uint32_t* b, const bf16* s, int ld,
-                                       int k0, int n0, int g, int t) {
-  const bf16* p = s + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = ld_pair_strided(p, ld);
-  b[1] = ld_pair_strided(p + 8 * ld, ld);
-}
-// the A fragment of k-step kk made of the f32 accumulator tiles 2kk, 2kk+1
-__device__ __forceinline__ void acc_to_a(uint32_t* a, const float (*c)[4],
-                                         int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 16 : 0;    // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-constexpr int kThreads = 128;   // bf16 kernels: 4 warps
-
-// rows [r0, r0 + ROWS) of x [B, S, heads, D] at (b, h) into a smem tile of
-// row stride D + 8; rows past S read as zeros
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* x, int b,
-                                          int r0, int S, int heads, int h,
-                                          int tid) {
-  constexpr int kChunks = D / 8;
-  constexpr int LD = D + 8;
-  for (int c = tid; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const int row = r0 + r;
-    const bool ok = row < S;
-    const bf16* src =
-        x + (((int64_t)b * S + (ok ? row : 0)) * heads + h) * D + col;
-    cp_async16(dst + r * LD + col, src, ok);
-  }
-}
-
-// ROWS f32 values [r0, r0 + ROWS) of x [B, H, S] at (b, h); zeros past S
-template <int ROWS>
-__device__ __forceinline__ void load_vec(float* dst, const float* x, int b,
-                                         int H, int h, int r0, int S,
-                                         int tid) {
-  for (int r = tid; r < ROWS; r += kThreads) {
-    const int row = r0 + r;
-    const bool ok = row < S;
-    cp_async4(dst + r, x + ((int64_t)b * H + h) * S + (ok ? row : 0), ok);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -213,17 +118,6 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk,
                                         int causal, int off) {
   return row < Sq && col < Sk && (!causal || col <= row + off);
-}
-
-// key tiles of 64 a q tile [i0, i0 + 64) needs
-__device__ __forceinline__ int key_tiles(int i0, int Sk, int causal,
-                                         int off) {
-  int n = (Sk + 63) / 64;
-  if (causal) {
-    const int last = i0 + 63 + off;
-    n = min(n, last < 0 ? 0 : last / 64 + 1);
-  }
-  return n;
 }
 
 // ---------------------------------------------------------------------------
@@ -442,266 +336,434 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B2: dq, bf16
+// B2, B3: backward, bf16 (TMA + wgmma)
 // ---------------------------------------------------------------------------
 
+// Registers. ptxas gives each thread of a block at most the register file
+// of an SM sub-partition (16384) over the warps that land on it: 9 to 12
+// warps put 3 on one, 168 registers a thread, whatever setmaxnreg says; 8
+// warps put 2, 255. B2 holds dQ, S and dP (128 for D = 128) and runs two
+// consumer warpgroups beside a producer warp (9 warps). B3 holds dK, dV, S^T
+// and dP^T (192) and runs 8 warps: the two consumer warpgroups, warp 0 of
+// which also fills the ring.
+constexpr int kDqThreads = 288;   // warpgroups 0, 1; producer warp 8
+constexpr int kDqStages = 2;
+constexpr int kDqRows = 128;      // query rows a block, 64 a warpgroup
+constexpr int kDqKeys = 64;       // keys a streamed K / V tile
+constexpr int kDkvThreads = 256;  // warpgroups 0, 1
+constexpr int kDkvStages = 4;
+constexpr int kDkvKeys = 128;     // keys a block, 64 a warpgroup
+constexpr int kDkvRows = 64;      // query rows a streamed Q / dO tile
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hk, int causal,
-    float scale) {
-  constexpr int LD = D + 8;
-  constexpr int kTile = 64 * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dOs = Qs + kTile;
-  bf16* Ks = dOs + kTile;       // [2][64][LD]
-  bf16* Vs = Ks + 2 * kTile;    // [2][64][LD]
+constexpr size_t dq_smem() {
+  // Q, dO; K and V per stage; mbarriers: q, 3 per stage
+  return (size_t)(2 * kDqRows + 2 * kDqStages * kDqKeys) * D * 2 +
+         (1 + 3 * kDqStages) * 8 + 1024;
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  // K, V; Q and dO per stage; lse and delta per stage; mbarriers: kv, 2 per
+  // stage
+  return (size_t)(2 * kDkvKeys + 2 * kDkvStages * kDkvRows) * D * 2 +
+         (size_t)2 * kDkvStages * kDkvRows * 4 + (1 + 2 * kDkvStages) * 8 +
+         1024;
+}
 
-  const int n_qt = (Sq + 63) / 64;
-  const int i0 = (n_qt - 1 - (int)blockIdx.x) * 64;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
-  const int off = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int iA = i0 + warp * 16 + g, iB = iA + 8;
-  const int n_kt = key_tiles(i0, Sk, causal, off);
-  const int64_t vec = ((int64_t)b * H + h) * Sq;
-  const float lseA = iA < Sq ? lse[vec + iA] : 0.f;
-  const float lseB = iB < Sq ? lse[vec + iB] : 0.f;
-  const float dlA = iA < Sq ? delta[vec + iA] : 0.f;
-  const float dlB = iB < Sq ? delta[vec + iB] : 0.f;
-
-  load_rows<D, 64>(Qs, q, b, i0, Sq, H, h, tid);
-  load_rows<D, 64>(dOs, dout, b, i0, Sq, H, h, tid);
-  if (n_kt > 0) {
-    load_rows<D, 64>(Ks, k, b, 0, Sk, Hk, hk, tid);
-    load_rows<D, 64>(Vs, v, b, 0, Sk, Hk, hk, tid);
-  }
-  cp_async_commit();
-
-  float acc[D / 8][4];
+// d[64 x D] += A[64 x 64] (four k16 register steps) B, B the MN-major
+// [64][D] tile at `addr` (64-column blocks `lbo` bytes apart)
+template <int D>
+__device__ __forceinline__ void mma_rs_mn(float (&d)[D / 2],
+                                          const uint32_t (&a)[4][4],
+                                          uint32_t addr, uint32_t lbo) {
+  using namespace hopper;
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int n = 0; n < n_kt; ++n) {
-    const int cur = n & 1;
-    if (n + 1 < n_kt) {
-      load_rows<D, 64>(Ks + (cur ^ 1) * kTile, k, b, (n + 1) * 64, Sk, Hk, hk,
-                       tid);
-      load_rows<D, 64>(Vs + (cur ^ 1) * kTile, v, b, (n + 1) * 64, Sk, Hk, hk,
-                       tid);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Kc = Ks + cur * kTile;
-    const bf16* Vc = Vs + cur * kTile;
-
-    // S = Q K^T and dP = dO V^T, 16 rows x 64 keys per warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4], ad[4];
-      frag_a(a, Qs, LD, warp * 16, kk, g, t);
-      frag_a(ad, dOs, LD, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bb[2];
-        frag_bt(bb, Kc, LD, j * 8, kk, g, t);
-        mma16816(s[j], a, bb);
-        frag_bt(bb, Vc, LD, j * 8, kk, g, t);
-        mma16816(dp[j], ad, bb);
-      }
-    }
-    // dS = P (dP - delta), P = exp(s - lse) where visible (select after exp)
-    const int j0 = n * 64;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j0 + j * 8 + 2 * t + e;
-        const float pa = visible(iA, col, Sq, Sk, causal, off)
-            ? exp2f((s[j][e] * scale - lseA) * kLog2e) : 0.f;
-        const float pb = visible(iB, col, Sq, Sk, causal, off)
-            ? exp2f((s[j][2 + e] * scale - lseB) * kLog2e) : 0.f;
-        s[j][e] = pa * (dp[j][e] - dlA);
-        s[j][2 + e] = pb * (dp[j][2 + e] - dlB);
-      }
-    // dQ += dS K, dS rounded to bf16 (ds.astype(k.dtype))
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, s, kk);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t bb[2];
-        frag_b(bb, Kc, LD, kk * 16, dt * 8, g, t);
-        mma16816(acc[dt], a, bb);
-      }
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (iA < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + (((int64_t)b * Sq + iA) * H + h) * D + col) =
-          __floats2bfloat162_rn(acc[dt][0] * scale, acc[dt][1] * scale);
-    if (iB < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + (((int64_t)b * Sq + iB) * H + h) * D + col) =
-          __floats2bfloat162_rn(acc[dt][2] * scale, acc[dt][3] * scale);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = sw128_desc(addr + kk * 2048, lbo, 1024);
+    if constexpr (D == 128)
+      wgmma_rs_n128<1>(d, a[kk], db, 1);
+    else
+      wgmma_rs_n64<1>(d, a[kk], db, 1);
   }
 }
 
-// ---------------------------------------------------------------------------
-// B3: dk, dv, bf16
-// ---------------------------------------------------------------------------
-
-constexpr int kDkvRows = 32;   // q rows a step of B3 streams
-
+// d[64 x 64] = A B^T over D: A the K-major rows at `a_addr` (64-column
+// blocks `a_atom` bytes apart), B the K-major 64 rows at `b_addr` (`b_atom`)
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__device__ __forceinline__ void mma_ss_kk(float (&d)[32], uint32_t a_addr,
+                                          uint32_t a_atom, uint32_t b_addr,
+                                          uint32_t b_atom) {
+  using namespace hopper;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int a = kk / 4, c = (kk % 4) * 32;
+    wgmma_ss_n64<0>(d, sw128_desc(a_addr + a * a_atom + c, 16, 1024),
+                    sw128_desc(b_addr + a * b_atom + c, 16, 1024), kk > 0);
+  }
+}
+
+// B2: one block per (128-row Q tile, head, batch), long rows first; key
+// tiles of 64 walked from the last (the ones the offset diagonal or the Sk
+// tail cross) to the first
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1) flash_bwd_dq_tma_kernel(
+    const __grid_constant__ CUtensorMap tmap_q,
+    const __grid_constant__ CUtensorMap tmap_k,
+    const __grid_constant__ CUtensorMap tmap_v,
+    const __grid_constant__ CUtensorMap tmap_do,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int Sq, int Sk, int H, int Hk, int causal,
+    float scale) {
+  using namespace hopper;
+  constexpr int kAtoms = D / 64;
+  constexpr int kQAtom = kDqRows * 128;
+  constexpr int kKVAtom = kDqKeys * 128;
+  constexpr int kQBytes = kAtoms * kQAtom;
+  constexpr int kKVBytes = kAtoms * kKVAtom;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);
+  uint8_t* dOs = Qs + kQBytes;
+  uint8_t* Ks = dOs + kQBytes;                      // [stage][atom][key][64]
+  uint8_t* Vs = Ks + kDqStages * kKVBytes;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(Vs + kDqStages * kKVBytes);
+  uint64_t* kfull = qbar + 1;
+  uint64_t* vfull = kfull + kDqStages;
+  uint64_t* empty = vfull + kDqStages;
+
+  const int n_qt = (Sq + kDqRows - 1) / kDqRows;
+  const int i0 = (n_qt - 1 - (int)blockIdx.x) * kDqRows;   // long rows first
+  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hk);
+  const int off = Sk - Sq;
+  int n_kt = (Sk + kDqKeys - 1) / kDqKeys;
+  if (causal) {
+    const int last = i0 + kDqRows - 1 + off;
+    n_kt = min(n_kt, last < 0 ? 0 : last / kDqKeys + 1);
+  }
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+#pragma unroll
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 256);   // every consumer thread releases
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: Q and dO once, then K and V tiles through the ring; rows
+    // past Sq and Sk arrive as zeros
+    if (t == 0 && n_kt > 0) {
+      mbar_expect_tx(qbar, 2 * kQBytes);
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(Qs + a * kQAtom, &tmap_q, qbar, a * 64, h, i0, b);
+        tma_load_4d(dOs + a * kQAtom, &tmap_do, qbar, a * 64, h, i0, b);
+      }
+      for (int it = 0; it < n_kt; ++it) {
+        const int s = it % kDqStages, j0 = (n_kt - 1 - it) * kDqKeys;
+        if (it >= kDqStages) mbar_wait(&empty[s], (it / kDqStages - 1) & 1);
+        mbar_expect_tx(&kfull[s], kKVBytes);
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(Ks + s * kKVBytes + a * kKVAtom, &tmap_k, &kfull[s],
+                      a * 64, hk, j0, b);
+        mbar_expect_tx(&vfull[s], kKVBytes);
+#pragma unroll
+        for (int a = 0; a < kAtoms; ++a)
+          tma_load_4d(Vs + s * kKVBytes + a * kKVAtom, &tmap_v, &vfull[s],
+                      a * 64, hk, j0, b);
+      }
+    }
+  } else {
+    const int warp = t / 32, g = (t % 32) / 4, q4 = t % 4;
+    const int r0 = i0 + wg * 64;                      // this warpgroup's rows
+    const int rA = r0 + warp * 16 + g, rB = rA + 8;   // this thread's
+    const float sl2 = scale * kLog2e;
+    // lse * log2 e and delta of the thread's rows; rows past Sq take +inf
+    // and 0, so that their P and dS are exactly 0
+    const int64_t vec = ((int64_t)b * H + h) * Sq;
+    const float lA = rA < Sq ? lse[vec + rA] * kLog2e : INFINITY;
+    const float lB = rB < Sq ? lse[vec + rB] * kLog2e : INFINITY;
+    const float dA = rA < Sq ? delta[vec + rA] : 0.f;
+    const float dB = rB < Sq ? delta[vec + rB] : 0.f;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128;
+    const uint32_t do_addr = smem_u32(dOs) + wg * 64 * 128;
+    if (n_kt > 0) mbar_wait(qbar, 0);
+
+    for (int it = 0; it < n_kt; ++it) {
+      const int s = it % kDqStages, j0 = (n_kt - 1 - it) * kDqKeys;
+      const int par = (it / kDqStages) & 1;
+      mbar_wait(&kfull[s], par);
+      mbar_wait(&vfull[s], par);
+      // a tile past every one of this warpgroup's diagonals: nothing to do
+      if (!(causal && j0 > r0 + 63 + off)) {
+        const uint32_t k_addr = smem_u32(Ks + s * kKVBytes);
+        const uint32_t v_addr = smem_u32(Vs + s * kKVBytes);
+        // S = Q K^T, dP = dO V^T: K and V as K-major B operands
+        float sc[32], dp[32];
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+        mma_ss_kk<D>(sc, q_addr, kQAtom, k_addr, kKVAtom);
+        mma_ss_kk<D>(dp, do_addr, kQAtom, v_addr, kKVAtom);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+        // P = exp(S * scale - lse) as one FMA before exp2
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] = exp2f(fmaf(sc[i], sl2, ((i / 2) % 2) ? -lB : -lA));
+        // masks only where the offset diagonal or the Sk tail crosses the
+        // tile: a select after the exp (never a product with a 0/1 mask)
+        if (j0 + kDqKeys > Sk || (causal && j0 + kDqKeys - 1 > r0 + off)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = j0 + 8 * (i / 4) + 2 * q4 + (i % 2);
+            const int row = ((i / 2) % 2) ? rB : rA;
+            if (col >= Sk || (causal && col > row + off)) sc[i] = 0.f;
+          }
+        }
+        // dS = P (dP - delta), rounded to bf16 (ds.astype(k.dtype)) into
+        // the A operand of dQ += dS K; K as the MN-major B operand
+        uint32_t ds[4][4];
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] *= dp[i] - (((i / 2) % 2) ? dB : dA);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a16(ds[kk], sc, kk);
+        fence_regs(acc);
+        wgmma_fence();
+        mma_rs_mn<D>(acc, ds, k_addr, kKVAtom);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // dq = dQ * scale, rounded to q's dtype
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int col = 8 * (i / 4) + 2 * q4;
+      const int row = ((i / 2) % 2) ? rB : rA;
+      if (row < Sq)
+        *reinterpret_cast<__nv_bfloat162*>(
+            dq + (((int64_t)b * Sq + row) * H + h) * D + col) =
+            __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+// B3: one block per (128-key tile, kv head, batch), low keys (the most q
+// tiles under causal masking) first. Transposed form: S^T = K Q^T and dP^T =
+// V dO^T, so P^T and dS^T are register A operands of dV += P^T dO and dK +=
+// dS^T Q. Q and dO tiles of 64 rows stream through the ring for every head
+// of the group and every q tile from the diagonal's first; dK and dV stay in
+// registers throughout, so the sum over the group needs no atomics and is
+// deterministic. Two warpgroups and no producer warp (see kDkvThreads): warp
+// 0 fills the ring kDkvStages - 1 steps ahead of its own.
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1) flash_bwd_dkv_tma_kernel(
+    const __grid_constant__ CUtensorMap tmap_q,
+    const __grid_constant__ CUtensorMap tmap_k,
+    const __grid_constant__ CUtensorMap tmap_v,
+    const __grid_constant__ CUtensorMap tmap_do,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H,
     int Hk, int causal, float scale) {
-  constexpr int LD = D + 8;
-  constexpr int R = kDkvRows;
-  constexpr int kKTile = 64 * LD, kQTile = R * LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + kKTile;
-  bf16* Qs = Vs + kKTile;       // [2][R][LD]
-  bf16* dOs = Qs + 2 * kQTile;  // [2][R][LD]
-  float* lse_s = reinterpret_cast<float*>(dOs + 2 * kQTile);   // [2][R]
-  float* dl_s = lse_s + 2 * R;                                 // [2][R]
+  using namespace hopper;
+  constexpr int kAtoms = D / 64;
+  constexpr int kKAtom = kDkvKeys * 128;
+  constexpr int kQAtom = kDkvRows * 128;
+  constexpr int kKBytes = kAtoms * kKAtom;
+  constexpr int kQBytes = kAtoms * kQAtom;
+  constexpr int S = kDkvStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);
+  uint8_t* Vs = Ks + kKBytes;
+  uint8_t* Qs = Vs + kKBytes;                       // [stage][atom][row][64]
+  uint8_t* dOs = Qs + S * kQBytes;
+  float* l2s = reinterpret_cast<float*>(dOs + S * kQBytes);
+  float* dls = l2s + S * kDkvRows;                  // [stage][row]
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(dls + S * kDkvRows);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + S;
 
-  const int j0 = blockIdx.x * 64;
+  const int j0 = blockIdx.x * kDkvKeys;
   const int hk = blockIdx.y, b = blockIdx.z, grp = H / Hk;
   const int off = Sk - Sq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kA = j0 + warp * 16 + g, kB = kA + 8;   // this thread's keys
-  const int n_rt = (Sq + R - 1) / R;
-  // first q tile whose rows reach this key tile's diagonal (:305)
-  int rt0 = 0;
-  if (causal) rt0 = min(n_rt, max(0, j0 - off) / R);
+  const int n_rt = (Sq + kDkvRows - 1) / kDkvRows;
+  // the first q tile whose rows reach this key tile's diagonal
+  const int rt0 = causal ? min(n_rt, max(0, j0 - off) / kDkvRows) : 0;
   const int per_head = n_rt - rt0;
   const int steps = grp * per_head;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 33);     // lane 0's copies, every lane of warp 0
+      mbar_init(&empty[s], 256);   // every thread
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  load_rows<D, 64>(Ks, k, b, j0, Sk, Hk, hk, tid);
-  load_rows<D, 64>(Vs, v, b, j0, Sk, Hk, hk, tid);
-  auto load_step = [&](int st, int buf) {
+  // warp 0 fills the ring kDkvStages - 1 steps ahead, in two halves: at the
+  // top of a step, once every thread has released the stage, lane 0 starts
+  // the TMA copies of the Q and dO tiles and every lane starts loading two
+  // rows' lse and delta into registers; at the end of the step, when those
+  // loads have long landed, every lane writes lse * log2 e and delta to the
+  // stage (rows past Sq: +inf and 0, so that their P and dS are exactly 0)
+  // and arrives
+  const bool producer = threadIdx.x < 32;
+  float pre[4];   // lse, delta of rows t and t + 32 of the step in flight
+  auto fetch = [&](int st) {
+    const int s = st % S;
     const int h = hk * grp + st / per_head;
-    const int r0 = (rt0 + st % per_head) * R;
-    load_rows<D, R>(Qs + buf * kQTile, q, b, r0, Sq, H, h, tid);
-    load_rows<D, R>(dOs + buf * kQTile, dout, b, r0, Sq, H, h, tid);
-    load_vec<R>(lse_s + buf * R, lse, b, H, h, r0, Sq, tid);
-    load_vec<R>(dl_s + buf * R, delta, b, H, h, r0, Sq, tid);
+    const int r0 = (rt0 + st % per_head) * kDkvRows;
+    if (st >= S) mbar_wait(&empty[s], (st / S - 1) & 1);
+    if (t == 0) {
+      mbar_expect_tx(&full[s], 2 * kQBytes);
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(Qs + s * kQBytes + a * kQAtom, &tmap_q, &full[s],
+                    a * 64, h, r0, b);
+        tma_load_4d(dOs + s * kQBytes + a * kQAtom, &tmap_do, &full[s],
+                    a * 64, h, r0, b);
+      }
+    }
+    const int64_t vec = ((int64_t)b * H + h) * Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + t + 32 * i;
+      pre[2 * i] = row < Sq ? lse[vec + row] * kLog2e : INFINITY;
+      pre[2 * i + 1] = row < Sq ? delta[vec + row] : 0.f;
+    }
   };
-  if (steps > 0) load_step(0, 0);
-  cp_async_commit();
+  auto publish = [&](int st) {
+    const int s = st % S;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l2s[s * kDkvRows + t + 32 * i] = pre[2 * i];
+      dls[s * kDkvRows + t + 32 * i] = pre[2 * i + 1];
+    }
+    mbar_arrive(&full[s]);
+  };
+  if (producer && steps > 0) {
+    if (t == 0) {
+      mbar_expect_tx(kvbar, 2 * kKBytes);
+#pragma unroll
+      for (int a = 0; a < kAtoms; ++a) {
+        tma_load_4d(Ks + a * kKAtom, &tmap_k, kvbar, a * 64, hk, j0, b);
+        tma_load_4d(Vs + a * kKAtom, &tmap_v, kvbar, a * 64, hk, j0, b);
+      }
+    }
+    for (int st = 0; st < min(S - 1, steps); ++st) {
+      fetch(st);
+      publish(st);
+    }
+  }
 
-  float dka[D / 8][4], dva[D / 8][4];
+  const int warp = t / 32, g = (t % 32) / 4, q4 = t % 4;
+  const int jw = j0 + wg * 64;                        // this warpgroup's keys
+  const int kA = jw + warp * 16 + g, kB = kA + 8;     // this thread's
+  const float sl2 = scale * kLog2e;
+  float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const uint32_t k_addr = smem_u32(Ks) + wg * 64 * 128;
+  const uint32_t v_addr = smem_u32(Vs) + wg * 64 * 128;
+  if (steps > 0) mbar_wait(kvbar, 0);
 
   for (int st = 0; st < steps; ++st) {
-    const int cur = st & 1;
-    if (st + 1 < steps) load_step(st + 1, cur ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* Qc = Qs + cur * kQTile;
-    const bf16* dOc = dOs + cur * kQTile;
-    const float* lc = lse_s + cur * R;
-    const float* dc = dl_s + cur * R;
-    const int r0 = (rt0 + st % per_head) * R;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x R rows per warp
-    float s[R / 8][4], dp[R / 8][4];
+    const bool ahead = producer && st + S - 1 < steps;
+    if (ahead) fetch(st + S - 1);
+    const int s = st % S, par = (st / S) & 1;
+    const int r0 = (rt0 + st % per_head) * kDkvRows;
+    mbar_wait(&full[s], par);
+    // rows that all sit before this warpgroup's keys: nothing to do
+    if (!(causal && jw > r0 + kDkvRows - 1 + off)) {
+      const uint32_t q_addr = smem_u32(Qs + s * kQBytes);
+      const uint32_t do_addr = smem_u32(dOs + s * kQBytes);
+      const float* l2 = l2s + s * kDkvRows;
+      const float* dl = dls + s * kDkvRows;
+      // S^T = K Q^T, dP^T = V dO^T: Q and dO as K-major B operands
+      float sc[32], dp[32];
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+      mma_ss_kk<D>(sc, k_addr, kKAtom, q_addr, kQAtom);
+      mma_ss_kk<D>(dp, v_addr, kKAtom, do_addr, kQAtom);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      // P^T = exp(S^T * scale - lse), lse per column
 #pragma unroll
-    for (int j = 0; j < R / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4], av[4];
-      frag_a(a, Ks, LD, warp * 16, kk, g, t);
-      frag_a(av, Vs, LD, warp * 16, kk, g, t);
-#pragma unroll
-      for (int j = 0; j < R / 8; ++j) {
-        uint32_t bb[2];
-        frag_bt(bb, Qc, LD, j * 8, kk, g, t);
-        mma16816(s[j], a, bb);
-        frag_bt(bb, dOc, LD, j * 8, kk, g, t);
-        mma16816(dp[j], av, bb);
+      for (int i = 0; i < 32; i += 2) {
+        const float2 l = *reinterpret_cast<const float2*>(
+            l2 + 8 * (i / 4) + 2 * q4);
+        sc[i] = exp2f(fmaf(sc[i], sl2, -l.x));
+        sc[i + 1] = exp2f(fmaf(sc[i + 1], sl2, -l.y));
       }
+      // the causal mask only where the offset diagonal crosses the tile: a
+      // select after the exp
+      if (causal && jw + 63 > r0 + off) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int row = r0 + 8 * (i / 4) + 2 * q4 + (i % 2);
+          const int key = ((i / 2) % 2) ? kB : kA;
+          if (key > row + off) sc[i] = 0.f;
+        }
+      }
+      // dS^T = P^T (dP^T - delta); P^T and dS^T rounded to bf16
+      // (p.astype(do.dtype), ds.astype(q.dtype)) into the A operands of dV
+      // += P^T dO and dK += dS^T Q, dO and Q as MN-major B operands
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const float2 d = *reinterpret_cast<const float2*>(
+            dl + 8 * (i / 4) + 2 * q4);
+        dp[i] = sc[i] * (dp[i] - d.x);
+        dp[i + 1] = sc[i + 1] * (dp[i + 1] - d.y);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        acc_to_a16(pa[kk], sc, kk);
+        acc_to_a16(da[kk], dp, kk);
+      }
+      fence_regs(dva);
+      fence_regs(dka);
+      wgmma_fence();
+      mma_rs_mn<D>(dva, pa, do_addr, kQAtom);
+      mma_rs_mn<D>(dka, da, q_addr, kQAtom);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
     }
-    // P^T where visible (select after exp); dS^T = P^T (dP^T - delta)
-#pragma unroll
-    for (int j = 0; j < R / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int rr = j * 8 + 2 * t + e, row = r0 + rr;
-        const float lr = lc[rr], dr = dc[rr];
-        const float pa = visible(row, kA, Sq, Sk, causal, off)
-            ? exp2f((s[j][e] * scale - lr) * kLog2e) : 0.f;
-        const float pb = visible(row, kB, Sq, Sk, causal, off)
-            ? exp2f((s[j][2 + e] * scale - lr) * kLog2e) : 0.f;
-        s[j][e] = pa;
-        s[j][2 + e] = pb;
-        dp[j][e] = pa * (dp[j][e] - dr);
-        dp[j][2 + e] = pb * (dp[j][2 + e] - dr);
-      }
-    // dV += P^T dO (p.astype(do.dtype)); dK += dS^T Q (ds.astype(q.dtype))
-#pragma unroll
-    for (int kk = 0; kk < R / 16; ++kk) {
-      uint32_t ap[4], ad[4];
-      acc_to_a(ap, s, kk);
-      acc_to_a(ad, dp, kk);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t bb[2];
-        frag_b(bb, dOc, LD, kk * 16, dt * 8, g, t);
-        mma16816(dva[dt], ap, bb);
-        frag_b(bb, Qc, LD, kk * 16, dt * 8, g, t);
-        mma16816(dka[dt], ad, bb);
-      }
-    }
-    __syncthreads();
+    mbar_arrive(&empty[s]);
+    if (ahead) publish(st + S - 1);
   }
-  cp_async_wait<0>();
 
+  // dk = dK * scale and dv, in f32
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int col = dt * 8 + 2 * t;
-    if (kA < Sk) {
-      const int64_t o = (((int64_t)b * Sk + kA) * Hk + hk) * D + col;
+  for (int i = 0; i < D / 2; i += 2) {
+    const int col = 8 * (i / 4) + 2 * q4;
+    const int key = ((i / 2) % 2) ? kB : kA;
+    if (key < Sk) {
+      const int64_t o = (((int64_t)b * Sk + key) * Hk + hk) * D + col;
       *reinterpret_cast<float2*>(dk + o) =
-          make_float2(dka[dt][0] * scale, dka[dt][1] * scale);
-      *reinterpret_cast<float2*>(dv + o) = make_float2(dva[dt][0], dva[dt][1]);
-    }
-    if (kB < Sk) {
-      const int64_t o = (((int64_t)b * Sk + kB) * Hk + hk) * D + col;
-      *reinterpret_cast<float2*>(dk + o) =
-          make_float2(dka[dt][2] * scale, dka[dt][3] * scale);
-      *reinterpret_cast<float2*>(dv + o) = make_float2(dva[dt][2], dva[dt][3]);
+          make_float2(dka[i] * scale, dka[i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + o) = make_float2(dva[i], dva[i + 1]);
     }
   }
 }
@@ -1017,12 +1079,6 @@ void allow_smem(K kernel, size_t bytes) {
 }
 
 template <int D>
-constexpr size_t dq_smem() { return (size_t)6 * 64 * (D + 8) * 2; }
-template <int D>
-constexpr size_t dkv_smem() {
-  return (size_t)(2 * 64 + 4 * kDkvRows) * (D + 8) * 2 + 4 * kDkvRows * 4;
-}
-template <int D>
 constexpr size_t fwd_f32_smem() {
   return (size_t)(2 * kF * D + kF * (D + 1) + kF * (kF + 1) + 3 * kF) * 4;
 }
@@ -1040,34 +1096,44 @@ struct Dims {
   float scale;
 };
 
+// a 4-D map over x [B, S, heads, D] (innermost first): boxes of one (batch,
+// head) x `rows` rows x 64 columns in the 128-byte swizzle; rows past S
+// read as zeros
+template <int D>
+bool bshd_map(CUtensorMap* map, const void* x, int B, int S, int heads,
+              int rows) {
+  const cuuint64_t dims[4] = {D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
+                          strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the maps of q and do (boxes of q_rows) and of k and v (boxes of k_rows)
+template <int D>
+bool qkv_maps(CUtensorMap* maps, const void* q, const void* k, const void* v,
+              const void* dout, Dims m, int q_rows, int k_rows) {
+  return bshd_map<D>(&maps[0], q, m.B, m.Sq, m.H, q_rows) &&
+         bshd_map<D>(&maps[1], k, m.B, m.Sk, m.Hk, k_rows) &&
+         bshd_map<D>(&maps[2], v, m.B, m.Sk, m.Hk, k_rows) &&
+         (dout == nullptr ||
+          bshd_map<D>(&maps[3], dout, m.B, m.Sq, m.H, q_rows));
+}
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, Dims m, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    // 4-D maps over [B, S, heads, D] (innermost first), boxes of one
-    // (batch, head) x 128 rows x 64 columns, 128-byte swizzle
-    CUtensorMap tq, tk, tv;
-    const cuuint64_t qd[4] = {D, (cuuint64_t)m.H, (cuuint64_t)m.Sq,
-                              (cuuint64_t)m.B};
-    const cuuint64_t qs[3] = {D * 2, (cuuint64_t)m.H * D * 2,
-                              (cuuint64_t)m.Sq * m.H * D * 2};
-    const cuuint64_t kd[4] = {D, (cuuint64_t)m.Hk, (cuuint64_t)m.Sk,
-                              (cuuint64_t)m.B};
-    const cuuint64_t ks[3] = {D * 2, (cuuint64_t)m.Hk * D * 2,
-                              (cuuint64_t)m.Sk * m.Hk * D * 2};
-    const cuuint32_t qb[4] = {64, 1, kFwdRows, 1};
-    const cuuint32_t kb[4] = {64, 1, kFwdKeys, 1};
-    const auto bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-    const auto sw = CU_TENSOR_MAP_SWIZZLE_128B;
-    if (!hopper::make_map(&tq, bf, 4, q, qd, qs, qb, sw) ||
-        !hopper::make_map(&tk, bf, 4, k, kd, ks, kb, sw) ||
-        !hopper::make_map(&tv, bf, 4, v, kd, ks, kb, sw))
+    CUtensorMap t[3];
+    if (!qkv_maps<D>(t, q, k, v, nullptr, m, kFwdRows, kFwdKeys))
       return (int)cudaErrorInvalidValue;
     auto kern = flash_fwd_tma_kernel<D>;
     allow_smem(kern, fwd_smem<D>());
     kern<<<dim3((m.Sq + kFwdRows - 1) / kFwdRows, m.H, m.B), kFwdThreads,
-           fwd_smem<D>(), st>>>(tq, tk, tv, (bf16*)out, (float*)lse, m.Sq,
-                                m.Sk, m.H, m.Hk, m.causal, m.scale);
+           fwd_smem<D>(), st>>>(t[0], t[1], t[2], (bf16*)out, (float*)lse,
+                                m.Sq, m.Sk, m.H, m.Hk, m.causal, m.scale);
   } else {
     auto kern = flash_fwd_f32_kernel<D>;
     allow_smem(kern, fwd_f32_smem<D>());
@@ -1080,16 +1146,19 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
 }
 
 template <int D>
-void launch_dq(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, Dims m,
-               int dtype, cudaStream_t st) {
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, Dims m,
+              int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    auto kern = flash_bwd_dq_kernel<D>;
+    CUtensorMap t[4];
+    if (!qkv_maps<D>(t, q, k, v, dout, m, kDqRows, kDqKeys))
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dq_tma_kernel<D>;
     allow_smem(kern, dq_smem<D>());
-    kern<<<dim3((m.Sq + 63) / 64, m.H, m.B), kThreads, dq_smem<D>(), st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dq, m.Sq, m.Sk, m.H,
-        m.Hk, m.causal, m.scale);
+    kern<<<dim3((m.Sq + kDqRows - 1) / kDqRows, m.H, m.B), kDqThreads,
+           dq_smem<D>(), st>>>(t[0], t[1], t[2], t[3], (const float*)lse,
+                               (const float*)delta, (bf16*)dq, m.Sq, m.Sk,
+                               m.H, m.Hk, m.causal, m.scale);
   } else {
     auto kern = flash_bwd_dq_f32_kernel<D>;
     allow_smem(kern, dq_f32_smem<D>());
@@ -1098,19 +1167,23 @@ void launch_dq(const void* q, const void* k, const void* v, const void* dout,
                  (const float*)dout, (const float*)lse, (const float*)delta,
                  (float*)dq, m.Sq, m.Sk, m.H, m.Hk, m.causal, m.scale);
   }
+  return (int)cudaGetLastError();
 }
 
 template <int D>
-void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dk, void* dv,
-                Dims m, int dtype, cudaStream_t st) {
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               Dims m, int dtype, cudaStream_t st) {
   if (dtype == 1) {
-    auto kern = flash_bwd_dkv_kernel<D>;
+    CUtensorMap t[4];
+    if (!qkv_maps<D>(t, q, k, v, dout, m, kDkvRows, kDkvKeys))
+      return (int)cudaErrorInvalidValue;
+    auto kern = flash_bwd_dkv_tma_kernel<D>;
     allow_smem(kern, dkv_smem<D>());
-    kern<<<dim3((m.Sk + 63) / 64, m.Hk, m.B), kThreads, dkv_smem<D>(), st>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, m.Sq,
-        m.Sk, m.H, m.Hk, m.causal, m.scale);
+    kern<<<dim3((m.Sk + kDkvKeys - 1) / kDkvKeys, m.Hk, m.B), kDkvThreads,
+           dkv_smem<D>(), st>>>(t[0], t[1], t[2], t[3], (const float*)lse,
+                                (const float*)delta, (float*)dk, (float*)dv,
+                                m.Sq, m.Sk, m.H, m.Hk, m.causal, m.scale);
   } else {
     auto kern = flash_bwd_dkv_f32_kernel<D>;
     allow_smem(kern, dkv_f32_smem<D>());
@@ -1120,6 +1193,7 @@ void launch_dkv(const void* q, const void* k, const void* v, const void* dout,
         (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, m.Sq,
         m.Sk, m.H, m.Hk, m.causal, m.scale);
   }
+  return (int)cudaGetLastError();
 }
 
 bool dims_ok(int B, int Sq, int Sk, int H, int Hk, int D, int dtype) {
@@ -1155,13 +1229,11 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                int causal, float scale, void* stream) {
   if (!dims_ok(B, Sq, Sk, H, Hk, D, dtype)) return (int)cudaErrorInvalidValue;
   const Dims m{B, Sq, Sk, H, Hk, causal, scale};
-  if (D == 128)
-    launch_dq<128>(q, k, v, dout, lse, delta, dq, m, dtype,
-                   (cudaStream_t)stream);
-  else
-    launch_dq<64>(q, k, v, dout, lse, delta, dq, m, dtype,
-                  (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  return D == 128
+             ? launch_dq<128>(q, k, v, dout, lse, delta, dq, m, dtype,
+                              (cudaStream_t)stream)
+             : launch_dq<64>(q, k, v, dout, lse, delta, dq, m, dtype,
+                             (cudaStream_t)stream);
 }
 
 extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1172,11 +1244,9 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 void* stream) {
   if (!dims_ok(B, Sq, Sk, H, Hk, D, dtype)) return (int)cudaErrorInvalidValue;
   const Dims m{B, Sq, Sk, H, Hk, causal, scale};
-  if (D == 128)
-    launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, m, dtype,
-                    (cudaStream_t)stream);
-  else
-    launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, m, dtype,
-                   (cudaStream_t)stream);
-  return (int)cudaGetLastError();
+  return D == 128
+             ? launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, m, dtype,
+                               (cudaStream_t)stream)
+             : launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, m, dtype,
+                              (cudaStream_t)stream);
 }

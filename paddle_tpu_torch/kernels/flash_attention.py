@@ -113,10 +113,6 @@ def _check_kernel(dtype_like, halves, floats=()):
                          f"{dtype_like.shape[-1]}")
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _raise_on(rc, name):
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -256,9 +252,10 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     _check_kernel(q, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    rc = _build.lib("flash_attention").pt_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_dims(q, k, causal, sm_scale), _stream(q.device))
+    rc = _build.launch(
+        "flash_attention", "pt_flash_fwd", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_dims(q, k, causal, sm_scale))
     _raise_on(rc, "flash_fwd")
     launches["flash_fwd"] += 1
     return out, lse
@@ -267,10 +264,10 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
 def _launch_dq(q, k, v, do, lse, delta, causal, sm_scale):
     """B2 on the card: dq in q's dtype."""
     dq = torch.empty_like(q)
-    rc = _build.lib("flash_attention").pt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_dims(q, k, causal, sm_scale), _stream(q.device))
+    rc = _build.launch(
+        "flash_attention", "pt_flash_bwd_dq", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), *_dims(q, k, causal, sm_scale))
     _raise_on(rc, "flash_bwd_dq")
     launches["flash_bwd_dq"] += 1
     return dq
@@ -280,10 +277,11 @@ def _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale):
     """B3 on the card: dk, dv in f32."""
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    rc = _build.lib("flash_attention").pt_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_dims(q, k, causal, sm_scale), _stream(q.device))
+    rc = _build.launch(
+        "flash_attention", "pt_flash_bwd_dkv", q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_dims(q, k, causal, sm_scale))
     _raise_on(rc, "flash_bwd_dkv")
     launches["flash_bwd_dkv"] += 1
     return dk, dv

@@ -177,11 +177,11 @@ def weight_only_matmul(x, w_q, scale, out_dtype=None):
                                       device=dev)
         elif way == "tma":
             tiling = tile(m, n, _sms(dev))
-        rc = _build.lib("quantized_matmul").pt_weight_only_matmul(
-            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        rc = _build.launch(
+            "quantized_matmul", "pt_weight_only_matmul", dev, x2.data_ptr(),
+            w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             0 if partial is None else partial.data_ptr(), m, k, n, per,
-            splits, _DTYPES[x.dtype], _ROUTES[way], *tiling,
-            torch.cuda.current_stream(dev).cuda_stream)
+            splits, _DTYPES[x.dtype], _ROUTES[way], *tiling)
         if rc != 0:
             raise RuntimeError(f"weight_only_matmul kernel launch failed "
                                f"({way} route): CUDA error {rc}")

@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.kernels import _build
-from paddle_tpu_torch.kernels.attention import _on_card, _raise_on, _stream
+from paddle_tpu_torch.kernels.attention import _on_card, _raise_on
 
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
            "rms_norm_bwd_plain", "rms_norm", "launches", "reset_launches",
@@ -141,10 +141,10 @@ def rms_norm_fwd(x2d, w, eps, save_r=True):
     y = torch.empty((rows, h), dtype=x2d.dtype, device=x2d.device)
     r = (torch.empty(rows, dtype=torch.float32, device=x2d.device)
          if save_r else None)
-    rc = _build.lib("rms_norm").pt_rms_norm_fwd(
-        x2d.data_ptr(), w.data_ptr(), y.data_ptr(),
-        0 if r is None else r.data_ptr(), rows, h, _ld(x2d),
-        _DTYPES[w.dtype], float(eps), _stream(x2d.device))
+    rc = _build.launch(
+        "rms_norm", "pt_rms_norm_fwd", x2d.device, x2d.data_ptr(),
+        w.data_ptr(), y.data_ptr(), 0 if r is None else r.data_ptr(), rows,
+        h, _ld(x2d), _DTYPES[w.dtype], float(eps))
     _raise_on(rc, "rms_norm_fwd")
     launches["rms_norm_fwd"] += 1
     return y, r
@@ -178,10 +178,11 @@ def rms_norm_bwd(x2d, w, r, g2d):
     dx = torch.empty((rows, h), dtype=x2d.dtype, device=dev)
     dw = torch.empty(h, dtype=w.dtype, device=dev)
     part = torch.empty((strips, h), dtype=torch.float32, device=dev)
-    rc = _build.lib("rms_norm").pt_rms_norm_bwd(
-        x2d.data_ptr(), w.data_ptr(), r.data_ptr(), g2d.data_ptr(),
-        dx.data_ptr(), part.data_ptr(), dw.data_ptr(), rows, h, _ld(x2d),
-        _ld(g2d), per, strips, _DTYPES[w.dtype], _stream(dev))
+    rc = _build.launch(
+        "rms_norm", "pt_rms_norm_bwd", dev, x2d.data_ptr(), w.data_ptr(),
+        r.data_ptr(), g2d.data_ptr(), dx.data_ptr(), part.data_ptr(),
+        dw.data_ptr(), rows, h, _ld(x2d), _ld(g2d), per, strips,
+        _DTYPES[w.dtype])
     _raise_on(rc, "rms_norm_bwd")
     launches["rms_norm_bwd"] += 1
     return dx, dw

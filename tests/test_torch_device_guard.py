@@ -1,0 +1,152 @@
+"""Every kernel wrapper of the PyTorch port launches on the device of its
+tensors, not on the CUDA runtime's current one.
+
+Runs on the CPU: the tensors are CPU tensors that report `cuda:1` as their
+device, the CUDA runtime is a stand-in whose current device is 0, and the
+kernel library is a stand-in that records the current device at each call.
+Each wrapper (B1-B3 through `flash_fwd` / `flash_bwd`, B4-B7 through
+`attention.py`, B8, B9/B10) must load its library and call its C entry point
+under a guard of `cuda:1`, and leave the current device at 0.
+"""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import attention as at
+from paddle_tpu_torch.kernels import flash_attention as fa
+from paddle_tpu_torch.kernels import quantized_matmul as qm
+from paddle_tpu_torch.kernels import rms_norm as rn
+
+CARD = torch.device("cuda", 1)
+
+
+class _OnCard1(torch.Tensor):
+    """A CPU tensor that reports `cuda:1` as its device; `.to(device)` keeps
+    it where it is."""
+
+    @property
+    def device(self):
+        return CARD
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func is torch.Tensor.to:
+            kwargs.pop("device", None)
+            args = tuple(a for a in args
+                         if not isinstance(a, (torch.device, str)))
+        return super().__torch_function__(func, types, args, kwargs)
+
+
+def _card(t):
+    return t.contiguous().as_subclass(_OnCard1)
+
+
+@pytest.fixture
+def runtime(monkeypatch):
+    """The stand-in CUDA runtime and kernel library; returns the list of
+    (what, name, current device) the library saw."""
+    state = {"current": 0}
+    seen = []
+
+    class Guard:
+        def __init__(self, device):
+            self.index = torch.device(device).index
+
+        def __enter__(self):
+            self.prev, state["current"] = state["current"], self.index
+
+        def __exit__(self, *exc):
+            state["current"] = self.prev
+
+    class Lib:
+        def __getattr__(self, fn):
+            def call(*args):
+                seen.append(("launch", fn, state["current"]))
+                return 0
+            return call
+
+    def lib(name="attention"):
+        seen.append(("load", name, state["current"]))
+        return Lib()
+
+    real_empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: real_empty(*a, **k))
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(_build, "lib", lib)
+    monkeypatch.setattr(qm, "_sm_count", {})
+    monkeypatch.setattr(rn, "_sm_count", {})
+    for mod in (fa, at, qm, rn):
+        monkeypatch.setattr(mod, "launches", dict(mod.launches))
+    yield seen
+    assert state["current"] == 0
+
+
+def _rnd(gen, *shape, dtype=torch.bfloat16):
+    return _card(torch.from_numpy(gen.standard_normal(shape)
+                                  .astype("float32")).to(dtype))
+
+
+def _held(seen, fns):
+    """Every library load and call happened on cuda:1; the entry points
+    called are `fns`."""
+    assert seen and all(dev == 1 for _, _, dev in seen), seen
+    assert [n for what, n, _ in seen if what == "launch"] == fns
+
+
+def test_flash_wrappers_launch_on_their_tensors_device(runtime):
+    import numpy as np
+
+    gen = np.random.default_rng(0)
+    q, do = _rnd(gen, 1, 8, 4, 64), _rnd(gen, 1, 8, 4, 64)
+    k, v = _rnd(gen, 1, 8, 2, 64), _rnd(gen, 1, 8, 2, 64)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    fa.flash_bwd(q, k, v, out, _card(lse), do, True)
+    _held(runtime, ["pt_flash_fwd", "pt_flash_bwd_dq", "pt_flash_bwd_dkv"])
+
+
+def test_attention_wrappers_launch_on_their_tensors_device(runtime):
+    import numpy as np
+
+    gen = np.random.default_rng(1)
+    b, nh, nkv, hd, ps, P = 2, 4, 2, 64, 4, 2
+    q = _rnd(gen, b, 1, nh, hd)
+    ck, cv = _rnd(gen, b, nkv, 8, hd), _rnd(gen, b, nkv, 8, hd)
+    pos = _card(torch.tensor([5, 3], dtype=torch.int32))
+    pool = _rnd(gen, 1 + b * P, nkv, ps, hd)
+    codes = _card(torch.ones(1 + b * P, nkv, ps, hd, dtype=torch.int8))
+    scales = _card(torch.ones(1 + b * P, nkv))
+    bt = _card(torch.arange(1, 1 + b * P, dtype=torch.int32).reshape(b, P))
+    at.decode_attention(q, ck, cv, pos)
+    at.window_attention(_rnd(gen, b, 2, nh, hd), ck, cv, pos)
+    at.paged_decode_attention(q, pool, pool, bt, pos)
+    at.paged_decode_attention(q, codes, codes, bt, pos, k_scale=scales,
+                              v_scale=scales)
+    _held(runtime, ["pt_decode_attention", "pt_window_attention",
+                    "pt_paged_decode_attention",
+                    "pt_paged_decode_attention_q8"])
+
+
+def test_matmul_and_norm_wrappers_launch_on_their_tensors_device(runtime):
+    import numpy as np
+
+    gen = np.random.default_rng(2)
+    w = _card(torch.ones(64, 32, dtype=torch.int8))
+    s = _card(torch.ones(32))
+    for m in (8, 64):   # the GEMV route, then the TMA route
+        qm.weight_only_matmul(_rnd(gen, m, 64), w, s)
+    x, g = _rnd(gen, 4, 64), _rnd(gen, 4, 64)
+    wn = _rnd(gen, 64)
+    _, r = rn.rms_norm_fwd(x, wn, 1e-6)
+    rn.rms_norm_bwd(x, wn, _card(r), g)
+    _held(runtime, ["pt_weight_only_matmul", "pt_weight_only_matmul",
+                    "pt_rms_norm_fwd", "pt_rms_norm_bwd"])

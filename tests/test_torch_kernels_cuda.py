@@ -236,6 +236,12 @@ FLASH_SHAPES = [
     (2, 777, 777, 4, 2, 64, True, torch.bfloat16),
     (2, 129, 127, 4, 2, 128, True, torch.bfloat16),
     (1, 129, 127, 4, 4, 64, False, torch.bfloat16),
+    # the backward's tile edges: Sq, Sk off the 128- and 64-row tiles, a GQA
+    # group of 8, rows past Sk without the causal mask
+    (1, 192, 320, 8, 2, 128, True, torch.bfloat16),
+    (1, 65, 129, 4, 4, 64, True, torch.bfloat16),
+    (1, 256, 256, 8, 1, 128, True, torch.bfloat16),
+    (1, 300, 200, 8, 4, 128, False, torch.bfloat16),
     (1, 512, 512, 4, 2, 128, True, torch.float32),
     (1, 300, 200, 4, 4, 64, False, torch.float32),
     (1, 300, 100, 4, 2, 128, True, torch.float32),
@@ -283,6 +289,19 @@ def test_flash_kernels_match_plain_on_card(cuda, b, sq, sk, h, hk, d, causal,
     for got, ref in zip((out, dq, dk, dv), (ref_out, *refs)):
         assert torch.isfinite(got).all()
         assert _flash_ratio(got, ref, dtype) <= 1.0
+
+
+@pytest.mark.parametrize("d", [128, 64])
+def test_flash_backward_is_deterministic_on_card(cuda, d):
+    """B2 and B3 twice on the same inputs give bit-identical dq, dk, dv (B3
+    sums the GQA group in registers, in a fixed order)."""
+    q, k, v, do = _flash_inputs(cuda, 2, 700, 700, 8, 2, d, torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    first = fa.flash_bwd(q, k, v, out, lse, do, True)
+    second = fa.flash_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_round_trip_on_card(cuda):
@@ -387,3 +406,75 @@ def test_rms_norm_kernel_checks_on_card(cuda):
     r = torch.ones(4, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         rn.rms_norm_bwd(x, w, r.double(), x)
+
+
+
+@pytest.fixture
+def second_card():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: a launch on cuda:1 while cuda:0 is "
+                    "the current device")
+    return torch.device("cuda", 1)
+
+
+def test_every_kernel_launches_on_its_tensors_card(second_card):
+    """One launch of each kernel (B1-B10) on cuda:1 while cuda:0 is the
+    current device: each agrees with its plain version there (B4-B7 past
+    48 KB of shared memory, opted into on that card), and the current
+    device is left as it was."""
+    dev = second_card
+    torch.cuda.set_device(0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    before = cs.launch_counts()
+    # B1-B3, held to chip_smoke.py's per-vector bar
+    q, k, v, do = _flash_inputs(dev, 1, 256, 256, 8, 2, 128, torch.bfloat16)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, True)
+    grads = fa.flash_bwd(q, k, v, ref_out, ref_lse, do, True)
+    refs = fa.flash_bwd_plain(q, k, v, ref_out, ref_lse, do, True)
+    flash = [(out, ref_out)] + list(zip(grads, refs))
+    # B4-B7: 64 query rows per kv head (the most shared memory), int8 too
+    b, nh, nkv, hd, ps, P = 2, 64, 1, 128, 16, 8
+    n_pages = 1 + b * P
+    pk, pv = (torch.randn(n_pages, nkv, ps, hd, generator=g, device=dev)
+              .to(torch.bfloat16) for _ in range(2))
+    kq, ks = _q8_pool(g, dev, n_pages, nkv, ps, hd)
+    bt = (torch.arange(b * P, device=dev) + 1).reshape(b, P).to(torch.int32)
+    pos = torch.tensor([100, 37], dtype=torch.int32, device=dev)
+    qd = torch.randn(b, 1, nh, hd, generator=g, device=dev).to(torch.bfloat16)
+    ck, cv = at.paged_gather(pk, bt), at.paged_gather(pv, bt)
+    plain = [(at.decode_attention(qd, ck, cv, pos),
+              at.decode_attention_plain(qd, ck, cv, pos)),
+             (at.window_attention(qd, ck, cv, pos),
+              at.window_attention_plain(qd, ck, cv, pos)),
+             (at.paged_decode_attention(qd, pk, pv, bt, pos),
+              at.paged_decode_attention_plain(qd, pk, pv, bt, pos)),
+             (at.paged_decode_attention(qd, kq, kq, bt, pos, k_scale=ks,
+                                        v_scale=ks),
+              at.paged_decode_attention_plain(qd, kq, kq, bt, pos,
+                                              k_scale=ks, v_scale=ks))]
+    # B8 on its GEMV and TMA routes
+    w, s = qm.quantize_absmax(
+        torch.randn(512, 1024, generator=g, device=dev) * 0.02)
+    for m in (8, 256):
+        x = torch.randn(m, 512, generator=g, device=dev).to(torch.bfloat16)
+        plain.append((qm.weight_only_matmul(x, w, s),
+                      qm.dequant_matmul_plain(x, w, s)))
+    # B9, B10
+    xn, wn, gn = cs.rms_case(torch, dev, 64, 4096, torch.bfloat16)
+    _rms_check(xn, wn, gn, "bfloat16")
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    after = cs.launch_counts()
+    assert {n for n in after if after[n] > before[n]} >= {
+        "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+        "window_attention", "paged_decode_attention",
+        "paged_decode_attention_int8", "weight_only_matmul",
+        "weight_only_matmul_prefill", "rms_norm_fwd", "rms_norm_bwd"}
+    for got, ref in flash + plain:
+        assert got.device == dev and torch.isfinite(got).all()
+    for got, ref in flash:
+        assert _flash_ratio(got, ref, torch.bfloat16) <= 1.0
+    for got, ref in plain:
+        assert (got.float() - ref.float()).abs().max().item() <= \
+            _bf16_bar(ref)
