@@ -8,22 +8,36 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build        compile the four CUDA sources of
                   `paddle_tpu_torch/kernels/csrc`, one nvcc each, all started
                   together; count the HGMMA (wgmma) instructions of every
-                  instantiation of the TMA kernels (B1, B2, B3, B8) in their
-                  SASS (cuobjdump); B2's and B3's must compile without
-                  spills (ptxas' report).
+                  instantiation of the TMA kernels (B1, B2, B3, B8's
+                  prefill) and the HMMA (mma.sync) instructions of B5's and
+                  B8's GEMV kernels in their SASS (cuobjdump); B2's, B3's,
+                  B5's and the GEMV's must compile without spills (ptxas'
+                  report).
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode, B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
                   GQA), B8 weight-only int8 matmul (the four decode shapes,
                   prefill M 512 and 2048, ragged M/K/N), in bf16 and f32;
+                  B5 at the edges of its key split and row tiles
+                  (B5_CASES) and B8's GEMV at M 1-16 with the four decode
+                  (K, N), a K tail, N off the vector gate and a weight off
+                  16-byte alignment, each output vector also within its own
+                  bar of the plain version run in f32 and a second call
+                  bit-identical; planted faults the B5 bar must reject (a
+                  key split dropped, splits combined without the max
+                  rescale, the keys of a split wholly past a row's limit at
+                  exp(0), the last partial tile unmasked);
                   B8's prefill routes in bf16 at their tile edges (M 17-2047
                   with the four serving (K, N), a ragged shape on the TMA
                   gate, two off it: K % 8 != 0, x 2 bytes off alignment),
                   each call's route read off the counters, then planted
                   faults B8's bar must reject (a K tile of the weight left
                   out, one column tile's scales from its neighbour, the /127
-                  missing); B1 flash forward and B2 + B3 flash backward (the
-                  7B leg's micro-batch, GQA up to groups of 8, non-causal,
+                  missing, the K tail left out, every scale from the next
+                  channel), at a prefill shape and at a GEMV shape with a K
+                  tail (per row); B1 flash forward and B2 + B3 flash
+                  backward (the 7B leg's micro-batch, GQA up to groups of
+                  8, non-causal,
                   cross-length, ragged, rows that see no key, 129 rows over
                   127 keys and 65 over 129, head_dim 64, f32), each output
                   vector within its own bar;
@@ -84,8 +98,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   9. timing       CUDA-event medians of each kernel, its plain version and one
                   PyTorch library call at the serving shapes (B1-B3, B9, B10:
                   the 7B training leg's micro-batch; B2/B3 also at the h2048
-                  leg's, B9/B10 also at the decode rows), beside the bound
-                  the card's memory rate or peak sets.
+                  leg's, B9/B10 also at the decode rows; B5 also at the
+                  spec-verify window; B8's GEMV at the four decode shapes at
+                  M 1, 8 and 16), beside the bound the card's memory rate or
+                  peak sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -266,59 +282,71 @@ def phase_build():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"[build] {line.strip()}")
-    spill_check(built["flash_attention"][1])
+    spill_check(built)
     sass_check(built)
 
 
-# the kernels that must run on wgmma, by library: name fragments
-WGMMA_KERNELS = {"quantized_matmul": ("b8_tma_kernel",),
-                 "flash_attention": ("flash_fwd_tma_kernel",
-                                     "flash_bwd_dq_tma_kernel",
-                                     "flash_bwd_dkv_tma_kernel")}
-# the kernels whose every instantiation must compile without spills
-SPILL_FREE = ("flash_bwd_dq_tma_kernel", "flash_bwd_dkv_tma_kernel")
+# the tensor-core instruction each redesigned kernel must run, by library:
+# {library: {name fragment: SASS opcode}} (HGMMA: wgmma; HMMA: mma.sync)
+TENSOR_CORE_KERNELS = {
+    "quantized_matmul": {"b8_tma_kernel": "HGMMA",
+                         "b8_gemv_mma_kernel": "HMMA"},
+    "flash_attention": {"flash_fwd_tma_kernel": "HGMMA",
+                        "flash_bwd_dq_tma_kernel": "HGMMA",
+                        "flash_bwd_dkv_tma_kernel": "HGMMA"},
+    "attention": {"window_mma_kernel": "HMMA"}}
+# the kernels whose every instantiation must compile without spills, by
+# library
+SPILL_FREE = {"flash_attention": ("flash_bwd_dq_tma_kernel",
+                                  "flash_bwd_dkv_tma_kernel"),
+              "attention": ("window_mma_kernel",),
+              "quantized_matmul": ("b8_gemv_mma_kernel",)}
 
 
-def spill_check(report):
+def spill_check(built):
     """Spill bytes of each SPILL_FREE kernel's instantiations, read from
-    ptxas' report (-Xptxas=-v); raises when one spills or is missing. An
-    empty report (the library was built before) is said so and skipped."""
+    ptxas' report (-Xptxas=-v) of its library; raises when one spills or
+    fewer than two are reported. An empty report (the library was built
+    before) is said so and skipped."""
     import re
 
-    if not report:
-        log("[build] spills not checked: the library was already built")
-        return
-    spills, fn = {}, None
-    for line in report.splitlines():
-        m = re.search(r"(?:Compiling entry function '|Function properties "
-                      r"for )([^' ]+)", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and fn:
-            spills[fn] = int(m.group(1)) + int(m.group(2))
-    for frag in SPILL_FREE:
-        mine = {f: n for f, n in spills.items() if frag in f}
-        log(f"[build] {frag}: spill bytes by instantiation "
-            f"{sorted(mine.values())}")
-        if len(mine) < 2 or any(mine.values()):
-            raise AssertionError(f"{frag}: spills or no ptxas report for "
-                                 f"both head dims: {mine}")
+    for lib, frags in SPILL_FREE.items():
+        report = built[lib][1]
+        if not report:
+            log(f"[build] {lib}: spills not checked: the library was "
+                "already built")
+            continue
+        spills, fn = {}, None
+        for line in report.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function "
+                          r"properties for )([^' ]+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn:
+                spills[fn] = int(m.group(1)) + int(m.group(2))
+        for frag in frags:
+            mine = {f: n for f, n in spills.items() if frag in f}
+            log(f"[build] {frag}: spill bytes by instantiation "
+                f"{sorted(mine.values())}")
+            if len(mine) < 2 or any(mine.values()):
+                raise AssertionError(f"{frag}: spills or no ptxas report "
+                                     f"for its instantiations: {mine}")
 
 
 def sass_check(built):
-    """HGMMA (wgmma) instructions in each redesigned kernel's SASS, read
-    with cuobjdump from the libraries just built; raises when an
-    instantiation has none. Skipped, and said so, where the toolkit has no
-    cuobjdump."""
+    """Tensor-core instructions (TENSOR_CORE_KERNELS) in each redesigned
+    kernel's SASS, read with cuobjdump from the libraries just built;
+    raises when an instantiation has none. Skipped, and said so, where the
+    toolkit has no cuobjdump."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        log("[build] HGMMA count not checked: no cuobjdump")
+        log("[build] HGMMA/HMMA counts not checked: no cuobjdump")
         return
-    for lib, frags in WGMMA_KERNELS.items():
+    for lib, frags in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(built[lib][0])],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -326,16 +354,18 @@ def sass_check(built):
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = line.split("Function :")[1].strip()
-                counts[fn] = 0
-            elif fn and "HGMMA" in line:
-                counts[fn] += 1
-        for frag in frags:
-            mine = {f: c for f, c in counts.items() if frag in f}
-            log(f"[build] {frag}: HGMMA instructions by instantiation "
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn:
+                for op in counts[fn]:
+                    if f" {op}." in line or f" {op} " in line:
+                        counts[fn][op] += 1
+        for frag, op in frags.items():
+            mine = {f: c[op] for f, c in counts.items() if frag in f}
+            log(f"[build] {frag}: {op} instructions by instantiation "
                 f"{sorted(mine.values())}")
             if not mine or not all(mine.values()):
                 raise AssertionError(f"{frag}: an instantiation without "
-                                     f"HGMMA in its SASS: {mine}")
+                                     f"{op} in its SASS: {mine}")
 
 
 def phase_parity(torch, dev):
@@ -346,14 +376,26 @@ def phase_parity(torch, dev):
 
     main_err = {}
 
-    def check(label, name, fn, plain, args, main=False):
+    def check(label, name, fn, plain, args, main=False, rows=False):
         out = fn(*args)
         ref = plain(*args)
         torch.cuda.synchronize()
+        dname = str(args[0].dtype).replace("torch.", "")
         err = (out.float() - ref.float()).abs().max().item()
-        tol = (TOL[str(args[0].dtype).replace("torch.", "")]
-               * max(1.0, ref.float().abs().max().item()))
-        log(f"[parity] {label}: max_abs_err {err:.3e} (bar {tol:.3e})")
+        tol = TOL[dname] * max(1.0, ref.float().abs().max().item())
+        extra = ""
+        if rows:
+            # each output vector against the plain version run in f32 on
+            # the same inputs (`row_ratio`), and a second call bit for bit
+            ratio = row_ratio(torch, out, plain, args, dname)
+            again = torch.equal(fn(*args), out)
+            extra = (f", worst row at {ratio:.3f} of its bar, a second call "
+                     f"{'bit-identical' if again else 'DIFFERENT'}")
+            if not (ratio <= 1.0 and again):
+                raise AssertionError(f"{label}: a row disagrees with the "
+                                     f"plain version ({ratio}) or the "
+                                     f"output is not reproducible")
+        log(f"[parity] {label}: max_abs_err {err:.3e} (bar {tol:.3e}){extra}")
         if not math.isfinite(err) or err > tol:
             raise AssertionError(f"{label}: kernel disagrees with its plain "
                                  f"version ({err} > {tol})")
@@ -380,7 +422,20 @@ def phase_parity(torch, dev):
             check(f"B5 {dname} s={s} nkv={nkv} len={ck.shape[2]} "
                   f"pos={pos.tolist()} (row 0 overhangs)", "window_attention",
                   at.window_attention, at.window_attention_plain,
-                  (q, ck, cv, pos), main and s == 16 and nkv == 32)
+                  (q, ck, cv, pos), main and s == 16 and nkv == 32, rows=True)
+        for label, *shape in B5_CASES:
+            q, ck, cv, pos = b5_case(torch, dev, dtype, *shape)
+            splits = at.window_splits(shape[0], shape[3],
+                                      at._window_last(pos, shape[1],
+                                                      shape[5]),
+                                      at._sms(dev))
+            check(f"B5 {dname} {label}: b={shape[0]} s={shape[1]} "
+                  f"nh={shape[2]} nkv={shape[3]} hd={shape[4]} "
+                  f"len={shape[5]} pos={shape[6]}, "
+                  f"{splits if dtype == torch.bfloat16 else 1} split(s)",
+                  "window_attention", at.window_attention,
+                  at.window_attention_plain, (q, ck, cv, pos), rows=True)
+            del q, ck, cv
     # head_dim 64, the kernels' other instantiation
     q, pk, pv, bt, pos = paged_case(torch, dev, torch.bfloat16, nh=8, nkv=4,
                                     hd=64, P=16,
@@ -413,9 +468,30 @@ def phase_parity(torch, dev):
             check(f"B8 {dname} M={m} K={k} N={n}", "weight_only_matmul",
                   qm.weight_only_matmul, qm.dequant_matmul_plain,
                   matmul_case(torch, dev, dtype, m, k, n),
-                  main and (m, k, n) == (8, 4096, 11008))
+                  main and (m, k, n) == (8, 4096, 11008),
+                  rows=m <= qm.GEMV_MAX_ROWS)
+        # B8's GEMV at its edges: every M of a decode batch with the four
+        # decode (K, N), K = 1000 (a K tail) and N = 999 off the vector
+        # gate, and a weight 1 byte off 16-byte alignment
+        for m in B8_GEMV_M:
+            for k, n, w_off in [(k, n, 0) for k, n in B8_PAIRS] + [
+                    (1000, 4096, 0), (4096, 999, 0), (4096, 4096, 1)]:
+                x, w, sc = matmul_case(torch, dev, dtype, m, k, n)
+                if w_off:
+                    w = b8_offset_w(torch, w)
+                split = (qm.gemv_split(m, k, n, qm._sms(dev))
+                         if dtype == torch.bfloat16 else qm._k_split(
+                             m, k, n, dev))
+                check(f"B8 GEMV {dname} M={m} K={k} N={n}"
+                      + (", w 1 byte off 16-byte alignment" if w_off else "")
+                      + f", (K rows a block, blocks) {split}",
+                      "weight_only_matmul", qm.weight_only_matmul,
+                      qm.dequant_matmul_plain, (x, w, sc), rows=True)
+                del x, w, sc
+    phase_b5_bar_teeth(torch, dev)
     main_err.update(phase_b8_routes(torch, dev, check))
     phase_b8_bar_teeth(torch, dev)
+    phase_b8_bar_teeth(torch, dev, shape=(8, 1000, 4096))
     main_err.update(phase_flash_parity(torch, dev))
     phase_flash_bar_teeth(torch, dev)
     main_err.update(phase_rms_parity(torch, dev))
@@ -428,6 +504,31 @@ def phase_parity(torch, dev):
 # it must take
 B8_EDGE_M = (17, 100, 129, 512, 1500, 2047)
 B8_PAIRS = tuple((k, n) for k, n, _ in DECODE_MATMULS)
+
+
+# rows of x the GEMV's parity cases take (M <= 16)
+B8_GEMV_M = (1, 4, 8, 9, 16)
+
+
+def row_ratio(torch, out, plain, args, dname):
+    """`flash_row_ratio` of a kernel's output against its plain version run
+    in f32 on the same inputs (floating inputs upcast). In bf16 the plain
+    version rounds its scores (B5, as the reference's XLA oracle does) or
+    its dequantized weights (B8) to bf16 where the kernels keep f32, which
+    alone moves a vector by up to about the bar; the f32 run is the exact
+    function the kernel rounds once."""
+    ref = plain(*[a.float() if torch.is_tensor(a) and a.is_floating_point()
+                  else a for a in args])
+    return flash_row_ratio(torch, out, ref, TOL[dname])
+
+
+def b8_offset_w(torch, w):
+    """w's codes in a view whose data starts 1 byte past a 16-byte
+    boundary: contiguous, but no 16-byte load can read it."""
+    buf = torch.empty(w.numel() + 16, dtype=w.dtype, device=w.device)
+    view = buf[1:1 + w.numel()].view(w.shape)
+    view.copy_(w)
+    return view
 
 
 def b8_offset_x(torch, x):
@@ -487,29 +588,165 @@ def planted_b8_faults(torch, qm, x, w, s, k_tile=64, n_tile=128):
     w_gap[k_tile:2 * k_tile] = 0
     s_shift = s.clone()
     s_shift[n_tile:2 * n_tile] = s[:n_tile]
+    tail = w.shape[0] % 16 or 16
+    w_tail = w.clone()
+    w_tail[-tail:] = 0
     return [(f"one {k_tile}-row K tile of the weight left out",
              qm.dequant_matmul_plain(x, w_gap, s), right),
             (f"the scales of one {n_tile}-column tile taken from its "
              "neighbour", qm.dequant_matmul_plain(x, w, s_shift), right),
-            ("the /127 missing", right * 127.0, right)]
+            ("the /127 missing", right * 127.0, right),
+            (f"the K tail (the last {tail} rows) left out",
+             qm.dequant_matmul_plain(x, w_tail, s), right),
+            ("every scale taken from the next channel",
+             qm.dequant_matmul_plain(x, w, s.roll(-1)), right)]
 
 
 def phase_b8_bar_teeth(torch, dev, shape=(2048, 4096, 11008)):
-    """B8's bar (TOL * max(1, max |plain|)) rejects planted faults at the
-    prefill row's shape, each printed beside its ratio to the bar."""
+    """B8's bar rejects planted faults, each printed beside its ratio to
+    the bar: at the prefill row's shape the whole-tensor bar (TOL * max(1,
+    max |plain|)), at a GEMV shape (M <= 16) the per-row bar."""
     from paddle_tpu_torch.kernels import quantized_matmul as qm
 
     x, w, s = matmul_case(torch, dev, torch.bfloat16, *shape)
+    gemv = shape[0] <= qm.GEMV_MAX_ROWS
     for fault, wrong, right in planted_b8_faults(torch, qm, x, w, s):
-        bar = TOL["bfloat16"] * max(1.0, right.float().abs().max().item())
-        ratio = (wrong.float() - right.float()).abs().max().item() / bar
-        log(f"[parity] B8 bar, planted fault at M={shape[0]} K={shape[1]} "
-            f"N={shape[2]}: {fault} is at {ratio:.2f} of the bar")
+        if gemv:
+            ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+        else:
+            bar = TOL["bfloat16"] * max(1.0,
+                                        right.float().abs().max().item())
+            ratio = (wrong.float() - right.float()).abs().max().item() / bar
+        log(f"[parity] B8 {'per-row ' if gemv else ''}bar, planted fault at "
+            f"M={shape[0]} K={shape[1]} N={shape[2]}: {fault} is at "
+            f"{ratio:.2f} of the bar")
         if not ratio > 1.0:
             raise AssertionError(f"the B8 bar passes a planted fault: "
                                  f"{fault} at {ratio}")
     del x, w, s
     torch.cuda.empty_cache()
+
+
+# B5 parity cases at the edges of the bf16 kernel's design: (label, b, s,
+# nh, nkv, hd, cache length, pos). Row tiles of 16 (s * g = 2, 5, 16, 17,
+# 48, 64 query rows a kv head), both head dims, GQA 8/2 at the spec
+# window's s = 5, b = 1 and b = 8, pos 0, a watermark one key past a tile
+# (and split) edge, a row whose limit ends before a split begins, and a
+# window that overhangs the cache end
+B5_CASES = (
+    ("s*g=2", 1, 2, 32, 32, 128, 600, [300]),
+    ("s*g=5 spec verify b=8 ragged", 8, 5, 32, 32, 128, 1100,
+     [1000, 3, 64, 59, 0, 500, 127, 777]),
+    ("s*g=20 GQA 8/2 s=5 pos 0", 1, 5, 8, 2, 128, 300, [0]),
+    ("s*g=16 paged-prefill suffix", 1, 16, 32, 32, 128, 2064, [512]),
+    ("s*g=17 hd64, watermark one key past a split edge", 2, 17, 4, 4, 64,
+     400, [112, 112]),
+    ("s*g=48, rows whose limit ends before a split begins", 1, 48, 8, 8,
+     128, 400, [100]),
+    ("s*g=64 hd64, row 0 overhangs the cache end", 2, 64, 32, 32, 64, 700,
+     [670, 1]),
+)
+
+
+def b5_case(torch, dev, dtype, b, s, nh, nkv, hd, length, pos, seed=7):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ck = torch.randn(b, nkv, length, hd, device=dev, generator=g).to(dtype)
+    cv = torch.randn(b, nkv, length, hd, device=dev, generator=g).to(dtype)
+    q = torch.randn(b, s, nh, hd, device=dev, generator=g).to(dtype)
+    return q, ck, cv, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def window_split_plain(torch, at, q, ck, cv, pos, splits, fault=None):
+    """B5 computed the way the bf16 kernel splits it, in f32: the keys of
+    each row cut by `attention.window_split_keys`, a softmax partial (m, l,
+    O) a split, combined with the max rescale. `fault` plants one of the
+    faults of `planted_b5_faults`."""
+    b, s, nh, hd = q.shape
+    nkv, length = ck.shape[1], ck.shape[2]
+    g = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty(b, s, nh, hd, dtype=torch.float32, device=q.device)
+    for r in range(b):
+        p0 = int(pos[r])
+        last = min(p0 + s - 1, length - 1)
+        k = ck[r].float().repeat_interleave(g, 0)        # [nh, len, hd]
+        v = cv[r].float().repeat_interleave(g, 0)
+        qs = q[r].float().transpose(0, 1)                # [nh, s, hd]
+        limit = (p0 + torch.arange(s, device=q.device)).clamp(max=last)
+        parts = []
+        tile0 = last // at.WINDOW_TILE * at.WINDOW_TILE
+        for z, keys in enumerate(at.window_split_keys(last, splits)):
+            if keys is None or (fault == "drop" and z == splits // 2):
+                continue
+            j = torch.arange(keys[0], keys[1] + 1, device=q.device)
+            sc = (qs @ k[:, j].transpose(1, 2)) * scale   # [nh, s, keys]
+            live = j[None, :] <= limit[:, None]            # [s, keys]
+            if fault == "unmasked tail":
+                live = live | ((j >= tile0) & (j <= last))[None, :]
+            sc = torch.where(live, sc, at.NEG_INF)
+            m = sc.amax(-1, keepdim=True)
+            p = torch.where(live, torch.exp(sc - m), 0.0)
+            dead = ~live.any(-1)                           # [s]
+            if fault == "exp(0)" and dead.any():
+                # the split's masked keys each at exp(0) = 1, entering the
+                # combine at the row's max
+                p = torch.where(dead[None, :, None], 1.0, p)
+                m = torch.where(dead[None, :, None], float("inf"), m)
+            parts.append((m, p.sum(-1, keepdim=True), p @ v[:, j]))
+        ms = torch.stack([m for m, _, _ in parts])
+        top = ms.where(ms.isfinite(), -ms).amax(0)        # the real max
+        ms = torch.where(ms.isinf(), top, ms)
+        w = (torch.ones_like(ms) if fault == "no rescale"
+             else torch.exp(ms - top))
+        den = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+        num = sum(wi * oi for wi, (_, _, oi) in zip(w, parts))
+        out[r] = (num / den).transpose(0, 1)
+    return out.to(q.dtype)
+
+
+def planted_b5_faults(torch, at, q, ck, cv, pos, splits):
+    """B5 outputs with a fault planted, from the split model of the bf16
+    kernel (`window_split_plain`): [(fault, faulty, right)]. The per-row
+    bar must reject each."""
+    right = at.window_attention_plain(q, ck, cv, pos)
+    return [(name, window_split_plain(torch, at, q, ck, cv, pos, splits,
+                                      fault), right)
+            for name, fault in B5_FAULTS.items()]
+
+
+B5_FAULTS = {"one key split dropped": "drop",
+             "the splits combined without the max rescale": "no rescale",
+             "the masked keys of a split wholly past a row's limit counted "
+             "as exp(0)": "exp(0)",
+             "the last partial tile unmasked": "unmasked tail"}
+
+
+def phase_b5_bar_teeth(torch, dev, case=5, splits=3):
+    """The per-row B5 bar rejects planted faults at the parity case whose
+    rows end before a split begins (3 splits of its 3 tiles), each beside
+    the whole-tensor rule's ratio; the unplanted split model passes."""
+    from paddle_tpu_torch.kernels import attention as at
+
+    label, *shape = B5_CASES[case]
+    q, ck, cv, pos = b5_case(torch, dev, torch.bfloat16, *shape)
+    model = window_split_plain(torch, at, q, ck, cv, pos, splits)
+    right = at.window_attention_plain(q, ck, cv, pos)
+    ok = flash_row_ratio(torch, model, right, TOL["bfloat16"])
+    log(f"[parity] B5 bar at {label}: the split model without a fault is at "
+        f"{ok:.3f} of the bar")
+    if not ok <= 1.0:
+        raise AssertionError(f"B5's split model fails its bar: {ok}")
+    for fault, wrong, right in planted_b5_faults(torch, at, q, ck, cv, pos,
+                                                 splits):
+        ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+        whole = ((wrong.float() - right.float()).abs().max()
+                 / (TOL["bfloat16"]
+                    * right.float().abs().max().clamp_min(1.0))).item()
+        log(f"[parity] B5 bar, planted fault at {label}: {fault} is at "
+            f"{ratio:.2f} of the bar (the whole-tensor rule: {whole:.2f})")
+        if not ratio > 1.0:
+            raise AssertionError(f"the B5 bar passes a planted fault: "
+                                 f"{fault} at {ratio}")
 
 
 # B9/B10 parity cases: (label, rows, H, dtype); the first is the 7B leg's
@@ -1309,23 +1546,44 @@ def phase_timing(torch, dev, name, main_err, launches):
            lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
            kv_bytes + qo_bytes + b * 4, flops,
            "B4 b=8 nh=nkv=32 hd=128 len=2048")
-    # B5 at a paged-prefill suffix: 16 new tokens after a 512-token hit
-    s = 16
-    q, ck, cv, pos = window_case(torch, dev, torch.bfloat16, s, b=1,
-                                 length=2048 + s, pos=[512])
-    nh, nkv, L = q.shape[2], ck.shape[1], ck.shape[2]
-    last = min(512 + s - 1, L - 1)
-    keys_per_q = [min(512 + i, L - 1) + 1 for i in range(s)]
-    qpos = 512 + torch.arange(s, device=dev)[:, None]
-    mask = (torch.arange(L, device=dev)[None, :] <= qpos)[None, None]
-    qt = q.transpose(1, 2)
-    record("window_attention",
-           lambda: at.window_attention(q, ck, cv, pos),
-           lambda: at.window_attention_plain(q, ck, cv, pos),
-           lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
-           (last + 1) * nkv * hd * 2 * 2 + 2 * s * nh * hd * 2 + 4,
-           4 * nh * hd * sum(keys_per_q),
-           "B5 b=1 s=16 nh=nkv=32 hd=128 len=2064 pos=512")
+    # B5 at a paged-prefill suffix (16 new tokens after a 512-token hit:
+    # the JSON row), then at the spec-verify window (b=8, s=5, ragged
+    # rows). The library call is SDPA over the keys the kernel reads, up
+    # to each batch's last watermark (PR 6 gave it the whole stripe: that
+    # reading is logged beside it)
+    for b, s, pos_l in ((1, 16, [512]),
+                        (8, 5, [1000, 3, 64, 59, 0, 500, 127, 777])):
+        q, ck, cv, pos = window_case(torch, dev, torch.bfloat16, s, b=b,
+                                     length=2048 + s if b == 1 else 1100,
+                                     pos=pos_l)
+        nh, nkv, L = q.shape[2], ck.shape[1], ck.shape[2]
+        lasts = [min(p + s - 1, L - 1) for p in pos_l]
+        last = max(lasts)
+        keys = sum(min(p + i, L - 1) + 1 for p in pos_l for i in range(s))
+        qpos = pos[:, None, None, None].long() + torch.arange(
+            s, device=dev)[None, None, :, None]
+        mask = torch.arange(L, device=dev)[None, None, None, :] <= qpos
+        ckr, cvr = ck[:, :, :last + 1], cv[:, :, :last + 1]
+        mask_r = mask[..., :last + 1]
+        qt = q.transpose(1, 2)
+        if b == 1:
+            stripe_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, ck, cv, attn_mask=mask), flush=flush)
+            log(f"[timing] B5's library call as PR 6 timed it, SDPA over the "
+                f"whole {L}-key stripe: {stripe_ms:.4f} ms")
+        splits = at.window_splits(b, nkv, at._window_last(pos, s, L),
+                                  at._sms(dev))
+        record("window_attention",
+               lambda: at.window_attention(q, ck, cv, pos),
+               lambda: at.window_attention_plain(q, ck, cv, pos),
+               lambda: F.scaled_dot_product_attention(qt, ckr, cvr,
+                                                      attn_mask=mask_r),
+               sum(x + 1 for x in lasts) * nkv * hd * 2 * 2
+               + 2 * b * s * nh * hd * 2 + 4 * b,
+               4 * hd * (nh // nkv) * nkv * keys,
+               f"B5 b={b} s={s} nh=nkv=32 hd=128 len={L} pos={pos_l}, "
+               f"{splits} split(s)", row=b == 1)
+        del q, ck, cv, ckr, cvr
 
     # B7 at the engine's decode shape over int8 pages; the library call
     # attends over the dequantized (bf16) gathered cache
@@ -1357,6 +1615,7 @@ def phase_timing(torch, dev, name, main_err, launches):
     # torch.matmul with the weight already dequantized to bf16
     step_ms = step_bound = 0.0
     for m, k, n, calls in [(8, k, n, c) for k, n, c in DECODE_MATMULS] + [
+            (m, k, n, 0) for m in (1, 16) for k, n, _ in DECODE_MATMULS] + [
             (2048, 4096, 11008, 0), (512, 4096, 4096, 0),
             (512, 4096, 11008, 0), (1500, 4096, 4096, 0),
             (1500, 4096, 11008, 0)]:
@@ -1365,6 +1624,9 @@ def phase_timing(torch, dev, name, main_err, launches):
         way = qm.route(m, k, n, x.dtype, x.data_ptr(), w.data_ptr())
         if way == "tma":
             way += f", tile {qm.tile(m, n, qm._sms(dev))}"
+        else:
+            way += (f", (K rows a block, cluster) "
+                    f"{qm.gemv_split(m, k, n, qm._sms(dev))}")
         row = ("weight_only_matmul_prefill" if (m, k, n) == (2048, 4096,
                                                              11008)
                else (m, k, n) == (8, 4096, 11008))
@@ -1542,9 +1804,11 @@ def phase_engine(torch, dev, model, kv_dtype=None, label="engine",
 # kernel-name fragments of each ported kernel in a profiler trace
 PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
                  "B3": ("flash_bwd_dkv",),
+                 "B5": ("window_mma_kernel", "window_attention_kernel"),
                  "B6": ("paged_decode_attention_kernel",),
                  "B7": ("paged_decode_attention_q8_kernel",),
-                 "B8": ("b8_gemv_kernel", "b8_reduce_kernel",
+                 "B8": ("b8_gemv_mma_kernel", "b8_gemv_kernel",
+                        "b8_reduce_kernel",
                         "b8_tma_kernel", "b8_mma_kernel", "b8_simt_kernel"),
                  "B9": ("rms_norm_fwd_kernel",),
                  "B10": ("rms_norm_bwd_kernel", "rms_norm_dw_kernel")}

@@ -38,7 +38,8 @@ from paddle_tpu_torch.kernels import _build
 __all__ = ["decode_attention", "window_attention", "paged_decode_attention",
            "decode_attention_plain", "window_attention_plain",
            "paged_decode_attention_plain", "paged_gather", "launches",
-           "reset_launches", "WINDOW_MAX_ROWS", "KERNEL_HEAD_DIMS"]
+           "reset_launches", "WINDOW_MAX_ROWS", "KERNEL_HEAD_DIMS",
+           "window_splits", "window_split_keys"]
 
 NEG_INF = -1e30
 # flattened query rows (s * g) a window kernel block holds; wider windows
@@ -46,6 +47,11 @@ NEG_INF = -1e30
 WINDOW_MAX_ROWS = 64
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# B5 in bf16 walks the keys in tiles of WINDOW_TILE, split over at most
+# WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row)
+WINDOW_TILE = 64
+WINDOW_MAX_SPLITS = 8
+_sm_count = {}
 
 launches = {"decode_attention": 0, "window_attention": 0,
             "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
@@ -138,6 +144,57 @@ def _raise_on(rc, name):
 
 def _scale(scale, hd):
     return scale if scale is not None else 1.0 / math.sqrt(hd)
+
+
+def _sms(device):
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_count[device]
+
+
+# ---------------------------------------------------------------------------
+# B5's split of the keys (bf16), mirrored by window_mma_kernel
+# ---------------------------------------------------------------------------
+
+
+def window_splits(b, nkv, last, sms):
+    """Blocks over the keys of each (kv head, row) for B5 in bf16: as many
+    as give the b * nkv (kv head, row) pairs one block for every two SMs,
+    at most WINDOW_MAX_SPLITS (a portable cluster) and at most the tiles
+    of keys [0, last]. (At b=1, 32 kv heads, 528 keys on an H100, 2 splits
+    ran faster than 4, 1 or 8: `kernels/sweep_decode.py`; each further
+    split adds its partials to every row's combine.)"""
+    tiles = last // WINDOW_TILE + 1
+    return max(1, min(WINDOW_MAX_SPLITS, sms // (2 * b * nkv), tiles))
+
+
+def window_split_keys(last, splits):
+    """The keys [first, last] split z of `splits` walks for a row whose
+    watermark is `last`, as the kernel cuts them: whole tiles z * T //
+    splits up to (z + 1) * T // splits of the row's T tiles, the last one
+    ending at `last`. A split is None when it holds no tile (more splits
+    than the row has tiles)."""
+    tiles = last // WINDOW_TILE + 1
+    keys = []
+    for z in range(splits):
+        tb, te = z * tiles // splits, (z + 1) * tiles // splits
+        keys.append((tb * WINDOW_TILE, min(te * WINDOW_TILE, last + 1) - 1)
+                    if te > tb else None)
+    return keys
+
+
+def _window_last(pos, s, max_len):
+    """The last window watermark the host knows without reading the card:
+    min(pos + s - 1, len - 1) for an int (or a CPU tensor) pos, len - 1
+    for a tensor on the card."""
+    if torch.is_tensor(pos):
+        if pos.device.type != "cpu":
+            return max_len - 1
+        pos = int(pos.max())
+    elif not isinstance(pos, int):
+        pos = max(int(p) for p in pos)
+    return min(pos + s - 1, max_len - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +305,10 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     """B5: attention of a short query window q [b, s, nh, hd] over the
     contiguous cache: query i of row r sits at pos[r] + i and attends keys
     [0, pos[r] + i]; the walk stops at the last query's watermark, clamped
-    to the cache end. The kernel takes s * (nh // nkv) <= 64."""
+    to the cache end. The kernel takes s * (nh // nkv) <= 64. In bf16 the
+    keys of each (kv head, row) are split over `window_splits` blocks of
+    one cluster, which combine their partial softmax sums in a fixed
+    order."""
     b, s, nh, hd = q.shape
     if cache_k.dim() != 4 or cache_k.shape[0] != b or \
             cache_v.shape != cache_k.shape:
@@ -260,13 +320,16 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     if not _on_card(q, cache_k, cache_v):
         return window_attention_plain(q, cache_k, cache_v, pos, scale)
     _check_kernel(q, (cache_k, cache_v), s * (nh // nkv))
+    splits = (window_splits(b, nkv, _window_last(pos, s, max_len),
+                            _sms(q.device))
+              if q.dtype == torch.bfloat16 else 1)
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
     rc = _build.launch(
         "attention", "pt_window_attention", q.device, q.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
         out.data_ptr(), b, s, nh, nkv, max_len, hd, _DTYPES[q.dtype],
-        _scale(scale, hd))
+        splits, _scale(scale, hd))
     _raise_on(rc, "window_attention")
     launches["window_attention"] += 1
     return out

@@ -1,7 +1,9 @@
-// Hopper building blocks shared by the TMA + wgmma kernels (sm_90a): the
+// Hopper building blocks shared by the hand-written kernels (sm_90a): the
 // tensor maps the TMA copies through, mbarriers, shared-memory matrix
-// descriptors for wgmma and the wgmma instructions themselves, in raw PTX
-// (PTX ISA 8.x, "Tensor Memory Accelerator", "mbarrier", "wgmma").
+// descriptors for wgmma and the wgmma instructions themselves (B1-B3, B8's
+// prefill); mma.sync, ldmatrix, cp.async and the cluster barrier and
+// distributed shared-memory loads (B5, B8's GEMV); in raw PTX (PTX ISA 8.x,
+// "Tensor Memory Accelerator", "mbarrier", "wgmma", "mma", "Cluster").
 //
 // Layouts. Every operand tile in shared memory is stored in the 128-byte
 // swizzle (what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes): rows of
@@ -260,7 +262,146 @@ __device__ __forceinline__ void wgmma_rs_n128(
         "n"(TB));
 }
 
+// ---- mma.sync, ldmatrix, cp.async, streamed loads (B5, B8's GEMV) ---------
+
+// d[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 sums. Thread t = 4 g + q
+// of the warp holds A rows g and g + 8 at columns (2q, 2q + 1) (a[0], a[1])
+// and (2q + 8, 2q + 9) (a[2], a[3]); B rows (2q, 2q + 1) (b0) and (2q + 8,
+// 2q + 9) (b1) of column g; d rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at
+// columns (2q, 2q + 1). The low half of a register is the lower index.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. Lane t receives, of each matrix, row t / 4 at
+// columns (2 (t % 4), +1), or with .trans column t / 4 at rows (2 (t % 4), +1)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// 16 bytes from device to shared memory, asynchronously; bytes = 0 writes
+// 16 zeros and reads nothing (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes read once (streamed weights): through the non-coherent path,
+// not kept in L1. Volatile, so that the compiler issues it where it stands
+// in the program and does not move it next to its first use
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// ---- thread-block clusters ---------------------------------------------------
+
+// every thread of every block of the cluster arrives, then waits: shared
+// memory written before it is visible to the whole cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the shared::cluster address of shared address `addr` in block `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ float ld_cluster(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float2 ld_cluster2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // ---- host ------------------------------------------------------------------
+
+// Let kernel K take `bytes` of dynamic shared memory (above 48 KB it must be
+// allowed first). The attribute belongs to the current device: set once per
+// kernel and device (a bit a device; devices past 63 set it every call).
+template <auto K>
+inline void opt_in_smem(int bytes) {
+  static uint64_t opted_in = 0;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (!(opted_in & bit)) {
+    cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         bytes);
+    opted_in |= bit;
+  }
+}
+
+// launch `kernel` over `grid` in clusters of `cluster` blocks
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid,
+                                  dim3 block, size_t smem, cudaStream_t st,
+                                  dim3 cluster, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster.x;
+  attr[0].val.clusterDim.y = cluster.y;
+  attr[0].val.clusterDim.z = cluster.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, ((Params)args)...);
+}
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,

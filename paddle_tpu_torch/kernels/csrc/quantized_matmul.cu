@@ -10,21 +10,24 @@
 // (both operands of the K tail, as the reference zeroes both, :114-121) and
 // out-of-range outputs are not written.
 //
-// Four kernels, picked by shape only (the caller's `route`):
+// Five kernels, picked by shape and dtype only (the caller's `route`):
 //
-//   b8_gemv_kernel (M <= 16): decode. What bounds it: bytes. At Llama-2-7B
-//     width a decode step streams 6.6 GB of int8 weights, 2 * M flops a byte.
-//     Eight lanes share one K row and each loads 16 consecutive codes (8 when
-//     M > 8) in one 16-byte (8-byte) load, so a warp reads four whole 128-byte
-//     row segments; the block's 32 row groups walk K, each thread with four
-//     rows' loads in flight while it sums the previous four. Each code is read from
-//     device memory once. The M rows of x are staged in shared memory as f32 in
-//     chunks of K, and every thread keeps M x its columns f32 sums (at most
-//     128). Sums are reduced across the warp with shuffles and across the 8
-//     warps in shared memory. When N alone gives too few blocks to fill the
-//     card, K is split across blocks (gridDim.y); the blocks then write f32
-//     partial sums that b8_reduce_kernel adds in a fixed order and scales, so
-//     the result does not depend on block timing.
+//   b8_gemv_mma_kernel (M <= 16, bf16): decode. What bounds it: bytes. At
+//     Llama-2-7B width a decode step streams 6.6 GB of int8 weights, 2 * M
+//     flops a byte. The products run on the tensor cores (mma.m16n8k16, the
+//     codes as the A operand, x as the n8 operand), each code read from
+//     device memory once into registers and widened there; the K split is
+//     a thread-block cluster (interleaved k16 steps) that sums its partials
+//     through distributed shared memory in a fixed order, in the same
+//     launch. The design and its index maps are written out above the
+//     kernel.
+//   b8_gemv_kernel (M <= 16, f32): the CUDA-core GEMV, kept for the f32
+//     checks of the arithmetic (f32 activations are not the serving path).
+//     Eight lanes share one K row and each loads 16 consecutive codes (8
+//     when M > 8); every thread keeps M x its columns f32 sums. When N alone
+//     gives too few blocks to fill the card, K is split across blocks
+//     (gridDim.y); the blocks then write f32 partial sums that
+//     b8_reduce_kernel adds in a fixed order and scales.
 //   b8_tma_kernel (M > 16, bf16, on the TMA gate): prefill. What bounds it:
 //     operations (2 M N K; a 2048-row prefill of the 4096 x 11008 FFN matrix
 //     is 185 GFLOP, 0.19 ms at 989 TFLOP/s), and only wgmma reaches that
@@ -66,9 +69,9 @@
 //
 // What the design still leaves: the TMA kernel is not persistent (one tile a
 // block, so a tile's epilogue does not overlap the next one's loads) and
-// widens on the same warpgroups that issue wgmma; the GEMV keeps only a few
-// loads in flight per thread, and its K split costs a second launch and an
-// f32 round trip of the partial sums.
+// widens on the same warpgroups that issue wgmma; the bf16 GEMV spends
+// about 3 instructions a code on widening, so at M = 1 the issue rate, not
+// the bytes, may bound it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -619,6 +622,222 @@ int launch_tma(const void* x, const void* w, const float* scale, void* out,
 }
 
 // ---------------------------------------------------------------------------
+// decode, bf16 x: mma.sync over the int8 codes, K split over a cluster
+// ---------------------------------------------------------------------------
+//
+// out^T[N, M] = W^T[N, K] x^T[K, M] as mma.m16n8k16 products: 16 columns of
+// the weight are the A rows, the (at most 8) rows of x the n8 columns (two n8
+// tiles for 9-16 rows). The A fragment wants, for one column, pairs of
+// consecutive K, but the codes lie N-contiguous. Both index maps of a
+// product are free to choose as long as A, B and the output agree, so:
+//   - the 16 A rows of product t (t = 0..7) of a 128-column block are
+//     columns 16 g + 2 t (row g) and 16 g + 2 t + 1 (row g + 8): thread
+//     (g, q) of the warp owns 16 consecutive columns, 16 g .. 16 g + 15,
+//     across the 8 products;
+//   - the 16 k-slots of a k16 step are K rows 4 q .. 4 q + 3 for slots
+//     (2q, 2q + 1, 2q + 8, 2q + 9): thread (g, q) owns 4 consecutive K rows.
+// So a thread loads 16 bytes from each of 4 K rows (a warp reads 16 whole
+// 128-byte row segments a step) and x rows at K 4 q .. 4 q + 3 (its B
+// fragment, 8 bytes) into registers, 2-3 steps ahead (the code loads are
+// volatile asm: loaded through __ldg, the compiler, at the 128 registers
+// of two blocks an SM, moved them toward their use and the kernel ran
+// 5-19% slower, kernels/sweep_decode.py), gathers the two
+// K-pairs of each column pair with one byte permute a pair of rows and
+// widens each code exactly into bf16 (byte permutes into an f32 2^23 + c +
+// 128, one subtract, the top halves packed: every int8 is exact in bf16).
+// About 3 instructions a code, against 10.75 for the CUDA-core GEMV at M =
+// 8; the sums are 4 registers a product.
+//
+// A block of 8 warps covers 128 columns. The blocks of a cluster (gridDim.y,
+// chosen by the caller's `gemv_split` so that the grid fills the card)
+// split K by interleaving their k16 steps: step j of warp w of block r is
+// rows 16 ((j R + r) 8 + w), so that the whole grid walks the weight front
+// to back together and every row is read by all column blocks at about the
+// same time (contiguous K ranges a block read 8 separate regions at once
+// and ran slower: kernels/sweep_decode.py). Each block sums its warps'
+// partials in shared memory in warp order, then, after a cluster barrier,
+// block c adds the cluster's partials for its share of the columns in rank
+// order, reading the other blocks' shared memory, and applies scale / 127:
+// one launch, no partial sums in device memory, the same result whatever
+// the timing. The K tail reads both operands as 0; a ragged N or a weight
+// not 16-byte aligned is read byte by byte (vec_w = 0), x not 8-byte aligned
+// or K % 4 != 0 element by element (vec_x = 0).
+
+constexpr int kGvThreads = 256;
+constexpr int kGvWarps = kGvThreads / 32;
+constexpr int kGvCols = 128;          // output columns a block
+constexpr int kGvMaxCluster = 8;      // a portable cluster
+
+template <int MT>
+struct Gv {
+  static constexpr int kRows = 8 * MT;            // rows of x a block holds
+  static constexpr int kDepth = MT == 1 ? 3 : 2;  // k16 steps of loads a thread
+  static constexpr int kSmem = kGvWarps * kGvCols * kRows * 4;
+};
+
+template <int MT>
+__global__ void __launch_bounds__(kGvThreads, MT == 1 ? 2 : 1)
+    b8_gemv_mma_kernel(const bf16* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ scale,
+                       bf16* __restrict__ out, int M, int K, int N,
+                       int vec_w, int vec_x) {
+  using namespace hopper;
+  constexpr int R8 = Gv<MT>::kRows, D = Gv<MT>::kDepth;
+  extern __shared__ __align__(16) float red[];   // [warp][column][row]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, qq = lane % 4;
+  const int n_base = blockIdx.x * kGvCols;
+  const int n0 = n_base + 16 * gq;
+  const int ranks = gridDim.y, rank = blockIdx.y;
+
+  // the codes of K rows k0 + 4 q .. + 3 at columns n0 .. n0 + 15 and x rows
+  // g (+ 8) at those K; 0 past K, N and M (no load at all past K)
+  auto fetch = [&](int k0, uint4 (&c)[4], uint2 (&xr)[MT]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int kr = k0 + 4 * qq + kk;
+      uint4 u = make_uint4(0, 0, 0, 0);
+      if (kr < K && n0 < N) {
+        const int8_t* row = w + (int64_t)kr * N + n0;
+        if (vec_w) {
+          u = ld_stream16(row);
+        } else {
+          uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (n0 + e < N)
+              v[e / 4] |= (uint32_t)(uint8_t)row[e] << (8 * (e % 4));
+          u = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+      c[kk] = u;
+    }
+#pragma unroll
+    for (int t = 0; t < MT; ++t) {
+      const int m = gq + 8 * t, kx = k0 + 4 * qq;
+      uint2 u = make_uint2(0, 0);
+      if (m < M && kx < K) {
+        const bf16* src = x + (int64_t)m * K + kx;
+        if (vec_x) {
+          u = __ldg(reinterpret_cast<const uint2*>(src));
+        } else {
+          __align__(8) bf16 e4[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            e4[e] = kx + e < K ? src[e] : __float2bfloat16(0.f);
+          u = *reinterpret_cast<uint2*>(e4);
+        }
+      }
+      xr[t] = u;
+    }
+  };
+
+  float acc[8][MT][4];
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][mt][e] = 0.f;
+
+  auto compute = [&](const uint4 (&c)[4], const uint2 (&xr)[MT]) {
+    uint32_t wd[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wd[kk][0] = c[kk].x ^ 0x80808080u;
+      wd[kk][1] = c[kk].y ^ 0x80808080u;
+      wd[kk][2] = c[kk].z ^ 0x80808080u;
+      wd[kk][3] = c[kk].w ^ 0x80808080u;
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      // bytes (2t, 2t + 1) of rows (0, 1) and of rows (2, 3), interleaved
+      const uint32_t sel = (t % 2) ? 0x7362u : 0x5140u;
+      const uint32_t g01 = __byte_perm(wd[0][t / 2], wd[1][t / 2], sel);
+      const uint32_t g23 = __byte_perm(wd[2][t / 2], wd[3][t / 2], sel);
+      const uint32_t a[4] = {widen2_bf16(g01, 0), widen2_bf16(g01, 2),
+                             widen2_bf16(g23, 0), widen2_bf16(g23, 2)};
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        mma_16816(acc[t][mt], a, xr[mt].x, xr[mt].y);
+    }
+  };
+
+  // Step j of warp w of block `rank` is K rows 16 ((j ranks + rank) 8 + w)
+  // ..: the blocks of a cluster interleave their k16 steps, so that the
+  // whole grid walks K front to back together and each weight row is read
+  // by every column block at about the same time. D steps of loads in
+  // flight a thread, in registers.
+  const int kStride = 16 * kGvWarps * ranks;
+  const int k_first = 16 * (rank * kGvWarps + warp);
+  uint4 c[D][4];
+  uint2 xr[D][MT];
+#pragma unroll
+  for (int d = 0; d < D; ++d) fetch(k_first + kStride * d, c[d], xr[d]);
+  for (int base = k_first; base < K; base += kStride * D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int k0 = base + kStride * d;
+      if (k0 < K) {
+        compute(c[d], xr[d]);
+        fetch(k0 + kStride * D, c[d], xr[d]);
+      }
+    }
+  }
+
+  // this warp's sums: column 16 g + 2 t (+1 for d[2], d[3]), row 8 mt + 2 q
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float* r0 = red + ((warp * kGvCols + 16 * gq + 2 * t) * R8 + 8 * mt +
+                         2 * qq);
+      *reinterpret_cast<float2*>(r0) =
+          make_float2(acc[t][mt][0], acc[t][mt][1]);
+      *reinterpret_cast<float2*>(r0 + R8) =
+          make_float2(acc[t][mt][2], acc[t][mt][3]);
+    }
+  __syncthreads();
+  // the block's sums, in warp order, into warp 0's place
+  for (int e = tid; e < kGvCols * R8; e += kGvThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kGvWarps; ++wi) sum += red[wi * kGvCols * R8 + e];
+    red[e] = sum;
+  }
+  cluster_sync();
+
+  // block `rank` of the cluster finishes its share of the columns, summing
+  // the cluster's partials in rank order
+  const int c0 = rank * kGvCols / ranks;
+  const int ncols = (rank + 1) * kGvCols / ranks - c0;
+  const uint32_t red_u32 = smem_u32(red);
+  for (int e = tid; e < ncols * R8; e += kGvThreads) {
+    const int col = c0 + e % ncols, m = e / ncols, n = n_base + col;
+    if (m >= M || n >= N) continue;
+    const uint32_t a = red_u32 + (col * R8 + m) * 4;
+    float sum = 0.f;
+    for (int r = 0; r < ranks; ++r) sum += ld_cluster(map_rank(a, r));
+    out[(int64_t)m * N + n] = __float2bfloat16(sum * (scale[n] / 127.f));
+  }
+  cluster_sync();   // no block leaves while another reads its sums
+}
+
+template <int MT>
+int launch_gemv_mma(const void* x, const int8_t* w, const float* scale,
+                    void* out, int M, int K, int N, int ranks,
+                    cudaStream_t st) {
+  const int vec_w = (N % 16 == 0) && ((uintptr_t)w % 16 == 0);
+  const int vec_x = (K % 4 == 0) && ((uintptr_t)x % 8 == 0);
+  hopper::opt_in_smem<b8_gemv_mma_kernel<MT>>(Gv<MT>::kSmem);
+  return (int)hopper::launch_cluster(
+      b8_gemv_mma_kernel<MT>, dim3((N + kGvCols - 1) / kGvCols, ranks),
+      dim3(kGvThreads), Gv<MT>::kSmem, st, dim3(1, ranks, 1), x, w, scale,
+      out, M, K, N, vec_w, vec_x);
+}
+
+// ---------------------------------------------------------------------------
 // M > 16 in f32: CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -720,9 +939,13 @@ int launch_tiled(const void* x, const void* w, const float* sc, void* out,
 // (x and out). route, chosen by the caller from the shape before the launch
 // (kernels/quantized_matmul.py `route`):
 //   0 GEMV (M <= 16), with `splits` blocks over K of `k_per_split` rows each
-//     (partial: f32 [splits, M, N] when splits > 1, else unused); the
-//     columns a block covers (128 for M <= 8, 64 above) and the split are the
-//     caller's (`_k_split`);
+//     (the caller's `gemv_split` in bf16, `_k_split` in f32). bf16: the
+//     mma.sync kernel, the splits one cluster (at most 8) whose blocks take
+//     turns of 128 K rows (k_per_split = 128 ceil(ceil(K / 16) / (8
+//     splits))), partial unused. f32: the
+//     CUDA-core GEMV, partial f32 [splits, M, N] when splits > 1, summed by
+//     a second launch; the columns a block covers (128 for M <= 8, 64
+//     above) are `_gemv_cols`;
 //   1 TMA + wgmma (bf16; K % 8 == 0, N % 16 == 0, x and w 16-byte aligned),
 //     output tiles tile_m x tile_n: 128 x 128, 128 x 256 or 256 x 128;
 //   2 wmma tiles (bf16, any shape: the shapes the TMA cannot take);
@@ -736,7 +959,8 @@ extern "C" int pt_weight_only_matmul(const void* x, const void* w,
                                      int route, int tile_m, int tile_n,
                                      void* stream) {
   if (M < 1 || K < 1 || N < 1 || splits < 1 || k_per_split < 1 ||
-      (long long)k_per_split * splits < K || (splits > 1 && !partial) ||
+      (long long)k_per_split * splits < K ||
+      (route == 0 && dtype == 0 && splits > 1 && !partial) ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -745,12 +969,21 @@ extern "C" int pt_weight_only_matmul(const void* x, const void* w,
   switch (route) {
     case 0:
       if (M > 16) return (int)cudaErrorInvalidValue;
-      if (dtype == 1)
-        dispatch_gemv<bf16>(x, wq, sc, out, (float*)partial, M, K, N,
-                            k_per_split, splits, st);
-      else
+      if (dtype == 1) {
+        // a cluster of `splits` blocks over K taking turns of 128 rows:
+        // k_per_split = 128 ceil(ceil(K / 16) / (8 splits))
+        const int steps = (K + 15) / 16;
+        if (splits > kGvMaxCluster ||
+            k_per_split != 128 * ((steps + 8 * splits - 1) / (8 * splits)))
+          return (int)cudaErrorInvalidValue;
+        const int rc =
+            M <= 8 ? launch_gemv_mma<1>(x, wq, sc, out, M, K, N, splits, st)
+                   : launch_gemv_mma<2>(x, wq, sc, out, M, K, N, splits, st);
+        if (rc != 0) return rc;
+      } else {
         dispatch_gemv<float>(x, wq, sc, out, (float*)partial, M, K, N,
                              k_per_split, splits, st);
+      }
       break;
     case 1:
       if (dtype != 1 || K % 8 != 0 || N % 16 != 0 ||

@@ -19,10 +19,12 @@ apply scale / 127 once per output in the epilogue. `route` picks the kernel
 from the shape, the dtype and the pointers' alignment before the launch
 (the C entry point refuses a route the shape does not fit):
 
-  "gemv"  M <= 16: each int8 byte streamed once, split over K across blocks
-          when the grid would be too small (the wrapper allocates the f32
-          partial sums, a second launch of the same library reduces them in
-          a fixed order);
+  "gemv"  M <= 16: each int8 byte streamed once. bf16 x: tensor-core
+          products, K split over the blocks of one cluster (`gemv_split`)
+          that sum their partials in a fixed order in the same launch; f32
+          x: the CUDA-core GEMV, split over K across blocks when the grid
+          would be too small (the wrapper allocates the f32 partial sums, a
+          second launch of the same library reduces them in a fixed order);
   "tma"   M > 16, bf16 x, K % 8 == 0, N % 16 == 0, x and w 16-byte aligned
           (what a TMA copy needs): TMA ring + wgmma, the output tile
           from `tile`;
@@ -43,9 +45,14 @@ from paddle_tpu_torch.kernels import _build
 
 __all__ = ["quantize_absmax", "dequant_matmul_plain", "weight_only_matmul",
            "route", "tile", "TILES", "launches", "reset_launches",
-           "GEMV_MAX_ROWS"]
+           "GEMV_MAX_ROWS", "GEMV_COLS", "gemv_split"]
 
 GEMV_MAX_ROWS = 16
+# the bf16 GEMV: output columns a block covers, blocks a cluster at most
+# (portable), warps a block (one k16 step each in every turn of 128 rows)
+GEMV_COLS = 128
+GEMV_MAX_CLUSTER = 8
+_GEMV_WARPS = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the split over K aims for this many blocks per SM (two waves)
 _WAVES = 2
@@ -120,6 +127,27 @@ def _sms(device):
     return _sm_count[device]
 
 
+def gemv_split(m, k, n, sms):
+    """(K rows a block, blocks a cluster) of the bf16 GEMV: the largest
+    power-of-two cluster, at most GEMV_MAX_CLUSTER blocks and at least one
+    k16 step a warp, whose N / 128 column tiles times the cluster stay
+    within 4/3 of a block an SM (2/3 above 8 rows of x, where a block
+    takes the registers of two). At every decode shape on an H100 that is
+    the fastest cluster size of `kernels/sweep_decode.py`, which also
+    showed a cluster of 3 slower than 2 or 4. The blocks of a cluster take
+    turns of 8 k16 steps (one a warp, 128 rows) in rank order; the K rows
+    a block are at most 128 times its turns."""
+    tiles = -(-n // GEMV_COLS)
+    steps = -(-k // 16)
+    limit = (4 if m <= 8 else 2) * sms // 3
+    ranks = 1
+    while (ranks * 2 <= GEMV_MAX_CLUSTER and tiles * ranks * 2 <= limit
+           and _GEMV_WARPS * ranks * 2 <= steps):
+        ranks *= 2
+    turn = 16 * _GEMV_WARPS
+    return turn * -(-steps // (_GEMV_WARPS * ranks)), ranks
+
+
 def _gemv_cols(m):
     """Output columns a GEMV block covers: 8 lanes share a K row, each
     with 16 columns (8 when M > 8, so that a thread keeps 128 sums)."""
@@ -127,7 +155,7 @@ def _gemv_cols(m):
 
 
 def _k_split(m, k, n, device):
-    """(rows of K per block, number of splits) for the GEMV regime."""
+    """(rows of K per block, number of splits) for the f32 GEMV."""
     blocks_n = -(-n // _gemv_cols(m))
     want = -(-_WAVES * _sms(device) // blocks_n)
     splits = max(1, min(want, k // _MIN_K_PER_SPLIT))
@@ -170,7 +198,9 @@ def weight_only_matmul(x, w_q, scale, out_dtype=None):
     if m and n:
         partial, per, splits, tiling = None, k, 1, (0, 0)
         way = route(m, k, n, x.dtype, x2.data_ptr(), w_q.data_ptr())
-        if way == "gemv":
+        if way == "gemv" and x.dtype == torch.bfloat16:
+            per, splits = gemv_split(m, k, n, _sms(dev))
+        elif way == "gemv":
             per, splits = _k_split(m, k, n, dev)
             if splits > 1:
                 partial = torch.empty((splits, m, n), dtype=torch.float32,

@@ -162,3 +162,61 @@ def test_wrappers_reject_what_they_cannot_take():
                                   torch.zeros(3, 2, dtype=torch.int32), pos)
     with pytest.raises(ValueError, match="unsupported device"):
         at.decode_attention(q.to("meta"), ck.to("meta"), ck.to("meta"), pos)
+
+
+# B5's split of the keys in bf16 (`window_splits`, `window_split_keys`): the
+# kernel cuts each row's keys the same way on the card
+@pytest.mark.parametrize("b,nkv,last,sms", [
+    (1, 32, 527, 132), (1, 32, 2063, 132), (8, 32, 1003, 132),
+    (1, 2, 4, 132), (2, 4, 128, 132), (1, 8, 147, 132), (1, 1, 63, 132),
+    (1, 1, 64, 132), (3, 5, 999, 114), (1, 32, 0, 132)])
+def test_window_splits_cover_the_keys(b, nkv, last, sms):
+    """Every split the rule picks for a watermark holds keys, the splits
+    are in order and together cover [0, last] once; at most one cluster
+    of WINDOW_MAX_SPLITS blocks, and no more blocks than fill the card
+    once b * nkv alone does not."""
+    splits = at.window_splits(b, nkv, last, sms)
+    assert 1 <= splits <= at.WINDOW_MAX_SPLITS
+    assert splits == 1 or 2 * b * nkv * splits <= sms
+    keys = at.window_split_keys(last, splits)
+    assert len(keys) == splits and None not in keys
+    assert keys[0][0] == 0 and keys[-1][1] == last
+    for (_, end), (start, _) in zip(keys, keys[1:]):
+        assert start == end + 1 and start % at.WINDOW_TILE == 0
+
+
+def test_window_split_keys_for_a_row_short_of_the_split_count():
+    """A row whose watermark is short of the host's bound (a device pos)
+    has fewer tiles than splits: some splits hold none, and the ones with
+    tiles still cover [0, last] in order."""
+    assert at.window_split_keys(100, 4) == [None, (0, 63), None, (64, 100)]
+
+
+def test_window_last_reads_no_device_tensor():
+    assert at._window_last(500, 16, 2064) == 515
+    assert at._window_last(2060, 16, 2064) == 2063
+    assert at._window_last(torch.tensor([3, 700]), 5, 1024) == 704
+    assert at._window_last(torch.tensor([3]).to("meta"), 5, 1024) == 1023
+
+
+def test_b5_bar_rejects_planted_faults():
+    """chip_smoke.py's per-row B5 bar (each head_dim vector within 2^-6 of
+    its own max |plain|) passes the split model of the bf16 kernel and
+    fails each planted fault: a key split dropped, the splits combined
+    without the max rescale, the masked keys of a split wholly past a
+    row's limit counted as exp(0), the last partial tile unmasked."""
+    import chip_smoke as cs
+
+    # cut to a small width: a row whose limit ends before the third of its
+    # three tiles begins, the last tile partial
+    q, ck, cv, pos = cs.b5_case(torch, torch.device("cpu"), torch.bfloat16,
+                                1, 48, 4, 2, 64, 200, [100])
+    right = at.window_attention_plain(q, ck, cv, pos)
+    exact = at.window_attention_plain(q.float(), ck.float(), cv.float(), pos)
+    model = cs.window_split_plain(torch, at, q, ck, cv, pos, 3)
+    assert cs.flash_row_ratio(torch, model, exact, cs.TOL["bfloat16"]) <= 1.0
+    faults = cs.planted_b5_faults(torch, at, q, ck, cv, pos, 3)
+    assert [f for f, _, _ in faults] == list(cs.B5_FAULTS)
+    for fault, wrong, right in faults:
+        ratio = cs.flash_row_ratio(torch, wrong, right, cs.TOL["bfloat16"])
+        assert ratio > 1.0, fault

@@ -63,6 +63,46 @@ def test_tile_fills_the_card(m, n, want):
     assert qm.tile(m, n, 132) == want
 
 
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 16])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11008), (11008, 4096),
+                                 (4096, 32000), (1000, 999), (16, 8),
+                                 (130, 520)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_gemv_split_covers_the_weight(m, k, n, sms):
+    """The bf16 GEMV's grid, (N / 128 column tiles, a cluster of blocks
+    over K): the blocks of a cluster interleave their k16 steps (step j of
+    warp w of block r is K rows 16 ((j R + r) 8 + w)), so together they
+    take every k16 step of K exactly once, each block at most `per` rows
+    and every block at least one step a warp; the cluster is a power of
+    two, stays portable (<= 8) and keeps the grid within 4/3 of a block
+    an SM (2/3 above 8 rows) whenever it is split at all."""
+    per, ranks = qm.gemv_split(m, k, n, sms)
+    tiles = -(-n // qm.GEMV_COLS)
+    assert tiles * qm.GEMV_COLS >= n
+    assert ranks in (1, 2, 4, 8) and ranks <= qm.GEMV_MAX_CLUSTER
+    assert ranks == 1 or tiles * ranks <= (4 if m <= 8 else 2) * sms // 3
+    steps = -(-k // 16)
+    assert ranks == 1 or 8 * ranks <= steps
+    assert per * ranks >= k
+    taken = []
+    for r in range(ranks):
+        mine = [s for w in range(8) for j in range(steps)
+                if (s := (j * ranks + r) * 8 + w) < steps]
+        assert 0 < 16 * len(mine) <= per
+        taken += mine
+    assert sorted(taken) == list(range(steps))
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    # the fastest cluster of kernels/sweep_decode.py on an H100 (132 SMs)
+    (8, 4096, 4096, 4), (8, 4096, 11008, 2), (8, 11008, 4096, 4),
+    (8, 4096, 32000, 1), (1, 4096, 4096, 4), (1, 4096, 11008, 2),
+    (16, 4096, 4096, 2), (16, 4096, 11008, 1), (16, 11008, 4096, 2),
+    (16, 4096, 32000, 1)])
+def test_gemv_split_at_the_decode_shapes(m, k, n, want):
+    assert qm.gemv_split(m, k, n, 132)[1] == want
+
+
 # prompt, chunk and batched-prefill rows of the serving path: the engine's
 # 24-token prompt through 2048, chunks of 256, generate's b=4 prompts
 PREFILL_ROWS = (17, 24, 64, 192, 256, 512, 1500, 2048)

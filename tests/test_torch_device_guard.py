@@ -85,6 +85,7 @@ def runtime(monkeypatch):
     monkeypatch.setattr(_build, "lib", lib)
     monkeypatch.setattr(qm, "_sm_count", {})
     monkeypatch.setattr(rn, "_sm_count", {})
+    monkeypatch.setattr(at, "_sm_count", {})
     for mod in (fa, at, qm, rn):
         monkeypatch.setattr(mod, "launches", dict(mod.launches))
     yield seen

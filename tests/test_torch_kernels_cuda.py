@@ -149,6 +149,70 @@ def test_weight_only_matmul_matches_plain_on_card(cuda, dtype, m, k, n):
     assert (out.float() - ref.float()).abs().max().item() <= bar
 
 
+# B5 at the edges of the bf16 kernel's key split and row tiles
+# (chip_smoke.B5_CASES), in bf16 and f32
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(cs.B5_CASES)))
+def test_window_kernel_edges_on_card(cuda, dtype, case):
+    """Each head_dim vector within its bar of the plain version run in f32
+    on the same inputs, the whole output within the bar of the plain
+    version itself, and a second call bit-identical."""
+    _, *shape = cs.B5_CASES[case]
+    q, ck, cv, pos = cs.b5_case(torch, cuda, dtype, *shape)
+    before = at.launches["window_attention"]
+    out = at.window_attention(q, ck, cv, pos)
+    again = at.window_attention(q, ck, cv, pos)
+    ref = at.window_attention_plain(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    assert at.launches["window_attention"] == before + 2
+    dname = str(dtype).replace("torch.", "")
+    assert cs.row_ratio(torch, out, at.window_attention_plain,
+                        (q, ck, cv, pos), dname) <= 1.0
+    bar = _bf16_bar(ref) if dtype == torch.bfloat16 else 1e-5 * max(
+        1.0, ref.abs().max().item())
+    assert (out.float() - ref.float()).abs().max().item() <= bar
+    assert torch.equal(out, again)
+
+
+B8_GEMV_CASES = [(m, k, n, 0) for m in cs.B8_GEMV_M
+                 for k, n in cs.B8_PAIRS] + [
+    (m, k, n, off) for m in (1, 9) for k, n, off in
+    ((1000, 4096, 0), (4096, 999, 0), (4096, 4096, 1))]
+
+
+@pytest.mark.parametrize("m,k,n,w_off", B8_GEMV_CASES)
+def test_gemv_kernel_edges_on_card(cuda, m, k, n, w_off):
+    """B8's bf16 GEMV at every decode M with the four decode (K, N), a K
+    tail, N off the vector gate and a weight 1 byte off 16-byte alignment:
+    each output row within its bar of the plain version in f32, the whole
+    within the bar of the plain version, a second call bit-identical, one
+    launch on the GEMV route."""
+    x, w, s = cs.matmul_case(torch, cuda, torch.bfloat16, m, k, n)
+    if w_off:
+        w = cs.b8_offset_w(torch, w)
+    before = dict(qm.launches)
+    out = qm.weight_only_matmul(x, w, s)
+    ref = qm.dequant_matmul_plain(x, w, s)
+    torch.cuda.synchronize()
+    assert {key: qm.launches[key] - before[key] for key in before} == {
+        "weight_only_matmul": 1, "weight_only_matmul_prefill": 0,
+        "weight_only_matmul_offgate": 0}
+    assert cs.row_ratio(torch, out, qm.dequant_matmul_plain, (x, w, s),
+                        "bfloat16") <= 1.0
+    assert (out.float() - ref.float()).abs().max().item() <= _bf16_bar(ref)
+    assert torch.equal(qm.weight_only_matmul(x, w, s), out)
+
+
+def test_gemv_bar_rejects_planted_faults_on_card(cuda):
+    """The per-row bar at a GEMV shape with a K tail rejects each planted
+    B8 fault, the dropped K tail and the scales off by one channel among
+    them."""
+    x, w, s = cs.matmul_case(torch, cuda, torch.bfloat16, 8, 1000, 4096)
+    for fault, wrong, right in cs.planted_b8_faults(torch, qm, x, w, s):
+        assert cs.flash_row_ratio(torch, wrong, right,
+                                  cs.TOL["bfloat16"]) > 1.0, fault
+
+
 # B8 bf16 on each route at its tile edges: (m, k, n, the route it must
 # take, x shifted 2 bytes off 16-byte alignment)
 B8_ROUTE_CASES = [(m, k, n, "tma", False) for m in cs.B8_EDGE_M
