@@ -9,10 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   `paddle_tpu_torch/kernels/csrc`, one nvcc each, all started
                   together; count the HGMMA (wgmma) instructions of every
                   instantiation of the TMA kernels (B1, B2, B3, B8's
-                  prefill) and the HMMA (mma.sync) instructions of B5's and
-                  B8's GEMV kernels in their SASS (cuobjdump); B2's, B3's,
-                  B5's and the GEMV's must compile without spills (ptxas'
-                  report).
+                  prefill) and the HMMA (mma.sync) instructions of B5's,
+                  B6/B7's (paged_mma_kernel) and B8's GEMV kernels in their
+                  SASS (cuobjdump); B2's, B3's, B5's, B6/B7's and the
+                  GEMV's must compile without spills (ptxas' report).
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode, B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
@@ -26,7 +26,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                   bit-identical; planted faults the B5 bar must reject (a
                   key split dropped, splits combined without the max
                   rescale, the keys of a split wholly past a row's limit at
-                  exp(0), the last partial tile unmasked);
+                  exp(0), the last partial tile unmasked); B6 and B7 at the
+                  edges of their key split (PAGED_CASES: pages of 8-128,
+                  g 1-64, rows at 0, 1, mid-page and the full table), in
+                  bf16 each output vector also against the plain version
+                  run in f32 and a second call bit-identical, then planted
+                  faults the B6/B7 bar must reject (the middle of a row's
+                  key splits dropped, a split's weight wrong, the last key
+                  of a row off by one, B7: a scale from the wrong page);
                   B8's prefill routes in bf16 at their tile edges (M 17-2047
                   with the four serving (K, N), a ragged shape on the TMA
                   gate, two off it: K % 8 != 0, x 2 bytes off alignment),
@@ -65,7 +72,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   prefix (radix hits, one mid-page COW split), a short suffix
                   (B5 in paged prefill) and two sampled requests; the kernel
                   launch counters must grow. Then a profiled decode window
-                  (B9 once a norm: 65 launches a decode step).
+                  (B9 once a norm: 65 launches a decode step; B6 once a
+                  layer, B7 in the int8 one; no more launches a step than
+                  before B6/B7 ran over clusters).
   4. logits       one request's prompt + generated tokens through prefill and
                   `paged_decode_step` against a plain f32 full-sequence forward
                   of the same bf16 weights; then the same with the weights in
@@ -96,12 +105,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                   bf16 pool against the int8 pool of the same bytes on one
                   48-request trace; sustained slots must reach >= 1.8x.
   9. timing       CUDA-event medians of each kernel, its plain version and one
-                  PyTorch library call at the serving shapes (B1-B3, B9, B10:
+                  PyTorch library call (the L2 flushed before each call and
+                  the card held busy while the host enqueues it; the card's
+                  clocks logged before and after) at the serving shapes
+                  (B1-B3, B9, B10:
                   the 7B training leg's micro-batch; B2/B3 also at the h2048
                   leg's, B9/B10 also at the decode rows; B5 also at the
-                  spec-verify window; B8's GEMV at the four decode shapes at
-                  M 1, 8 and 16), beside the bound the card's memory rate or
-                  peak sets.
+                  spec-verify window; B6 and B7 also at the engine's decode
+                  shape, 8 rows of 257-320 keys; B8's GEMV at the four
+                  decode shapes at M 1, 8 and 16), beside the bound the
+                  card's memory rate or peak sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -213,12 +226,13 @@ def paged_case(torch, dev, dtype, b=8, nh=32, nkv=32, hd=128, ps=16, P=128,
     return q, pool_k, pool_v, bt, pos_t
 
 
-def paged_q8_case(torch, dev, dtype, ps=16, nkv=32, **kw):
-    """paged_case's rows over an int8 pool of the same keys: codes in
-    [-127, 127], scales in [0.5, 2.5]; one page of row 1 has scale 0 (a
-    fresh page). Returns q, codes_k, codes_v, k_scale, v_scale, bt, pos."""
+def paged_q8_case(torch, dev, dtype, ps=16, nkv=32, P=None, **kw):
+    """paged_case's rows over an int8 pool of the same keys (P pages a
+    row, 2048 keys by default): codes in [-127, 127], scales in [0.5,
+    2.5]; one page of row 1 has scale 0 (a fresh page). Returns q,
+    codes_k, codes_v, k_scale, v_scale, bt, pos."""
     q, _, _, bt, pos = paged_case(torch, dev, dtype, ps=ps, nkv=nkv,
-                                  P=2048 // ps, **kw)
+                                  P=P or 2048 // ps, **kw)
     g = torch.Generator(device=dev).manual_seed(3)
     n_pages = 1 + bt.numel()
     shape = (n_pages, nkv, ps, q.shape[-1])
@@ -294,12 +308,12 @@ TENSOR_CORE_KERNELS = {
     "flash_attention": {"flash_fwd_tma_kernel": "HGMMA",
                         "flash_bwd_dq_tma_kernel": "HGMMA",
                         "flash_bwd_dkv_tma_kernel": "HGMMA"},
-    "attention": {"window_mma_kernel": "HMMA"}}
+    "attention": {"window_mma_kernel": "HMMA", "paged_mma_kernel": "HMMA"}}
 # the kernels whose every instantiation must compile without spills, by
 # library
 SPILL_FREE = {"flash_attention": ("flash_bwd_dq_tma_kernel",
                                   "flash_bwd_dkv_tma_kernel"),
-              "attention": ("window_mma_kernel",),
+              "attention": ("window_mma_kernel", "paged_mma_kernel"),
               "quantized_matmul": ("b8_gemv_mma_kernel",)}
 
 
@@ -410,7 +424,7 @@ def phase_parity(torch, dev):
             check(f"B6 {dname} b=8 nh=32 nkv={nkv} ps=16 P=128",
                   "paged_decode_attention",
                   at.paged_decode_attention, at.paged_decode_attention_plain,
-                  (q, pk, pv, bt, pos), main and nkv == 32)
+                  (q, pk, pv, bt, pos), main and nkv == 32, rows=main)
             ck = at.paged_gather(pk, bt)
             cv = at.paged_gather(pv, bt)
             check(f"B4 {dname} b=8 nh=32 nkv={nkv} len=2048",
@@ -460,7 +474,24 @@ def phase_parity(torch, dev):
             check(f"B7 {dname} b=8 nh=32 nkv={nkv} ps={ps} P={2048 // ps} "
                   f"(a page at scale 0)", "paged_decode_attention_int8", q8,
                   q8_plain, paged_q8_case(torch, dev, dtype, ps=ps, nkv=nkv),
-                  main and nkv == 32 and ps == 16)
+                  main and nkv == 32 and ps == 16, rows=main)
+        # B6 and B7 at the edges of paged_mma_kernel's design: in bf16 each
+        # output vector also against the plain version run in f32 and a
+        # second call bit-identical; f32 runs the shared body
+        for label, *shape in PAGED_CASES:
+            b, nh, nkv, hd, ps, P, pos = shape
+            splits = (at.paged_splits(b, nkv, P, ps, at._sms(dev)) if main
+                      else 0)
+            for quant in (False, True):
+                args, kw = paged_cases(torch, dev, dtype, *shape, q8=quant)
+                check(f"{'B7' if quant else 'B6'} {dname} {label}: b={b} "
+                      f"nh={nh} nkv={nkv} hd={hd} ps={ps} P={P} pos={pos}, "
+                      + (f"{splits} split(s)" if main else "the shared body"),
+                      "paged_decode_attention" + ("_int8" if quant else ""),
+                      lambda *a, kw=kw: at.paged_decode_attention(*a, **kw),
+                      lambda *a, kw=kw: at.paged_decode_attention_plain(
+                          *a, **kw), args, rows=main)
+                del args, kw
         # B8: the decode step's four shapes at M = 8, two prefill M, ragged
         for m, k, n in [(8, k, n) for k, n, _ in DECODE_MATMULS] + [
                 (512, 4096, 4096), (2048, 4096, 11008), (13, 1000, 999),
@@ -489,6 +520,7 @@ def phase_parity(torch, dev):
                       qm.dequant_matmul_plain, (x, w, sc), rows=True)
                 del x, w, sc
     phase_b5_bar_teeth(torch, dev)
+    phase_paged_bar_teeth(torch, dev)
     main_err.update(phase_b8_routes(torch, dev, check))
     phase_b8_bar_teeth(torch, dev)
     phase_b8_bar_teeth(torch, dev, shape=(8, 1000, 4096))
@@ -747,6 +779,155 @@ def phase_b5_bar_teeth(torch, dev, case=5, splits=3):
         if not ratio > 1.0:
             raise AssertionError(f"the B5 bar passes a planted fault: "
                                  f"{fault} at {ratio}")
+
+
+# B6/B7 parity cases at the edges of paged_mma_kernel's design: (label, b,
+# nh, nkv, hd, ps, P, pos). Pages of 8 to 128 keys (a 64-key tile over 8
+# pages, inside one page), g = 1 to 64 query rows a kv head (rows 0-7 of one
+# row tile, all 16, 2 and 4 row tiles), both head dims, rows at 0, 1,
+# mid-page and the full table, and a pos past the table's end (the row's
+# keys clamp there)
+PAGED_CASES = (
+    ("ps 8, g=4, a row at 0 and one mid-page", 4, 32, 8, 128, 8, 128,
+     (1023, 0, 4, 511)),
+    ("ps 16, g=1, ragged to the full table", 4, 32, 32, 128, 16, 64,
+     (1023, 1, 600, 17)),
+    ("ps 64, g=8, hd 64", 4, 64, 8, 64, 64, 16, (1023, 1, 100, 0)),
+    ("ps 128, g=1, the full table and a page edge", 3, 32, 32, 128, 128, 8,
+     (1023, 127, 64)),
+    ("ps 16, g=12 (one row tile, rows 8-15 kept)", 2, 24, 2, 128, 16, 16,
+     (255, 3)),
+    ("ps 16, g=32 (two row tiles)", 2, 64, 2, 128, 16, 16, (255, 9)),
+    ("ps 16, g=64 (four row tiles), hd 64", 2, 64, 1, 64, 16, 8, (127, 37)),
+    ("ps 16, a pos past the table's end", 2, 32, 32, 128, 16, 16,
+     (300, 5)),
+)
+
+
+def paged_cases(torch, dev, dtype, b, nh, nkv, hd, ps, P, pos, q8):
+    """The inputs of a PAGED_CASES row as `paged_decode_attention`'s
+    arguments and keywords: a bf16/f32 pool, or (q8) an int8 pool with its
+    scales."""
+    if not q8:
+        return paged_case(torch, dev, dtype, b=b, nh=nh, nkv=nkv, hd=hd,
+                          ps=ps, P=P, pos=pos), {}
+    q, kq, vq, ks, vs, bt, pos_t = paged_q8_case(
+        torch, dev, dtype, ps=ps, nkv=nkv, P=P, b=b, nh=nh, hd=hd, pos=pos)
+    return (q, kq, vq, bt, pos_t), {"k_scale": ks, "v_scale": vs}
+
+
+def paged_split_plain(torch, at, q, pk, pv, bt, pos, splits, k_scale=None,
+                      v_scale=None, fault=None):
+    """B6/B7 computed the way paged_mma_kernel splits them, in f32: each
+    row's keys cut by `attention.paged_split_keys` and read page by page
+    through the block table; over an int8 pool the scales folded as the
+    kernel folds them (each key's score times its page's sk / 127, its p
+    times sv / 127, the codes exact); a softmax partial (m, l, O) a split,
+    combined with the max rescale. `fault` plants one of PAGED_FAULTS."""
+    b, _, nh, hd = q.shape
+    nkv, ps = pk.shape[1], pk.shape[2]
+    P = bt.shape[1]
+    g = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    q8 = k_scale is not None
+    out = torch.empty(b, 1, nh, hd, dtype=torch.float32, device=q.device)
+    for r in range(b):
+        p0 = int(pos[r])
+        last = min(p0, P * ps - 1)
+        qs = q[r, 0].float()                                 # [nh, hd]
+        parts = []
+        cut = at.paged_split_keys(p0, P, ps, splits)
+        held = [z for z, keys in enumerate(cut) if keys is not None]
+        # "drop": the middle split of those holding the row's keys
+        drop = (held[len(held) // 2] if fault == "drop" and len(held) > 1
+                else None)
+        for z, keys in enumerate(cut):
+            if keys is None or z == drop:
+                continue
+            end = keys[1]
+            if fault == "last key" and end == last:
+                end = min(last + 1, P * ps - 1)     # one key past the row
+            j = torch.arange(keys[0], end + 1, device=q.device)
+            page = bt[r].long()[j // ps]
+            k = pk[page, :, j % ps].float().repeat_interleave(g, 1)
+            v = pv[page, :, j % ps].float().repeat_interleave(g, 1)
+            sc = torch.einsum("hd,nhd->hn", qs, k) * scale   # [nh, keys]
+            if q8:
+                kpage = (bt[r].long()[(j // ps + 1) % P]
+                         if fault == "scale page" else page)
+                sc = sc * (k_scale[kpage].repeat_interleave(g, 1).t()
+                           / 127.0)
+            m = sc.amax(-1, keepdim=True)
+            p = torch.exp(sc - m)
+            pw = (p * (v_scale[page].repeat_interleave(g, 1).t() / 127.0)
+                  if q8 else p)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("hn,nhd->hd", pw, v)))
+        ms = torch.stack([m for m, _, _ in parts])           # [S, nh, 1]
+        w = torch.exp(ms - ms.amax(0))
+        if fault == "weight":
+            # the split with the lowest max at weight 1, not e^(m - M)
+            w = torch.where(ms == ms.amin(0), 1.0, w)
+        den = sum(wi * li for wi, (_, li, _) in zip(w, parts))
+        num = sum(wi * oi for wi, (_, _, oi) in zip(w, parts))
+        out[r, 0] = num / den
+    return out.to(q.dtype)
+
+
+# planted faults of the split model, for the B6/B7 bar (the scale fault
+# over an int8 pool only)
+PAGED_FAULTS = {"the middle of a row's key splits dropped": "drop",
+                "a split's weight wrong (the lowest max at weight 1)":
+                    "weight",
+                "the last key of a row off by one (one key past its end)":
+                    "last key",
+                "a key's scale taken from the next page of the table":
+                    "scale page"}
+
+
+def planted_paged_faults(torch, at, args, kw, splits):
+    """B6 (B7 with the scales in `kw`) outputs with a fault planted, from
+    `paged_split_plain`: [(fault, faulty, right)]. The per-row bar must
+    reject each."""
+    right = at.paged_decode_attention_plain(*args, **kw)
+    return [(name, paged_split_plain(torch, at, *args, splits, **kw,
+                                     fault=fault), right)
+            for name, fault in PAGED_FAULTS.items()
+            if kw or fault != "scale page"]
+
+
+def phase_paged_bar_teeth(torch, dev, case=0, splits=8):
+    """The per-row B6/B7 bar rejects planted faults at a ragged case (rows
+    at 0 and mid-page, 8 splits: the short rows leave some empty), each
+    beside the whole-tensor rule's ratio; the unplanted split model
+    passes against the plain version in f32."""
+    from paddle_tpu_torch.kernels import attention as at
+
+    label, *shape = PAGED_CASES[case]
+    for q8 in (False, True):
+        kid = "B7" if q8 else "B6"
+        args, kw = paged_cases(torch, dev, torch.bfloat16, *shape, q8=q8)
+        model = paged_split_plain(torch, at, *args, splits, **kw)
+        exact = at.paged_decode_attention_plain(
+            args[0].float(), *[a.float() if a.is_floating_point() else a
+                               for a in args[1:]], **kw)
+        ok = flash_row_ratio(torch, model, exact, TOL["bfloat16"])
+        log(f"[parity] {kid} bar at {label}: the split model without a "
+            f"fault is at {ok:.3f} of the bar")
+        if not ok <= 1.0:
+            raise AssertionError(f"{kid}'s split model fails its bar: {ok}")
+        for fault, wrong, right in planted_paged_faults(torch, at, args, kw,
+                                                        splits):
+            ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+            whole = ((wrong.float() - right.float()).abs().max()
+                     / (TOL["bfloat16"]
+                        * right.float().abs().max().clamp_min(1.0))).item()
+            log(f"[parity] {kid} bar, planted fault at {label}: {fault} is "
+                f"at {ratio:.2f} of the bar (the whole-tensor rule: "
+                f"{whole:.2f})")
+            if not ratio > 1.0:
+                raise AssertionError(f"the {kid} bar passes a planted fault: "
+                                     f"{fault} at {ratio}")
 
 
 # B9/B10 parity cases: (label, rows, H, dtype); the first is the 7B leg's
@@ -1438,6 +1619,7 @@ def phase_timing(torch, dev, name, main_err, launches):
     # wrapper's host work is queued behind it, not timed
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     rows = []
+    log(f"[timing] card at the start: {card_state()}")
 
     def record(wrapper, fn, plain, library, nbytes, flops, label, row=True):
         """Times one shape; the kernel's JSON row when `row` (True: under
@@ -1609,6 +1791,50 @@ def phase_timing(torch, dev, name, main_err, launches):
            "B7 b=8 nh=nkv=32 hd=128 ps=16 P=128 int8 pool")
     del ck, cv
 
+    # B6 and B7 at the engine's own decode shape (phase_profile's 8 rows
+    # after 256-token prompts: 256-319 keys over tables of 128 pages of
+    # 16), log lines, with the bound on pos the engine's scheduler passes
+    # (max_pos) and without it
+    eng_pos = tuple(256 + 9 * i for i in range(8))
+    keys = [p + 1 for p in eng_pos]
+    for q8 in (False, True):
+        if q8:
+            q, kq, vq, ks, vs, bt, pos = paged_q8_case(
+                torch, dev, torch.bfloat16, pos=eng_pos)
+            args, kw = (q, kq, vq, bt, pos), {"k_scale": ks, "v_scale": vs}
+            ck = at.paged_gather(kq, bt, ks, torch.bfloat16)
+            cv = at.paged_gather(vq, bt, vs, torch.bfloat16)
+            nbytes = sum(keys) * nkv * hd * 2 + 2 * b * nh * hd * 2 + \
+                sum((k - 1) // ps + 1 for k in keys) * (nkv * 8 + 4) + b * 4
+        else:
+            args, kw = paged_case(torch, dev, torch.bfloat16,
+                                  pos=eng_pos), {}
+            ck, cv = (at.paged_gather(t, args[3]) for t in args[1:3])
+            nbytes = sum(keys) * nkv * hd * 2 * 2 + 2 * b * nh * hd * 2 + \
+                sum((k - 1) // ps + 1 for k in keys) * 4 + b * 4
+        mask = (torch.arange(ck.shape[2], device=dev)[None, :]
+                <= args[4][:, None].long())[:, None, None, :]
+        qt = args[0].transpose(1, 2)
+        kid, name = (("B7", "paged_decode_attention_int8") if q8
+                     else ("B6", "paged_decode_attention"))
+        splits = at.paged_splits(8, nkv, 128, ps, at._sms(dev),
+                                 max(eng_pos))
+        unbound = cuda_ms(torch, lambda: at.paged_decode_attention(
+            *args, **kw), flush=flush)
+        record(name,
+               lambda: at.paged_decode_attention(*args, **kw,
+                                                 max_pos=max(eng_pos)),
+               lambda: at.paged_decode_attention_plain(*args, **kw),
+               lambda: F.scaled_dot_product_attention(qt, ck, cv,
+                                                      attn_mask=mask),
+               nbytes, 4 * nh * hd * sum(keys),
+               f"{kid} at the engine's decode shape (8 rows of 257-320 "
+               f"keys, ps=16 P=128), max_pos {max(eng_pos)}: {splits} "
+               f"split(s); without the bound "
+               f"{at.paged_splits(8, nkv, 128, ps, at._sms(dev))} split(s), "
+               f"{unbound:.4f} ms", row=False)
+        del args, kw, ck, cv
+
     # B8: one call per shape of the decode step at M = 8 (the JSON row: the
     # FFN's 4096 x 11008), then prefill at M = 2048 (its own row) and at
     # the int8 engine's prompt lengths 512 and 1500; the library call is
@@ -1687,7 +1913,17 @@ def phase_timing(torch, dev, name, main_err, launches):
             f", F.rms_norm forward and backward "
             f"{graph_ms(torch, lib_both):.4f} ms")
         del x, w, g, r, xl, wl, yl
+    log(f"[timing] card at the end: {card_state()}")
     return rows
+
+
+def card_state():
+    """The card's SM and memory clocks, temperature and power draw now
+    (nvidia-smi), to read beside the times."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
 
 
 # ---------------------------------------------------------------------------
@@ -1805,8 +2041,10 @@ def phase_engine(torch, dev, model, kv_dtype=None, label="engine",
 PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
                  "B3": ("flash_bwd_dkv",),
                  "B5": ("window_mma_kernel", "window_attention_kernel"),
-                 "B6": ("paged_decode_attention_kernel",),
-                 "B7": ("paged_decode_attention_q8_kernel",),
+                 "B6": ("paged_mma_kernel<__nv_bfloat16",
+                        "paged_decode_attention_kernel"),
+                 "B7": ("paged_mma_kernel<signed char", "paged_mma_kernel<char",
+                        "paged_decode_attention_q8_kernel"),
                  "B8": ("b8_gemv_mma_kernel", "b8_gemv_kernel",
                         "b8_reduce_kernel",
                         "b8_tma_kernel", "b8_mma_kernel", "b8_simt_kernel"),
@@ -1816,6 +2054,11 @@ PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
 
 # kernel launches a decode step in the last run before B9 (PERF.md)
 LAUNCHES_BEFORE_B9 = {"profile": 1682, "profile-int8": 3218}
+# ... in the last run before B6/B7 were split over clusters (PERF.md), which
+# the step may not exceed, and the paged kernel each profile must see once
+# a layer a step
+LAUNCH_CEILING = {"profile": 1227, "profile-int8": 2538}
+PAGED_KERNEL = {"profile": "B6", "profile-int8": "B7"}
 
 
 def phase_profile(torch, dev, eng, label="profile", n_steps=8,
@@ -1877,6 +2120,15 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
             log(f"[{label}]   {kid}: {us / busy_us:.1%} of device time, "
                 f"{us / n_steps / 1e3:.3f} ms and "
                 f"{sum(e.count for e in mine) / n_steps:.0f} launches a step")
+    kid = PAGED_KERNEL[label]
+    paged = sum(e.count for e in kern
+                if any(f in e.key for f in PROFILE_NAMES[kid])) / n_steps
+    if paged != eng.args.num_layers or \
+            n_launch / n_steps > LAUNCH_CEILING[label] + 0.5:
+        raise AssertionError(
+            f"{label}: {kid} launched {paged} times a decode step (want "
+            f"{eng.args.num_layers}), {n_launch / n_steps} launches a step "
+            f"(at most {LAUNCH_CEILING[label]})")
     return {"wall_ms": wall_us / n_steps / 1e3,
             "busy_ms": busy_us / n_steps / 1e3,
             "launches_per_step": n_launch / n_steps}

@@ -43,8 +43,8 @@ _SIGNATURES = {
     "attention": {
         "pt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
         "pt_window_attention": [_P] * 5 + [_I] * 8 + [_F, _P],
-        "pt_paged_decode_attention": [_P] * 6 + [_I] * 7 + [_F, _P],
-        "pt_paged_decode_attention_q8": [_P] * 8 + [_I] * 7 + [_F, _P],
+        "pt_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
+        "pt_paged_decode_attention_q8": [_P] * 8 + [_I] * 8 + [_F, _P],
     },
     "quantized_matmul": {
         "pt_weight_only_matmul": [_P] * 5 + [_I] * 9 + [_P],

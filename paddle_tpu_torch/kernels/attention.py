@@ -39,7 +39,8 @@ __all__ = ["decode_attention", "window_attention", "paged_decode_attention",
            "decode_attention_plain", "window_attention_plain",
            "paged_decode_attention_plain", "paged_gather", "launches",
            "reset_launches", "WINDOW_MAX_ROWS", "KERNEL_HEAD_DIMS",
-           "window_splits", "window_split_keys"]
+           "window_splits", "window_split_keys", "paged_route",
+           "paged_splits", "paged_split_keys"]
 
 NEG_INF = -1e30
 # flattened query rows (s * g) a window kernel block holds; wider windows
@@ -47,10 +48,14 @@ NEG_INF = -1e30
 WINDOW_MAX_ROWS = 64
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# B5 in bf16 walks the keys in tiles of WINDOW_TILE, split over at most
-# WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row)
+# B5, B6 and B7 in bf16 walk the keys in tiles of WINDOW_TILE, split over
+# at most WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head,
+# row)
 WINDOW_TILE = 64
 WINDOW_MAX_SPLITS = 8
+# `paged_splits` gives the longest row it knows of at most PAGED_SPLIT_TILES
+# tiles a split
+PAGED_SPLIT_TILES = 16
 _sm_count = {}
 
 launches = {"decode_attention": 0, "window_attention": 0,
@@ -198,6 +203,44 @@ def _window_last(pos, s, max_len):
 
 
 # ---------------------------------------------------------------------------
+# B6's and B7's route and split of the keys, mirrored by paged_mma_kernel
+# ---------------------------------------------------------------------------
+
+
+def paged_route(dtype):
+    """The kernel a CUDA call of B6/B7 launches, from q's dtype alone:
+    "cluster" (paged_mma_kernel, each row's keys split over a cluster) for
+    bf16, "shared" (the shared CUDA-core body) for f32."""
+    return "cluster" if dtype == torch.bfloat16 else "shared"
+
+
+def paged_splits(b, nkv, P, ps, sms, max_pos=None):
+    """Blocks over the keys of each (kv head, row) for B6/B7 in bf16. The
+    host cannot read a device `pos`, so the split is cut for the widest row
+    it knows of: the table's P * ps keys, or max_pos + 1 when the caller
+    knows a bound on every row's pos (the engine's scheduler does). Enough
+    splits that this row gives each at most PAGED_SPLIT_TILES tiles, and
+    at least one block for every two SMs over the b * nkv (kv head, row)
+    pairs (B5's rule), at most WINDOW_MAX_SPLITS (a portable cluster) and
+    at most the row's tiles. Each row's own keys are cut over these splits
+    by the kernel (`paged_split_keys`), so a bound below a row's pos costs
+    time, never the result."""
+    keys = P * ps if max_pos is None else min(max_pos + 1, P * ps)
+    tiles = (max(keys, 1) - 1) // WINDOW_TILE + 1
+    want = max(-(-tiles // PAGED_SPLIT_TILES), sms // (2 * b * nkv))
+    return max(1, min(WINDOW_MAX_SPLITS, tiles, want))
+
+
+def paged_split_keys(pos, P, ps, splits):
+    """The keys [first, last] each of `splits` splits walks for a row at
+    `pos` over a table of P pages of ps keys, as paged_mma_kernel cuts
+    them: the row's keys [0, min(pos, P * ps - 1)] in whole tiles of
+    WINDOW_TILE, B5's cut (`window_split_keys`); None for a split past the
+    row's end."""
+    return window_split_keys(min(pos, P * ps - 1), splits)
+
+
+# ---------------------------------------------------------------------------
 # plain versions (mirror quantized_matmul._*_xla)
 # ---------------------------------------------------------------------------
 
@@ -336,15 +379,20 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
 
 
 def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
-                           k_scale=None, v_scale=None):
+                           k_scale=None, v_scale=None, max_pos=None):
     """B6: single-query attention of q [b, 1, nh, hd] over the page pool
     [num_pages, nkv, ps, hd] through block tables [b, P], keys
     [0, pos[r]]. Table entries must be valid page ids; the kernel reads
     only entries [0, pos[r] // ps].
 
     B7: with k_scale / v_scale [num_pages, nkv] f32 the pools are int8
-    codes; the kernel dequantizes each key in shared memory (scale 0 reads
-    as zeros)."""
+    codes (scale 0 reads as zeros).
+
+    The kernel follows `paged_route`: in bf16 the keys of each (kv head,
+    row) are split over `paged_splits` blocks of one cluster (cut for
+    max_pos, an int bound on pos known to the caller, when given), B7's
+    scales folded into the scores and probabilities; f32 runs the shared
+    body, which dequantizes B7's keys in shared memory."""
     b, s, nh, hd = q.shape
     if s != 1:
         raise ValueError(f"paged decode takes one query per row, got {s}")
@@ -377,6 +425,12 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
         _check_kernel(q, (pool_k, pool_v), nh // nkv)
     if block_tables.dtype != torch.int32 or not block_tables.is_contiguous():
         raise TypeError("block tables must be contiguous int32")
+    splits = 0                          # the shared body
+    if paged_route(q.dtype) == "cluster":
+        if q.data_ptr() % 4:
+            raise ValueError("q must be 4-byte aligned (read a column pair "
+                             "at a time)")
+        splits = paged_splits(b, nkv, P, ps, _sms(q.device), max_pos)
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
     if quantized:
@@ -385,14 +439,14 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
             pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], _scale(scale, hd))
+            _DTYPES[q.dtype], splits, _scale(scale, hd))
         name = "paged_decode_attention_int8"
     else:
         rc = _build.launch(
             "attention", "pt_paged_decode_attention", q.device, q.data_ptr(),
             pool_k.data_ptr(), pool_v.data_ptr(), block_tables.data_ptr(),
             pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], _scale(scale, hd))
+            _DTYPES[q.dtype], splits, _scale(scale, hd))
         name = "paged_decode_attention"
     _raise_on(rc, name)
     launches[name] += 1

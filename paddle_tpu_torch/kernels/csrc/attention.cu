@@ -14,11 +14,12 @@
 //       an int8 pool with per-(page, kv head) absmax scales sk, sv [NP, nkv]
 //       (dequant = code * scale / 127).
 //
-// B5 in bf16 has a kernel of its own, window_mma_kernel (the keys split
-// over a thread-block cluster, tensor-core products: its design is written
-// out above it). The rest share one body:
+// In bf16, B5 has a kernel of its own, window_mma_kernel, and B6 and B7
+// share paged_mma_kernel (the keys of each row split over a thread-block
+// cluster, tensor-core products: their designs are written out above them).
+// The rest share one body:
 //
-// Design (B4, B6, B7, and B5 in f32): one block of 256 threads per (kv head,
+// Design (B4, and B5, B6, B7 in f32): one block of 256 threads per (kv head,
 // row). The block holds the R query rows that share the kv head (R = g for
 // B4/B6, s * g for B5, at most 64) in shared memory as f32 and walks the keys
 // up to the row's watermark in tiles (64 keys in bf16, 32 in f32). The K and
@@ -41,7 +42,8 @@
 // V) * itemsize bytes (B7: 1 byte a code, plus the scales of the pages read),
 // which at Llama-2-7B widths (hd 128) and 2k-token rows is megabytes against
 // a few flops per byte. What the shared body
-// leaves on the table (B5's bf16 kernel takes it, B4, B6 and B7 not yet):
+// leaves on the table (the bf16 kernels of B5, B6 and B7 take it, B4 not
+// yet):
 // at b = 1 the grid has only nkv = 32 blocks for 132 SMs, a ragged batch
 // waits for its longest row, the staging goes through registers one tile
 // ahead instead of a deeper cp.async or TMA pipeline, and the dot products
@@ -692,6 +694,545 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
   cluster_sync();   // no block leaves while another reads its partials
 }
 
+// ---------------------------------------------------------------------------
+// B6 and B7 in bf16: each row's keys split across a cluster, mma.sync
+// ---------------------------------------------------------------------------
+//
+// paged_mma_kernel<KVT, HD, KG> replaces _paged_decode_kernel (B6,
+// quantized_matmul.py:529) with KVT = bf16 and _paged_decode_kernel_q8 (B7,
+// :595) with KVT = int8_t (codes, per-(page, kv head) scales sk, sv), for a
+// bf16 query; f32 keeps the shared body.
+//
+// What bounds it: bytes, sum_r (last_r + 1) * nkv * hd * 2 (K and V) * (2 or
+// 1), last_r = min(pos[r], P * ps - 1), against 2 flops a byte at g = 1. The
+// shared body gave each (kv head, row) one block: a ragged batch waited for
+// the blocks of its longest row, each walking all of the row's tiles with
+// one tile in flight.
+//
+// Design. One block of 128 threads per (kv head, row, split); the nsplit
+// splits of a (kv head, row) form one thread-block cluster. The host cannot
+// read pos (a device tensor in the engine), so it cuts nsplit for the
+// longest row it knows of, the table's P * ps keys or the engine
+// scheduler's bound on pos (`attention.paged_splits`: at most 16 tiles a
+// split of that row, at least B5's one block for every two SMs, at most a
+// cluster's 8 blocks). Split z walks key tiles [z T / nsplit, (z + 1) T /
+// nsplit) of the row's own T = last / 64 + 1 tiles: a long row's keys
+// spread over the cluster, a short row's over some of its blocks. A split
+// past the row's end holds no tile, leaves the empty partial (m = -1e30,
+// l = 0) and joins the cluster barriers. Every block pays a chain of
+// dependent reads (pos, the table, its first tile) and holds its slot until
+// its cluster is done, so more splits than the rule gives ran slower on an
+// H100 (`kernels/sweep_decode.py`: 8 rows ragged to 2047 keys, 2 splits
+// 0.052 ms, 8 splits 0.066; 8 rows of 257-320 keys, 1 split 0.027, 2
+// splits 0.035).
+//
+// K/V tiles of 64 keys stream through a ring of kStages cp.async stages (at
+// head_dim 128: 2 in bf16, 3 in int8, so that 3 blocks share an SM; deeper
+// rings bought nothing). Key j lives in page bt[r, j / ps] at offset j %
+// ps (shifts for a power-of-two ps), and the ps keys of a (page, kv head)
+// are contiguous in the pool, so a key row is a run of 16-byte chunks;
+// chunk c of key t lands at chunk c ^ (t % 8) of its row in shared memory
+// (c ^ (t % 4) for 4-chunk rows), which keeps the fragment reads below free
+// of bank conflicts. A thread reads the block-table entries of its chunks'
+// keys one tile before it issues their copies, so no copy waits on a table
+// read; keys past the row's end read nothing and land as zeros.
+//
+// Products run as mma.sync m16n8k16 (bf16 in, f32 sums) as in
+// window_mma_kernel: the g = nh / nkv query rows (at most 64) padded to
+// 16-row tiles, KG warps sharing each tile of keys, Q's fragments read once
+// from device memory into registers. At g <= 8 (Llama-2-7B: g = 1) the rows
+// fill rows 0-7 of one tile, and the kernel keeps only those
+// (`mma_16816_top`, kTop): half the accumulators and Q registers. The
+// kernel is byte-bound; the products move no bytes.
+//
+// B7 never dequantizes a page. A code widens exactly to bf16 (|c| <= 127) in
+// the registers of a fragment (a byte permute and a subtract, as B8's GEMV
+// does). S = Q K^T sums over head_dim in a permuted order in which each
+// thread's K fragment of a k16 step is 4 consecutive codes of one key (one
+// 16-byte read serves 4 steps), Q's fragments following the same order. In
+// O += P V the output columns of each group of four n8 tiles are permuted so
+// that one 32-bit read of a key row gives a thread its code for all four.
+// Each key's score is multiplied by its page's sk / 127 (with the softmax
+// scale), each key's p by its page's sv / 127 before it is rounded to bf16
+// for P V, and l sums the unscaled p, as the Pallas kernel folds them: a
+// page with scale 0 gives its keys score 0 and value 0, as its dequantized
+// page does. A tile's scales arrive with its codes, 4 bytes a key.
+//
+// The end: each warp leaves its (m, l, O) in shared memory over the ring
+// and the warps of a row tile merge theirs (`merge_warps`); a row with one
+// split writes its output there, with no cluster barrier; otherwise a
+// cluster barrier, and each block combines its rows through distributed
+// shared memory in a fixed order, a lane a split (`combine_splits`; B5's
+// own end reads a lane a (split, warp) partial). One launch a call; two
+// calls give the same bits.
+
+// A warp's partial softmax sums over its keys for its 16-row tile, left in
+// shared memory for the merge: m and l (base 2) of rows gq and gq + 8, then
+// O unnormalised, one row of kAccLd floats a row. o holds the C fragments of
+// P V: n8 tile dt, column n = 2 qq (+1) is head_dim column dt * 8 + n, or
+// with kByFour (B7's permuted columns) (dt / 4) * 32 + 4 n + dt % 4; kE = 2:
+// rows gq only (a tile whose rows 8-15 are padding).
+template <int HD, bool kByFour, int kE>
+__device__ __forceinline__ void leave_partial(float* slot, int gq, int qq,
+                                              float m0, float m1, float l0,
+                                              float l1,
+                                              const float (&o)[HD / 8][kE]) {
+  constexpr int kLd = Win<HD>::kAccLd;
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  if (qq == 0) {
+    slot[gq] = m0;
+    slot[16 + gq] = l0;
+    if constexpr (kE == 4) {
+      slot[gq + 8] = m1;
+      slot[16 + gq + 8] = l1;
+    }
+  }
+  float* acc = slot + 32;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+#pragma unroll
+    for (int h = 0; h < kE / 2; ++h) {     // rows gq, gq + 8
+      float* row = acc + (gq + 8 * h) * kLd;
+      if constexpr (kByFour) {
+        const int c = (d / 4) * 32 + 8 * qq + d % 4;
+        row[c] = o[d][2 * h];
+        row[c + 4] = o[d][2 * h + 1];
+      } else {
+        *reinterpret_cast<float2*>(row + d * 8 + 2 * qq) =
+            make_float2(o[d][2 * h], o[d][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// The KG partials (one a warp, left by leave_partial, after a block
+// barrier) of each of the block's `rows` rows, merged: M the largest m,
+// L = sum l e^(m - M), O = sum O e^(m - M) in warp order. With `out` (the
+// only split of the row) each thread writes its (row, column) elements of
+// O / L to dst(row); without, the merged partial goes back into the row
+// tile's first slot for the cluster's combine: O in place (each element has
+// one owner), then m and l after a barrier (every thread reads them first).
+// The caller's cluster barrier publishes it.
+template <int HD, int KG, typename Dst>
+__device__ __forceinline__ void merge_warps(float* slots, int rows, int tid,
+                                            bool out, Dst dst) {
+  using W = Win<HD>;
+  if (!out && KG == 1) return;
+  for (int i = tid; i < rows * HD; i += kWinThreads) {
+    const int r = i / HD, rr = r % 16, c = i % HD;
+    float* s0 = slots + (r / 16) * KG * W::kSlotFloats;
+    float m = kNegInf;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) m = fmaxf(m, s0[k * W::kSlotFloats + rr]);
+    float o = 0.f, l = 0.f;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) {
+      const float w = exp2f(s0[k * W::kSlotFloats + rr] - m);
+      o += w * s0[k * W::kSlotFloats + 32 + rr * W::kAccLd + c];
+      l += w * s0[k * W::kSlotFloats + 16 + rr];
+    }
+    if (out) dst(r)[c] = __float2bfloat16(o / l);
+    else s0[32 + rr * W::kAccLd + c] = o;
+  }
+  if (out) return;
+  __syncthreads();
+  if (tid < rows) {
+    float* s0 = slots + (tid / 16) * KG * W::kSlotFloats;
+    const int rr = tid % 16;
+    float m = kNegInf, l = 0.f;
+#pragma unroll
+    for (int k = 0; k < KG; ++k) m = fmaxf(m, s0[k * W::kSlotFloats + rr]);
+#pragma unroll
+    for (int k = 0; k < KG; ++k)
+      l += exp2f(s0[k * W::kSlotFloats + rr] - m) *
+           s0[k * W::kSlotFloats + 16 + rr];
+    s0[rr] = m;
+    s0[16 + rr] = l;
+  }
+}
+
+// The combine of a cluster's partials, after merge_warps and a cluster
+// barrier: block z of nsplit writes rows z, z + nsplit, ..., a warp a row;
+// lane p < nsplit holds split p's partial of the row's tile, read from the
+// owning block's shared memory (distributed shared memory), every split's
+// columns loaded before any is summed. M the largest m, L = sum l e^(m -
+// M), out = sum O e^(m - M) / L in split order, so the result does not
+// depend on block timing. dst(r): row r's output.
+template <int HD, int KG, typename Dst>
+__device__ __forceinline__ void combine_splits(float* slots, int rows, int z,
+                                               int nsplit, int warp, int lane,
+                                               Dst dst) {
+  using namespace hopper;
+  using W = Win<HD>;
+  const uint32_t slots_u32 = smem_u32(slots);
+  constexpr int kCols = HD / 32;        // output columns a lane
+  for (int r = z + nsplit * warp; r < rows; r += nsplit * 4) {
+    const int rr = r % 16;
+    float mp = kNegInf, lp = 0.f;
+    uint32_t base = 0;
+    if (lane < nsplit) {
+      base = map_rank(slots_u32 + (r / 16) * KG * W::kSlotFloats * 4, lane);
+      mp = ld_cluster(base + rr * 4);
+      lp = ld_cluster(base + (16 + rr) * 4);
+    }
+    const float mx = warp_max(mp);
+    const float wgt = lane < nsplit ? exp2f(mp - mx) : 0.f;
+    const float L = __shfl_sync(0xffffffffu, warp_sum(lp * wgt), 0);
+    float4 t[kMaxSplits];
+#pragma unroll
+    for (int p = 0; p < kMaxSplits; ++p) {
+      const uint32_t a = __shfl_sync(0xffffffffu, base, p) +
+                         (32 + rr * W::kAccLd + lane * kCols) * 4;
+      if (p < nsplit) {
+        if constexpr (kCols == 4) {
+          t[p] = ld_cluster4(a);
+        } else {
+          const float2 u = ld_cluster2(a);
+          t[p] = make_float4(u.x, u.y, 0.f, 0.f);
+        }
+      }
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int p = 0; p < kMaxSplits; ++p) {
+      const float wp = __shfl_sync(0xffffffffu, wgt, p);
+      if (p < nsplit) {
+        acc[0] += wp * t[p].x; acc[1] += wp * t[p].y;
+        acc[2] += wp * t[p].z; acc[3] += wp * t[p].w;
+      }
+    }
+    __nv_bfloat16* d = dst(r) + lane * kCols;
+#pragma unroll
+    for (int c = 0; c < kCols; c += 2)
+      *reinterpret_cast<uint32_t*>(d + c) =
+          pack_bf16(acc[c] / L, acc[c + 1] / L);
+  }
+}
+
+template <typename KVT, int HD>
+struct PagedTile {
+  static constexpr bool kQ8 = std::is_same<KVT, int8_t>::value;
+  static constexpr int kRowBytes = HD * (int)sizeof(KVT);
+  static constexpr int kChunks = kRowBytes / 16;          // 16-byte chunks a key
+  static constexpr int kSwz = kChunks < 8 ? kChunks - 1 : 7;
+  static constexpr int kChunkElems = 16 / (int)sizeof(KVT);
+  static constexpr int kTileBytes = kWinKeys * kRowBytes;  // K or V of a tile
+  static constexpr int kStages = HD == 128 ? (kQ8 ? 3 : 2) : 4;
+  // a thread copies chunk tid % kChunks of kLoads keys a tile, kKeyStep apart
+  static constexpr int kLoads = kWinKeys * kChunks / kWinThreads;
+  static constexpr int kKeyStep = kWinThreads / kChunks;
+  static constexpr int kRingBytes = kStages * 2 * kTileBytes;
+  // the warps' partials overlay the ring; B7's k and v scales of each
+  // stage's keys follow it
+  static constexpr int kPartBytes = 4 * Win<HD>::kSlotFloats * 4;
+  static constexpr int kScaleAt =
+      kRingBytes > kPartBytes ? kRingBytes : kPartBytes;
+  static constexpr int kSmem =
+      kScaleAt + (kQ8 ? kStages * 2 * kWinKeys * 4 : 0);
+};
+
+// byte offset of 16-byte chunk c of key row t in a stage
+template <typename KVT, int HD>
+__device__ __forceinline__ uint32_t pswz(int t, int c) {
+  using T = PagedTile<KVT, HD>;
+  return (uint32_t)(t * T::kChunks + (c ^ (t & T::kSwz))) * 16;
+}
+
+// kTop: the g <= 8 query rows fill rows 0-7 of the single 16-row tile, so
+// the products keep rows 0-7 only (mma_16816_top): half the accumulator and
+// Q registers, which lets more blocks share an SM
+template <typename KVT, int HD, int KG, bool kTop>
+__global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ pk,
+    const KVT* __restrict__ pv, const float* __restrict__ sk,
+    const float* __restrict__ sv, const int* __restrict__ bt,
+    const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int nh,
+    int nkv, int ps, int P, float scale) {
+  using namespace hopper;
+  using T = PagedTile<KVT, HD>;
+  constexpr bool kQ8 = T::kQ8;
+  constexpr int kStages = T::kStages;
+  constexpr int kW = kWinKeys / KG;   // keys of a tile a warp takes
+  constexpr int kNT = kW / 8;         // its n8 tiles of scores
+  constexpr int kKC = HD / 16;        // k16 steps over head_dim
+  constexpr int kDT = HD / 8;         // n8 tiles of the output
+  constexpr int kE = kTop ? 2 : 4;    // C-fragment elements kept a tile
+  static_assert(!kTop || KG == 4, "kTop: one row tile");
+  extern __shared__ __align__(128) uint8_t paged_smem[];
+  uint8_t* ring = paged_smem;
+  float* scl = reinterpret_cast<float*>(paged_smem + T::kScaleAt);
+
+  const int h = blockIdx.x, b = blockIdx.y, g = nh / nkv;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rows = g;
+  const int* bt_row = bt + (int64_t)b * P;
+  const int last = min(pos[b], P * ps - 1);
+  const int n_tiles = last / kWinKeys + 1;
+  const int nsplit = gridDim.z, z = blockIdx.z;   // z: the cluster rank
+  const int tb = z * n_tiles / nsplit;
+  const int nt = (z + 1) * n_tiles / nsplit - tb;
+  // key j's table entry and offset in its page: shifts for a power-of-two ps
+  const int sh = (ps & (ps - 1)) ? -1 : __ffs(ps) - 1;
+  auto page_of = [&](int j) { return sh >= 0 ? j >> sh : j / ps; };
+  auto in_page = [&](int j) { return sh >= 0 ? j & (ps - 1) : j % ps; };
+  auto q_off = [&](int r) -> int64_t {
+    return ((int64_t)b * nh + (int64_t)h * g + r) * HD;
+  };
+
+  // the page of each key this thread copies in tile `tile`, -1 past `last`
+  const int cq = tid % T::kChunks, tq = tid / T::kChunks;
+  auto fetch = [&](int tile, int (&pg)[T::kLoads]) {
+#pragma unroll
+    for (int i = 0; i < T::kLoads; ++i) {
+      const int j = tile * kWinKeys + tq + i * T::kKeyStep;
+      pg[i] = j <= last ? __ldg(bt_row + page_of(j)) : -1;
+    }
+  };
+  auto issue = [&](int tile, int stage, const int (&pg)[T::kLoads]) {
+    const uint32_t ks = smem_u32(ring) + stage * 2 * T::kTileBytes;
+    const uint32_t vs = ks + T::kTileBytes;
+#pragma unroll
+    for (int i = 0; i < T::kLoads; ++i) {
+      const int t = tq + i * T::kKeyStep;
+      const bool ok = pg[i] >= 0;
+      const int64_t page = ok ? (int64_t)pg[i] * nkv + h : 0;
+      const int64_t off =
+          ok ? (page * ps + in_page(tile * kWinKeys + t)) * HD +
+                   cq * T::kChunkElems
+             : 0;
+      cp_async16(ks + pswz<KVT, HD>(t, cq), pk + off, ok ? 16 : 0);
+      cp_async16(vs + pswz<KVT, HD>(t, cq), pv + off, ok ? 16 : 0);
+      if constexpr (kQ8) {
+        if (cq == 0) {
+          const uint32_t sd = smem_u32(scl + stage * 2 * kWinKeys + t);
+          cp_async4(sd, sk + page, ok ? 4 : 0);
+          cp_async4(sd + kWinKeys * 4, sv + page, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+  {
+    int pg[kStages][T::kLoads];
+#pragma unroll
+    for (int s = 0; s < kStages; ++s)
+      if (s < nt) fetch(tb + s, pg[s]);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      if (s < nt) issue(tb + s, s, pg[s]);
+      cp_async_commit();
+    }
+  }
+
+  // this warp: row tile rt, keys kq * kW .. of each tile
+  const int rt = warp / KG, kq = warp % KG;
+  const bool active = rt * 16 < rows;
+  const int gq = lane / 4, qq = lane % 4;
+  const int row0 = rt * 16 + gq, row1 = row0 + 8;
+  // Q's A fragments: the head_dim columns of step kc's two column pairs
+  // (B7: the permuted order of the K fragments); kTop keeps rows 0-7
+  uint32_t qf[kKC][kE];
+  auto qword = [&](int r, int d) -> uint32_t {
+    return r < rows ? *reinterpret_cast<const uint32_t*>(q + q_off(r) + d)
+                    : 0u;
+  };
+#pragma unroll
+  for (int kc = 0; kc < kKC; ++kc) {
+    const int d0 = kQ8 ? qq * (HD / 4) + 4 * kc : 16 * kc + 2 * qq;
+    const int d1 = kQ8 ? d0 + 2 : d0 + 8;
+    if constexpr (kTop) {
+      qf[kc][0] = qword(row0, d0);
+      qf[kc][1] = qword(row0, d1);
+    } else {
+      qf[kc][0] = qword(row0, d0);
+      qf[kc][1] = qword(row1, d0);
+      qf[kc][2] = qword(row0, d1);
+      qf[kc][3] = qword(row1, d1);
+    }
+  }
+  // d (+)= A B on the kept rows
+  auto mma = [&](float (&d)[kE], const uint32_t (&a)[kE], uint32_t b0,
+                 uint32_t b1) {
+    if constexpr (kTop) mma_16816_top(d, a[0], a[1], b0, b1);
+    else mma_16816(d, a, b0, b1);
+  };
+  const float sl2 = scale * kLog2e / (kQ8 ? 127.f : 1.f);
+  float o[kDT][kE];
+#pragma unroll
+  for (int d = 0; d < kDT; ++d)
+#pragma unroll
+    for (int e = 0; e < kE; ++e) o[d][e] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  int pg_next[T::kLoads];
+
+  for (int it = 0; it < nt; ++it) {
+    // the table entries of the tile this iteration refills, a stage ahead
+    const bool refill = it + kStages < nt;
+    if (refill) fetch(tb + it + kStages, pg_next);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (active) {
+      const int stage = it % kStages;
+      const uint8_t* kt = ring + stage * 2 * T::kTileBytes;
+      const uint8_t* vt = kt + T::kTileBytes;
+      const float* ksc = scl + stage * 2 * kWinKeys;   // B7: raw scales
+      const float* vsc = ksc + kWinKeys;
+      const int t0 = kq * kW;                         // the warp's keys
+      const int tile_key0 = (tb + it) * kWinKeys;
+      const int mat = lane / 8;
+      float sc[kNT][kE];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) sc[j][e] = 0.f;
+      // S = Q K^T over this warp's keys
+      if constexpr (kQ8) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const int t = t0 + j * 8 + gq;
+          uint4 u[HD / 64];
+#pragma unroll
+          for (int c = 0; c < HD / 64; ++c)
+            u[c] = *reinterpret_cast<const uint4*>(
+                kt + pswz<KVT, HD>(t, qq * (HD / 64) + c));
+#pragma unroll
+          for (int kc = 0; kc < kKC; ++kc) {
+            const uint4& w4 = u[kc / 4];
+            const uint32_t w = (kc % 4 == 0   ? w4.x
+                                : kc % 4 == 1 ? w4.y
+                                : kc % 4 == 2 ? w4.z
+                                              : w4.w) ^
+                               0x80808080u;
+            mma(sc[j], qf[kc], widen_pair(w, w, 0, 1),
+                widen_pair(w, w, 2, 3));
+          }
+        }
+      } else {
+        const uint32_t ks = smem_u32(kt);
+#pragma unroll
+        for (int kc = 0; kc < kKC; ++kc)
+#pragma unroll
+          for (int j = 0; j < kNT / 2; ++j) {
+            uint32_t bk[4];
+            ldsm_x4(bk, ks + pswz<KVT, HD>(t0 + j * 16 + (mat / 2) * 8 +
+                                               lane % 8,
+                                           2 * kc + mat % 2));
+            mma(sc[2 * j], qf[kc], bk[0], bk[1]);
+            mma(sc[2 * j + 1], qf[kc], bk[2], bk[3]);
+          }
+      }
+      // online softmax in base 2 (B7: each key's score times its page's
+      // sk / 127); a key past the row's end is -1e30 and adds exactly 0
+      float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int t = t0 + j * 8 + 2 * qq + (e & 1);
+          const float f = kQ8 ? sl2 * ksc[t] : sl2;
+          sc[j][e] = tile_key0 + t <= last ? sc[j][e] * f : kNegInf;
+          if (e < 2) mx0 = fmaxf(mx0, sc[j][e]);
+          else mx1 = fmaxf(mx1, sc[j][e]);
+        }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = kTop ? m1 : fmaxf(m1, quad_max(mx1));
+      const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int t = t0 + j * 8 + 2 * qq + (e & 1);
+          const float p = tile_key0 + t <= last
+                              ? exp2f(sc[j][e] - (e < 2 ? mn0 : mn1))
+                              : 0.f;
+          sc[j][e] = p;
+          if (e < 2) s0 += p;
+          else s1 += p;
+        }
+      l0 = l0 * a0 + s0;
+      l1 = l1 * a1 + s1;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d)
+#pragma unroll
+        for (int e = 0; e < kE; ++e) o[d][e] *= e < 2 ? a0 : a1;
+      // O += P V, P rounded to bf16 (B7: each key's p times its page's
+      // sv / 127 first); pa: P's A fragment of k16 step j (kTop: rows 0-7)
+#pragma unroll
+      for (int j = 0; j < kW / 16; ++j) {
+        const int t = t0 + j * 16 + 2 * qq;   // keys t, t + 1, t + 8, t + 9
+        float v0 = 1.f, v1 = 1.f, v8 = 1.f, v9 = 1.f;
+        if constexpr (kQ8) {
+          v0 = vsc[t] / 127.f;
+          v1 = vsc[t + 1] / 127.f;
+          v8 = vsc[t + 8] / 127.f;
+          v9 = vsc[t + 9] / 127.f;
+        }
+        uint32_t pa[kE];
+        if constexpr (kTop) {
+          pa[0] = pack_bf16(sc[2 * j][0] * v0, sc[2 * j][1] * v1);
+          pa[1] = pack_bf16(sc[2 * j + 1][0] * v8, sc[2 * j + 1][1] * v9);
+        } else {
+          pa[0] = pack_bf16(sc[2 * j][0] * v0, sc[2 * j][1] * v1);
+          pa[1] = pack_bf16(sc[2 * j][2] * v0, sc[2 * j][3] * v1);
+          pa[2] = pack_bf16(sc[2 * j + 1][0] * v8, sc[2 * j + 1][1] * v9);
+          pa[3] = pack_bf16(sc[2 * j + 1][2] * v8, sc[2 * j + 1][3] * v9);
+        }
+        if constexpr (kQ8) {
+          // codes of key `key` at columns 32 grp + 4 gq .. + 3
+          auto vword = [&](int key, int grp) -> uint32_t {
+            const int col = grp * 32 + 4 * gq;
+            return *reinterpret_cast<const uint32_t*>(
+                       vt + pswz<KVT, HD>(key, col / 16) + col % 16) ^
+                   0x80808080u;
+          };
+#pragma unroll
+          for (int grp = 0; grp < HD / 32; ++grp) {
+            const uint32_t w0 = vword(t, grp), w1 = vword(t + 1, grp);
+            const uint32_t w8 = vword(t + 8, grp), w9 = vword(t + 9, grp);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              mma(o[grp * 4 + i], pa, widen_pair(w0, w1, i, i),
+                  widen_pair(w8, w9, i, i));
+          }
+        } else {
+          const uint32_t vs = smem_u32(vt);
+#pragma unroll
+          for (int dd = 0; dd < kDT / 2; ++dd) {
+            uint32_t bv[4];
+            ldsm_x4_t(bv, vs + pswz<KVT, HD>(t0 + j * 16 + (mat % 2) * 8 +
+                                                 lane % 8,
+                                             2 * dd + mat / 2));
+            mma(o[2 * dd], pa, bv[0], bv[1]);
+            mma(o[2 * dd + 1], pa, bv[2], bv[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // the stage is read by every warp before its refill
+    if (refill) issue(tb + it + kStages, it % kStages, pg_next);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // this warp's partial over the ring, merged with the other warps' (the
+  // output itself when the row has one split), then the combine
+  float* slots = reinterpret_cast<float*>(ring);
+  if (active)
+    leave_partial<HD, kQ8, kE>(slots + warp * Win<HD>::kSlotFloats, gq, qq,
+                               m0, m1, l0, l1, o);
+  __syncthreads();
+  auto dst = [&](int r) { return out + q_off(r); };
+  merge_warps<HD, KG>(slots, rows, tid, nsplit == 1, dst);
+  if (nsplit == 1) return;
+  cluster_sync();
+  combine_splits<HD, KG>(slots, rows, z, nsplit, warp, lane, dst);
+  cluster_sync();   // no block leaves while another reads its partials
+}
+
 // Dynamic shared memory for `rows` rows; above 48 KB the kernel must be
 // allowed it first, on each device it runs on (the attribute is the
 // current device's): once per instantiation and device, at the most rows it
@@ -783,8 +1324,73 @@ void launch_paged_q8(const void* q, const void* pk, const void* pv,
                (const int*)pos, (T*)out, nh, nkv, ps, P, scale);
 }
 
+// B6 and B7 in bf16: the key-split kernel, `splits` blocks a cluster
+template <typename KVT, int HD, int KG, bool kTop>
+cudaError_t launch_paged_mma(const void* q, const void* pk, const void* pv,
+                             const void* sk, const void* sv, const void* bt,
+                             const void* pos, void* out, int b, int nh,
+                             int nkv, int ps, int P, int splits, float scale,
+                             cudaStream_t st) {
+  using T = PagedTile<KVT, HD>;
+  auto kern = paged_mma_kernel<KVT, HD, KG, kTop>;
+  hopper::opt_in_smem<paged_mma_kernel<KVT, HD, KG, kTop>>(T::kSmem);
+  return hopper::launch_cluster(
+      kern, dim3(nkv, b, splits), dim3(kWinThreads), T::kSmem, st,
+      dim3(1, 1, splits), q, pk, pv, sk, sv, bt, pos, out, nh, nkv, ps, P,
+      scale);
+}
+
+// KG as for B5: 4 / the 16-row tiles of the g query rows (3 -> 4); g <= 8
+// keeps rows 0-7 of its tile only (kTop)
+template <typename KVT, int HD>
+cudaError_t launch_paged_bf16(const void* q, const void* pk, const void* pv,
+                              const void* sk, const void* sv, const void* bt,
+                              const void* pos, void* out, int b, int nh,
+                              int nkv, int ps, int P, int splits, float scale,
+                              cudaStream_t st) {
+  const int g = nh / nkv, tiles = (g + 15) / 16;
+  if (g <= 8)
+    return launch_paged_mma<KVT, HD, 4, true>(q, pk, pv, sk, sv, bt, pos,
+                                              out, b, nh, nkv, ps, P, splits,
+                                              scale, st);
+  if (tiles == 1)
+    return launch_paged_mma<KVT, HD, 4, false>(q, pk, pv, sk, sv, bt, pos,
+                                               out, b, nh, nkv, ps, P, splits,
+                                               scale, st);
+  if (tiles == 2)
+    return launch_paged_mma<KVT, HD, 2, false>(q, pk, pv, sk, sv, bt, pos,
+                                               out, b, nh, nkv, ps, P, splits,
+                                               scale, st);
+  return launch_paged_mma<KVT, HD, 1, false>(q, pk, pv, sk, sv, bt, pos, out,
+                                             b, nh, nkv, ps, P, splits, scale,
+                                             st);
+}
+
+template <typename KVT>
+cudaError_t launch_paged_split(const void* q, const void* pk, const void* pv,
+                               const void* sk, const void* sv, const void* bt,
+                               const void* pos, void* out, int b, int nh,
+                               int nkv, int ps, int P, int hd, int splits,
+                               float scale, cudaStream_t st) {
+  return hd == 128
+             ? launch_paged_bf16<KVT, 128>(q, pk, pv, sk, sv, bt, pos, out, b,
+                                           nh, nkv, ps, P, splits, scale, st)
+             : launch_paged_bf16<KVT, 64>(q, pk, pv, sk, sv, bt, pos, out, b,
+                                          nh, nkv, ps, P, splits, scale, st);
+}
+
 bool shape_ok(int rows, int hd) {
   return (hd == 64 || hd == 128) && rows >= 1 && rows <= kMaxRows;
+}
+
+// B6 and B7 take `splits`: 1 to kMaxSplits (the caller's `paged_splits`)
+// runs the key-split kernel over a cluster of that many blocks (bf16 only);
+// 0 runs the shared body, f32's route (kernels/sweep_decode.py also times it
+// in bf16, beside the key-split kernel)
+bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype, int splits) {
+  return nkv >= 1 && nh % nkv == 0 && ps >= 1 && P >= 1 &&
+         shape_ok(nh / nkv, hd) && splits >= 0 && splits <= kMaxSplits &&
+         (dtype == 1 || splits == 0);
 }
 
 }  // namespace
@@ -844,22 +1450,39 @@ extern "C" int pt_paged_decode_attention(const void* q, const void* pk,
                                          const void* pv, const void* bt,
                                          const void* pos, void* out, int b,
                                          int nh, int nkv, int ps, int P,
-                                         int hd, int dtype, float scale,
-                                         void* stream) {
-  if (nkv < 1 || nh % nkv || ps < 1 || P < 1 || !shape_ok(nh / nkv, hd))
+                                         int hd, int dtype, int splits,
+                                         float scale, void* stream) {
+  if (!paged_ok(nh, nkv, ps, P, hd, dtype, splits))
     return (int)cudaErrorInvalidValue;
-  PT_DISPATCH(launch_paged, q, pk, pv, bt, pos, out, b, nh, nkv, ps, P,
-              scale, (cudaStream_t)stream)
+  cudaStream_t st = (cudaStream_t)stream;
+  if (splits == 0) {
+    PT_DISPATCH(launch_paged, q, pk, pv, bt, pos, out, b, nh, nkv, ps, P,
+                scale, st)
+  } else {
+    const cudaError_t e = launch_paged_split<__nv_bfloat16>(
+        q, pk, pv, nullptr, nullptr, bt, pos, out, b, nh, nkv, ps, P, hd,
+        splits, scale, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" int pt_paged_decode_attention_q8(
     const void* q, const void* pk, const void* pv, const void* sk,
     const void* sv, const void* bt, const void* pos, void* out, int b, int nh,
-    int nkv, int ps, int P, int hd, int dtype, float scale, void* stream) {
-  if (nkv < 1 || nh % nkv || ps < 1 || P < 1 || !shape_ok(nh / nkv, hd))
+    int nkv, int ps, int P, int hd, int dtype, int splits, float scale,
+    void* stream) {
+  if (!paged_ok(nh, nkv, ps, P, hd, dtype, splits))
     return (int)cudaErrorInvalidValue;
-  PT_DISPATCH(launch_paged_q8, q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv,
-              ps, P, scale, (cudaStream_t)stream)
+  cudaStream_t st = (cudaStream_t)stream;
+  if (splits == 0) {
+    PT_DISPATCH(launch_paged_q8, q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv,
+                ps, P, scale, st)
+  } else {
+    const cudaError_t e = launch_paged_split<int8_t>(
+        q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv, ps, P, hd, splits, scale,
+        st);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 // tensor maps the TMA copies through, mbarriers, shared-memory matrix
 // descriptors for wgmma and the wgmma instructions themselves (B1-B3, B8's
 // prefill); mma.sync, ldmatrix, cp.async and the cluster barrier and
-// distributed shared-memory loads (B5, B8's GEMV); in raw PTX (PTX ISA 8.x,
-// "Tensor Memory Accelerator", "mbarrier", "wgmma", "mma", "Cluster").
+// distributed shared-memory loads (B5, B6/B7, B8's GEMV); in raw PTX (PTX
+// ISA 8.x, "Tensor Memory Accelerator", "mbarrier", "wgmma", "mma",
+// "Cluster").
 //
 // Layouts. Every operand tile in shared memory is stored in the 128-byte
 // swizzle (what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes): rows of
@@ -278,6 +279,20 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the same product for an A whose rows 8-15 are zero (its registers a1 and
+// a3): d holds rows 0-7 of the sum (D's registers d0, d1); rows 8-15 go to
+// two scratch registers and are dropped
+__device__ __forceinline__ void mma_16816_top(float (&d)[2], uint32_t a0,
+                                              uint32_t a2, uint32_t b0,
+                                              uint32_t b1) {
+  float x, y;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %5}, {%7, %8}, {%0, %1, %9, %9};\n"
+      : "+f"(d[0]), "+f"(d[1]), "=f"(x), "=f"(y)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
+}
+
 // four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8. Lane t receives, of each matrix, row t / 4 at
 // columns (2 (t % 4), +1), or with .trans column t / 4 at rows (2 (t % 4), +1)
@@ -303,6 +318,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(bytes)
                : "memory");
 }
+// 4 bytes from device to shared memory, asynchronously, through L1;
+// bytes = 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -321,6 +344,19 @@ __device__ __forceinline__ uint4 ld_stream16(const void* p) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
                : "l"(p));
   return v;
+}
+
+// byte ia of a and byte ib of b, int8 codes each XORed with 0x80 (c + 128),
+// as a bf16 pair (a's in the low half), exactly: the f32 bit patterns
+// 0x4B0000xx = 2^23 + xx by byte permutes, one exact subtract, and the top
+// halves permuted together (|c| <= 128 is exact in bf16)
+__device__ __forceinline__ uint32_t widen_pair(uint32_t a, uint32_t b, int ia,
+                                               int ib) {
+  const float lo =
+      __uint_as_float(__byte_perm(a, 0x4B000000u, 0x7540u + ia)) - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540u + ib)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
 }
 
 // ---- thread-block clusters ---------------------------------------------------

@@ -427,15 +427,9 @@ struct TmaTile {
   static_assert(kCols == 64 || kCols == 128, "tile");
 };
 
-// two codes (bytes b, b + 1 of x = codes ^ 0x80808080) as a bf16 pair: the
-// f32 bit patterns 2^23 + c + 128 by byte permutes, one exact subtract, and
-// the top halves permuted together (c is exact in bf16: no rounding)
+// two codes (bytes b, b + 1 of x = codes ^ 0x80808080) as a bf16 pair
 __device__ __forceinline__ uint32_t widen2_bf16(uint32_t x, int b) {
-  const float lo = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u + b))
-                   - 8388736.f;
-  const float hi =
-      __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541u + b)) - 8388736.f;
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
+  return hopper::widen_pair(x, x, b, b + 1);
 }
 
 // out tile [BM, BN] at (blockIdx.x * BM, blockIdx.y * BN)

@@ -1,22 +1,32 @@
-"""Where the decode-time kernels B5 (window attention, bf16) and B8's GEMV
-(M <= 16, bf16 x) spend their time, on one NVIDIA card.
+"""Where the decode-time kernels B5 (window attention, bf16), B6 and B7
+(paged decode over a bf16 or an int8 pool, bf16 q) and B8's GEMV (M <= 16,
+bf16 x) spend their time, on one NVIDIA card.
 
     python3 -m paddle_tpu_torch.kernels.sweep_decode
 
 1. Each kernel through its C entry point at the serving shapes, with the
-   number of blocks over the keys (B5) or over K (B8: the cluster) set by
-   hand beside the one the wrapper's rule picks (`window_splits`,
-   `gemv_split`), each checked against the plain version run in f32 (the
-   per-row bar of `chip_smoke.py`), beside the library call: SDPA over the
-   keys the kernel reads (B5), `torch.matmul` over the dequantized weight
-   (B8).
-2. Copies of the two kernels with a part taken out, built from edited
-   copies of `csrc/attention.cu` and `csrc/quantized_matmul.cu` into
+   number of blocks over the keys (B5, B6, B7) or over K (B8: the
+   cluster) set by hand beside the one the wrapper's rule picks
+   (`window_splits`, `paged_splits` with and without the engine's bound
+   on pos, `gemv_split`), each checked against the plain version run in
+   f32 (the per-row bar of `chip_smoke.py`), beside the library call: SDPA
+   over the keys the kernel reads (B5, B6, B7: over the dequantized keys),
+   `torch.matmul` over the dequantized weight (B8). B6 and B7 also run
+   the shared CUDA-core body in bf16 (`splits` 0), the kernel they
+   replaced, in the same call.
+2. Copies of the kernels with a part taken out, built from edited copies
+   of `csrc/attention.cu` and `csrc/quantized_matmul.cu` into
    `build/paddle_tpu_torch/sweep_decode/`:
      B5: without the products and the online softmax; without the
          combine of the splits (and its distributed shared-memory reads);
          without both (the cp.async ring and the barriers alone); a
          ring of 4 stages at head_dim 128 instead of 3;
+     B6, B7: the same three (the loads alone: the block-table reads, the
+         cp.async ring and the barriers); B7 without its scales (neither
+         their copies nor the multiplies); all 16 rows of the row tile
+         kept at g <= 8 (the kernel keeps rows 0-7); B7 at g <= 8 capped
+         at 128 registers a thread (4 blocks an SM); rings of 2, 3 and 4
+         stages (bf16: 2, int8: 3, at head_dim 128);
      B8: without the widening of the codes; without the products; the
          loads alone (every code word folded into one sum, no widening,
          gathers or products); without the cluster combine (each block
@@ -49,6 +59,12 @@ from paddle_tpu_torch.kernels import quantized_matmul as qm
 # speculative verify window at Llama-2-7B width
 B5_SHAPES = ((1, 16, 32, 32, 128, 2064, [512]),
              (8, 5, 32, 32, 128, 1100, [1000, 3, 64, 59, 0, 500, 127, 777]))
+# (label, pos): B6/B7 at Llama-2-7B width, 8 rows, pages of 16, tables of
+# 128 pages: the timing phase's ragged rows, and the engine's decode shape
+# (chip_smoke.phase_profile: 8 rows at 256-320 keys)
+PAGED_SHAPES = (("ragged to 2047", (2047, 1500, 777, 513, 64, 17, 1, 0)),
+                ("the engine's decode, 256-319 keys",
+                 tuple(256 + 9 * i for i in range(8))))
 # (M, K, N): the decode step's four shapes at 8 rows, and 1 and 16 rows
 B8_SHAPES = tuple((m, k, n) for m in (8, 1, 16)
                   for k, n in ((4096, 4096), (4096, 11008), (11008, 4096),
@@ -59,14 +75,42 @@ B5_PRODUCTS = [("    if (active) {\n      const int mat = lane / 8;",
                 "    if (false) {\n      const int mat = lane / 8;", 1)]
 B5_COMBINE = [("  for (int r = z + nsplit * warp; r < rows; "
                "r += nsplit * 4) {",
-               "  for (int r = rows; r < rows; ++r) {", 1),
-              ("  cluster_sync();", "  __syncthreads();", 2)]
+               "  for (int r = rows; r < rows; ++r) {", 2),
+              ("  cluster_sync();", "  __syncthreads();", 4)]
 B5_STAGES = [("  static constexpr int kStages = HD == 128 ? 3 : 4;",
               "  static constexpr int kStages = 4;", 1)]
 B5_VARIANTS = {"without the products and softmax": B5_PRODUCTS,
                "without the combine": B5_COMBINE,
                "the ring and barriers alone": B5_PRODUCTS + B5_COMBINE,
                "a ring of 4 stages": B5_STAGES}
+PAGED_PRODUCTS = [("    if (active) {\n      const int stage = it % kStages;",
+                   "    if (false) {\n      const int stage = it % kStages;",
+                   1)]
+PAGED_SCALES = [("        if (cq == 0) {", "        if (false) {", 1),
+                ("          const float f = kQ8 ? sl2 * ksc[t] : sl2;",
+                 "          const float f = sl2;", 1),
+                ("        if constexpr (kQ8) {\n          v0 = vsc[t] / 127.f;",
+                 "        if constexpr (false) {\n          v0 = vsc[t] / 127.f;",
+                 1)]
+PAGED_STAGES = {n: [("  static constexpr int kStages = HD == 128 ? (kQ8 ? 3 : 2) "
+                     ": 4;", f"  static constexpr int kStages = {n};", 1)]
+                for n in (2, 3, 4)}
+PAGED_FULL_TILE = [("  if (g <= 8)\n    return launch_paged_mma<KVT, HD, 4, true>",
+                    "  if (false)\n    return launch_paged_mma<KVT, HD, 4, true>",
+                    1)]
+PAGED_CAP = [("__global__ void __launch_bounds__(kWinThreads) "
+               "paged_mma_kernel(",
+               "__global__ void __launch_bounds__(kWinThreads, kTop && "
+               "sizeof(KVT) == 1 ? 4 : 1) paged_mma_kernel(", 1)]
+PAGED_VARIANTS = {"without the products and softmax": PAGED_PRODUCTS,
+                  "without the combine": B5_COMBINE,
+                  "the loads alone": PAGED_PRODUCTS + B5_COMBINE,
+                  "B7 without its scales": PAGED_SCALES,
+                  "all 16 rows of the tile kept (g <= 8)": PAGED_FULL_TILE,
+                  "B7 at g <= 8 capped at 128 registers (4 blocks an SM)":
+                      PAGED_CAP,
+                  **{f"a ring of {n} stages": e
+                     for n, e in PAGED_STAGES.items()}}
 B8_WIDEN = [("      const uint32_t a[4] = {widen2_bf16(g01, 0), "
              "widen2_bf16(g01, 2),\n"
              "                             widen2_bf16(g23, 0), "
@@ -166,7 +210,8 @@ def _print_resources(what, report):
     fn = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            fn = next((k for k in ("window_mma_kernel", "b8_gemv_mma_kernel")
+            fn = next((k for k in ("window_mma_kernel", "paged_mma_kernel",
+                                   "b8_gemv_mma_kernel")
                        if k in line), None)
             if fn:
                 fn += line.split(fn)[1][:8]
@@ -187,6 +232,26 @@ def _b5_call(lib, q, ck, cv, pos, out, splits):
             1.0 / math.sqrt(hd), stream)
         if rc != 0:
             raise RuntimeError(f"B5 launch failed: CUDA error {rc}")
+    return call
+
+
+def _paged_call(lib, q, pool_k, pool_v, bt, pos, out, splits, scales=None):
+    """B6 (B7 with `scales` = (k_scale, v_scale)) through its C entry point:
+    `splits` blocks a cluster, or 0 for the shared body."""
+    b, _, nh, hd = q.shape
+    nkv, ps = pool_k.shape[1], pool_k.shape[2]
+    P = bt.shape[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = (q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr()) + (
+        (scales[0].data_ptr(), scales[1].data_ptr()) if scales else ())
+    fn = (lib.pt_paged_decode_attention_q8 if scales
+          else lib.pt_paged_decode_attention)
+
+    def call():
+        rc = fn(*ptrs, bt.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nh,
+                nkv, ps, P, hd, 1, splits, 1.0 / math.sqrt(hd), stream)
+        if rc != 0:
+            raise RuntimeError(f"B6/B7 launch failed: CUDA error {rc}")
     return call
 
 
@@ -212,6 +277,31 @@ def _b5_case(dev, b, s, nh, nkv, hd, length, pos):
     return q, ck, cv, torch.tensor(pos, dtype=torch.int32, device=dev)
 
 
+def _paged_case(dev, pos, q8, b=8, nh=32, nkv=32, hd=128, ps=16, P=128):
+    """(q, pool_k, pool_v, bt, pos) over b rows of P shuffled pages (page 0
+    the null page), and (k_scale, v_scale) or None: an int8 pool of codes
+    in [-127, 127] with scales in [0.5, 2.5], row 1's first page at scale 0
+    (a fresh page)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    n_pages = 1 + b * P
+    shape = (n_pages, nkv, ps, hd)
+    bt = (torch.randperm(n_pages - 1, device=dev, generator=g) + 1) \
+        .reshape(b, P).to(torch.int32).contiguous()
+    q = torch.randn(b, 1, nh, hd, device=dev, generator=g).bfloat16()
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if not q8:
+        pk = torch.randn(shape, device=dev, generator=g).bfloat16()
+        pv = torch.randn(shape, device=dev, generator=g).bfloat16()
+        return (q, pk, pv, bt, pos_t), None
+    codes = [torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand(n_pages, nkv, generator=g, device=dev) * 2 + 0.5
+              for _ in range(2)]
+    for sc in scales:
+        sc[bt[1, 0]] = 0.0
+    return (q, *codes, bt, pos_t), tuple(scales)
+
+
 def _b8_case(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(4)
     x = torch.randn(m, k, generator=g, device=dev).bfloat16()
@@ -231,6 +321,59 @@ def _b5_sdpa(q, ck, cv, pos):
         qt, kr, vr, attn_mask=mask)
 
 
+def _paged_shape(dev, sms, flush, attn, libs, label, pos):
+    """B6 and B7 at one PAGED_SHAPES row: the shared body, every split
+    count, the rule, the library call; then the variants at the split
+    counts the rule picks with and without the bound on pos."""
+    for q8 in (False, True):
+        kid = "B7" if q8 else "B6"
+        args, scales = _paged_case(dev, pos, q8)
+        bt = args[3]
+        if q8:
+            kw = {"k_scale": scales[0], "v_scale": scales[1]}
+            ck = at.paged_gather(args[1], bt, scales[0], torch.bfloat16)
+            cv = at.paged_gather(args[2], bt, scales[1], torch.bfloat16)
+        else:
+            kw = {}
+            ck, cv = at.paged_gather(args[1], bt), at.paged_gather(args[2], bt)
+        q, p = args[0], args[4]
+        b, nkv, ps, P = q.shape[0], args[1].shape[1], args[1].shape[2], \
+            bt.shape[1]
+        ref = at.paged_decode_attention_plain(
+            *[a.float() if a.is_floating_point() else a for a in args], **kw)
+        mask = (torch.arange(ck.shape[2], device=dev)[None, :]
+                <= p[:, None].long())[:, None, None, :]
+        qt = q.transpose(1, 2)
+        lib_ms = _ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, ck, cv, attn_mask=mask), flush)
+        rule = at.paged_splits(b, nkv, P, ps, sms)
+        bound = at.paged_splits(b, nkv, P, ps, sms, max(pos))
+        print(f"{kid} b={b} ps={ps} P={P} {label}: the rule picks {rule} "
+              f"split(s), {bound} with the bound max(pos) = {max(pos)}; "
+              f"SDPA over the {'dequantized ' if q8 else ''}keys "
+              f"{lib_ms:.4f} ms", flush=True)
+        out = torch.empty_like(q)
+        for splits in (0, 1, 2, 4, 8):
+            call = _paged_call(attn, *args, out, splits, scales)
+            call()
+            torch.cuda.synchronize()
+            ratio = _row_ratio(out, ref)
+            if not ratio <= 1.0:
+                raise AssertionError(f"{kid} {splits} splits: row ratio "
+                                     f"{ratio}")
+            what = "the shared body" if splits == 0 else f"{splits} split(s)"
+            print(f"  {what}: {_ms(call, flush):.4f} ms, worst row at "
+                  f"{ratio:.3f} of its bar", flush=True)
+        for vlabel, lib in libs.items():
+            if vlabel.startswith("B7") and not q8:
+                continue
+            for splits in sorted({rule, bound}):
+                t = _ms(_paged_call(lib, *args, out, splits, scales), flush)
+                print(f"  {vlabel} ({splits} split(s)): {t:.4f} ms",
+                      flush=True)
+        del args, ck, cv
+
+
 def main():
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -243,7 +386,11 @@ def main():
         _print_resources(name, _build.build(name)[1])
     attn, qmm = _build.lib("attention"), _build.lib("quantized_matmul")
     b5_libs = _variant_libs("attention", B5_VARIANTS)
+    paged_libs = _variant_libs("attention", PAGED_VARIANTS)
     b8_libs = _variant_libs("quantized_matmul", B8_VARIANTS)
+
+    for label, pos in PAGED_SHAPES:
+        _paged_shape(dev, sms, flush, attn, paged_libs, label, pos)
 
     for shape in B5_SHAPES:
         b, s, nh, nkv, hd, length, pos = shape

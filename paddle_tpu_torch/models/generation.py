@@ -274,13 +274,14 @@ def _layer_step(lp, h, cache_k, cache_v, pos, cos, sin, args):
 
 
 def _layer_step_paged(lp, h, pool_k_l, pool_v_l, bt, pos, cos, sin, args,
-                      page_size):
+                      page_size, max_pos=None):
     """One decoder layer's decode step (s == 1) over this layer's page pool
     [num_pages, nkv, ps, hd] (a tensor, or a QuantizedKVPage pair): row r's
     new k/v is written in place at (bt[r, pos[r] // ps], pos[r] % ps) —
     rows own their tail pages (the host-side COW gate), inactive rows
     write into the null page — then kernel B6 (B7 over int8 pages) attends
-    through the block tables."""
+    through the block tables, its keys split for max_pos (a host-known
+    bound on pos, or None)."""
     b, s = h.shape[0], h.shape[1]
     if s != 1:
         raise ValueError(f"paged decode requires s == 1 (got s={s})")
@@ -294,11 +295,12 @@ def _layer_step_paged(lp, h, pool_k_l, pool_v_l, bt, pos, cos, sin, args,
         _kv_quant_write(pool_v_l, page, off, v[:, 0])
         attn = attn_k.paged_decode_attention(
             q, pool_k_l.q, pool_v_l.q, bt, pos, k_scale=pool_k_l.scale,
-            v_scale=pool_v_l.scale)
+            v_scale=pool_v_l.scale, max_pos=max_pos)
     else:
         pool_k_l[page, :, off] = k[:, 0]
         pool_v_l[page, :, off] = v[:, 0]
-        attn = attn_k.paged_decode_attention(q, pool_k_l, pool_v_l, bt, pos)
+        attn = attn_k.paged_decode_attention(q, pool_k_l, pool_v_l, bt, pos,
+                                             max_pos=max_pos)
     h = h + _wmm(attn.reshape(b, 1, -1), lp["wo"])
     return _mlp_block(lp, h, args)
 
@@ -375,15 +377,16 @@ def _forward_cached(model, ids, caches_k, caches_v, pos, cos, sin,
 
 @torch.no_grad()
 def _paged_forward_decode(model, ids, pool_k, pool_v, bt, pos, cos, sin,
-                          page_size):
+                          page_size, max_pos=None):
     """ids [b, 1] -> (next-token logits [b, vocab] f32, pool_k, pool_v),
     the pools [L, num_pages, nkv, ps, hd] (tensors or QuantizedKVPage
-    pairs) written in place; bt int32 [b, P], pos int32 [b]."""
+    pairs) written in place; bt int32 [b, P], pos int32 [b]; max_pos, an
+    int bound on pos known to the host, cuts the attention's key split."""
     h = model.embedding[ids.long()]
     for i in range(model.args.num_layers):
         h = _layer_step_paged(model.layer(i), h, _layer_pool(pool_k, i),
                               _layer_pool(pool_v, i), bt, pos, cos, sin,
-                              model.args, page_size)
+                              model.args, page_size, max_pos)
     return _logits(model, h), pool_k, pool_v
 
 

@@ -512,7 +512,7 @@ class PagedEngine(Engine):
                 torch.from_numpy(self._last_tok).to(self.device)[:, None],
                 self._pk, self._pv, torch.from_numpy(bt).to(self.device),
                 torch.from_numpy(self._npos).to(self.device), self._cos,
-                self._sin, self.page_size)
+                self._sin, self.page_size, max_pos=int(self._npos.max()))
             return self._pick_batch(logits, active)
 
     # -- lifecycle ----------------------------------------------------------

@@ -220,3 +220,103 @@ def test_b5_bar_rejects_planted_faults():
     for fault, wrong, right in faults:
         ratio = cs.flash_row_ratio(torch, wrong, right, cs.TOL["bfloat16"])
         assert ratio > 1.0, fault
+
+
+# B6's and B7's route and split of the keys in bf16 (`paged_route`,
+# `paged_splits`, `paged_split_keys`): paged_mma_kernel cuts each row's keys
+# the same way on the card
+def test_paged_route_takes_bf16_to_the_cluster_kernel():
+    assert at.paged_route(torch.bfloat16) == "cluster"
+    assert at.paged_route(torch.float32) == "shared"
+
+
+@pytest.mark.parametrize("b,nkv,P,ps,sms,max_pos,want", [
+    (8, 32, 128, 16, 132, None, 2),   # the engine's table: 2048 keys
+    (8, 32, 128, 16, 132, 319, 1),    # ... its scheduler's bound: 5 tiles
+    (8, 32, 128, 16, 132, 5000, 2),   # a bound past the table clamps
+    (8, 32, 256, 16, 132, None, 4),   # 4096 keys: 64 tiles
+    (8, 32, 64, 16, 132, None, 1),    # 1024 keys: one split holds them
+    (1, 32, 16, 16, 132, None, 2),    # few (kv head, row) pairs: B5's rule
+    (1, 1, 16, 16, 132, None, 4),     # ... capped by the table's 4 tiles
+    (1, 8, 512, 8, 132, None, 8),     # a cluster's 8 blocks
+    (4, 8, 1, 128, 132, None, 2),     # one page of 128 keys: 2 tiles
+    (2, 4, 3, 7, 114, None, 1),       # 21 keys: one tile
+    (8, 32, 128, 16, 132, 0, 1),      # every row at pos 0
+])
+def test_paged_splits_follow_the_longest_row(b, nkv, P, ps, sms, max_pos,
+                                             want):
+    """The split is cut for the longest row the host knows of (the table,
+    or the caller's bound on pos): at most PAGED_SPLIT_TILES tiles a
+    split, at least B5's one block for every two SMs, at most a cluster."""
+    assert at.paged_splits(b, nkv, P, ps, sms, max_pos) == want
+
+
+@pytest.mark.parametrize("ps", [8, 16, 64, 128])
+@pytest.mark.parametrize("P", [1, 4, 32])
+@pytest.mark.parametrize("pos", [0, 1, 7, 63, 64, 100, 511, 1023, 4095,
+                                 5000])
+def test_paged_split_keys_cover_each_row_once(ps, P, pos):
+    """For every split count the rule can pick, the splits that hold keys
+    cover [0, min(pos, P * ps - 1)] once, in order and in whole tiles (a
+    split may be empty: a row shorter than the split count, pos 0, a row
+    ending mid-page); tables up to P * ps = 4096 keys."""
+    if P * ps > 4096:
+        pytest.skip("tables up to 4096 keys")
+    last = min(pos, P * ps - 1)
+    for splits in range(1, at.WINDOW_MAX_SPLITS + 1):
+        keys = at.paged_split_keys(pos, P, ps, splits)
+        assert len(keys) == splits
+        held = [k for k in keys if k is not None]
+        assert held[0][0] == 0 and held[-1][1] == last
+        for first, end in held:
+            assert first % at.WINDOW_TILE == 0 and first <= end
+        for (_, end), (start, _) in zip(held, held[1:]):
+            assert start == end + 1
+        # a split holds keys when the row has a tile for it
+        assert len(held) == min(splits, last // at.WINDOW_TILE + 1)
+
+
+def _paged_small(q8, dtype=torch.bfloat16):
+    """A small ragged case (cut from chip_smoke.PAGED_CASES' widths): rows
+    at 0, mid-page, a page edge and a long row, pages of 8, g = 2."""
+    import chip_smoke as cs
+
+    return cs.paged_cases(torch, torch.device("cpu"), dtype, 4, 4, 2, 64, 8,
+                          48, (383, 0, 4, 200), q8)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_paged_split_model_equals_the_plain_version(q8, splits):
+    """chip_smoke's model of paged_mma_kernel's split and combine (B7's
+    scales folded into scores and probabilities) is the plain version's
+    function: in f32 within 1e-6."""
+    import chip_smoke as cs
+
+    args, kw = _paged_small(q8, torch.float32)
+    model = cs.paged_split_plain(torch, at, *args, splits, **kw)
+    plain = at.paged_decode_attention_plain(*args, **kw)
+    torch.testing.assert_close(model, plain, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_paged_bar_rejects_planted_faults(q8):
+    """chip_smoke.py's per-row B6/B7 bar (each head_dim vector within 2^-6
+    of its own max |plain|) passes the split model in bf16 against the
+    plain version run in f32 and fails each planted fault: a split
+    dropped, a split's weight wrong, the last key of a row off by one and
+    (B7) a scale taken from the wrong page."""
+    import chip_smoke as cs
+
+    args, kw = _paged_small(q8)
+    exact = at.paged_decode_attention_plain(
+        args[0].float(), *[a.float() if a.is_floating_point() else a
+                           for a in args[1:]], **kw)
+    model = cs.paged_split_plain(torch, at, *args, 8, **kw)
+    assert cs.flash_row_ratio(torch, model, exact, cs.TOL["bfloat16"]) <= 1.0
+    faults = cs.planted_paged_faults(torch, at, args, kw, 8)
+    assert [f for f, _, _ in faults] == [
+        f for f, v in cs.PAGED_FAULTS.items() if q8 or v != "scale page"]
+    for fault, wrong, right in faults:
+        ratio = cs.flash_row_ratio(torch, wrong, right, cs.TOL["bfloat16"])
+        assert ratio > 1.0, fault

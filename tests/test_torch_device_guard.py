@@ -151,3 +151,41 @@ def test_matmul_and_norm_wrappers_launch_on_their_tensors_device(runtime):
     rn.rms_norm_bwd(x, wn, _card(r), g)
     _held(runtime, ["pt_weight_only_matmul", "pt_weight_only_matmul",
                     "pt_rms_norm_fwd", "pt_rms_norm_bwd"])
+
+
+def test_paged_wrapper_launches_its_route(runtime, monkeypatch):
+    """B6/B7 on a CUDA tensor: bf16 launches the key-split kernel with
+    `paged_splits` blocks a cluster (cut for the caller's bound on pos when
+    given), f32 the shared body (`splits` 0); each call one launch."""
+    import numpy as np
+
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: calls.append(
+                            (fn, args[-2])) or 0)
+    gen = np.random.default_rng(3)
+    # 2048 keys a table; 8 x 8 (kv head, row) pairs: B5's term gives 1
+    b, nh, nkv, hd, ps, P = 8, 8, 8, 64, 16, 128
+    pos = _card(torch.arange(5, 5 + b, dtype=torch.int32))
+    bt = _card(torch.arange(1, 1 + b * P, dtype=torch.int32).reshape(b, P))
+    codes = _card(torch.ones(1 + b * P, nkv, ps, hd, dtype=torch.int8))
+    scales = _card(torch.ones(1 + b * P, nkv))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _rnd(gen, b, 1, nh, hd, dtype=dtype)
+        pool = _card(torch.zeros(1 + b * P, nkv, ps, hd, dtype=dtype))
+        at.paged_decode_attention(q, pool, pool, bt, pos)
+        at.paged_decode_attention(q, pool, pool, bt, pos, max_pos=40)
+        at.paged_decode_attention(q, codes, codes, bt, pos, k_scale=scales,
+                                  v_scale=scales, max_pos=40)
+    table, bound = (at.paged_splits(b, nkv, P, ps, 132, m)
+                    for m in (None, 40))
+    assert (table, bound) == (2, 1)
+    assert calls == [
+        ("pt_paged_decode_attention", table),
+        ("pt_paged_decode_attention", bound),
+        ("pt_paged_decode_attention_q8", bound),
+        ("pt_paged_decode_attention", 0),
+        ("pt_paged_decode_attention", 0),
+        ("pt_paged_decode_attention_q8", 0)]
+    assert at.launches["paged_decode_attention"] == 4
+    assert at.launches["paged_decode_attention_int8"] == 2

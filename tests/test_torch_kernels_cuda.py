@@ -35,39 +35,77 @@ def _bf16_bar(ref):
     return 2.0 ** -6 * max(1.0, ref.abs().max().item())
 
 
+# B4-B7 cases on the card: (nkv, g, hd, ps, P, rows). First the cases these
+# tests have always run (8 query heads, tables of 256 keys, rows at 255,
+# 100, 0 and 17), then pages of 8 to 128 keys over tables of 512 keys with
+# rows at 0, 1, mid-page and the full table
+_OLD_ROWS = (255, 100, 0, 17)
+PAGED_CARD_CASES = [(8, 1, 128, 16, 16, _OLD_ROWS),
+                    (2, 4, 128, 16, 16, _OLD_ROWS),
+                    (4, 2, 64, 16, 16, _OLD_ROWS)]
+PAGED_Q8_CARD_CASES = [(8, 1, 128, 16, 16, _OLD_ROWS),
+                       (2, 4, 128, 64, 4, _OLD_ROWS),
+                       (4, 2, 64, 8, 32, _OLD_ROWS),
+                       (8, 1, 128, 32, 8, _OLD_ROWS)]
+_NEW_CASES = [(nkv, g, hd, ps, 512 // ps, (0, 1, 3 * ps + ps // 2, 511))
+              for ps in (8, 16, 64, 128) for hd in (64, 128)
+              for nkv, g in ((32, 1), (8, 4), (8, 8))]
+PAGED_CARD_CASES += _NEW_CASES
+PAGED_Q8_CARD_CASES += _NEW_CASES
+
+
+def _paged_ok(out, again, ref, ref32, dtype):
+    """bf16 (paged_mma_kernel): each head_dim vector within 2^-6 of its own
+    max |plain| against the plain version run in f32, the whole output
+    within the bf16 bar of the plain version, a second call bit-identical;
+    f32 (the shared body): within 1e-5, both summing in f32 in different
+    orders."""
+    assert torch.isfinite(out).all()
+    if dtype == torch.float32:
+        return (out - ref).abs().max().item() <= 1e-5
+    return (cs.flash_row_ratio(torch, out, ref32, 2.0 ** -6) <= 1.0
+            and (out.float() - ref.float()).abs().max().item()
+            <= _bf16_bar(ref) and torch.equal(out, again))
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("nkv,hd", [(8, 128), (2, 128), (4, 64)])
-def test_kernels_match_plain_on_card(cuda, dtype, nkv, hd):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    b, nh, ps, P = 4, 8, 16, 16
+@pytest.mark.parametrize("nkv,g,hd,ps,P,rows", PAGED_CARD_CASES)
+def test_kernels_match_plain_on_card(cuda, dtype, nkv, g, hd, ps, P, rows):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, nh = 4, nkv * g
     n_pages = 1 + b * P
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=g, device=cuda).to(dtype)
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
 
     pk, pv = rnd(n_pages, nkv, ps, hd), rnd(n_pages, nkv, ps, hd)
-    bt = (torch.randperm(n_pages - 1, generator=g, device=cuda) + 1) \
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1) \
         .reshape(b, P).to(torch.int32)
-    pos = torch.tensor([255, 100, 0, 17], dtype=torch.int32, device=cuda)
+    pos = torch.tensor(rows, dtype=torch.int32, device=cuda)
     q = rnd(b, 1, nh, hd)
     ck, cv = at.paged_gather(pk, bt), at.paged_gather(pv, bt)
-    # the widest window the kernel takes; row 0's overhangs the cache end
-    qw = rnd(b, 64 // (nh // nkv), nh, hd)
+    # the widest window the kernel takes; the longest row's overhangs the
+    # cache end
+    qw = rnd(b, 64 // g, nh, hd)
     before = dict(at.launches)
-    pairs = [(at.paged_decode_attention(q, pk, pv, bt, pos),
-              at.paged_decode_attention_plain(q, pk, pv, bt, pos)),
-             (at.decode_attention(q, ck, cv, pos),
+    out = at.paged_decode_attention(q, pk, pv, bt, pos)
+    again = at.paged_decode_attention(q, pk, pv, bt, pos)
+    pairs = [(at.decode_attention(q, ck, cv, pos),
               at.decode_attention_plain(q, ck, cv, pos)),
              (at.window_attention(qw, ck, cv, pos + 200),
               at.window_attention_plain(qw, ck, cv, pos + 200))]
+    ref = at.paged_decode_attention_plain(q, pk, pv, bt, pos)
+    ref32 = at.paged_decode_attention_plain(q.float(), pk.float(),
+                                            pv.float(), bt, pos)
     torch.cuda.synchronize()
-    for out, ref in pairs:
+    assert _paged_ok(out, again, ref, ref32, dtype)
+    for got, want in pairs:
         # f32: both sum in f32, in different orders
-        bar = _bf16_bar(ref) if dtype == torch.bfloat16 else 1e-5
-        assert (out.float() - ref.float()).abs().max().item() <= bar
+        bar = _bf16_bar(want) if dtype == torch.bfloat16 else 1e-5
+        assert (got.float() - want.float()).abs().max().item() <= bar
     assert {k: at.launches[k] - before[k] for k in before} == {
         "decode_attention": 1, "window_attention": 1,
-        "paged_decode_attention": 1, "paged_decode_attention_int8": 0}
+        "paged_decode_attention": 2, "paged_decode_attention_int8": 0}
 
 
 def test_kernel_checks_on_card(cuda):
@@ -95,33 +133,36 @@ def _q8_pool(g, cuda, n_pages, nkv, ps, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("nkv,hd,ps", [(8, 128, 16), (2, 128, 64), (4, 64, 8),
-                                       (8, 128, 32)])
-def test_paged_q8_kernel_matches_plain_on_card(cuda, dtype, nkv, hd, ps):
-    """B7: ragged rows, pages of 8-64 (a 64-key tile spans up to 8 pages,
-    each with its own scale), GQA, a page with scale 0."""
-    g = torch.Generator(device=cuda).manual_seed(1)
-    b, nh, P = 4, 8, 256 // ps
+@pytest.mark.parametrize("nkv,g,hd,ps,P,rows", PAGED_Q8_CARD_CASES)
+def test_paged_q8_kernel_matches_plain_on_card(cuda, dtype, nkv, g, hd, ps,
+                                               P, rows):
+    """B7: ragged rows (0, 1, mid-page, the full table among them), pages
+    of 8-128 (a 64-key tile spans up to 8 pages, each with its own scale),
+    GQA, a page with scale 0 (row 1's first page)."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, nh = 4, nkv * g
     n_pages = 1 + b * P
-    pk, sk = _q8_pool(g, cuda, n_pages, nkv, ps, hd)
-    pv, sv = _q8_pool(g, cuda, n_pages, nkv, ps, hd)
-    bt = (torch.randperm(n_pages - 1, generator=g, device=cuda) + 1) \
+    pk, sk = _q8_pool(gen, cuda, n_pages, nkv, ps, hd)
+    pv, sv = _q8_pool(gen, cuda, n_pages, nkv, ps, hd)
+    bt = (torch.randperm(n_pages - 1, generator=gen, device=cuda) + 1) \
         .reshape(b, P).to(torch.int32)
     sk[bt[1, 0]] = 0.0
     sv[bt[1, 0]] = 0.0
-    pos = torch.tensor([255, 100, 0, 17], dtype=torch.int32, device=cuda)
-    q = torch.randn(b, 1, nh, hd, generator=g, device=cuda).to(dtype)
+    pos = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    q = torch.randn(b, 1, nh, hd, generator=gen, device=cuda).to(dtype)
     before = at.launches["paged_decode_attention_int8"]
     out = at.paged_decode_attention(q, pk, pv, bt, pos, k_scale=sk,
                                     v_scale=sv)
+    assert at.launches["paged_decode_attention_int8"] == before + 1
+    again = at.paged_decode_attention(q, pk, pv, bt, pos, k_scale=sk,
+                                      v_scale=sv)
     ref = at.paged_decode_attention_plain(q, pk, pv, bt, pos, k_scale=sk,
                                           v_scale=sv)
+    ref32 = at.paged_decode_attention_plain(q.float(), pk, pv, bt, pos,
+                                            k_scale=sk, v_scale=sv)
     torch.cuda.synchronize()
-    assert at.launches["paged_decode_attention_int8"] == before + 1
-    # f32: both dequantize in f32 and sum in f32, in different orders
-    bar = _bf16_bar(ref) if dtype == torch.bfloat16 else 1e-5
-    assert torch.isfinite(out).all()
-    assert (out.float() - ref.float()).abs().max().item() <= bar
+    assert at.launches["paged_decode_attention_int8"] == before + 2
+    assert _paged_ok(out, again, ref, ref32, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
