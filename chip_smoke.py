@@ -10,11 +10,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                   together; count the HGMMA (wgmma) instructions of every
                   instantiation of the TMA kernels (B1, B2, B3, B8's
                   prefill) and the HMMA (mma.sync) instructions of B5's,
-                  B6/B7's (paged_mma_kernel) and B8's GEMV kernels in their
-                  SASS (cuobjdump); B2's, B3's, B5's, B6/B7's and the
-                  GEMV's must compile without spills (ptxas' report).
+                  B4's and B6/B7's (decode_mma_kernel, by key source:
+                  CacheKeys for B4, PagedKeys for B6/B7) and B8's GEMV
+                  kernels in their SASS (cuobjdump); B2's, B3's, B4-B7's,
+                  the GEMV's and B10's must compile without spills (ptxas'
+                  report).
   2. parity       each kernel against its plain PyTorch version on the same
-                  inputs, each error beside its bar: B4 decode, B5 window, B6
+                  inputs, each error beside its bar: B4 decode (also at
+                  B4_CASES: a 1029-key cache, g 1-64, both head dims, rows
+                  at 0, mid-tile and len - 1, in bf16 each output vector
+                  against the plain version run in f32, a second call
+                  bit-identical, and the same bits over a cache holding
+                  NaN past each row's pos; then planted faults the B4 bar
+                  must reject: a split dropped, a split's weight wrong, a
+                  key past a row's end, V past pos left in P V), B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
                   GQA), B8 weight-only int8 matmul (the four decode shapes,
                   prefill M 512 and 2048, ragged M/K/N), in bf16 and f32;
@@ -51,8 +60,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   then planted faults that the B1-B3 bar must reject; B9 and
                   B10 (RMSNorm forward and backward) at the training legs'
                   micro-batches, the decode rows, a ragged row count and in
-                  f32, each row of y and dx within its bar, then planted
-                  faults their bars must reject.
+                  f32, each row of y and dx within its bar, B10 twice with
+                  the same bits and one launch a call, then planted faults
+                  their bars must reject (B10's dw: a row group left out, a
+                  cluster's partial counted twice or left out).
   2a. train-check the loss and full grad tree of `forward_and_loss` (B1-B3,
                   fused CE) at Llama-2-7B width, 2 layers, s 1024, against an
                   f32 forward written here (materialized attention, unfused
@@ -105,12 +116,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                   bf16 pool against the int8 pool of the same bytes on one
                   48-request trace; sustained slots must reach >= 1.8x.
   9. timing       CUDA-event medians of each kernel, its plain version and one
-                  PyTorch library call (the L2 flushed before each call and
-                  the card held busy while the host enqueues it; the card's
-                  clocks logged before and after) at the serving shapes
+                  PyTorch library call (`timing.METHOD`: the L2 flushed
+                  before each call by reading 256 MB, the card held busy
+                  while the host enqueues it; B4, B6, B7 and B10 also under
+                  all four methods of `timing.METHODS`, and B4's shared
+                  body beside its cluster kernel; the card's clocks logged
+                  before and after) at the serving shapes
                   (B1-B3, B9, B10:
                   the 7B training leg's micro-batch; B2/B3 also at the h2048
-                  leg's, B9/B10 also at the decode rows; B5 also at the
+                  leg's, B9/B10 also at the h2048 leg's micro-batch and
+                  the decode rows; B4 also at the speculative draft's
+                  1029-key stripe; B5 also at the
                   spec-verify window; B6 and B7 also at the engine's decode
                   shape, 8 rows of 257-320 keys; B8's GEMV at the four
                   decode shapes at M 1, 8 and 16), beside the bound the
@@ -301,20 +317,25 @@ def phase_build():
 
 
 # the tensor-core instruction each redesigned kernel must run, by library:
-# {library: {name fragment: SASS opcode}} (HGMMA: wgmma; HMMA: mma.sync)
+# {library: {name fragment: SASS opcode}} (HGMMA: wgmma; HMMA: mma.sync).
+# decode_mma_kernel's instantiations go by their key source: CacheKeys (B4:
+# TMA copies of the contiguous cache), PagedKeys (B6/B7: cp.async copies
+# through the block table)
 TENSOR_CORE_KERNELS = {
     "quantized_matmul": {"b8_tma_kernel": "HGMMA",
                          "b8_gemv_mma_kernel": "HMMA"},
     "flash_attention": {"flash_fwd_tma_kernel": "HGMMA",
                         "flash_bwd_dq_tma_kernel": "HGMMA",
                         "flash_bwd_dkv_tma_kernel": "HGMMA"},
-    "attention": {"window_mma_kernel": "HMMA", "paged_mma_kernel": "HMMA"}}
+    "attention": {"window_mma_kernel": "HMMA",
+                  "CacheKeys": "HMMA", "PagedKeys": "HMMA"}}
 # the kernels whose every instantiation must compile without spills, by
 # library
 SPILL_FREE = {"flash_attention": ("flash_bwd_dq_tma_kernel",
                                   "flash_bwd_dkv_tma_kernel"),
-              "attention": ("window_mma_kernel", "paged_mma_kernel"),
-              "quantized_matmul": ("b8_gemv_mma_kernel",)}
+              "attention": ("window_mma_kernel", "decode_mma_kernel"),
+              "quantized_matmul": ("b8_gemv_mma_kernel",),
+              "rms_norm": ("rms_norm_bwd_kernel",)}
 
 
 def spill_check(built):
@@ -430,7 +451,7 @@ def phase_parity(torch, dev):
             check(f"B4 {dname} b=8 nh=32 nkv={nkv} len=2048",
                   "decode_attention",
                   at.decode_attention, at.decode_attention_plain,
-                  (q, ck, cv, pos), main and nkv == 32)
+                  (q, ck, cv, pos), main and nkv == 32, rows=main)
         for s, nkv in ((16, 32), (64, 32), (16, 8)):
             q, ck, cv, pos = window_case(torch, dev, dtype, s, nkv=nkv)
             check(f"B5 {dname} s={s} nkv={nkv} len={ck.shape[2]} "
@@ -519,8 +540,10 @@ def phase_parity(torch, dev):
                       "weight_only_matmul", qm.weight_only_matmul,
                       qm.dequant_matmul_plain, (x, w, sc), rows=True)
                 del x, w, sc
+    phase_b4_parity(torch, dev)
     phase_b5_bar_teeth(torch, dev)
     phase_paged_bar_teeth(torch, dev)
+    phase_b4_bar_teeth(torch, dev)
     main_err.update(phase_b8_routes(torch, dev, check))
     phase_b8_bar_teeth(torch, dev)
     phase_b8_bar_teeth(torch, dev, shape=(8, 1000, 4096))
@@ -847,6 +870,10 @@ def paged_split_plain(torch, at, q, pk, pv, bt, pos, splits, k_scale=None,
             end = keys[1]
             if fault == "last key" and end == last:
                 end = min(last + 1, P * ps - 1)     # one key past the row
+            if fault == "tail" and end == last:
+                # the row's last tile to its end, within the keys there are
+                end = min((last // at.WINDOW_TILE + 1) * at.WINDOW_TILE,
+                          P * ps) - 1
             j = torch.arange(keys[0], end + 1, device=q.device)
             page = bt[r].long()[j // ps]
             k = pk[page, :, j % ps].float().repeat_interleave(g, 1)
@@ -857,6 +884,8 @@ def paged_split_plain(torch, at, q, pk, pv, bt, pos, splits, k_scale=None,
                          if fault == "scale page" else page)
                 sc = sc * (k_scale[kpage].repeat_interleave(g, 1).t()
                            / 127.0)
+            if fault == "tail":
+                sc = torch.where(j <= last, sc, -math.inf)
             m = sc.amax(-1, keepdim=True)
             p = torch.exp(sc - m)
             pw = (p * (v_scale[page].repeat_interleave(g, 1).t() / 127.0)
@@ -930,6 +959,163 @@ def phase_paged_bar_teeth(torch, dev, case=0, splits=8):
                                      f"{fault} at {ratio}")
 
 
+# B4 parity cases at the edges of decode_mma_kernel's TMA source: (label,
+# b, nh, nkv, hd, cache length, pos). A cache length off the 64-key tile
+# (1029: the speculative draft's stripe, max_len + spec_tokens + 1), g = 1,
+# 2, 4, 8 (rows 0-7 of one row tile) and 64 (four row tiles), both head
+# dims, rows at 0, mid-tile, a tile edge and len - 1, and a pos past the
+# cache's end (the row's keys clamp there). Every case runs again over the
+# cache with NaN in the slots past each row's pos: the kernel must give the
+# bits it gives over the random values there.
+B4_CASES = (
+    ("the draft's stripe, len 1029, g=1", 8, 16, 16, 128, 1029,
+     (1028, 700, 64, 63, 0, 1, 500, 900)),
+    ("g=2, len 1029", 4, 32, 16, 128, 1029, (1028, 0, 511, 1000)),
+    ("g=4, hd 64", 4, 32, 8, 64, 1029, (64, 1028, 7, 300)),
+    ("g=8, len 130", 4, 64, 8, 128, 130, (129, 63, 0, 70)),
+    ("g=64 (four row tiles), hd 64", 2, 64, 1, 64, 200, (199, 31)),
+    ("a pos past the cache's end", 2, 32, 32, 128, 300, (5000, 299)),
+)
+
+
+def b4_case(torch, dev, dtype, b, nh, nkv, hd, length, pos, seed=9):
+    """q and a random cache [b, nkv, length, hd] in `dtype`, and the same
+    cache with NaN in every slot past each row's pos (the unwritten slots
+    of a stripe); returns q, ck, cv, ck_nan, cv_nan, pos."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (b, nkv, length, hd)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    live = (torch.arange(length, device=dev)[None, :]
+            <= pos_t[:, None].long())[:, None, :, None]
+    ck = torch.randn(shape, generator=g, device=dev).to(dtype)
+    cv = torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = torch.randn(b, 1, nh, hd, generator=g, device=dev).to(dtype)
+    nan = torch.tensor(float("nan"), device=dev, dtype=dtype)
+    return (q, ck, cv, torch.where(live, ck, nan), torch.where(live, cv, nan),
+            pos_t)
+
+
+def phase_b4_parity(torch, dev):
+    """B4 at B4_CASES, bf16 and f32: each output vector within its bar of
+    the plain version run in f32, the whole tensor within TOL of the plain
+    version, a second call bit-identical; over the cache with NaN past pos
+    the same bits; one launch a call."""
+    from paddle_tpu_torch.kernels import attention as at
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for label, *shape in B4_CASES:
+            b, nh, nkv, hd, length, pos = shape
+            q, ck, cv, ckn, cvn, pos_t = b4_case(torch, dev, dtype, *shape)
+            before = at.launches["decode_attention"]
+            out = at.decode_attention(q, ck, cv, pos_t)
+            again = at.decode_attention(q, ck, cv, pos_t)
+            over_nan = at.decode_attention(q, ckn, cvn, pos_t)
+            calls = at.launches["decode_attention"] - before
+            ref = at.decode_attention_plain(q, ck, cv, pos_t)
+            ref32 = at.decode_attention_plain(q.float(), ck.float(),
+                                              cv.float(), pos_t)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[dname] * max(1.0, ref.float().abs().max().item())
+            ratio = flash_row_ratio(torch, out, ref32, TOL[dname])
+            splits = (at.decode_splits(b, nkv, at._window_last(
+                pos_t, 1, length), at._sms(dev))
+                if at.paged_route(dtype) == "cluster" else 0)
+            same, nan_same = torch.equal(out, again), torch.equal(out,
+                                                                  over_nan)
+            log(f"[parity] B4 {dname} {label}: b={b} nh={nh} nkv={nkv} "
+                f"hd={hd} len={length} pos={pos}, "
+                + (f"{splits} split(s)" if splits else "the shared body")
+                + f": max_abs_err {err:.3e} (bar {tol:.3e}), worst row at "
+                f"{ratio:.3f} of its bar, a second call "
+                f"{'bit-identical' if same else 'DIFFERENT'}, over NaN past "
+                f"pos {'the same bits' if nan_same else 'DIFFERENT'}, "
+                f"{calls} launches for 3 calls")
+            if not (math.isfinite(err) and err <= tol and ratio <= 1.0
+                    and same and nan_same and calls == 3):
+                raise AssertionError(f"B4 {dname} {label}: {err} (bar {tol}),"
+                                     f" row ratio {ratio}, launches {calls}")
+            del q, ck, cv, ckn, cvn
+
+
+def b4_shared(torch, q, ck, cv, pos):
+    """A call of B4's shared CUDA-core body in bf16 (the kernel the cluster
+    kernel replaced there): its C entry point with splits 0, on fresh
+    output; for timing beside the cluster kernel."""
+    from paddle_tpu_torch.kernels import _build
+
+    lib = _build.lib("attention")
+    b, _, nh, hd = q.shape
+    nkv, length = ck.shape[1], ck.shape[2]
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.pt_decode_attention(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, nh, nkv, length, hd, 1, 0,
+            1.0 / math.sqrt(hd), stream)
+        if rc != 0:
+            raise RuntimeError(f"B4's shared body failed: CUDA error {rc}")
+    return call
+
+
+def decode_split_plain(torch, at, q, ck, cv, pos, splits, fault=None):
+    """B4 computed the way decode_mma_kernel splits it, in f32: the cache
+    [b, nkv, len, hd] is a pool of b pages of len keys, row r's table [r],
+    so `paged_split_plain` walks each row's keys [0, min(pos, len - 1)]
+    cut by `attention.decode_split_keys`. `fault` plants one of
+    PAGED_FAULTS or "tail": the row's last tile read to its end with the
+    keys past the row masked out of the softmax but their V rows left in
+    P V (p = 0 times what the cache holds there)."""
+    bt = torch.arange(q.shape[0], dtype=torch.int32, device=q.device)[:, None]
+    return paged_split_plain(torch, at, q, ck, cv, bt, pos, splits,
+                             fault=fault)
+
+
+def planted_b4_faults(torch, at, q, ck, cv, ckn, cvn, pos, splits):
+    """B4 outputs with a fault planted, from `decode_split_plain`: [(fault,
+    faulty, right)]; the tail fault over the cache with NaN past pos. The
+    per-row bar must reject each."""
+    right = at.decode_attention_plain(q, ck, cv, pos)
+    out = [(name, decode_split_plain(torch, at, q, ck, cv, pos, splits,
+                                     fault), right)
+           for name, fault in PAGED_FAULTS.items() if fault != "scale page"]
+    out.append(("the V rows past a row's pos left in P V (NaN x 0)",
+                decode_split_plain(torch, at, q, ckn, cvn, pos, splits,
+                                   "tail"), right))
+    return out
+
+
+def phase_b4_bar_teeth(torch, dev, case=0, splits=8):
+    """The per-row B4 bar rejects planted faults at the draft's stripe (8
+    splits of the 1029-key rows: the short rows leave some empty), each
+    beside the whole-tensor rule's ratio; the unplanted split model passes
+    against the plain version in f32, over the random cache and over NaN
+    past pos."""
+    from paddle_tpu_torch.kernels import attention as at
+
+    label, *shape = B4_CASES[case]
+    q, ck, cv, ckn, cvn, pos = b4_case(torch, dev, torch.bfloat16, *shape)
+    exact = at.decode_attention_plain(q.float(), ck.float(), cv.float(), pos)
+    for cache, (k, v) in (("random values", (ck, cv)), ("NaN", (ckn, cvn))):
+        model = decode_split_plain(torch, at, q, k, v, pos, splits)
+        ok = flash_row_ratio(torch, model, exact, TOL["bfloat16"])
+        log(f"[parity] B4 bar at {label}: the split model without a fault, "
+            f"{cache} past pos, is at {ok:.3f} of the bar")
+        if not ok <= 1.0:
+            raise AssertionError(f"B4's split model fails its bar: {ok}")
+    for fault, wrong, right in planted_b4_faults(torch, at, q, ck, cv, ckn,
+                                                 cvn, pos, splits):
+        ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+        log(f"[parity] B4 bar, planted fault at {label}: {fault} is at "
+            f"{ratio:.2f} of the bar")
+        if ratio <= 1.0:
+            raise AssertionError(f"the B4 bar passes a planted fault: "
+                                 f"{fault} at {ratio}")
+
+
 # B9/B10 parity cases: (label, rows, H, dtype); the first is the 7B leg's
 # micro-batch (b4 s2048 over 2 micro-batches: 4096 rows), whose errors go
 # into the JSON line
@@ -987,10 +1173,40 @@ def rms_ratios(torch, got, ref, dname):
     return out
 
 
-def planted_rms_faults(torch, rn, x, w, g, strip):
-    """B9/B10 outputs with a fault planted, built from the plain versions:
-    [(fault, {output: faulty}, {output: right})]. The bars must reject each
-    on at least one output."""
+def rms_dw_split(torch, rn, x, r, g, sms, fault=None):
+    """B10's dw the way rms_norm_bwd_kernel sums it, in f32 (before the
+    rounding to w's dtype): each row group's rows (`rms_norm.bwd_rows` over
+    `bwd_grid`'s blocks and `bwd_plan`'s groups), then the groups of each
+    block and the blocks of each cluster in order, then the clusters in
+    index order. `fault` plants one of RMS_DW_FAULTS."""
+    rows, h = x.shape
+    groups = rn.bwd_plan(h, x.element_size())[2]
+    blocks, c = rn.bwd_grid(rows, h, x.element_size(), sms)
+    terms = g.float() * x.float() * r.float()[:, None]
+    part = [terms[a:e].sum(0) for a, e in rn.bwd_rows(rows, blocks, groups)]
+    if fault == "group":
+        part[0] = torch.zeros_like(part[0])
+    per = c * groups                      # row groups a cluster
+    clusters = [sum(part[k * per:(k + 1) * per])
+                for k in range(blocks // c)]
+    if fault == "twice":
+        clusters[0] = 2 * clusters[0]
+    if fault == "skip":
+        clusters[-1] = torch.zeros_like(clusters[-1])
+    return sum(clusters)
+
+
+# planted faults of B10's dw sum (`rms_dw_split`)
+RMS_DW_FAULTS = {"one row group's rows left out of dw": "group",
+                 "one cluster's dw partial counted twice": "twice",
+                 "one cluster's dw partial left out": "skip"}
+
+
+def planted_rms_faults(torch, rn, x, w, g, sms):
+    """B9/B10 outputs with a fault planted, built from the plain versions
+    and B10's dw split (`rms_dw_split`): [(fault, {output: faulty},
+    {output: right})]. The bars must reject each on at least one
+    output."""
     h = x.shape[1]
     y, r = rn.rms_norm_fwd_plain(x, w, RMS_EPS)
     dx, dw = rn.rms_norm_bwd_plain(x, w, r, g)
@@ -1002,15 +1218,15 @@ def planted_rms_faults(torch, rn, x, w, g, strip):
     y_e, r_e = rn.rms_norm_fwd_plain(x, w, 0.0)
     r_h = torch.rsqrt((x32 * x32).sum(-1) / (h - 1) + RMS_EPS)
     r_o = r.roll(1)
-    _, dw_s = rn.rms_norm_bwd_plain(x[strip:], w, r[strip:], g[strip:])
     right = {"y": y, "r": r, "dx": dx, "dw": dw}
     return [("eps dropped", {"y": y_e, "r": r_e}, right),
             ("the mean taken over H - 1", {"y": fwd_with(r_h), "r": r_h},
              right),
             ("r from another row", {"y": fwd_with(r_o), "r": r_o,
                                     "dx": rn.rms_norm_bwd_plain(
-                                        x, w, r_o, g)[0]}, right),
-            ("dw missing one strip of rows", {"dw": dw_s}, right)]
+                                        x, w, r_o, g)[0]}, right)] + [
+        (name, {"dw": rms_dw_split(torch, rn, x, r, g, sms, fault).to(
+            w.dtype)}, right) for name, fault in RMS_DW_FAULTS.items()]
 
 
 def phase_rms_parity(torch, dev):
@@ -1018,6 +1234,7 @@ def phase_rms_parity(torch, dev):
     within its bar (`rms_ratios`); then planted faults the bars must
     reject, at the 7B case and the f32 case. Returns the first case's max
     |error| by launch key (y for B9, dx and dw for B10)."""
+    from paddle_tpu_torch.kernels import attention as at
     from paddle_tpu_torch.kernels import rms_norm as rn
 
     main_err = {}
@@ -1027,7 +1244,10 @@ def phase_rms_parity(torch, dev):
         ry, rr = rn.rms_norm_fwd_plain(x, w, RMS_EPS)
         # B10 from the plain forward's r, so that it is held to its plain
         # version on the same inputs
+        before = rn.launches["rms_norm_bwd"]
         dx, dw = rn.rms_norm_bwd(x, w, rr, g)
+        dx2, dw2 = rn.rms_norm_bwd(x, w, rr, g)
+        calls = rn.launches["rms_norm_bwd"] - before
         rdx, rdw = rn.rms_norm_bwd_plain(x, w, rr, g)
         torch.cuda.synchronize()
         got = {"y": y, "r": r, "dx": dx, "dw": dw}
@@ -1035,19 +1255,32 @@ def phase_rms_parity(torch, dev):
         ratios = rms_ratios(torch, got, ref, dname)
         errs = {k: (got[k].float() - ref[k].float()).abs().max().item()
                 for k in got}
+        same = torch.equal(dx, dx2) and torch.equal(dw, dw2)
         log(f"[parity] rms_norm {label} [{rows}, {h}] {dname}: " + ", ".join(
             f"{k} max_abs_err {errs[k]:.3e} at {ratios[k]:.3f} of its bar"
-            for k in got))
-        if not all(math.isfinite(v) and v <= 1.0 for v in ratios.values()):
+            for k in got) + f"; B10 grid (blocks, cluster) "
+            f"{rn.bwd_grid(rows, h, x.element_size(), at._sms(dev))}, "
+            f"a second call {'bit-identical' if same else 'DIFFERENT'} (dx, "
+            f"dw), {calls} launches for 2 calls")
+        if not all(math.isfinite(v) and v <= 1.0 for v in ratios.values()) \
+                or not same or calls != 2:
             raise AssertionError(f"rms_norm {label}: a kernel disagrees with "
-                                 f"its plain version: {ratios}")
+                                 f"its plain version: {ratios}, or B10 is "
+                                 f"not reproducible ({same}) or launched "
+                                 f"{calls} times for 2 calls")
         if i == 0:
             main_err = {"rms_norm_fwd": errs["y"],
                         "rms_norm_bwd": max(errs["dx"], errs["dw"])}
         if label in ("7B micro-batch", "f32"):
-            strip = rn._strips(rows, x.device)[0]
+            sms = at._sms(dev)
+            split = rms_dw_split(torch, rn, x, rr, g, sms).to(w.dtype)
+            ok = rms_ratios(torch, {"dw": split}, {"dw": rdw}, dname)["dw"]
+            log(f"[parity] rms_norm bar at {label}: B10's dw split without a "
+                f"fault is at {ok:.3f} of its bar")
+            if not ok <= 1.0:
+                raise AssertionError(f"B10's dw split fails its bar: {ok}")
             for fault, wrong, right in planted_rms_faults(torch, rn, x, w, g,
-                                                          strip):
+                                                          sms):
                 bad = rms_ratios(torch, wrong, right, dname)
                 log(f"[parity] rms_norm bar, planted fault at {label}: "
                     f"{fault}: " + ", ".join(f"{k} at {v:.2f} of its bar"
@@ -1055,7 +1288,7 @@ def phase_rms_parity(torch, dev):
                 if not max(bad.values()) > 1.0:
                     raise AssertionError(f"the rms_norm bars pass a planted "
                                          f"fault: {fault} at {bad}")
-        del x, w, g, y, r, ry, rr, dx, dw, rdx, rdw, got, ref
+        del x, w, g, y, r, ry, rr, dx, dw, dx2, dw2, rdx, rdw, got, ref
         torch.cuda.empty_cache()
     return main_err
 
@@ -1550,23 +1783,21 @@ def phase_train(torch, dev, name, label, warmup=2, steps=8):
     return launches
 
 
-def cuda_ms(torch, fn, iters=20, flush=None):
-    """Median per-call device time of fn() in ms: CUDA events around each
-    call, the L2 cache flushed before each one."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        a = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(a.elapsed_time(e))
-    return statistics.median(times)
+def cuda_ms(torch, fn, l2):
+    """Median per-call device time of fn() in ms under the kernel table's
+    method (`timing.METHOD`: CUDA events around each call, the L2 cache
+    flushed before each one by `l2`, a `timing.ColdL2`)."""
+    from paddle_tpu_torch.kernels import timing
+
+    return timing.cold_ms(fn, l2)
+
+
+def methods_line(torch, fn, l2):
+    """fn's time under each of `timing.METHODS`, as one log fragment."""
+    from paddle_tpu_torch.kernels import timing
+
+    return ", ".join(f"{how} flush{' + sleep' if sleep else ''} {t:.4f}"
+                     for (how, sleep), t in timing.methods_ms(fn, l2).items())
 
 
 def cuda_ms_loop(torch, fn, iters=50):
@@ -1614,25 +1845,36 @@ def phase_timing(torch, dev, name, main_err, launches):
     from paddle_tpu_torch.kernels import attention as at
     from paddle_tpu_torch.kernels import quantized_matmul as qm
 
-    bw, flops_peak = peaks(name)
-    # 256 MB: past the 50 MB L2, and long enough to write that the
-    # wrapper's host work is queued behind it, not timed
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    rows = []
-    log(f"[timing] card at the start: {card_state()}")
+    from paddle_tpu_torch.kernels import timing
 
-    def record(wrapper, fn, plain, library, nbytes, flops, label, row=True):
+    bw, flops_peak = peaks(name)
+    # two 256 MB buffers, past the 50 MB L2: the flush before each timed
+    # call (`timing.METHOD` for every number of the JSON line)
+    l2 = timing.ColdL2(dev)
+    rows = []
+    held = (", the card held by torch.cuda._sleep while the host enqueues"
+            if timing.METHOD[1] else "")
+    log(f"[timing] card at the start: {card_state()}; every time below is "
+        f"L2 flushed by {timing.METHOD[0]}ing 256 MB{held} unless a line says "
+        f"otherwise")
+
+    def record(wrapper, fn, plain, library, nbytes, flops, label, row=True,
+               methods=False):
         """Times one shape; the kernel's JSON row when `row` (True: under
         the wrapper's key of KERNELS; a string: under that key). `library`:
-        a callable, or its time in ms measured already. Returns the
+        a callable, or its time in ms measured already. `methods`: the
+        kernel's time under every timing method, logged. Returns the
         kernel's ms and the bound's."""
-        ms = cuda_ms(torch, fn, flush=flush)
+        ms = cuda_ms(torch, fn, l2)
         log(f"[timing] {label}: back-to-back kernel "
             f"{cuda_ms_loop(torch, fn):.4f} ms, plain "
             f"{cuda_ms_loop(torch, plain):.4f} ms")
-        plain_ms = cuda_ms(torch, plain, flush=flush)
+        if methods:
+            log(f"[timing] {label}: kernel by timing method (ms): "
+                f"{methods_line(torch, fn, l2)}")
+        plain_ms = cuda_ms(torch, plain, l2)
         lib_ms = (library if isinstance(library, float)
-                  else cuda_ms(torch, library, flush=flush))
+                  else cuda_ms(torch, library, l2))
         t_bytes = nbytes / bw * 1e3
         t_ops = flops / flops_peak * 1e3
         bound, by = ((t_bytes, "bytes") if t_bytes >= t_ops
@@ -1674,7 +1916,7 @@ def phase_timing(torch, dev, name, main_err, launches):
             return torch.autograd.grad(lout, (lq, lk, lv), dot,
                                        retain_graph=True)
 
-        sdpa_bwd_ms = cuda_ms(torch, sdpa_backward, flush=flush)
+        sdpa_bwd_ms = cuda_ms(torch, sdpa_backward, l2)
         log(f"[timing] SDPA backward (dq, dk, dv) b{b} h{h} s{s} d{d} "
             f"causal bf16: {sdpa_bwd_ms:.4f} ms")
 
@@ -1721,13 +1963,38 @@ def phase_timing(torch, dev, name, main_err, launches):
            lambda: at.paged_decode_attention_plain(q, pk, pv, bt, pos),
            lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
            kv_bytes + qo_bytes + bt_bytes, flops,
-           "B6 b=8 nh=nkv=32 hd=128 ps=16 P=128")
+           "B6 b=8 nh=nkv=32 hd=128 ps=16 P=128", methods=True)
     record("decode_attention",
            lambda: at.decode_attention(q, ck, cv, pos),
            lambda: at.decode_attention_plain(q, ck, cv, pos),
            lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
            kv_bytes + qo_bytes + b * 4, flops,
-           "B4 b=8 nh=nkv=32 hd=128 len=2048")
+           f"B4 b=8 nh=nkv=32 hd=128 len=2048, "
+           f"{at.decode_splits(b, nkv, ck.shape[2] - 1, at._sms(dev))} "
+           f"split(s)", methods=True)
+    log(f"[timing] B4's shared CUDA-core body (the kernel the cluster kernel "
+        f"replaced in bf16, its C entry point with splits 0), same inputs, by "
+        f"timing method (ms): "
+        f"{methods_line(torch, b4_shared(torch, q, ck, cv, pos), l2)}")
+    # B4 at the speculative draft's stripe (h2048: 16 kv heads, 1029 keys
+    # a row, ragged rows), beside the shared body
+    q, ck, cv, _, _, pos = b4_case(torch, dev, torch.bfloat16,
+                                   *B4_CASES[0][1:])
+    keys = [min(int(p), ck.shape[2] - 1) + 1 for p in pos.tolist()]
+    record("decode_attention",
+           lambda: at.decode_attention(q, ck, cv, pos),
+           lambda: at.decode_attention_plain(q, ck, cv, pos),
+           lambda: F.scaled_dot_product_attention(
+               q.transpose(1, 2), ck, cv, attn_mask=(
+                   torch.arange(ck.shape[2], device=dev)[None, :]
+                   <= pos[:, None].long())[:, None, None, :]),
+           sum(keys) * ck.shape[1] * 128 * 2 * 2 + 2 * 8 * 16 * 128 * 2
+           + 8 * 4, 4 * 16 * 128 * sum(keys),
+           f"B4 at the draft's stripe, b=8 nh=nkv=16 hd=128 len=1029 "
+           f"pos={pos.tolist()}", row=False)
+    log(f"[timing] B4's shared body at the draft's stripe: "
+        f"{cuda_ms(torch, b4_shared(torch, q, ck, cv, pos), l2):.4f} ms")
+    del q, ck, cv
     # B5 at a paged-prefill suffix (16 new tokens after a 512-token hit:
     # the JSON row), then at the spec-verify window (b=8, s=5, ragged
     # rows). The library call is SDPA over the keys the kernel reads, up
@@ -1750,7 +2017,7 @@ def phase_timing(torch, dev, name, main_err, launches):
         qt = q.transpose(1, 2)
         if b == 1:
             stripe_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, ck, cv, attn_mask=mask), flush=flush)
+                qt, ck, cv, attn_mask=mask), l2)
             log(f"[timing] B5's library call as PR 6 timed it, SDPA over the "
                 f"whole {L}-key stripe: {stripe_ms:.4f} ms")
         splits = at.window_splits(b, nkv, at._window_last(pos, s, L),
@@ -1788,7 +2055,7 @@ def phase_timing(torch, dev, name, main_err, launches):
            sum(keys) * nkv * hd * 2 + pages * nkv * 4 * 2
            + 2 * b * nh * hd * 2 + pages * 4 + b * 4,
            4 * nh * hd * sum(keys),
-           "B7 b=8 nh=nkv=32 hd=128 ps=16 P=128 int8 pool")
+           "B7 b=8 nh=nkv=32 hd=128 ps=16 P=128 int8 pool", methods=True)
     del ck, cv
 
     # B6 and B7 at the engine's own decode shape (phase_profile's 8 rows
@@ -1820,7 +2087,7 @@ def phase_timing(torch, dev, name, main_err, launches):
         splits = at.paged_splits(8, nkv, 128, ps, at._sms(dev),
                                  max(eng_pos))
         unbound = cuda_ms(torch, lambda: at.paged_decode_attention(
-            *args, **kw), flush=flush)
+            *args, **kw), l2)
         record(name,
                lambda: at.paged_decode_attention(*args, **kw,
                                                  max_pos=max(eng_pos)),
@@ -1874,7 +2141,7 @@ def phase_timing(torch, dev, name, main_err, launches):
     # F.rms_norm's forward and its autograd backward
     from paddle_tpu_torch.kernels import rms_norm as rn
 
-    for n, h in ((4096, 4096), (8, 4096)):
+    for n, h in ((4096, 4096), (4096, 2048), (8, 4096)):
         x, w, g = rms_case(torch, dev, n, h, torch.bfloat16)
         _, r = rn.rms_norm_fwd(x, w, RMS_EPS)
         xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -1884,7 +2151,7 @@ def phase_timing(torch, dev, name, main_err, launches):
             return torch.autograd.grad(yl, (xl, wl), g, retain_graph=True)
 
         t16 = n * h * 2
-        main = n == 4096
+        main = (n, h) == (4096, 4096)
         record("rms_norm_fwd", lambda: rn.rms_norm_fwd(x, w, RMS_EPS),
                lambda: rn.rms_norm_fwd_plain(x, w, RMS_EPS),
                lambda: F.rms_norm(x, (h,), w, RMS_EPS),
@@ -1893,7 +2160,9 @@ def phase_timing(torch, dev, name, main_err, launches):
         record("rms_norm_bwd", lambda: rn.rms_norm_bwd(x, w, r, g),
                lambda: rn.rms_norm_bwd_plain(x, w, r, g), lib_backward,
                3 * t16 + 2 * h * 2 + n * 4, 9 * n * h,
-               f"B10 [{n}, {h}] bf16", row=main)
+               f"B10 [{n}, {h}] bf16, (blocks, cluster) "
+               f"{rn.bwd_grid(n, h, 2, at._sms(dev))}", row=main,
+               methods=True)
 
         def lib_both():
             xg = x.detach().requires_grad_()
@@ -2041,15 +2310,16 @@ def phase_engine(torch, dev, model, kv_dtype=None, label="engine",
 PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
                  "B3": ("flash_bwd_dkv",),
                  "B5": ("window_mma_kernel", "window_attention_kernel"),
-                 "B6": ("paged_mma_kernel<__nv_bfloat16",
+                 "B4": ("CacheKeys", "::decode_attention_kernel<"),
+                 "B6": ("PagedKeys<__nv_bfloat16",
                         "paged_decode_attention_kernel"),
-                 "B7": ("paged_mma_kernel<signed char", "paged_mma_kernel<char",
+                 "B7": ("PagedKeys<signed char", "PagedKeys<char",
                         "paged_decode_attention_q8_kernel"),
                  "B8": ("b8_gemv_mma_kernel", "b8_gemv_kernel",
                         "b8_reduce_kernel",
                         "b8_tma_kernel", "b8_mma_kernel", "b8_simt_kernel"),
                  "B9": ("rms_norm_fwd_kernel",),
-                 "B10": ("rms_norm_bwd_kernel", "rms_norm_dw_kernel")}
+                 "B10": ("rms_norm_bwd_kernel",)}
 
 
 # kernel launches a decode step in the last run before B9 (PERF.md)
@@ -2456,7 +2726,18 @@ def phase_generate(torch, dev, model, b=4, lengths=(48, 128), new_tokens=32,
         ["weight_only_matmul"] if model.quantized else [])
     if not all(launches[k] > 0 for k in need):
         raise AssertionError(f"generate did not run {need}: {launches}")
+    log(f"[{label}] B4: {launches['decode_attention']} launches on its "
+        f"{b4_route(model.dtype)}")
     return launches
+
+
+def b4_route(dtype):
+    """Which of B4's kernels a call in `dtype` launches, in words."""
+    from paddle_tpu_torch.kernels import attention as at
+
+    return ("cluster route (decode_mma_kernel, keys by TMA)"
+            if at.paged_route(dtype) == "cluster"
+            else "shared body") + f" ({str(dtype).replace('torch.', '')})"
 
 
 def _quantile(xs, q):
@@ -2645,6 +2926,9 @@ def phase_spec(torch, dev, model):
         if not all(launches[k] > 0 for k in need):
             raise AssertionError(f"spec {leg}: {need} not all launched: "
                                  f"{launches}")
+        log(f"[spec] {leg}: the draft's decode steps launched B4 "
+            f"{launches['decode_attention']} times on its "
+            f"{b4_route(draft.dtype)}")
         spec_launches = launches
         del target, draft, greedy, spec
         torch.cuda.empty_cache()

@@ -41,7 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures (kernels/csrc/*.cu)
 _SIGNATURES = {
     "attention": {
-        "pt_decode_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "pt_decode_attention": [_P] * 5 + [_I] * 7 + [_F, _P],
         "pt_window_attention": [_P] * 5 + [_I] * 8 + [_F, _P],
         "pt_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_F, _P],
         "pt_paged_decode_attention_q8": [_P] * 8 + [_I] * 8 + [_F, _P],
@@ -56,7 +56,7 @@ _SIGNATURES = {
     },
     "rms_norm": {
         "pt_rms_norm_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
-        "pt_rms_norm_bwd": [_P] * 7 + [_I] * 7 + [_P],
+        "pt_rms_norm_bwd": [_P] * 8 + [_I] * 7 + [_P],
     },
 }
 

@@ -40,7 +40,8 @@ __all__ = ["decode_attention", "window_attention", "paged_decode_attention",
            "paged_decode_attention_plain", "paged_gather", "launches",
            "reset_launches", "WINDOW_MAX_ROWS", "KERNEL_HEAD_DIMS",
            "window_splits", "window_split_keys", "paged_route",
-           "paged_splits", "paged_split_keys"]
+           "paged_splits", "paged_split_keys", "decode_splits",
+           "decode_split_keys"]
 
 NEG_INF = -1e30
 # flattened query rows (s * g) a window kernel block holds; wider windows
@@ -48,13 +49,12 @@ NEG_INF = -1e30
 WINDOW_MAX_ROWS = 64
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# B5, B6 and B7 in bf16 walk the keys in tiles of WINDOW_TILE, split over
-# at most WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head,
-# row)
+# B4-B7 in bf16 walk the keys in tiles of WINDOW_TILE, split over at most
+# WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row)
 WINDOW_TILE = 64
 WINDOW_MAX_SPLITS = 8
-# `paged_splits` gives the longest row it knows of at most PAGED_SPLIT_TILES
-# tiles a split
+# `paged_splits` and `decode_splits` give the longest row they know of at
+# most PAGED_SPLIT_TILES tiles a split
 PAGED_SPLIT_TILES = 16
 _sm_count = {}
 
@@ -203,41 +203,64 @@ def _window_last(pos, s, max_len):
 
 
 # ---------------------------------------------------------------------------
-# B6's and B7's route and split of the keys, mirrored by paged_mma_kernel
+# B4's, B6's and B7's route and split of the keys, mirrored by
+# decode_mma_kernel
 # ---------------------------------------------------------------------------
 
 
 def paged_route(dtype):
-    """The kernel a CUDA call of B6/B7 launches, from q's dtype alone:
-    "cluster" (paged_mma_kernel, each row's keys split over a cluster) for
-    bf16, "shared" (the shared CUDA-core body) for f32."""
+    """The kernel a CUDA call of B4, B6 or B7 launches, from q's dtype
+    alone: "cluster" (decode_mma_kernel, each row's keys split over a
+    cluster) for bf16, "shared" (the shared CUDA-core body) for f32."""
     return "cluster" if dtype == torch.bfloat16 else "shared"
+
+
+def _key_splits(keys, b, nkv, sms):
+    """Blocks over the keys of each of b * nkv (kv head, row) pairs whose
+    longest row has `keys` keys: enough that it gets at most
+    PAGED_SPLIT_TILES tiles a split, at least one block for every two SMs
+    (B5's rule), at most WINDOW_MAX_SPLITS (a portable cluster) and at
+    most the row's tiles."""
+    tiles = (max(keys, 1) - 1) // WINDOW_TILE + 1
+    want = max(-(-tiles // PAGED_SPLIT_TILES), sms // (2 * b * nkv))
+    return max(1, min(WINDOW_MAX_SPLITS, tiles, want))
 
 
 def paged_splits(b, nkv, P, ps, sms, max_pos=None):
     """Blocks over the keys of each (kv head, row) for B6/B7 in bf16. The
     host cannot read a device `pos`, so the split is cut for the widest row
     it knows of: the table's P * ps keys, or max_pos + 1 when the caller
-    knows a bound on every row's pos (the engine's scheduler does). Enough
-    splits that this row gives each at most PAGED_SPLIT_TILES tiles, and
-    at least one block for every two SMs over the b * nkv (kv head, row)
-    pairs (B5's rule), at most WINDOW_MAX_SPLITS (a portable cluster) and
-    at most the row's tiles. Each row's own keys are cut over these splits
-    by the kernel (`paged_split_keys`), so a bound below a row's pos costs
+    knows a bound on every row's pos (the engine's scheduler does), by
+    `_key_splits`' rule. Each row's own keys are cut over these splits by
+    the kernel (`paged_split_keys`), so a bound below a row's pos costs
     time, never the result."""
     keys = P * ps if max_pos is None else min(max_pos + 1, P * ps)
-    tiles = (max(keys, 1) - 1) // WINDOW_TILE + 1
-    want = max(-(-tiles // PAGED_SPLIT_TILES), sms // (2 * b * nkv))
-    return max(1, min(WINDOW_MAX_SPLITS, tiles, want))
+    return _key_splits(keys, b, nkv, sms)
 
 
 def paged_split_keys(pos, P, ps, splits):
     """The keys [first, last] each of `splits` splits walks for a row at
-    `pos` over a table of P pages of ps keys, as paged_mma_kernel cuts
+    `pos` over a table of P pages of ps keys, as decode_mma_kernel cuts
     them: the row's keys [0, min(pos, P * ps - 1)] in whole tiles of
     WINDOW_TILE, B5's cut (`window_split_keys`); None for a split past the
     row's end."""
     return window_split_keys(min(pos, P * ps - 1), splits)
+
+
+def decode_splits(b, nkv, last, sms):
+    """Blocks over the keys of each (kv head, row) for B4 in bf16, cut for
+    the longest row the host knows of, keys [0, last] (`_window_last(pos,
+    1, len)`: min(pos, len - 1) for a pos on the host, len - 1 for one on
+    the card), by `_key_splits`' rule."""
+    return _key_splits(last + 1, b, nkv, sms)
+
+
+def decode_split_keys(pos, length, splits):
+    """The keys [first, last] each of `splits` splits walks for a row at
+    `pos` over a cache of `length` keys, as decode_mma_kernel cuts them:
+    the row's keys [0, min(pos, length - 1)] in whole tiles; None for a
+    split past the row's end."""
+    return window_split_keys(min(pos, length - 1), splits)
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +341,11 @@ def paged_decode_attention_plain(q, pool_k, pool_v, block_tables, pos,
 
 def decode_attention(q, cache_k, cache_v, pos, scale=None):
     """B4: single-query attention of q [b, 1, nh, hd] over the contiguous
-    cache [b, nkv, len, hd], keys [0, pos[r]] for row r."""
+    cache [b, nkv, len, hd], keys [0, pos[r]] for row r. The kernel follows
+    `paged_route`: in bf16 the keys of each (kv head, row) arrive by TMA and
+    are split over `decode_splits` blocks of one cluster; f32 runs the
+    shared body. Cache slots past a row's pos are never part of its result,
+    whatever they hold."""
     b, s, nh, hd = q.shape
     if s != 1:
         raise ValueError(f"decode attention takes one query per row, got {s}")
@@ -332,12 +359,19 @@ def decode_attention(q, cache_k, cache_v, pos, scale=None):
     if not _on_card(q, cache_k, cache_v):
         return decode_attention_plain(q, cache_k, cache_v, pos, scale)
     _check_kernel(q, (cache_k, cache_v), nh // nkv)
+    splits = 0                          # the shared body
+    if paged_route(q.dtype) == "cluster":
+        if q.data_ptr() % 4:
+            raise ValueError("q must be 4-byte aligned (read a column pair "
+                             "at a time)")
+        splits = decode_splits(b, nkv, _window_last(pos, 1, max_len),
+                               _sms(q.device))
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
     rc = _build.launch(
         "attention", "pt_decode_attention", q.device, q.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
-        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype],
+        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype], splits,
         _scale(scale, hd))
     _raise_on(rc, "decode_attention")
     launches["decode_attention"] += 1

@@ -14,15 +14,18 @@
 //       an int8 pool with per-(page, kv head) absmax scales sk, sv [NP, nkv]
 //       (dequant = code * scale / 127).
 //
-// In bf16, B5 has a kernel of its own, window_mma_kernel, and B6 and B7
-// share paged_mma_kernel (the keys of each row split over a thread-block
-// cluster, tensor-core products: their designs are written out above them).
-// The rest share one body:
+// In bf16, B5 has a kernel of its own, window_mma_kernel, and B4, B6 and B7
+// share decode_mma_kernel (the keys of each row split over a thread-block
+// cluster, tensor-core products; B4's keys arrive by TMA, B6's and B7's by
+// cp.async through the block table: their designs are written out above
+// them). f32 runs one shared body:
 //
-// Design (B4, and B5, B6, B7 in f32): one block of 256 threads per (kv head,
-// row). The block holds the R query rows that share the kv head (R = g for
-// B4/B6, s * g for B5, at most 64) in shared memory as f32 and walks the keys
-// up to the row's watermark in tiles (64 keys in bf16, 32 in f32). The K and
+// Design (B4-B7 in f32; in bf16 B4/B6/B7 with `splits` 0, which
+// kernels/sweep_decode.py times beside the cluster kernel): one block of 256
+// threads per (kv head, row). The block holds the R query rows that share
+// the kv head (R = g for B4/B6, s * g for B5, at most 64) in shared memory
+// as f32 and walks the keys up to the row's watermark in tiles (64 keys in
+// bf16, 32 in f32). The K and
 // V rows of the next tile are loaded into registers, 16 bytes a thread, while
 // the current tile is computed, then parked in shared memory (rows padded by
 // one word so that a thread per key reads without bank conflicts). B7 loads
@@ -41,13 +44,11 @@
 // What bounds it: bytes. A call moves sum_r (last_r + 1) * nkv * hd * 2 (K and
 // V) * itemsize bytes (B7: 1 byte a code, plus the scales of the pages read),
 // which at Llama-2-7B widths (hd 128) and 2k-token rows is megabytes against
-// a few flops per byte. What the shared body
-// leaves on the table (the bf16 kernels of B5, B6 and B7 take it, B4 not
-// yet):
-// at b = 1 the grid has only nkv = 32 blocks for 132 SMs, a ragged batch
-// waits for its longest row, the staging goes through registers one tile
-// ahead instead of a deeper cp.async or TMA pipeline, and the dot products
-// run on the CUDA cores, not the tensor cores.
+// a few flops per byte. What the shared body leaves on the table (the
+// bf16 kernels take it): at b = 1 the grid has only nkv = 32 blocks for 132
+// SMs, a ragged batch waits for its longest row, the staging goes through
+// registers one tile ahead instead of a deeper cp.async or TMA pipeline, and
+// the dot products run on the CUDA cores, not the tensor cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -695,47 +696,66 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B6 and B7 in bf16: each row's keys split across a cluster, mma.sync
+// B4, B6 and B7 in bf16: each row's keys split across a cluster, mma.sync
 // ---------------------------------------------------------------------------
 //
-// paged_mma_kernel<KVT, HD, KG> replaces _paged_decode_kernel (B6,
-// quantized_matmul.py:529) with KVT = bf16 and _paged_decode_kernel_q8 (B7,
-// :595) with KVT = int8_t (codes, per-(page, kv head) scales sk, sv), for a
-// bf16 query; f32 keeps the shared body.
+// decode_mma_kernel<Keys, HD, KG, kTop> replaces _decode_kernel (B4,
+// quantized_matmul.py:253) with Keys = CacheKeys (the contiguous cache,
+// copied by TMA), _paged_decode_kernel (B6, :529) with Keys =
+// PagedKeys<bf16> and _paged_decode_kernel_q8 (B7, :595) with Keys =
+// PagedKeys<int8_t> (codes, per-(page, kv head) scales sk, sv), for a bf16
+// query; f32 keeps the shared body. The key source is the only difference:
+// the products, the softmax, the merge and the combine are one body.
 //
 // What bounds it: bytes, sum_r (last_r + 1) * nkv * hd * 2 (K and V) * (2 or
-// 1), last_r = min(pos[r], P * ps - 1), against 2 flops a byte at g = 1. The
-// shared body gave each (kv head, row) one block: a ragged batch waited for
-// the blocks of its longest row, each walking all of the row's tiles with
-// one tile in flight.
+// 1), last_r = min(pos[r], keys - 1) (keys: the cache's len, or the table's
+// P * ps), against 2 flops a byte at g = 1. The shared body gave each (kv
+// head, row) one block: a ragged batch waited for the blocks of its longest
+// row, each walking all of the row's tiles with one tile in flight.
 //
 // Design. One block of 128 threads per (kv head, row, split); the nsplit
 // splits of a (kv head, row) form one thread-block cluster. The host cannot
 // read pos (a device tensor in the engine), so it cuts nsplit for the
-// longest row it knows of, the table's P * ps keys or the engine
-// scheduler's bound on pos (`attention.paged_splits`: at most 16 tiles a
-// split of that row, at least B5's one block for every two SMs, at most a
-// cluster's 8 blocks). Split z walks key tiles [z T / nsplit, (z + 1) T /
-// nsplit) of the row's own T = last / 64 + 1 tiles: a long row's keys
-// spread over the cluster, a short row's over some of its blocks. A split
-// past the row's end holds no tile, leaves the empty partial (m = -1e30,
-// l = 0) and joins the cluster barriers. Every block pays a chain of
-// dependent reads (pos, the table, its first tile) and holds its slot until
-// its cluster is done, so more splits than the rule gives ran slower on an
-// H100 (`kernels/sweep_decode.py`: 8 rows ragged to 2047 keys, 2 splits
-// 0.052 ms, 8 splits 0.066; 8 rows of 257-320 keys, 1 split 0.027, 2
-// splits 0.035).
+// longest row it knows of (`attention.decode_splits` for B4: min(pos, len -
+// 1) for a pos it holds, else the cache's len; `attention.paged_splits` for
+// B6/B7: the table's P * ps keys or the engine scheduler's bound on pos;
+// both at most 16 tiles a split of that row, at least B5's one block for
+// every two SMs, at most a cluster's 8 blocks). Split z walks key tiles [z
+// T / nsplit, (z + 1) T / nsplit) of the row's own T = last / 64 + 1 tiles:
+// a long row's keys spread over the cluster, a short row's over some of its
+// blocks. A split past the row's end holds no tile, leaves the empty
+// partial (m = -1e30, l = 0) and joins the cluster barriers. Every block
+// pays a chain of dependent reads (pos, for B6/B7 the table, its first
+// tile) and holds its slot until its cluster is done, so more splits than
+// the rule gives ran slower on an H100 (`kernels/sweep_decode.py`: 8 rows
+// ragged to 2047 keys, 2 splits 0.052 ms, 8 splits 0.066; 8 rows of 257-320
+// keys, 1 split 0.027, 2 splits 0.035).
 //
-// K/V tiles of 64 keys stream through a ring of kStages cp.async stages (at
-// head_dim 128: 2 in bf16, 3 in int8, so that 3 blocks share an SM; deeper
-// rings bought nothing). Key j lives in page bt[r, j / ps] at offset j %
-// ps (shifts for a power-of-two ps), and the ps keys of a (page, kv head)
-// are contiguous in the pool, so a key row is a run of 16-byte chunks;
-// chunk c of key t lands at chunk c ^ (t % 8) of its row in shared memory
-// (c ^ (t % 4) for 4-chunk rows), which keeps the fragment reads below free
-// of bank conflicts. A thread reads the block-table entries of its chunks'
-// keys one tile before it issues their copies, so no copy waits on a table
-// read; keys past the row's end read nothing and land as zeros.
+// K/V tiles of 64 keys stream through a ring of kStages stages (at head_dim
+// 128: 2 in bf16, 3 in int8, so that 3 blocks share an SM; deeper rings
+// bought nothing for B6/B7).
+//   B6/B7 (PagedKeys), cp.async: key j lives in page bt[r, j / ps] at offset
+//   j % ps (shifts for a power-of-two ps), and the ps keys of a (page, kv
+//   head) are contiguous in the pool, so a key row is a run of 16-byte
+//   chunks; chunk c of key t lands at chunk c ^ (t % 8) of its row in shared
+//   memory (c ^ (t % 4) for 4-chunk rows), which keeps the fragment reads
+//   below free of bank conflicts. A thread reads the block-table entries of
+//   its chunks' keys one tile before it issues their copies, so no copy
+//   waits on a table read; keys past the row's end read nothing and land as
+//   zeros.
+//   B4 (CacheKeys), TMA: the keys of a (row, kv head) are one run of rows of
+//   the cache viewed as [b * nkv][len][hd], and a tensor map over that view
+//   (encoded by the C entry point, passed as a __grid_constant__ parameter)
+//   copies a tile as boxes of 64 keys x 64 columns (two at head_dim 128) in
+//   the 128-byte swizzle: chunk c of key t at chunk (c % 8) ^ (t % 8) of
+//   the t-th 128-byte row of box c / 8 (`tma_swz`), the layout the fragment
+//   reads already take. One thread issues a stage's copies onto the stage's
+//   mbarrier; every thread waits on it. Keys past len arrive as zeros (the
+//   map's bounds), but keys in (last, len) are real memory: unwritten cache
+//   slots, which may hold NaN or Inf. Their scores are masked by select (a
+//   NaN never reaches the softmax), and in the row's last tile the V rows
+//   past `last` are zeroed in shared memory before P V, where p = 0 times a
+//   NaN would still be NaN.
 //
 // Products run as mma.sync m16n8k16 (bf16 in, f32 sums) as in
 // window_mma_kernel: the g = nh / nkv query rows (at most 64) padded to
@@ -939,19 +959,63 @@ __device__ __forceinline__ uint32_t pswz(int t, int c) {
   return (uint32_t)(t * T::kChunks + (c ^ (t & T::kSwz))) * 16;
 }
 
+// byte offset of 16-byte chunk c of key row t in a stage copied by TMA in
+// the 128-byte swizzle: 64-column boxes of 64 rows of 128 bytes, one after
+// the other (head_dim 128: two boxes a tile)
+__device__ __forceinline__ uint32_t tma_swz(int t, int c) {
+  return (uint32_t)((c >> 3) * (kWinKeys * 128) + t * 128 +
+                    (((c & 7) ^ (t & 7)) << 4));
+}
+
+// B6's and B7's keys: the page pool [NP, nkv, ps, hd] through the block
+// table bt [b, P], copied with cp.async (B7: KVT = int8_t, with the scales
+// sk, sv [NP, nkv]; null for B6)
+template <typename KVT_>
+struct PagedKeys {
+  using KVT = KVT_;
+  static constexpr bool kTma = false;
+  const KVT* k;
+  const KVT* v;
+  const float* sk;
+  const float* sv;
+  const int* bt;
+  int ps, P;
+  __device__ __forceinline__ int keys() const { return P * ps; }
+};
+
+// B4's keys: the contiguous cache [b, nkv, len, hd] through two tensor maps
+// over its [b * nkv][len][hd] view, boxes of 64 keys x 64 columns
+struct CacheKeys {
+  using KVT = __nv_bfloat16;
+  static constexpr bool kTma = true;
+  CUtensorMap k, v;
+  int len;
+  __device__ __forceinline__ int keys() const { return len; }
+};
+
+// dynamic shared memory of decode_mma_kernel: the ring (the partials and
+// B7's scales overlay or follow it); the TMA source adds the stages'
+// mbarriers and the slack that aligns the ring to 1024 bytes (the swizzle's
+// atoms)
+template <typename Keys, int HD>
+constexpr int decode_smem() {
+  using T = PagedTile<typename Keys::KVT, HD>;
+  return Keys::kTma ? 1024 + T::kScaleAt + T::kStages * 8 : T::kSmem;
+}
+
 // kTop: the g <= 8 query rows fill rows 0-7 of the single 16-row tile, so
 // the products keep rows 0-7 only (mma_16816_top): half the accumulator and
 // Q registers, which lets more blocks share an SM
-template <typename KVT, int HD, int KG, bool kTop>
-__global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const KVT* __restrict__ pk,
-    const KVT* __restrict__ pv, const float* __restrict__ sk,
-    const float* __restrict__ sv, const int* __restrict__ bt,
+template <typename Keys, int HD, int KG, bool kTop>
+__global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __grid_constant__ Keys keys,
     const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int nh,
-    int nkv, int ps, int P, float scale) {
+    int nkv, float scale) {
   using namespace hopper;
+  using KVT = typename Keys::KVT;
   using T = PagedTile<KVT, HD>;
   constexpr bool kQ8 = T::kQ8;
+  constexpr bool kTma = Keys::kTma;
   constexpr int kStages = T::kStages;
   constexpr int kW = kWinKeys / KG;   // keys of a tile a warp takes
   constexpr int kNT = kW / 8;         // its n8 tiles of scores
@@ -959,67 +1023,106 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
   constexpr int kDT = HD / 8;         // n8 tiles of the output
   constexpr int kE = kTop ? 2 : 4;    // C-fragment elements kept a tile
   static_assert(!kTop || KG == 4, "kTop: one row tile");
-  extern __shared__ __align__(128) uint8_t paged_smem[];
-  uint8_t* ring = paged_smem;
-  float* scl = reinterpret_cast<float*>(paged_smem + T::kScaleAt);
+  static_assert(!kTma || !kQ8, "the TMA source copies bf16 keys");
+  extern __shared__ __align__(128) uint8_t decode_smem_raw[];
+  uint8_t* ring = kTma ? align1024(decode_smem_raw) : decode_smem_raw;
+  // B7: each stage's k and v scales; TMA: each stage's barrier
+  float* scl = reinterpret_cast<float*>(ring + T::kScaleAt);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::kScaleAt);
+  // byte offset of 16-byte chunk c of key t in a stage
+  auto koff = [](int t, int c) -> uint32_t {
+    if constexpr (kTma) return tma_swz(t, c);
+    else return pswz<KVT, HD>(t, c);
+  };
 
   const int h = blockIdx.x, b = blockIdx.y, g = nh / nkv;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int rows = g;
-  const int* bt_row = bt + (int64_t)b * P;
-  const int last = min(pos[b], P * ps - 1);
+  const int last = min(pos[b], keys.keys() - 1);
   const int n_tiles = last / kWinKeys + 1;
   const int nsplit = gridDim.z, z = blockIdx.z;   // z: the cluster rank
   const int tb = z * n_tiles / nsplit;
   const int nt = (z + 1) * n_tiles / nsplit - tb;
-  // key j's table entry and offset in its page: shifts for a power-of-two ps
-  const int sh = (ps & (ps - 1)) ? -1 : __ffs(ps) - 1;
-  auto page_of = [&](int j) { return sh >= 0 ? j >> sh : j / ps; };
-  auto in_page = [&](int j) { return sh >= 0 ? j & (ps - 1) : j % ps; };
   auto q_off = [&](int r) -> int64_t {
     return ((int64_t)b * nh + (int64_t)h * g + r) * HD;
   };
 
-  // the page of each key this thread copies in tile `tile`, -1 past `last`
+  // B6/B7: the page of each key this thread copies in tile `tile`, -1 past
+  // `last`; key j's table entry and offset in its page (shifts for a
+  // power-of-two ps). Generic lambdas over the key source `src`, so that
+  // B4's instantiations, which never call them, do not compile them.
   const int cq = tid % T::kChunks, tq = tid / T::kChunks;
-  auto fetch = [&](int tile, int (&pg)[T::kLoads]) {
+  auto fetch = [&](const auto& src, int tile, int (&pg)[T::kLoads]) {
+    const int* bt_row = src.bt + (int64_t)b * src.P;
+    const int sh = (src.ps & (src.ps - 1)) ? -1 : __ffs(src.ps) - 1;
 #pragma unroll
     for (int i = 0; i < T::kLoads; ++i) {
       const int j = tile * kWinKeys + tq + i * T::kKeyStep;
-      pg[i] = j <= last ? __ldg(bt_row + page_of(j)) : -1;
+      pg[i] = j <= last ? __ldg(bt_row + (sh >= 0 ? j >> sh : j / src.ps))
+                        : -1;
     }
   };
-  auto issue = [&](int tile, int stage, const int (&pg)[T::kLoads]) {
+  auto issue = [&](const auto& src, int tile, int stage,
+                   const int (&pg)[T::kLoads]) {
     const uint32_t ks = smem_u32(ring) + stage * 2 * T::kTileBytes;
     const uint32_t vs = ks + T::kTileBytes;
+    const int ps = src.ps;
+    const int sh = (ps & (ps - 1)) ? -1 : __ffs(ps) - 1;
 #pragma unroll
     for (int i = 0; i < T::kLoads; ++i) {
       const int t = tq + i * T::kKeyStep;
+      const int j = tile * kWinKeys + t;
       const bool ok = pg[i] >= 0;
       const int64_t page = ok ? (int64_t)pg[i] * nkv + h : 0;
       const int64_t off =
-          ok ? (page * ps + in_page(tile * kWinKeys + t)) * HD +
+          ok ? (page * ps + (sh >= 0 ? j & (ps - 1) : j % ps)) * HD +
                    cq * T::kChunkElems
              : 0;
-      cp_async16(ks + pswz<KVT, HD>(t, cq), pk + off, ok ? 16 : 0);
-      cp_async16(vs + pswz<KVT, HD>(t, cq), pv + off, ok ? 16 : 0);
+      cp_async16(ks + koff(t, cq), src.k + off, ok ? 16 : 0);
+      cp_async16(vs + koff(t, cq), src.v + off, ok ? 16 : 0);
       if constexpr (kQ8) {
         if (cq == 0) {
           const uint32_t sd = smem_u32(scl + stage * 2 * kWinKeys + t);
-          cp_async4(sd, sk + page, ok ? 4 : 0);
-          cp_async4(sd + kWinKeys * 4, sv + page, ok ? 4 : 0);
+          cp_async4(sd, src.sk + page, ok ? 4 : 0);
+          cp_async4(sd + kWinKeys * 4, src.sv + page, ok ? 4 : 0);
         }
       }
     }
   };
-  {
+  // B4: tile `tile`'s K and V boxes onto the stage's barrier (one thread)
+  auto issue_tma = [&](const auto& src, int tile, int stage) {
+    uint8_t* ks = ring + stage * 2 * T::kTileBytes;
+    uint8_t* vs = ks + T::kTileBytes;
+    const int row = b * nkv + h;
+    mbar_expect_tx(&full[stage], 2 * T::kTileBytes);
+#pragma unroll
+    for (int half = 0; half < HD / 64; ++half) {
+      tma_load_3d(ks + half * kWinKeys * 128, &src.k, &full[stage],
+                  half * 64, tile * kWinKeys, row);
+      tma_load_3d(vs + half * kWinKeys * 128, &src.v, &full[stage],
+                  half * 64, tile * kWinKeys, row);
+    }
+  };
+  int pg_next[T::kLoads];
+  if constexpr (kTma) {
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
+      fence_barrier_init();
+    }
+    __syncthreads();
+    if (tid == 0)
+#pragma unroll
+      for (int s = 0; s < kStages; ++s)
+        if (s < nt) issue_tma(keys, tb + s, s);
+  } else {
     int pg[kStages][T::kLoads];
 #pragma unroll
     for (int s = 0; s < kStages; ++s)
-      if (s < nt) fetch(tb + s, pg[s]);
+      if (s < nt) fetch(keys, tb + s, pg[s]);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
-      if (s < nt) issue(tb + s, s, pg[s]);
+      if (s < nt) issue(keys, tb + s, s, pg[s]);
       cp_async_commit();
     }
   }
@@ -1063,22 +1166,38 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
 #pragma unroll
     for (int e = 0; e < kE; ++e) o[d][e] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
-  int pg_next[T::kLoads];
 
   for (int it = 0; it < nt; ++it) {
-    // the table entries of the tile this iteration refills, a stage ahead
+    const int stage = it % kStages;
+    const int tile_key0 = (tb + it) * kWinKeys;
+    // the tile this iteration refills, a stage ahead (B6/B7: its table
+    // entries first)
     const bool refill = it + kStages < nt;
-    if (refill) fetch(tb + it + kStages, pg_next);
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
+    if constexpr (kTma) {
+      mbar_wait(&full[stage], (it / kStages) & 1);
+      if (tile_key0 + kWinKeys - 1 > last) {
+        // the row's last tile: V's keys past `last` (unwritten cache
+        // slots) to zeros, so that p = 0 adds exactly 0 to P V
+        uint8_t* vt = ring + stage * 2 * T::kTileBytes + T::kTileBytes;
+        for (int i = tid; i < kWinKeys * T::kChunks; i += kWinThreads) {
+          const int t = i / T::kChunks;
+          if (tile_key0 + t > last)
+            *reinterpret_cast<uint4*>(vt + koff(t, i % T::kChunks)) =
+                make_uint4(0u, 0u, 0u, 0u);
+        }
+        __syncthreads();
+      }
+    } else {
+      if (refill) fetch(keys, tb + it + kStages, pg_next);
+      cp_async_wait<kStages - 1>();
+      __syncthreads();
+    }
     if (active) {
-      const int stage = it % kStages;
       const uint8_t* kt = ring + stage * 2 * T::kTileBytes;
       const uint8_t* vt = kt + T::kTileBytes;
       const float* ksc = scl + stage * 2 * kWinKeys;   // B7: raw scales
       const float* vsc = ksc + kWinKeys;
       const int t0 = kq * kW;                         // the warp's keys
-      const int tile_key0 = (tb + it) * kWinKeys;
       const int mat = lane / 8;
       float sc[kNT][kE];
 #pragma unroll
@@ -1094,7 +1213,7 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
 #pragma unroll
           for (int c = 0; c < HD / 64; ++c)
             u[c] = *reinterpret_cast<const uint4*>(
-                kt + pswz<KVT, HD>(t, qq * (HD / 64) + c));
+                kt + koff(t, qq * (HD / 64) + c));
 #pragma unroll
           for (int kc = 0; kc < kKC; ++kc) {
             const uint4& w4 = u[kc / 4];
@@ -1114,15 +1233,15 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
 #pragma unroll
           for (int j = 0; j < kNT / 2; ++j) {
             uint32_t bk[4];
-            ldsm_x4(bk, ks + pswz<KVT, HD>(t0 + j * 16 + (mat / 2) * 8 +
-                                               lane % 8,
-                                           2 * kc + mat % 2));
+            ldsm_x4(bk, ks + koff(t0 + j * 16 + (mat / 2) * 8 + lane % 8,
+                                  2 * kc + mat % 2));
             mma(sc[2 * j], qf[kc], bk[0], bk[1]);
             mma(sc[2 * j + 1], qf[kc], bk[2], bk[3]);
           }
       }
       // online softmax in base 2 (B7: each key's score times its page's
-      // sk / 127); a key past the row's end is -1e30 and adds exactly 0
+      // sk / 127); a key past the row's end is -1e30 by select, whatever
+      // its score (B4: a NaN of an unwritten slot), and adds exactly 0
       float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
       for (int j = 0; j < kNT; ++j)
@@ -1185,7 +1304,7 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
           auto vword = [&](int key, int grp) -> uint32_t {
             const int col = grp * 32 + 4 * gq;
             return *reinterpret_cast<const uint32_t*>(
-                       vt + pswz<KVT, HD>(key, col / 16) + col % 16) ^
+                       vt + koff(key, col / 16) + col % 16) ^
                    0x80808080u;
           };
 #pragma unroll
@@ -1202,9 +1321,8 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
 #pragma unroll
           for (int dd = 0; dd < kDT / 2; ++dd) {
             uint32_t bv[4];
-            ldsm_x4_t(bv, vs + pswz<KVT, HD>(t0 + j * 16 + (mat % 2) * 8 +
-                                                 lane % 8,
-                                             2 * dd + mat / 2));
+            ldsm_x4_t(bv, vs + koff(t0 + j * 16 + (mat % 2) * 8 + lane % 8,
+                                    2 * dd + mat / 2));
             mma(o[2 * dd], pa, bv[0], bv[1]);
             mma(o[2 * dd + 1], pa, bv[2], bv[3]);
           }
@@ -1212,10 +1330,14 @@ __global__ void __launch_bounds__(kWinThreads) paged_mma_kernel(
       }
     }
     __syncthreads();   // the stage is read by every warp before its refill
-    if (refill) issue(tb + it + kStages, it % kStages, pg_next);
-    cp_async_commit();
+    if constexpr (kTma) {
+      if (refill && tid == 0) issue_tma(keys, tb + it + kStages, stage);
+    } else {
+      if (refill) issue(keys, tb + it + kStages, stage, pg_next);
+      cp_async_commit();
+    }
   }
-  cp_async_wait<0>();
+  if constexpr (!kTma) cp_async_wait<0>();
   __syncthreads();
 
   // this warp's partial over the ring, merged with the other warps' (the
@@ -1324,46 +1446,40 @@ void launch_paged_q8(const void* q, const void* pk, const void* pv,
                (const int*)pos, (T*)out, nh, nkv, ps, P, scale);
 }
 
-// B6 and B7 in bf16: the key-split kernel, `splits` blocks a cluster
-template <typename KVT, int HD, int KG, bool kTop>
-cudaError_t launch_paged_mma(const void* q, const void* pk, const void* pv,
-                             const void* sk, const void* sv, const void* bt,
-                             const void* pos, void* out, int b, int nh,
-                             int nkv, int ps, int P, int splits, float scale,
-                             cudaStream_t st) {
-  using T = PagedTile<KVT, HD>;
-  auto kern = paged_mma_kernel<KVT, HD, KG, kTop>;
-  hopper::opt_in_smem<paged_mma_kernel<KVT, HD, KG, kTop>>(T::kSmem);
+// B4, B6 and B7 in bf16: the key-split kernel over key source `keys`,
+// `splits` blocks a cluster
+template <typename Keys, int HD, int KG, bool kTop>
+cudaError_t launch_decode_mma(const void* q, const Keys& keys,
+                              const void* pos, void* out, int b, int nh,
+                              int nkv, int splits, float scale,
+                              cudaStream_t st) {
+  constexpr int kSmem = decode_smem<Keys, HD>();
+  hopper::opt_in_smem<decode_mma_kernel<Keys, HD, KG, kTop>>(kSmem);
   return hopper::launch_cluster(
-      kern, dim3(nkv, b, splits), dim3(kWinThreads), T::kSmem, st,
-      dim3(1, 1, splits), q, pk, pv, sk, sv, bt, pos, out, nh, nkv, ps, P,
-      scale);
+      decode_mma_kernel<Keys, HD, KG, kTop>, dim3(nkv, b, splits),
+      dim3(kWinThreads), kSmem, st, dim3(1, 1, splits), q, keys, pos, out,
+      nh, nkv, scale);
 }
 
 // KG as for B5: 4 / the 16-row tiles of the g query rows (3 -> 4); g <= 8
 // keeps rows 0-7 of its tile only (kTop)
-template <typename KVT, int HD>
-cudaError_t launch_paged_bf16(const void* q, const void* pk, const void* pv,
-                              const void* sk, const void* sv, const void* bt,
-                              const void* pos, void* out, int b, int nh,
-                              int nkv, int ps, int P, int splits, float scale,
-                              cudaStream_t st) {
+template <typename Keys, int HD>
+cudaError_t launch_decode_bf16(const void* q, const Keys& keys,
+                               const void* pos, void* out, int b, int nh,
+                               int nkv, int splits, float scale,
+                               cudaStream_t st) {
   const int g = nh / nkv, tiles = (g + 15) / 16;
   if (g <= 8)
-    return launch_paged_mma<KVT, HD, 4, true>(q, pk, pv, sk, sv, bt, pos,
-                                              out, b, nh, nkv, ps, P, splits,
-                                              scale, st);
+    return launch_decode_mma<Keys, HD, 4, true>(q, keys, pos, out, b, nh,
+                                                nkv, splits, scale, st);
   if (tiles == 1)
-    return launch_paged_mma<KVT, HD, 4, false>(q, pk, pv, sk, sv, bt, pos,
-                                               out, b, nh, nkv, ps, P, splits,
-                                               scale, st);
+    return launch_decode_mma<Keys, HD, 4, false>(q, keys, pos, out, b, nh,
+                                                 nkv, splits, scale, st);
   if (tiles == 2)
-    return launch_paged_mma<KVT, HD, 2, false>(q, pk, pv, sk, sv, bt, pos,
-                                               out, b, nh, nkv, ps, P, splits,
-                                               scale, st);
-  return launch_paged_mma<KVT, HD, 1, false>(q, pk, pv, sk, sv, bt, pos, out,
-                                             b, nh, nkv, ps, P, splits, scale,
-                                             st);
+    return launch_decode_mma<Keys, HD, 2, false>(q, keys, pos, out, b, nh,
+                                                 nkv, splits, scale, st);
+  return launch_decode_mma<Keys, HD, 1, false>(q, keys, pos, out, b, nh, nkv,
+                                               splits, scale, st);
 }
 
 template <typename KVT>
@@ -1372,25 +1488,54 @@ cudaError_t launch_paged_split(const void* q, const void* pk, const void* pv,
                                const void* pos, void* out, int b, int nh,
                                int nkv, int ps, int P, int hd, int splits,
                                float scale, cudaStream_t st) {
-  return hd == 128
-             ? launch_paged_bf16<KVT, 128>(q, pk, pv, sk, sv, bt, pos, out, b,
-                                           nh, nkv, ps, P, splits, scale, st)
-             : launch_paged_bf16<KVT, 64>(q, pk, pv, sk, sv, bt, pos, out, b,
-                                          nh, nkv, ps, P, splits, scale, st);
+  const PagedKeys<KVT> keys{(const KVT*)pk, (const KVT*)pv, (const float*)sk,
+                            (const float*)sv, (const int*)bt, ps, P};
+  return hd == 128 ? launch_decode_bf16<PagedKeys<KVT>, 128>(
+                         q, keys, pos, out, b, nh, nkv, splits, scale, st)
+                   : launch_decode_bf16<PagedKeys<KVT>, 64>(
+                         q, keys, pos, out, b, nh, nkv, splits, scale, st);
+}
+
+// B4 in bf16: the tensor maps of k and v, viewed as [b * nkv][len][hd], in
+// boxes of 64 keys x 64 columns, 128-byte swizzle; keys past len read as
+// zeros. cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses a map.
+cudaError_t launch_cache_split(const void* q, const void* k, const void* v,
+                               const void* pos, void* out, int b, int nh,
+                               int nkv, int len, int hd, int splits,
+                               float scale, cudaStream_t st) {
+  CacheKeys keys;
+  keys.len = len;
+  const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)len,
+                              (cuuint64_t)b * nkv};
+  const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)len * hd * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)kWinKeys, 1};
+  for (int i = 0; i < 2; ++i)
+    if (!hopper::make_map(i ? &keys.v : &keys.k,
+                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, i ? v : k,
+                          dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+  return hd == 128 ? launch_decode_bf16<CacheKeys, 128>(
+                         q, keys, pos, out, b, nh, nkv, splits, scale, st)
+                   : launch_decode_bf16<CacheKeys, 64>(
+                         q, keys, pos, out, b, nh, nkv, splits, scale, st);
 }
 
 bool shape_ok(int rows, int hd) {
   return (hd == 64 || hd == 128) && rows >= 1 && rows <= kMaxRows;
 }
 
-// B6 and B7 take `splits`: 1 to kMaxSplits (the caller's `paged_splits`)
-// runs the key-split kernel over a cluster of that many blocks (bf16 only);
-// 0 runs the shared body, f32's route (kernels/sweep_decode.py also times it
-// in bf16, beside the key-split kernel)
+// B4, B6 and B7 take `splits`: 1 to kMaxSplits (the caller's
+// `decode_splits` / `paged_splits`) runs the key-split kernel over a
+// cluster of that many blocks (bf16 only); 0 runs the shared body, f32's
+// route (kernels/sweep_decode.py also times it in bf16, beside the
+// key-split kernel)
+bool splits_ok(int dtype, int splits) {
+  return splits >= 0 && splits <= kMaxSplits && (dtype == 1 || splits == 0);
+}
+
 bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype, int splits) {
   return nkv >= 1 && nh % nkv == 0 && ps >= 1 && P >= 1 &&
-         shape_ok(nh / nkv, hd) && splits >= 0 && splits <= kMaxSplits &&
-         (dtype == 1 || splits == 0);
+         shape_ok(nh / nkv, hd) && splits_ok(dtype, splits);
 }
 
 }  // namespace
@@ -1411,11 +1556,19 @@ bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype, int splits) {
 extern "C" int pt_decode_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* out,
                                    int b, int nh, int nkv, int len, int hd,
-                                   int dtype, float scale, void* stream) {
-  if (nkv < 1 || nh % nkv || !shape_ok(nh / nkv, hd))
+                                   int dtype, int splits, float scale,
+                                   void* stream) {
+  if (nkv < 1 || nh % nkv || !shape_ok(nh / nkv, hd) || len < 1 ||
+      !splits_ok(dtype, splits))
     return (int)cudaErrorInvalidValue;
-  PT_DISPATCH(launch_decode, q, k, v, pos, out, b, nh, nkv, len, scale,
-              (cudaStream_t)stream)
+  cudaStream_t st = (cudaStream_t)stream;
+  if (splits == 0) {
+    PT_DISPATCH(launch_decode, q, k, v, pos, out, b, nh, nkv, len, scale, st)
+  } else {
+    const cudaError_t e = launch_cache_split(q, k, v, pos, out, b, nh, nkv,
+                                             len, hd, splits, scale, st);
+    if (e != cudaSuccess) return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,10 @@
 // Hopper building blocks shared by the hand-written kernels (sm_90a): the
 // tensor maps the TMA copies through, mbarriers, shared-memory matrix
 // descriptors for wgmma and the wgmma instructions themselves (B1-B3, B8's
-// prefill); mma.sync, ldmatrix, cp.async and the cluster barrier and
-// distributed shared-memory loads (B5, B6/B7, B8's GEMV); in raw PTX (PTX
-// ISA 8.x, "Tensor Memory Accelerator", "mbarrier", "wgmma", "mma",
-// "Cluster").
+// prefill; B4's TMA copies); mma.sync, ldmatrix, cp.async and the cluster
+// barrier and distributed shared-memory loads and stores (B4-B7, B8's
+// GEMV, B10's dw); in raw PTX (PTX ISA 8.x, "Tensor Memory Accelerator",
+// "mbarrier", "wgmma", "mma", "Cluster").
 //
 // Layouts. Every operand tile in shared memory is stored in the 128-byte
 // swizzle (what a TMA copy with CU_TENSOR_MAP_SWIZZLE_128B writes): rows of
@@ -85,6 +85,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4}], [%2];\n"
       ::"r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0),
         "r"(c1) : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0),
+        "r"(c1), "r"(c2) : "memory");
 }
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -399,6 +408,22 @@ __device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v)
+               : "memory");
+}
+// this block's rank in its cluster, and the cluster's blocks
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
 }
 
 // ---- host ------------------------------------------------------------------

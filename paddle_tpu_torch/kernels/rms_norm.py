@@ -38,15 +38,21 @@ from paddle_tpu_torch.kernels.attention import _on_card, _raise_on
 
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
            "rms_norm_bwd_plain", "rms_norm", "launches", "reset_launches",
-           "MAX_HIDDEN"]
+           "MAX_HIDDEN", "bwd_plan", "bwd_grid", "bwd_rows"]
 
 MAX_HIDDEN = 16384
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# B10 gives each block a strip of rows: about this many blocks per SM
-_STRIPS_PER_SM = 4
+# B10 (csrc/rms_norm.cu, mirrored there): threads a block, shared memory
+# the ring of x and g may take, blocks a cluster
+BWD_MAX_THREADS = 512
+BWD_RING_BYTES = 192 * 1024
+BWD_CLUSTER = 4
 
 launches = {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
 _sm_count = {}
+# B10's arrival counter (int32 [1], left at 0 by every call) and its f32
+# scratch for the clusters' dw partials, one pair a device
+_scratch = {}
 
 
 def reset_launches():
@@ -150,20 +156,62 @@ def rms_norm_fwd(x2d, w, eps, save_r=True):
     return y, r
 
 
-def _strips(rows, device):
-    """(rows a strip, strips) for B10's grid."""
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    want = max(1, min(rows, _STRIPS_PER_SM * _sm_count[device]))
-    per = -(-rows // want) if rows else 1
-    return per, max(1, -(-rows // per))
+def bwd_plan(h, itemsize):
+    """B10's work for a row of H elements of `itemsize` bytes, as
+    `rms_norm_bwd_kernel` takes it: (R threads a row group, NV 16-byte
+    vectors a thread, G row groups a block, S stages of its ring). About 2
+    vectors a thread (NV a power of two), R <= BWD_MAX_THREADS, G R <=
+    BWD_MAX_THREADS and G <= 8 (a named barrier each), two stages of x and
+    g when the ring fits BWD_RING_BYTES, else one."""
+    nvec = h // (16 // itemsize)
+    half = -(-nvec // 2)
+    r = min(BWD_MAX_THREADS, 32 * -(-half // 32))
+    nv = 1
+    while nv * r < nvec:
+        nv *= 2
+    g = min(8, BWD_MAX_THREADS // r)
+    s = 2 if g * 2 * (2 * h * itemsize) <= BWD_RING_BYTES else 1
+    return r, nv, g, s
+
+
+def bwd_grid(rows, h, itemsize, sms):
+    """B10's grid: (blocks, blocks a cluster). One block an SM, fewer when
+    the rows do not fill them (a row group at least a row), in clusters of
+    BWD_CLUSTER (2 or 1 for grids of fewer blocks). The kernel takes fewer
+    blocks when the card cannot hold that many clusters at once."""
+    g = bwd_plan(h, itemsize)[2]
+    want = max(1, min(sms, -(-rows // g)))
+    c = BWD_CLUSTER if want >= BWD_CLUSTER else (2 if want >= 2 else 1)
+    return c * (want // c), c
+
+
+def bwd_rows(rows, blocks, groups):
+    """The rows [first, end) of each of B10's blocks * groups row groups, in
+    order (row group u of U: [u rows / U, (u + 1) rows / U))."""
+    n = blocks * groups
+    return [(u * rows // n, (u + 1) * rows // n) for u in range(n)]
+
+
+def _bwd_scratch(device, clusters, h):
+    """(counter, part) for B10 on `device`: the arrival counter, zeroed
+    once, and a partial buffer of at least clusters * h f32, grown when a
+    call needs more."""
+    counter, part = _scratch.get(device, (None, None))
+    if counter is None:
+        counter = torch.empty(1, dtype=torch.int32, device=device).zero_()
+    if part is None or part.numel() < clusters * h:
+        part = torch.empty(clusters * h, dtype=torch.float32, device=device)
+    _scratch[device] = (counter, part)
+    return counter, part
 
 
 def rms_norm_bwd(x2d, w, r, g2d):
     """B10: (dx [rows, H] in x's dtype, dw [H] in w's dtype) of y =
     rms_norm(x, w) under the cotangent g [rows, H], from the r [rows] f32
-    that B9 stored."""
+    that B9 stored. One launch over `bwd_grid`'s blocks: dx row by row, dw
+    summed on the card in a fixed order (two calls give the same bits).
+    Calls on one device share its scratch, so they run on one stream at a
+    time, as the port issues them."""
     _check_shapes(x2d, w, g2d)
     if r.shape != (x2d.shape[0],):
         raise ValueError(f"r {tuple(r.shape)} is not [{x2d.shape[0]}]")
@@ -174,15 +222,18 @@ def rms_norm_bwd(x2d, w, r, g2d):
         raise TypeError("r must be contiguous float32")
     rows, h = x2d.shape
     dev = x2d.device
-    per, strips = _strips(rows, dev)
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    blocks, cluster = bwd_grid(rows, h, x2d.element_size(), _sm_count[dev])
+    counter, part = _bwd_scratch(dev, blocks // cluster, h)
     dx = torch.empty((rows, h), dtype=x2d.dtype, device=dev)
     dw = torch.empty(h, dtype=w.dtype, device=dev)
-    part = torch.empty((strips, h), dtype=torch.float32, device=dev)
     rc = _build.launch(
         "rms_norm", "pt_rms_norm_bwd", dev, x2d.data_ptr(), w.data_ptr(),
-        r.data_ptr(), g2d.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        dw.data_ptr(), rows, h, _ld(x2d), _ld(g2d), per, strips,
-        _DTYPES[w.dtype])
+        r.data_ptr(), g2d.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+        part.data_ptr(), counter.data_ptr(), rows, h, _ld(x2d), _ld(g2d),
+        blocks, cluster, _DTYPES[w.dtype])
     _raise_on(rc, "rms_norm_bwd")
     launches["rms_norm_bwd"] += 1
     return dx, dw

@@ -1,19 +1,24 @@
-"""Where the decode-time kernels B5 (window attention, bf16), B6 and B7
-(paged decode over a bf16 or an int8 pool, bf16 q) and B8's GEMV (M <= 16,
-bf16 x) spend their time, on one NVIDIA card.
+"""Where the decode-time kernels B4 (decode over the contiguous cache,
+bf16), B5 (window attention, bf16), B6 and B7 (paged decode over a bf16 or
+an int8 pool, bf16 q) and B8's GEMV (M <= 16, bf16 x) spend their time, on
+one NVIDIA card.
 
     python3 -m paddle_tpu_torch.kernels.sweep_decode
 
 1. Each kernel through its C entry point at the serving shapes, with the
-   number of blocks over the keys (B5, B6, B7) or over K (B8: the
-   cluster) set by hand beside the one the wrapper's rule picks
-   (`window_splits`, `paged_splits` with and without the engine's bound
+   number of blocks over the keys (B4-B7) or over K (B8: the cluster) set
+   by hand beside the one the wrapper's rule picks (`decode_splits`,
+   `window_splits`, `paged_splits` with and without the engine's bound
    on pos, `gemv_split`), each checked against the plain version run in
    f32 (the per-row bar of `chip_smoke.py`), beside the library call: SDPA
-   over the keys the kernel reads (B5, B6, B7: over the dequantized keys),
-   `torch.matmul` over the dequantized weight (B8). B6 and B7 also run
+   over the keys the kernel reads (B4-B7; B7 over the dequantized keys),
+   `torch.matmul` over the dequantized weight (B8). B4, B6 and B7 also run
    the shared CUDA-core body in bf16 (`splits` 0), the kernel they
-   replaced, in the same call.
+   replaced, in the same call. B4 also runs its keys through the paged
+   entry point as a pool of one page a row (a table [[0], [1], ...], pages
+   of len keys): decode_mma_kernel with a contiguous cp.async source in
+   place of its TMA source; and, at the timing shape, B6 over a pool of
+   pages of 16 holding the same keys.
 2. Copies of the kernels with a part taken out, built from edited copies
    of `csrc/attention.cu` and `csrc/quantized_matmul.cu` into
    `build/paddle_tpu_torch/sweep_decode/`:
@@ -21,12 +26,13 @@ bf16 x) spend their time, on one NVIDIA card.
          combine of the splits (and its distributed shared-memory reads);
          without both (the cp.async ring and the barriers alone); a
          ring of 4 stages at head_dim 128 instead of 3;
-     B6, B7: the same three (the loads alone: the block-table reads, the
-         cp.async ring and the barriers); B7 without its scales (neither
+     B4, B6, B7 (one kernel, decode_mma_kernel): the same three (the
+         loads alone: B4's TMA ring and barriers; B6/B7's block-table
+         reads, cp.async ring and barriers); B7 without its scales (neither
          their copies nor the multiplies); all 16 rows of the row tile
          kept at g <= 8 (the kernel keeps rows 0-7); B7 at g <= 8 capped
          at 128 registers a thread (4 blocks an SM); rings of 2, 3 and 4
-         stages (bf16: 2, int8: 3, at head_dim 128);
+         stages (bf16: 2, int8: 3, at head_dim 128; B4 and B6 alike);
      B8: without the widening of the codes; without the products; the
          loads alone (every code word folded into one sum, no widening,
          gathers or products); without the cluster combine (each block
@@ -36,17 +42,16 @@ bf16 x) spend their time, on one NVIDIA card.
          asm.
    Their outputs are wrong by construction; only their times are read.
 
-Times are CUDA-event medians of 20 calls, the L2 cache flushed before each
-and the card held busy (`torch.cuda._sleep`) while the host enqueues the
-call, so that no host time is counted. Needs a card and nvcc; prints the
-card's name and power limit first.
+Times are CUDA-event medians of 20 calls under the kernel table's method
+(`timing.METHOD`: the L2 cache flushed before each call, the card held
+busy while the host enqueues it, so that no host time is counted). Needs
+a card and nvcc; prints the card's name and power limit first.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-import statistics
 import subprocess
 
 import torch
@@ -54,7 +59,15 @@ import torch
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import attention as at
 from paddle_tpu_torch.kernels import quantized_matmul as qm
+from paddle_tpu_torch.kernels import timing
 
+# (label, b, nh, nkv, hd, cache length, pos): B4 at the timing shape (8
+# rows ragged to 2047 at Llama-2-7B width) and at the speculative draft's
+# stripe (h2048: 16 kv heads; max_len + spec_tokens + 1 = 1029 keys)
+B4_SHAPES = (("ragged to 2047", 8, 32, 32, 128, 2048,
+              (2047, 1500, 777, 513, 64, 17, 1, 0)),
+             ("the draft's stripe", 8, 16, 16, 128, 1029,
+              (1028, 700, 64, 63, 0, 1, 500, 900)))
 # (b, s, nh, nkv, hd, cache length, pos): the paged-prefill suffix and the
 # speculative verify window at Llama-2-7B width
 B5_SHAPES = ((1, 16, 32, 32, 128, 2064, [512]),
@@ -83,9 +96,8 @@ B5_VARIANTS = {"without the products and softmax": B5_PRODUCTS,
                "without the combine": B5_COMBINE,
                "the ring and barriers alone": B5_PRODUCTS + B5_COMBINE,
                "a ring of 4 stages": B5_STAGES}
-PAGED_PRODUCTS = [("    if (active) {\n      const int stage = it % kStages;",
-                   "    if (false) {\n      const int stage = it % kStages;",
-                   1)]
+PAGED_PRODUCTS = [("    if (active) {\n      const uint8_t* kt = ring",
+                   "    if (false) {\n      const uint8_t* kt = ring", 1)]
 PAGED_SCALES = [("        if (cq == 0) {", "        if (false) {", 1),
                 ("          const float f = kQ8 ? sl2 * ksc[t] : sl2;",
                  "          const float f = sl2;", 1),
@@ -95,13 +107,14 @@ PAGED_SCALES = [("        if (cq == 0) {", "        if (false) {", 1),
 PAGED_STAGES = {n: [("  static constexpr int kStages = HD == 128 ? (kQ8 ? 3 : 2) "
                      ": 4;", f"  static constexpr int kStages = {n};", 1)]
                 for n in (2, 3, 4)}
-PAGED_FULL_TILE = [("  if (g <= 8)\n    return launch_paged_mma<KVT, HD, 4, true>",
-                    "  if (false)\n    return launch_paged_mma<KVT, HD, 4, true>",
+PAGED_FULL_TILE = [("  if (g <= 8)\n    return launch_decode_mma<Keys, HD, 4, true>",
+                    "  if (false)\n    return launch_decode_mma<Keys, HD, 4, true>",
                     1)]
 PAGED_CAP = [("__global__ void __launch_bounds__(kWinThreads) "
-               "paged_mma_kernel(",
+               "decode_mma_kernel(",
                "__global__ void __launch_bounds__(kWinThreads, kTop && "
-               "sizeof(KVT) == 1 ? 4 : 1) paged_mma_kernel(", 1)]
+               "sizeof(typename Keys::KVT) == 1 ? 4 : 1) decode_mma_kernel(",
+               1)]
 PAGED_VARIANTS = {"without the products and softmax": PAGED_PRODUCTS,
                   "without the combine": B5_COMBINE,
                   "the loads alone": PAGED_PRODUCTS + B5_COMBINE,
@@ -140,24 +153,8 @@ B8_VARIANTS = {"without the widening": B8_WIDEN,
                "a ring of 4 steps": B8_DEPTH[4],
                "the code loads through __ldg": B8_LDG}
 
-_SLEEP_CYCLES = 400_000   # ~0.2 ms at the H100's clock: the host's enqueue
-
-
-def _ms(fn, flush, iters=20):
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(_SLEEP_CYCLES)
-        a = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(a.elapsed_time(e))
-    return statistics.median(times)
+def _ms(fn, l2, iters=20):
+    return timing.cold_ms(fn, l2, iters=iters)
 
 
 def _row_ratio(got, ref, tol=2.0**-6):
@@ -210,11 +207,11 @@ def _print_resources(what, report):
     fn = None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            fn = next((k for k in ("window_mma_kernel", "paged_mma_kernel",
+            fn = next((k for k in ("window_mma_kernel", "decode_mma_kernel",
                                    "b8_gemv_mma_kernel")
                        if k in line), None)
             if fn:
-                fn += line.split(fn)[1][:8]
+                fn += line.split(fn)[1].split("EEEv")[0]
         elif fn and ("registers" in line or "spill" in line):
             print(f"  [{what}] {fn}: {line.split(':')[-1].strip()}",
                   flush=True)
@@ -232,6 +229,23 @@ def _b5_call(lib, q, ck, cv, pos, out, splits):
             1.0 / math.sqrt(hd), stream)
         if rc != 0:
             raise RuntimeError(f"B5 launch failed: CUDA error {rc}")
+    return call
+
+
+def _b4_call(lib, q, ck, cv, pos, out, splits):
+    """B4 through its C entry point: `splits` blocks a cluster (the TMA
+    source), or 0 for the shared body."""
+    b, _, nh, hd = q.shape
+    nkv, length = ck.shape[1], ck.shape[2]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = lib.pt_decode_attention(
+            q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), b, nh, nkv, length, hd, 1, splits,
+            1.0 / math.sqrt(hd), stream)
+        if rc != 0:
+            raise RuntimeError(f"B4 launch failed: CUDA error {rc}")
     return call
 
 
@@ -321,7 +335,68 @@ def _b5_sdpa(q, ck, cv, pos):
         qt, kr, vr, attn_mask=mask)
 
 
-def _paged_shape(dev, sms, flush, attn, libs, label, pos):
+def _b4_case(dev, b, nh, nkv, hd, length, pos):
+    g = torch.Generator(device=dev).manual_seed(5)
+    ck = torch.randn(b, nkv, length, hd, device=dev, generator=g).bfloat16()
+    cv = torch.randn(b, nkv, length, hd, device=dev, generator=g).bfloat16()
+    q = torch.randn(b, 1, nh, hd, device=dev, generator=g).bfloat16()
+    return q, ck, cv, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def _b4_shape(dev, sms, l2, attn, libs, label, b, nh, nkv, hd, length, pos):
+    """B4 at one B4_SHAPES row: the shared body, every split count, the
+    rule, the library call; the same keys through the contiguous cp.async
+    source and (len 2048) through B6 over pages of 16; then the variants
+    at the rule's split count."""
+    q, ck, cv, p = _b4_case(dev, b, nh, nkv, hd, length, pos)
+    ref = at.decode_attention_plain(q.float(), ck.float(), cv.float(), p)
+    out = torch.empty_like(q)
+    rule = at.decode_splits(b, nkv, length - 1, sms)
+    mask = (torch.arange(length, device=dev)[None, :]
+            <= p[:, None].long())[:, None, None, :]
+    qt = q.transpose(1, 2)
+    lib_ms = _ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, ck, cv, attn_mask=mask), l2)
+    print(f"B4 b={b} nh={nh} nkv={nkv} len={length} {label}: the rule picks "
+          f"{rule} split(s); SDPA over the keys {lib_ms:.4f} ms", flush=True)
+
+    def timed(what, call):
+        call()
+        torch.cuda.synchronize()
+        ratio = _row_ratio(out, ref)
+        if not ratio <= 1.0:
+            raise AssertionError(f"B4 {what}: row ratio {ratio}")
+        print(f"  {what}: {_ms(call, l2):.4f} ms, worst row at {ratio:.3f} of "
+              f"its bar", flush=True)
+
+    for splits in (0, 1, 2, 4, 8):
+        timed("the shared body" if splits == 0 else f"{splits} split(s)",
+              _b4_call(attn, q, ck, cv, p, out, splits))
+    # the cache as a pool of b pages of len keys, page r row r's
+    table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+    timed(f"the contiguous cp.async source (the paged entry point, one page "
+          f"a row), {rule} split(s)",
+          _paged_call(attn, q, ck, cv, table, p, out, rule))
+    if length % 16 == 0:
+        # B6 over pages of 16 holding the same keys, in table order
+        def pages(c):
+            return c.reshape(b, nkv, length // 16, 16, hd).transpose(
+                1, 2).reshape(-1, nkv, 16, hd).contiguous()
+
+        bt = torch.arange(b * length // 16, dtype=torch.int32,
+                          device=dev).reshape(b, -1)
+        split6 = at.paged_splits(b, nkv, length // 16, 16, sms)
+        timed(f"B6 over pages of 16 holding the same keys, {split6} "
+              f"split(s)", _paged_call(attn, q, pages(ck), pages(cv), bt, p,
+                                       out, split6))
+    for vlabel, lib in libs.items():
+        if vlabel.startswith("B7"):
+            continue
+        t = _ms(_b4_call(lib, q, ck, cv, p, out, rule), l2)
+        print(f"  {vlabel} ({rule} split(s)): {t:.4f} ms", flush=True)
+
+
+def _paged_shape(dev, sms, l2, attn, libs, label, pos):
     """B6 and B7 at one PAGED_SHAPES row: the shared body, every split
     count, the rule, the library call; then the variants at the split
     counts the rule picks with and without the bound on pos."""
@@ -345,7 +420,7 @@ def _paged_shape(dev, sms, flush, attn, libs, label, pos):
                 <= p[:, None].long())[:, None, None, :]
         qt = q.transpose(1, 2)
         lib_ms = _ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qt, ck, cv, attn_mask=mask), flush)
+            qt, ck, cv, attn_mask=mask), l2)
         rule = at.paged_splits(b, nkv, P, ps, sms)
         bound = at.paged_splits(b, nkv, P, ps, sms, max(pos))
         print(f"{kid} b={b} ps={ps} P={P} {label}: the rule picks {rule} "
@@ -362,13 +437,13 @@ def _paged_shape(dev, sms, flush, attn, libs, label, pos):
                 raise AssertionError(f"{kid} {splits} splits: row ratio "
                                      f"{ratio}")
             what = "the shared body" if splits == 0 else f"{splits} split(s)"
-            print(f"  {what}: {_ms(call, flush):.4f} ms, worst row at "
+            print(f"  {what}: {_ms(call, l2):.4f} ms, worst row at "
                   f"{ratio:.3f} of its bar", flush=True)
         for vlabel, lib in libs.items():
             if vlabel.startswith("B7") and not q8:
                 continue
             for splits in sorted({rule, bound}):
-                t = _ms(_paged_call(lib, *args, out, splits, scales), flush)
+                t = _ms(_paged_call(lib, *args, out, splits, scales), l2)
                 print(f"  {vlabel} ({splits} split(s)): {t:.4f} ms",
                       flush=True)
         del args, ck, cv
@@ -381,7 +456,7 @@ def main():
                          text=True, check=True).stdout.splitlines()[0],
           flush=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    l2 = timing.ColdL2(dev)
     for name in ("attention", "quantized_matmul"):
         _print_resources(name, _build.build(name)[1])
     attn, qmm = _build.lib("attention"), _build.lib("quantized_matmul")
@@ -389,8 +464,11 @@ def main():
     paged_libs = _variant_libs("attention", PAGED_VARIANTS)
     b8_libs = _variant_libs("quantized_matmul", B8_VARIANTS)
 
+    for label, *shape in B4_SHAPES:
+        _b4_shape(dev, sms, l2, attn, paged_libs, label, *shape)
+
     for label, pos in PAGED_SHAPES:
-        _paged_shape(dev, sms, flush, attn, paged_libs, label, pos)
+        _paged_shape(dev, sms, l2, attn, paged_libs, label, pos)
 
     for shape in B5_SHAPES:
         b, s, nh, nkv, hd, length, pos = shape
@@ -400,7 +478,7 @@ def main():
         rule = at.window_splits(b, nkv, length - 1, sms)
         print(f"B5 b={b} s={s} nh={nh} nkv={nkv} len={length} pos={pos}: "
               f"the rule picks {rule} split(s); SDPA over the keys read "
-              f"{_ms(_b5_sdpa(q, ck, cv, p), flush):.4f} ms", flush=True)
+              f"{_ms(_b5_sdpa(q, ck, cv, p), l2):.4f} ms", flush=True)
         for splits in sorted({1, 2, 4, 8, rule}):
             call = _b5_call(attn, q, ck, cv, p, out, splits)
             call()
@@ -408,11 +486,11 @@ def main():
             ratio = _row_ratio(out, ref)
             if not ratio <= 1.0:
                 raise AssertionError(f"B5 {splits} splits: row ratio {ratio}")
-            print(f"  {splits} split(s): {_ms(call, flush):.4f} ms, worst row "
+            print(f"  {splits} split(s): {_ms(call, l2):.4f} ms, worst row "
                   f"at {ratio:.3f} of its bar", flush=True)
         for label, lib in b5_libs.items():
             print(f"  {label} ({rule} splits): "
-                  f"{_ms(_b5_call(lib, q, ck, cv, p, out, rule), flush):.4f}"
+                  f"{_ms(_b5_call(lib, q, ck, cv, p, out, rule), l2):.4f}"
                   " ms", flush=True)
 
     for m, k, n in B8_SHAPES:
@@ -423,7 +501,7 @@ def main():
         wd = w.to(torch.bfloat16) * (s.to(torch.bfloat16) / 127.0)
         print(f"B8 M={m} K={k} N={n}: the rule picks (K rows a block, "
               f"cluster) {rule}; torch.matmul "
-              f"{_ms(lambda: torch.matmul(x, wd), flush):.4f} ms", flush=True)
+              f"{_ms(lambda: torch.matmul(x, wd), l2):.4f} ms", flush=True)
         steps = -(-k // 16)
         tried = {rule}
         for ranks in (1, 2, 4, 8):
@@ -437,11 +515,11 @@ def main():
             if not ratio <= 1.0:
                 raise AssertionError(f"B8 cluster {ranks}: row ratio {ratio}")
             print(f"  cluster {ranks} ({per} K rows a block): "
-                  f"{_ms(call, flush):.4f} ms, worst row at {ratio:.3f} of "
+                  f"{_ms(call, l2):.4f} ms, worst row at {ratio:.3f} of "
                   "its bar", flush=True)
         if m == 8:
             for label, lib in b8_libs.items():
-                t = _ms(_b8_call(lib, x, w, s, out, *rule), flush)
+                t = _ms(_b8_call(lib, x, w, s, out, *rule), l2)
                 print(f"  {label} (cluster {rule[1]}): {t:.4f} ms",
                       flush=True)
 

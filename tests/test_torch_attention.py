@@ -197,6 +197,9 @@ def test_window_last_reads_no_device_tensor():
     assert at._window_last(2060, 16, 2064) == 2063
     assert at._window_last(torch.tensor([3, 700]), 5, 1024) == 704
     assert at._window_last(torch.tensor([3]).to("meta"), 5, 1024) == 1023
+    # B4's bound (s = 1): min(pos, len - 1)
+    assert at._window_last(300, 1, 1029) == 300
+    assert at._window_last(5000, 1, 1029) == 1028
 
 
 def test_b5_bar_rejects_planted_faults():
@@ -320,3 +323,87 @@ def test_paged_bar_rejects_planted_faults(q8):
     for fault, wrong, right in faults:
         ratio = cs.flash_row_ratio(torch, wrong, right, cs.TOL["bfloat16"])
         assert ratio > 1.0, fault
+
+
+# B4's split of the keys in bf16 (`decode_splits`, `decode_split_keys`):
+# decode_mma_kernel cuts each row's keys of the contiguous cache the same
+# way on the card
+@pytest.mark.parametrize("b,nkv,last,sms,want", [
+    (8, 32, 2047, 132, 2),    # the timing shape: 32 tiles
+    (8, 16, 1028, 132, 2),    # the draft's stripe: 17 tiles
+    (8, 32, 255, 132, 1),     # a host-known pos early in the cache
+    (1, 32, 2047, 132, 2),    # few pairs: B5's one block for two SMs
+    (1, 1, 4095, 132, 8),     # ... capped by a cluster's 8 blocks
+    (1, 1, 100, 132, 2),      # ... and by the row's 2 tiles
+    (4, 8, 0, 132, 1),        # every row at pos 0
+    (2, 4, 5000, 114, 7),     # 79 tiles want 5; 8 pairs on 114 SMs, 7
+    (8, 8, 5000, 132, 5),     # 79 tiles: at most 16 a split
+])
+def test_decode_splits_follow_the_longest_row(b, nkv, last, sms, want):
+    """B4's split is cut for the longest row the host knows of, keys [0,
+    last]: paged_splits' rule, at most PAGED_SPLIT_TILES tiles a split, at
+    least one block for every two SMs, at most a cluster."""
+    assert at.decode_splits(b, nkv, last, sms) == want
+
+
+@pytest.mark.parametrize("length", [64, 130, 1029, 2048])
+@pytest.mark.parametrize("pos", [0, 31, 63, 64, 500, 1028, 2047, 5000])
+def test_decode_split_keys_cover_each_row_once(length, pos):
+    """For every split count, the splits that hold keys cover [0, min(pos,
+    len - 1)] once, in order and in whole tiles (a split may be empty);
+    cache lengths off the 64-key tile among them (130, 1029)."""
+    last = min(pos, length - 1)
+    for splits in range(1, at.WINDOW_MAX_SPLITS + 1):
+        keys = at.decode_split_keys(pos, length, splits)
+        assert len(keys) == splits
+        held = [k for k in keys if k is not None]
+        assert held[0][0] == 0 and held[-1][1] == last
+        for first, end in held:
+            assert first % at.WINDOW_TILE == 0 and first <= end
+        for (_, end), (start, _) in zip(held, held[1:]):
+            assert start == end + 1
+        assert len(held) == min(splits, last // at.WINDOW_TILE + 1)
+
+
+def _b4_small(dtype):
+    """A small ragged case off the 64-key tile (cut from chip_smoke's
+    B4_CASES): len 130, g = 2, rows at 129, 0, 63 and 64, the cache past
+    each row's pos also as NaN."""
+    import chip_smoke as cs
+
+    return cs.b4_case(torch, torch.device("cpu"), dtype, 4, 4, 2, 64, 130,
+                      (129, 0, 63, 64))
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+def test_decode_split_model_equals_the_plain_version(splits):
+    """chip_smoke's model of decode_mma_kernel's split and combine over the
+    contiguous cache is the plain version's function: in f32 within 1e-6,
+    over the random cache and over the cache with NaN past each row's
+    pos."""
+    import chip_smoke as cs
+
+    q, ck, cv, ckn, cvn, pos = _b4_small(torch.float32)
+    plain = at.decode_attention_plain(q, ck, cv, pos)
+    for k, v in ((ck, cv), (ckn, cvn)):
+        model = cs.decode_split_plain(torch, at, q, k, v, pos, splits)
+        torch.testing.assert_close(model, plain, rtol=0, atol=1e-6)
+
+
+def test_b4_bar_rejects_planted_faults():
+    """chip_smoke.py's per-row B4 bar (each head_dim vector within 2^-6 of
+    its own max |plain|) passes the split model in bf16 against the plain
+    version run in f32 and fails each planted fault: a split dropped, a
+    split's weight wrong, the last key of a row off by one, and the V rows
+    past a row's pos left in P V over NaN there."""
+    import chip_smoke as cs
+
+    q, ck, cv, ckn, cvn, pos = _b4_small(torch.bfloat16)
+    exact = at.decode_attention_plain(q.float(), ck.float(), cv.float(), pos)
+    model = cs.decode_split_plain(torch, at, q, ckn, cvn, pos, 8)
+    assert cs.flash_row_ratio(torch, model, exact, cs.TOL["bfloat16"]) <= 1.0
+    faults = cs.planted_b4_faults(torch, at, q, ck, cv, ckn, cvn, pos, 8)
+    assert len(faults) == 4
+    for fault, wrong, right in faults:
+        ratio = cs.flash_row_ratio(torch, wrong, right, cs.TOL["bfloat16"])
+        assert not ratio <= 1.0, fault

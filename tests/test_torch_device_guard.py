@@ -85,6 +85,7 @@ def runtime(monkeypatch):
     monkeypatch.setattr(_build, "lib", lib)
     monkeypatch.setattr(qm, "_sm_count", {})
     monkeypatch.setattr(rn, "_sm_count", {})
+    monkeypatch.setattr(rn, "_scratch", {})
     monkeypatch.setattr(at, "_sm_count", {})
     for mod in (fa, at, qm, rn):
         monkeypatch.setattr(mod, "launches", dict(mod.launches))
@@ -189,3 +190,33 @@ def test_paged_wrapper_launches_its_route(runtime, monkeypatch):
         ("pt_paged_decode_attention_q8", 0)]
     assert at.launches["paged_decode_attention"] == 4
     assert at.launches["paged_decode_attention_int8"] == 2
+
+
+def test_decode_wrapper_launches_its_route(runtime, monkeypatch):
+    """B4 on a CUDA tensor: bf16 launches the key-split kernel with
+    `decode_splits` blocks a cluster, cut for the longest row the host knows
+    of (an int pos: that pos; a tensor on the card: the cache's len), f32
+    the shared body (`splits` 0); each call one launch."""
+    import numpy as np
+
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: calls.append(
+                            (fn, args[-2])) or 0)
+    # an int pos goes to the card as a tensor: here, a tensor on `cuda:1`
+    monkeypatch.setattr(at, "_int32_on", lambda x, b, device: _card(
+        torch.as_tensor(x, dtype=torch.int32).expand(b)))
+    gen = np.random.default_rng(4)
+    # 8 x 8 (kv head, row) pairs, a 1029-key cache: 17 tiles
+    b, nh, nkv, hd, length = 8, 8, 8, 64, 1029
+    pos = _card(torch.arange(5, 5 + b, dtype=torch.int32))
+    for dtype in (torch.bfloat16, torch.float32):
+        q = _rnd(gen, b, 1, nh, hd, dtype=dtype)
+        cache = _card(torch.zeros(b, nkv, length, hd, dtype=dtype))
+        at.decode_attention(q, cache, cache, pos)
+        at.decode_attention(q, cache, cache, 300)
+    assert (at.decode_splits(b, nkv, length - 1, 132),
+            at.decode_splits(b, nkv, 300, 132)) == (2, 1)
+    assert calls == [("pt_decode_attention", 2), ("pt_decode_attention", 1),
+                     ("pt_decode_attention", 0), ("pt_decode_attention", 0)]
+    assert at.launches["decode_attention"] == 4

@@ -126,6 +126,39 @@ def test_kernel_checks_on_card(cuda):
                             ck, ck, pos)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", range(len(cs.B4_CASES)))
+def test_decode_kernel_edges_on_card(cuda, dtype, case):
+    """B4 at chip_smoke's B4_CASES (a 1029-key cache, g = 1, 2, 4, 8, 64,
+    both head dims, rows at 0, mid-tile and len - 1, a pos past the cache's
+    end): bf16 (decode_mma_kernel, keys by TMA) each head_dim vector within
+    2^-6 of its own max |plain| against the plain version run in f32, the
+    whole output within the bf16 bar, a second call bit-identical; f32
+    (the shared body) within 1e-5. Over the cache with NaN past each row's
+    pos, the same bits; one launch a call."""
+    _, b, nh, nkv, hd, length, pos = cs.B4_CASES[case]
+    q, ck, cv, ckn, cvn, pos_t = cs.b4_case(torch, cuda, dtype, b, nh, nkv,
+                                            hd, length, pos)
+    before = at.launches["decode_attention"]
+    out = at.decode_attention(q, ck, cv, pos_t)
+    again = at.decode_attention(q, ck, cv, pos_t)
+    over_nan = at.decode_attention(q, ckn, cvn, pos_t)
+    ref = at.decode_attention_plain(q, ck, cv, pos_t)
+    ref32 = at.decode_attention_plain(q.float(), ck.float(), cv.float(),
+                                      pos_t)
+    torch.cuda.synchronize()
+    assert at.launches["decode_attention"] == before + 3
+    assert _paged_ok(out, again, ref, ref32, dtype)
+    assert torch.equal(out, over_nan)
+
+
+def test_decode_bar_rejects_planted_faults_on_card(cuda):
+    """chip_smoke's B4 bar on the card: the split model passes, a split
+    dropped, a split's weight wrong, a key past a row's end and the V rows
+    past pos left in P V over NaN each fail."""
+    cs.phase_b4_bar_teeth(torch, cuda)
+
+
 def _q8_pool(g, cuda, n_pages, nkv, ps, hd):
     codes = torch.randint(-127, 128, (n_pages, nkv, ps, hd), generator=g,
                           device=cuda, dtype=torch.int8)
@@ -473,6 +506,45 @@ def test_rms_norm_kernels_match_plain_on_card(cuda, dtype, rows, h):
     y2, r2 = rn.rms_norm_fwd(wide[:, :h], w, cs.RMS_EPS, save_r=False)
     torch.cuda.synchronize()
     assert r2 is None and torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("rows,h", [(4096, 4096), (4096, 2048), (8, 4096),
+                                    (4097, 4096)])
+def test_rms_norm_backward_is_deterministic_on_card(cuda, rows, h):
+    """B10 at the 7B and h2048 legs' micro-batches, the decode rows and a
+    ragged row count: dx and dw within their bars, one launch a call, and a
+    second call bit-identical, dw included (its sum over rows runs in a
+    fixed order inside the launch)."""
+    x, w, g = cs.rms_case(torch, cuda, rows, h, torch.bfloat16)
+    _, r = rn.rms_norm_fwd_plain(x, w, cs.RMS_EPS)
+    before = rn.launches["rms_norm_bwd"]
+    dx, dw = rn.rms_norm_bwd(x, w, r, g)
+    dx2, dw2 = rn.rms_norm_bwd(x, w, r, g)
+    rdx, rdw = rn.rms_norm_bwd_plain(x, w, r, g)
+    torch.cuda.synchronize()
+    assert rn.launches["rms_norm_bwd"] == before + 2
+    ratios = cs.rms_ratios(torch, {"dx": dx, "dw": dw},
+                           {"dx": rdx, "dw": rdw}, "bfloat16")
+    assert max(ratios.values()) <= 1.0, ratios
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+def test_rms_norm_bar_rejects_planted_faults_on_card(cuda):
+    """chip_smoke's B9/B10 bars on the card at the 7B micro-batch: B10's dw
+    split passes; each planted fault (eps, the mean over H - 1, r from
+    another row, a row group or a cluster's partial left out of dw or
+    counted twice) fails."""
+    x, w, g = cs.rms_case(torch, cuda, 4096, 4096, torch.bfloat16)
+    sms = at._sms(cuda)
+    _, r = rn.rms_norm_fwd_plain(x, w, cs.RMS_EPS)
+    _, dw = rn.rms_norm_bwd_plain(x, w, r, g)
+    split = cs.rms_dw_split(torch, rn, x, r, g, sms).to(w.dtype)
+    assert cs.rms_ratios(torch, {"dw": split}, {"dw": dw},
+                         "bfloat16")["dw"] <= 1.0
+    for fault, wrong, right in cs.planted_rms_faults(torch, rn, x, w, g,
+                                                     sms):
+        bad = cs.rms_ratios(torch, wrong, right, "bfloat16")
+        assert max(bad.values()) > 1.0, fault
 
 
 def test_rms_norm_autograd_on_card(cuda):

@@ -219,3 +219,81 @@ def test_kernel_gate():
         rn.rms_norm_fwd(x, torch.ones(32, dtype=torch.bfloat16), EPS)
     with pytest.raises(ValueError, match="does not fit"):
         rn.rms_norm_bwd(x, w, torch.ones(4), x[:2])
+
+
+# B10's grid and its fixed-order dw sum (`bwd_plan`, `bwd_grid`,
+# `bwd_rows`), which rms_norm_bwd_kernel follows on the card
+_SMEM_MAX = 227 * 1024
+
+
+@pytest.mark.parametrize("rows,h,itemsize,plan,grid", [
+    (8, 4096, 2, (256, 2, 2, 2), (4, 4)),          # the decode rows
+    (4096, 4096, 2, (256, 2, 2, 2), (132, 4)),     # the 7B leg's micro-batch
+    (4096, 2048, 2, (128, 2, 4, 2), (132, 4)),     # the h2048 leg's
+    (300, 16384, 2, (512, 4, 1, 2), (132, 4)),     # the widest H in bf16
+    (300, 16384, 4, (512, 8, 1, 1), (132, 4)),     # ... in f32: one stage
+    (8, 16384, 4, (512, 8, 1, 1), (8, 4)),
+    (33, 8, 2, (32, 1, 8, 2), (4, 4)),             # the narrowest H
+    (1, 128, 2, (32, 1, 8, 2), (1, 1)),
+])
+def test_bwd_grid_rule(rows, h, itemsize, plan, grid):
+    """B10's plan and grid: row groups of R threads with NV vectors each
+    that cover the row (NV <= 4 in bf16, 8 in f32), G R <= 512 threads and
+    G <= 8 named barriers a block, the ring and the row sums within the
+    card's shared memory and the dw slab within the ring, one block an SM
+    at most, clusters of 1, 2 or 4 dividing the grid and H into even
+    column shares, and every row in exactly one row group, in order."""
+    r, nv, g, s = rn.bwd_plan(h, itemsize)
+    assert (r, nv, g, s) == plan
+    vec = 16 // itemsize
+    assert r % 32 == 0 and nv * r * vec >= h and nv <= (4 if itemsize == 2
+                                                         else 8)
+    assert g * r <= rn.BWD_MAX_THREADS and g <= 8
+    ring = g * s * 2 * h * itemsize
+    assert ring + 2 * g * 16 * 4 + 16 <= _SMEM_MAX
+    assert g * h * 4 <= ring
+    blocks, cluster = rn.bwd_grid(rows, h, itemsize, 132)
+    assert (blocks, cluster) == grid
+    assert blocks <= 132 and cluster in (1, 2, 4) and blocks % cluster == 0
+    assert (h // cluster) % 2 == 0
+    spans = rn.bwd_rows(rows, blocks, g)
+    assert spans[0][0] == 0 and spans[-1][1] == rows
+    assert all(a <= e for a, e in spans)
+    assert all(e == a2 for (_, e), (a2, _) in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("rows,h,sms", [(512, 256, 16), (1000, 128, 132),
+                                        (8, 4096, 132), (37, 64, 6)])
+def test_bwd_dw_split_equals_the_plain_version(rows, h, sms):
+    """chip_smoke's model of B10's dw sum (row groups in row order, the
+    groups and blocks of a cluster in order, the clusters in index order)
+    is the plain version's dw: in f32 within f32 rounding of the sum."""
+    import chip_smoke as cs
+
+    x, w, g = (torch.from_numpy(a) for a in _inputs(rows, h, seed=3))
+    _, r = rn.rms_norm_fwd_plain(x, w, EPS)
+    _, dw = rn.rms_norm_bwd_plain(x, w, r, g)
+    split = cs.rms_dw_split(torch, rn, x, r, g, sms)
+    torch.testing.assert_close(split, dw, rtol=0,
+                               atol=1e-5 * dw.abs().max().item())
+
+
+def test_bwd_bars_reject_planted_faults():
+    """chip_smoke.py's B9/B10 bars pass B10's dw split in bf16 and reject
+    each planted fault: eps dropped, the mean over H - 1, r from another
+    row, and in the dw sum a row group left out, a cluster's partial
+    counted twice or left out (16 SMs: several clusters)."""
+    import chip_smoke as cs
+
+    x, w, g = cs.rms_case(torch, torch.device("cpu"), 1024, 512,
+                          torch.bfloat16)
+    _, r = rn.rms_norm_fwd_plain(x, w, cs.RMS_EPS)
+    _, dw = rn.rms_norm_bwd_plain(x, w, r, g)
+    split = cs.rms_dw_split(torch, rn, x, r, g, 16).to(w.dtype)
+    assert cs.rms_ratios(torch, {"dw": split}, {"dw": dw},
+                         "bfloat16")["dw"] <= 1.0
+    faults = cs.planted_rms_faults(torch, rn, x, w, g, 16)
+    assert [f for f, _, _ in faults][-3:] == list(cs.RMS_DW_FAULTS)
+    for fault, wrong, right in faults:
+        bad = cs.rms_ratios(torch, wrong, right, "bfloat16")
+        assert max(bad.values()) > 1.0, fault
