@@ -21,7 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   at 0, mid-tile and len - 1, in bf16 each output vector
                   against the plain version run in f32, a second call
                   bit-identical, and the same bits over a cache holding
-                  NaN past each row's pos; then planted faults the B4 bar
+                  NaN past each row's pos; GPT-2's decode shape, 12 heads
+                  of 64, len 1024, and its 64-row prefill bucket for B5;
+                  then planted faults the B4 bar
                   must reject: a split dropped, a split's weight wrong, a
                   key past a row's end, V past pos left in P V), B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
@@ -86,6 +88,29 @@ Phases, in order; any failure raises and the script exits non-zero:
                   (B9 once a norm: 65 launches a decode step; B6 once a
                   layer, B7 in the int8 one; no more launches a step than
                   before B6/B7 ran over clusters).
+  3a. disagg      disaggregated prefill/decode on the 7B model: (a) bf16, the
+                  engine phase's 12 requests through `DisaggServer` over
+                  `LocalTransport`: each shipped page bit-identical in the
+                  decode worker's pool, first tokens equal to the engine
+                  phase's, both workers drained; (b) f32, 2 layers at 7B
+                  width, greedy, int8 pool and chunked (256): tokens equal
+                  to the monolithic `PagedEngine`'s; (c) bench.py's disagg
+                  leg at its TPU settings (8 slots, pages of 64, chunks of
+                  256; a steady 128-token stream through a 4 x 1536-token
+                  burst): the stream's tokens per scheduler step within
+                  0.9-1.1 of its base; hand-off MB and latency, decode step
+                  ms and the monolithic counterfactual recorded.
+  3b. router      one `Router` over the 7B `PagedEngine` (bf16, 2 slots: a
+                  batch slot is preempted), GPT-2 small (`GptEngine`) and
+                  BERT-base (`BertBackend`) on bench.py's router trace at 16x
+                  its prompt lengths: every request finishes, preemptions =
+                  resumes >= 1; GPT-2 alone launches B4 and B5 and nothing
+                  else; GPT-2 f32 `GptEngine` equal to `gpt_generate`, its
+                  bf16 logits against a plain f32 forward (the logits bars);
+                  BERT-base bf16 pooled within rel 0.05 of f32; a preempted
+                  and resumed f32 request (7B width, 2 layers) equal to its
+                  uninterrupted run. Tokens/s, TTFT p50 per model and SLO
+                  class and BERT's embed step recorded.
   4. logits       one request's prompt + generated tokens through prefill and
                   `paged_decode_step` against a plain f32 full-sequence forward
                   of the same bf16 weights; then the same with the weights in
@@ -700,6 +725,8 @@ B5_CASES = (
      128, 400, [100]),
     ("s*g=64 hd64, row 0 overhangs the cache end", 2, 64, 32, 32, 64, 700,
      [670, 1]),
+    ("GPT-2's prefill bucket: s 64, 12 heads, hd 64", 1, 64, 12, 12, 64,
+     1024, [0]),
 )
 
 
@@ -975,6 +1002,8 @@ B4_CASES = (
     ("g=8, len 130", 4, 64, 8, 128, 130, (129, 63, 0, 70)),
     ("g=64 (four row tiles), hd 64", 2, 64, 1, 64, 200, (199, 31)),
     ("a pos past the cache's end", 2, 32, 32, 128, 300, (5000, 299)),
+    ("GPT-2's decode: 12 heads, hd 64, len 1024", 8, 12, 12, 64, 1024,
+     (1023, 700, 300, 191, 144, 64, 1, 0)),
 )
 
 
@@ -3058,6 +3087,539 @@ def phase_capacity(torch, dev, model, seed=0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# disaggregated prefill/decode, and the router over three models
+# ---------------------------------------------------------------------------
+
+
+def _small_f32(torch, dev, model, layers=2):
+    """The model's width in f32 with `layers` layers, drawn from seed 0."""
+    from paddle_tpu_torch.models import Llama, init_params
+
+    args = model.args._replace(num_layers=layers)
+    gen_ = torch.Generator(device=dev).manual_seed(0)
+    return Llama(args, init_params(args, gen_, device=dev,
+                                   dtype=torch.float32))
+
+
+def _watch_admissions(torch, worker, check=True):
+    """Wrap `worker.admit_handoff` to record each hand-off's pages and its
+    latency (send to seated, wall clock, exact; the registry keeps only
+    bucketed quantiles) and, with `check`, to hold every shipped leaf bit
+    for bit against what the pool holds under the slot's block table
+    after the scatter (the check's own time is kept apart)."""
+    from paddle_tpu_torch.serving.paged_engine import _leaves
+
+    seen = {"pages": [], "latency_s": [], "check_s": 0.0}
+    admit = worker.admit_handoff
+
+    def watched(pkg):
+        req = admit(pkg)
+        torch.cuda.synchronize(worker.device)
+        seen["latency_s"].append(time.time() - pkg.sent_at)
+        seen["pages"].append(pkg.num_pages)
+        if not check:
+            return req
+        t0 = time.perf_counter()
+        slot = next(s for s in worker.slots.active_slots
+                    if worker.slots.owner(s) is req)
+        idx = torch.tensor(worker._bt[slot], dtype=torch.long,
+                           device=worker.device)
+        pool = _leaves(worker._pk) + _leaves(worker._pv)
+        for shipped, held in zip(pkg._leaves(), pool):
+            if not torch.equal(shipped.view(torch.uint8),       # the bits
+                               held[:, idx].cpu().view(torch.uint8)):
+                raise AssertionError(f"hand-off {pkg.request_id}: the pool "
+                                     f"does not hold the shipped pages")
+        seen["check_s"] += time.perf_counter() - t0
+        return req
+
+    worker.admit_handoff = watched
+    return seen
+
+
+def _pack_scatter(pm, dm):
+    """The prefill side's pack (serialise, the D2H copy included) and the
+    decode side's scatter times: mean and max (exact in the registry)."""
+    pk, sc = pm.observation("handoff_pack_s"), dm.observation("page_scatter_s")
+    return (f"pack mean {pk['mean'] * 1e3:.1f} max {pk['max'] * 1e3:.1f} ms, "
+            f"scatter mean {sc['mean'] * 1e3:.1f} max "
+            f"{sc['max'] * 1e3:.1f} ms")
+
+
+def _ms(xs):
+    """Median and max of seconds, in ms, for a log line."""
+    return (f"median {statistics.median(xs) * 1e3:.1f} ms, max "
+            f"{max(xs) * 1e3:.1f} ms")
+
+
+def _drained(label, *workers):
+    for w in workers:
+        if w._alloc.pages_in_use or w._reserved_total or \
+                w.slots.free_count != w.max_slots:
+            raise AssertionError(f"{label}: {type(w).__name__} did not drain: "
+                                 f"{w._alloc.pages_in_use} pages in use, "
+                                 f"{w._reserved_total} reserved")
+
+
+def _serve_tokens(eng, prompts, new_tokens):
+    from paddle_tpu_torch.serving import Request
+
+    reqs = [Request(p, new_tokens, request_id=i)
+            for i, p in enumerate(prompts)]
+    eng.serve(reqs)
+    return [list(r.token_ids) for r in reqs]
+
+
+DISAGG_LEG = dict(max_slots=8, max_len=2048, page_size=64, min_bucket=64)
+
+
+def phase_disagg(torch, dev, model, mono_reqs, new_tokens=64):
+    """Disaggregated serving on the 7B model. (a) bf16, 32 layers: the
+    engine phase's 12 requests through `DisaggServer` over
+    `LocalTransport` at the engine's settings: every shipped page equals
+    what the decode pool holds after the scatter, bit for bit; first
+    tokens equal the monolithic engine's; both workers drain. Token
+    agreement with the monolithic run is recorded (bf16 rows decoded in
+    other batches may round otherwise). (b) f32, 2 layers at 7B width:
+    greedy, over the int8 pool, and chunked (256): tokens equal to the
+    monolithic `PagedEngine`'s, request for request. (c) bench.py's disagg
+    leg at its TPU settings (:1133-1145): the steady stream's tokens per
+    scheduler step through a 4 x 1536-token burst within 0.9-1.1 of its
+    base (held), the monolithic counterfactual, hand-off MB and latency,
+    decode step ms and tokens/s (recorded). Returns (a)'s launch counts."""
+    from paddle_tpu_torch.serving import DisaggServer, PagedEngine, Request
+
+    srv = DisaggServer(model, max_slots=8, max_len=2048, page_size=16,
+                       min_bucket=16, device=dev)
+    seen = _watch_admissions(torch, srv.decode)
+    traffic = engine_traffic(model.args.vocab_size)
+    reqs = [Request(t.pop("prompt"), new_tokens, request_id=i, **t)
+            for i, t in enumerate(traffic)]
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    srv.serve(reqs)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    n_tok = sum(len(r.token_ids) for r in reqs)
+    firsts = [r.token_ids[0] for r in reqs] == \
+        [r.token_ids[0] for r in mono_reqs]
+    same = sum(r.token_ids == m.token_ids for r, m in zip(reqs, mono_reqs))
+    pos_agree = sum(a == b for r, m in zip(reqs, mono_reqs)
+                    for a, b in zip(r.token_ids, m.token_ids))
+    pm = srv.prefill.metrics
+    served = secs - seen["check_s"]
+    log(f"[disagg] (a) bf16: {len(reqs)} requests, {n_tok} tokens in "
+        f"{served:.2f} s without the page checks' {seen['check_s']:.2f} s "
+        f"({n_tok / served:.1f} tokens/s); {len(seen['pages'])} hand-offs, "
+        f"{sum(seen['pages'])} pages, "
+        f"{pm.counter('handoff_bytes') / 1e6:.1f} MB, each page bit-identical "
+        f"in the decode pool; latency {_ms(seen['latency_s'])}, "
+        f"{_pack_scatter(pm, srv.decode.metrics)}; "
+        f"first tokens equal to the monolithic "
+        f"engine's: {firsts}; agreement with it (recorded): {same}/"
+        f"{len(reqs)} requests, {pos_agree}/{n_tok} positions; launches "
+        f"{launches}")
+    _drained("disagg (a)", srv.prefill, srv.decode)
+    if not (firsts and len(seen["pages"]) == len(reqs)
+            and all(r.finished and len(r.token_ids) == new_tokens
+                    for r in reqs)
+            and launches["paged_decode_attention"] > 0
+            and launches["window_attention"] > 0):
+        raise AssertionError("disagg (a) failed")
+    srv = None
+    torch.cuda.empty_cache()
+
+    small = _small_f32(torch, dev, model)
+    greedy = [t["prompt"] for t in engine_traffic(model.args.vocab_size)]
+    for label, kw in (("greedy", {}), ("int8 pool", {"kv_dtype": "int8"}),
+                      ("chunked 256", {"prefill_chunk": 256})):
+        kw = dict(max_slots=8, max_len=2048, page_size=16, min_bucket=16,
+                  device=dev, **kw)
+        mono = _serve_tokens(PagedEngine(small, **kw), greedy, 32)
+        dis = _serve_tokens(DisaggServer(small, **kw), greedy, 32)
+        equal = sum(a == b for a, b in zip(dis, mono))
+        log(f"[disagg] (b) f32, 2 layers, {label}: {equal}/{len(mono)} "
+            f"requests token for token equal to the monolithic engine")
+        if equal != len(mono):
+            raise AssertionError(f"disagg (b) {label}: {equal}/{len(mono)}")
+    small = None
+    torch.cuda.empty_cache()
+    disagg_bench_leg(torch, dev, model)
+    return launches
+
+
+def disagg_bench_leg(torch, dev, model, chunk=256, steady_len=128,
+                     steady_new=256, burst_len=1536, burst_new=16, win=20,
+                     seed=0):
+    """bench.py `_bench_serving_disagg`'s leg 1 at its TPU settings on
+    `model`; holds the steady stream's rate ratio, records the rest."""
+    import numpy as np
+    from paddle_tpu_torch.serving import (DecodeWorker, LocalTransport,
+                                          PagedEngine, PrefillWorker, Request)
+
+    rng = np.random.default_rng(seed)
+
+    def prompt(n):
+        return rng.integers(1, model.args.vocab_size, n).astype(np.int32)
+
+    steady_prompt = prompt(steady_len)
+    burst = [prompt(burst_len) for _ in range(4)]
+    lt = LocalTransport()
+    pw = PrefillWorker(model, transport=lt, prefill_chunk=chunk, device=dev,
+                       **DISAGG_LEG)
+    done = {}
+    dw = DecodeWorker(model, transport=lt, device=dev,
+                      completion_cb=lambda r: done.setdefault(
+                          r.request_id, len(r.token_ids)), **DISAGG_LEG)
+    seen = _watch_admissions(torch, dw, check=False)
+
+    def pw_drain():
+        while pw.queue or pw.slots.active_slots or pw._chunk_streams:
+            pw.step()
+
+    pw.submit(Request(prompt(burst_len), 4, request_id="warm"))
+    pw_drain()
+    while "warm" not in done:
+        dw.step()
+    pw.submit(Request(steady_prompt, steady_new, request_id="steady"))
+    pw_drain()
+    while not dw.slots.active_slots:
+        dw.step()
+    for _ in range(6):
+        dw.step()
+    steady = next(dw.slots.owner(s) for s in dw.slots.active_slots
+                  if dw.slots.owner(s).request_id == "steady")
+
+    def window(burst_active=False):
+        n0, times = len(steady.token_ids), []
+        for _ in range(win):
+            if burst_active and (pw.queue or pw.slots.active_slots
+                                 or pw._chunk_streams):
+                pw.step()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            dw.step()
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        return (len(steady.token_ids) - n0) / win, times
+
+    base_rate, base_t = window()
+    for i, p in enumerate(burst):
+        pw.submit(Request(p, burst_new, request_id=f"burst{i}"))
+    burst_rate, burst_t = window(burst_active=True)
+    pw_drain()
+    t0, n0 = time.perf_counter(), sum(done.values())
+    while len(done) < 6:
+        dw.step()
+    torch.cuda.synchronize(dev)
+    decode_tps = (sum(done.values()) - n0) / (time.perf_counter() - t0)
+    ratio = burst_rate / base_rate
+    reg = dw.metrics.registry
+    pk = pw.metrics.observation("handoff_pack_s")
+    sc = dw.metrics.observation("page_scatter_s")
+    stats = {
+        "handoffs": dw.metrics.counter("handoffs_admitted"),
+        "handoff_mb": pw.metrics.counter("handoff_bytes") / 1e6,
+        "handoff_pages": seen["pages"],
+        "handoff_latency_ms": [x * 1e3 for x in seen["latency_s"]],
+        "registry_latency_ms_p50": reg.quantile("handoff_latency_s", 0.5)
+        * 1e3,
+        "registry_latency_ms_p99": reg.quantile("handoff_latency_s", 0.99)
+        * 1e3,
+        "pack_ms_mean": pk["mean"] * 1e3, "pack_ms_max": pk["max"] * 1e3,
+        "scatter_ms_mean": sc["mean"] * 1e3,
+        "scatter_ms_max": sc["max"] * 1e3,
+        "decode_step_ms_base_min": min(base_t) * 1e3,
+        "decode_step_ms_burst_min": min(burst_t) * 1e3,
+        "decode_step_ms_base_median": statistics.median(base_t) * 1e3,
+        "decode_step_ms_burst_median": statistics.median(burst_t) * 1e3,
+        "steady_tokens_per_step_base": base_rate,
+        "steady_tokens_per_step_burst": burst_rate,
+        "decode_tokens_per_s": decode_tps}
+    _drained("disagg (c)", pw, dw)
+    pw = dw = lt = None
+    torch.cuda.empty_cache()
+    mono = PagedEngine(model, prefill_chunk=chunk, device=dev, **DISAGG_LEG)
+    s = mono.submit(Request(steady_prompt, steady_new, request_id="steady"))
+    while not mono.slots.active_slots:
+        mono.step()
+    for _ in range(6):
+        mono.step()
+    for i, p in enumerate(burst):
+        mono.submit(Request(p, burst_new, request_id=f"burst{i}"))
+    n0 = len(s.token_ids)
+    for _ in range(win):
+        mono.step()
+    stats["monolithic_steady_tokens_per_step"] = (len(s.token_ids) - n0) / win
+    mono = None
+    torch.cuda.empty_cache()
+    log(f"[disagg] (c) bench leg: steady tokens/step {base_rate:.3f} base, "
+        f"{burst_rate:.3f} under the burst: ratio {ratio:.3f} (bar 0.9-1.1); "
+        f"DISAGG_LEG {json.dumps(stats)}")
+    if not 0.9 <= ratio <= 1.1:
+        raise AssertionError(f"disagg (c): steady rate ratio {ratio}")
+
+
+def router_trace(vocab, gpt_vocab, bert_vocab, llama_new=32, gpt_new=32,
+                 scale=16, seed=0):
+    """bench.py `_bench_router_trace` (:1303-1321): three tenants, both SLO
+    classes, its arrival steps and model mix; prompts `scale` times its
+    lengths (Llama 192-272 tokens, GPT 144-192, BERT 160-208)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    tenants = ("acme", "globex", "initech")
+
+    def u(hi, n):
+        return rng.integers(1, hi, n * scale).astype(np.int32)
+
+    trace = [{"model": "llama", "arrival_step": i, "prompt": u(vocab, 12 + i),
+              "max_new_tokens": llama_new, "tenant": tenants[i % 3],
+              "slo": "interactive" if i % 2 == 0 else "batch"}
+             for i in range(6)]
+    trace += [{"model": "gpt", "arrival_step": 2 * i + 1,
+               "prompt": u(gpt_vocab, 9 + i), "max_new_tokens": gpt_new,
+               "tenant": tenants[i % 3], "slo": "interactive"}
+              for i in range(4)]
+    trace += [{"model": "bert", "arrival_step": 3 * i,
+               "prompt": u(bert_vocab, 10 + i),
+               "tenant": tenants[(i + 1) % 3], "slo": "batch"}
+              for i in range(4)]
+    return trace
+
+
+def gpt_reference_logits(torch, model, ids):
+    """Plain full-sequence GPT-2 forward with no cache, in f32 from the
+    model's weights, sharing no code with the port (LayerNorm, exact GELU
+    and causal attention written here): logits [T, vocab] f32."""
+    a = model.args
+    T, nh, hd = ids.shape[0], a.num_heads, a.head_dim
+
+    def ln(x, w, b):
+        mu = x.mean(dim=-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+        return (x - mu) * torch.rsqrt(var + a.ln_eps) * w.float() + b.float()
+
+    h = (model.word_emb[ids.long()] + model.pos_emb[:T]).float()
+    for i in range(a.num_layers):
+        lp = {k: v.float() for k, v in model.layer(i).items()}
+        x = ln(h, lp["ln1_w"], lp["ln1_b"])
+        q, k, v = ((x @ lp[w] + lp[b]).view(T, nh, hd)
+                   for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+        o = _attention(torch, q, k, v).reshape(T, -1)
+        h = h + o @ lp["wo"] + lp["bo"]
+        x = ln(h, lp["ln2_w"], lp["ln2_b"])
+        f = x @ lp["fc1_w"] + lp["fc1_b"]
+        f = 0.5 * f * (1.0 + torch.erf(f / math.sqrt(2.0)))
+        h = h + f @ lp["fc2_w"] + lp["fc2_b"]
+    h = ln(h, model.lnf_w, model.lnf_b)
+    return h @ model.word_emb.float().t()
+
+
+def gpt_cached_logits(torch, dev, model, req):
+    """The request's prompt + generated tokens, teacher-forced through the
+    port's cached forward (prefill, then one decode step a token at per-row
+    positions): next-token logits [m, vocab] f32 of positions n-1 ..
+    n+m-2."""
+    import numpy as np
+    from paddle_tpu_torch.models import gpt as gpt_m
+
+    n, toks = req.prompt_ids.size, list(req.token_ids)
+    ck, cv = gpt_m.gpt_cache(model, 1, n + len(toks))
+    rows = [gpt_m._gpt_forward_cached(
+        model, torch.from_numpy(req.prompt_ids[None]).to(dev), ck, cv, 0)[0]]
+    for i, t in enumerate(toks[:-1]):
+        rows.append(gpt_m._gpt_forward_cached(
+            model, torch.tensor([[t]], device=dev), ck, cv,
+            torch.tensor([n + i], dtype=torch.int32, device=dev))[0])
+    return torch.cat(rows)
+
+
+def _f32_copy(cls, model, cfg):
+    """The same weights in f32 (a Gpt or Bert)."""
+    tree = {k: v.float() for k, v in model.named_parameters()
+            if not k.startswith("layers.")}
+    tree["layers"] = {k: v.float() for k, v in model.layers.items()}
+    return cls(cfg, tree, device=model.device)
+
+
+def phase_router(torch, dev, model, gpt_cfg=None, bert_cfg=None, seed=0):
+    """One `Router` over three backends on the card: the 7B `PagedEngine`
+    (bf16, 2 slots, max_len 1024, pages of 16: an interactive arrival must
+    preempt a batch slot), GPT-2 small (`GPTConfig()`, bf16, `GptEngine`,
+    4 slots, max_len 1024) and BERT-base (`BertConfig()`, bf16,
+    `BertBackend`, batch 8), on `router_trace`. Holds: every request
+    finishes; router_preemptions >= 1 and equal to router_resumes; B4 and
+    B5 launch (and nothing else) while GPT-2 serves alone; GPT-2 in f32
+    (`GptEngine`) gives `gpt_generate`'s tokens for 4 prompts; GPT-2's bf16
+    logits within rel 0.10, top-1 0.80 of a plain f32 forward
+    (`gpt_reference_logits`); BERT-base's bf16 pooled output within rel
+    0.05 of the f32 forward of its weights; in f32 at 7B width, 2 layers, a
+    request the router preempted and resumed gives its uninterrupted
+    tokens. Records tokens/s per model, TTFT p50 per model and SLO class,
+    BERT's embed step at batch 8, the per-tenant counters. Returns the
+    launch counts of the bf16 runs: GPT-2 alone and the router's."""
+    import numpy as np
+    from paddle_tpu_torch.models import (Bert, BertConfig, Gpt, GPTConfig,
+                                         GPTGenArgs, gpt_generate)
+    from paddle_tpu_torch.serving import (BertBackend, GptEngine,
+                                          PagedEngine, Request, Router)
+
+    gcfg, bcfg = gpt_cfg or GPTConfig(), bert_cfg or BertConfig()
+    gargs = GPTGenArgs.from_config(gcfg)
+    bf16 = torch.bfloat16
+    gen_ = torch.Generator(device=dev).manual_seed(seed)
+    gpt = Gpt(gargs, device=dev, dtype=bf16, generator=gen_)
+    bert = Bert(bcfg, device=dev, dtype=bf16, generator=gen_)
+    rng = np.random.default_rng(seed + 7)
+
+    # GPT-2 alone: short prompts prefill through B5, decode through B4
+    short = [rng.integers(1, gcfg.vocab_size, n).astype(np.int32)
+             for n in (16, 40, 64, 24)]
+    eng = GptEngine(gpt, max_slots=4, max_len=1024, device=dev)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    greqs = eng.serve([Request(p, 32) for p in short])
+    torch.cuda.synchronize(dev)
+    alone = launch_counts()
+    log(f"[router] GPT-2 alone (bf16, 4 prompts of {[p.size for p in short]}"
+        f" tokens, 32 new): launches {alone}")
+    others = {k: v for k, v in alone.items()
+              if v and k not in ("decode_attention", "window_attention")}
+    if not (alone["decode_attention"] > 0 and alone["window_attention"] > 0
+            and not others):
+        raise AssertionError(f"GPT-2 alone did not run B4 and B5 only: "
+                             f"{alone}")
+    ref = gpt_reference_logits(torch, gpt, forward_ids(torch, dev, greqs[2]))
+    n = greqs[2].prompt_ids.size
+    compare(torch, "router", f"GPT-2 bf16 cached logits vs the f32 forward, "
+            f"after a {n}-token prompt",
+            gpt_cached_logits(torch, dev, gpt, greqs[2]),
+            ref[n - 1:n - 1 + len(greqs[2].token_ids)],
+            LOGIT_BARS["bfloat16"])
+    g32 = _f32_copy(Gpt, gpt, gargs)
+    e32 = GptEngine(g32, max_slots=4, max_len=1024, device=dev)
+    r32 = e32.serve([Request(p, 32) for p in short])
+    equal = sum(list(r.token_ids) == gpt_generate(
+        g32, p[None], max_new_tokens=32, device=dev)[0, p.size:].tolist()
+        for p, r in zip(short, r32))
+    log(f"[router] GPT-2 f32: GptEngine equal to gpt_generate for "
+        f"{equal}/{len(short)} prompts")
+    if equal != len(short):
+        raise AssertionError(f"GPT-2 f32 GptEngine vs gpt_generate: {equal}")
+    eng = e32 = g32 = None
+
+    # BERT-base: bf16 pooled output against the f32 forward; embed step ms
+    be = BertBackend(bert, max_batch=8, device=dev)
+    lens = [int(x) for x in rng.integers(160, 209, 8)]
+    prompts = [rng.integers(1, bcfg.vocab_size, k).astype(np.int32)
+               for k in lens]
+    step_ms = []
+    for _ in range(6):
+        reqs = [be.submit(p) for p in prompts]
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        be.step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    got = torch.from_numpy(np.stack([r.embedding for r in reqs]))
+    ids = torch.zeros(8, max(lens), dtype=torch.long)
+    mask = torch.zeros_like(ids)
+    for i, p in enumerate(prompts):
+        ids[i, :p.size] = torch.from_numpy(p)
+        mask[i, :p.size] = 1
+    b32 = _f32_copy(Bert, bert, bcfg)
+    ref = b32(ids.to(dev), mask.to(dev))[1].cpu()
+    rel = ((got - ref).norm() / ref.norm()).item()
+    log(f"[router] BERT-base bf16 pooled vs f32 forward: rel {rel:.3e} (bar "
+        f"0.05); embed step at batch 8 (lengths {min(lens)}-{max(lens)}): "
+        f"median {statistics.median(step_ms[1:]):.2f} ms of "
+        f"{[round(x, 2) for x in step_ms[1:]]}")
+    if not (math.isfinite(rel) and rel <= 0.05):
+        raise AssertionError(f"BERT-base bf16 pooled rel {rel}")
+    b32 = be = None
+
+    # the router
+    router = Router({
+        "llama": PagedEngine(model, max_slots=2, max_len=1024, page_size=16,
+                             device=dev),
+        "gpt": GptEngine(gpt, max_slots=4, max_len=1024, device=dev),
+        "bert": BertBackend(bert, max_batch=8, device=dev)})
+    trace = router_trace(model.args.vocab_size, gcfg.vocab_size,
+                         bcfg.vocab_size)
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = router.replay(trace)
+    torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    snap = router.metrics.registry.snapshot()["counters"]
+
+    def by(name, key):
+        tot = {}
+        for labels, v in snap.get(name, {}).items():
+            part = dict(kv.split("=") for kv in labels.split(","))
+            tot[part[key]] = tot.get(part[key], 0) + v
+        return tot
+
+    pre = sum(snap.get("router_preemptions", {}).values())
+    res = sum(snap.get("router_resumes", {}).values())
+    tokens = by("router_tokens", "model")
+    ttft = {}
+    for t, r in zip(trace, out):
+        ttft.setdefault(f"{t['model']}/{t['slo']}", []).append(r.ttft_s)
+    embeds = by("router_completed", "model").get("bert", 0)
+    stats = {"seconds": secs, "router_steps": router.step_count,
+             "tokens_per_s": {m: v / secs for m, v in tokens.items()
+                              if m != "bert"},
+             "bert_embeddings_per_s": embeds / secs,
+             "ttft_ms_p50": {k: statistics.median(v) * 1e3
+                             for k, v in ttft.items()},
+             "preemptions": pre, "resumes": res,
+             "completed_by_tenant": by("router_completed", "tenant"),
+             "tokens_by_tenant": by("router_tokens", "tenant"),
+             "embed_step_ms_batch8": statistics.median(step_ms[1:])}
+    log(f"[router] {len(trace)} requests in {secs:.2f} s, "
+        f"{router.step_count} router steps; ROUTER {json.dumps(stats)}; "
+        f"launches {launches}")
+    if not (all(r.finished for r in out) and pre >= 1 and pre == res):
+        raise AssertionError(f"router: finished "
+                             f"{sum(r.finished for r in out)}/{len(out)}, "
+                             f"preemptions {pre}, resumes {res}")
+    router = gpt = bert = None
+    torch.cuda.empty_cache()
+    _add(launches, alone)
+
+    # f32, 7B width, 2 layers: preempted and resumed = uninterrupted
+    small = _small_f32(torch, dev, model)
+    p_batch, p_inter = (rng.integers(1, model.args.vocab_size, k)
+                        .astype(np.int32) for k in (192, 208))
+    kw = dict(max_slots=1, max_len=1024, page_size=16, device=dev)
+    ref = PagedEngine(small, **kw).serve([Request(p_batch, 32)])[0]
+    eng = PagedEngine(small, **kw)
+    router = Router({"llama": eng})
+    victim = router.submit("llama", p_batch, slo="batch", tenant="nightly",
+                           max_new_tokens=32)
+    for _ in range(6):
+        router.step()
+    router.submit("llama", p_inter, tenant="acme", max_new_tokens=8)
+    router.run_until_idle()
+    reg = router.metrics.registry
+    labels = {"model": "llama", "tenant": "nightly"}
+    ok = (list(victim.token_ids) == list(ref.token_ids)
+          and reg.counter("router_preemptions", labels=labels) == 1
+          and reg.counter("router_resumes", labels=labels) == 1)
+    log(f"[router] f32 at 7B width, 2 layers: the preempted and resumed "
+        f"request gives its uninterrupted tokens: {ok}")
+    _drained("router f32", eng)
+    if not ok:
+        raise AssertionError("router f32 preempt/resume parity failed")
+    return launches
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] += v
@@ -3067,11 +3629,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,train-check,train,train-h2048,"
-                    "engine,logits,generate,chunked,spec,engine-int8,"
-                    "logits-int8,capacity,timing",
+                    "engine,disagg,router,logits,generate,chunked,spec,"
+                    "engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
+    if "disagg" in phases and "engine" not in phases:
+        ap.error("the disagg phase compares with the engine phase's run")
 
     import torch
 
@@ -3112,8 +3676,8 @@ def main(argv=None):
         phase_train(torch, dev, name, "train-h2048")
     torch.cuda.empty_cache()
     model = None
-    if {"engine", "logits", "generate", "chunked", "spec", "engine-int8",
-            "logits-int8", "capacity"} & set(phases):
+    if {"engine", "disagg", "router", "logits", "generate", "chunked",
+            "spec", "engine-int8", "logits-int8", "capacity"} & set(phases):
         t0 = time.perf_counter()
         gen_ = torch.Generator(device=dev).manual_seed(0)
         model = Llama(LLAMA2_7B, init_params(LLAMA2_7B, gen_, device=dev,
@@ -3127,6 +3691,12 @@ def main(argv=None):
         _add(launches, eng_launches)
         phase_profile(torch, dev, eng)
         eng = None
+    if "disagg" in phases:
+        _add(launches, phase_disagg(torch, dev, model, reqs))
+        torch.cuda.empty_cache()
+    if "router" in phases:
+        _add(launches, phase_router(torch, dev, model))
+        torch.cuda.empty_cache()
     if "logits" in phases:
         phase_logits(torch, dev, model, reqs[3])
         torch.cuda.empty_cache()
@@ -3181,8 +3751,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"train", "engine", "generate", "chunked", "spec",
-                 "engine-int8", "capacity"}
+    main_path = {"train", "engine", "disagg", "router", "generate",
+                 "chunked", "spec", "engine-int8", "capacity"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items()
                    if v == 0 and k not in OFF_PATH]

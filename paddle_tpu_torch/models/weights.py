@@ -22,12 +22,14 @@ import torch
 
 from paddle_tpu_torch.core.tree import tree_map
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.models.bert import BERT_LAYER_KEYS, Bert
 from paddle_tpu_torch.models.generation import QuantizedWeight
+from paddle_tpu_torch.models.gpt import GPT_LAYER_KEYS, Gpt
 from paddle_tpu_torch.models.llama import Llama
 from paddle_tpu_torch.models.llama_functional import LAYER_KEYS
 
 __all__ = ["params_from_numpy", "tree_from_numpy", "adamw_state_from_numpy",
-           "tree_to_numpy"]
+           "tree_to_numpy", "gpt_params_from_numpy", "bert_params_from_numpy"]
 
 
 def params_from_numpy(tree, args, device=None, dtype=torch.float32):
@@ -96,3 +98,49 @@ def tree_to_numpy(tree):
         return t.detach().float().cpu().numpy()
 
     return tree_map(back, tree)
+
+
+def gpt_params_from_numpy(tree, args, device=None, dtype=torch.float32):
+    """tree: {"word_emb", "pos_emb", "layers": {ln1_w, ..., fc2_b} stacked
+    on [L], "lnf_w", "lnf_b"} of numpy arrays (the reference's
+    `gpt_params_from_layer`). Returns `Gpt(args, ...)` on `device` (CUDA
+    unless device="cpu") in `dtype`."""
+    dev = resolve_device(device)
+    params = {k: _tensor(tree[k], dev, dtype)
+              for k in ("word_emb", "pos_emb", "lnf_w", "lnf_b")}
+    params["layers"] = {k: _tensor(tree["layers"][k], dev, dtype)
+                        for k in GPT_LAYER_KEYS}
+    return Gpt(args, params, device=dev)
+
+
+# the port's BERT leaf -> the reference BertModel's parameter name
+_BERT_TOP = {"word_emb": "embeddings.word_embeddings.weight",
+             "pos_emb": "embeddings.position_embeddings.weight",
+             "type_emb": "embeddings.token_type_embeddings.weight",
+             "emb_ln_w": "embeddings.layer_norm.weight",
+             "emb_ln_b": "embeddings.layer_norm.bias",
+             "pool_w": "pooler.weight", "pool_b": "pooler.bias"}
+_BERT_LAYER = {"wq": "self_attn.q_proj.weight", "bq": "self_attn.q_proj.bias",
+               "wk": "self_attn.k_proj.weight", "bk": "self_attn.k_proj.bias",
+               "wv": "self_attn.v_proj.weight", "bv": "self_attn.v_proj.bias",
+               "wo": "self_attn.out_proj.weight",
+               "bo": "self_attn.out_proj.bias",
+               "ln1_w": "norm1.weight", "ln1_b": "norm1.bias",
+               "fc1_w": "linear1.weight", "fc1_b": "linear1.bias",
+               "fc2_w": "linear2.weight", "fc2_b": "linear2.bias",
+               "ln2_w": "norm2.weight", "ln2_b": "norm2.bias"}
+
+
+def bert_params_from_numpy(state, cfg, device=None, dtype=torch.float32):
+    """state: a reference `BertModel`'s parameters by name
+    (`state_dict()`, leaves as numpy). Returns `Bert(cfg, ...)` on `device` (CUDA
+    unless device="cpu") in `dtype`, the encoder layers stacked on [L]."""
+    dev = resolve_device(device)
+    params = {k: _tensor(state[name], dev, dtype)
+              for k, name in _BERT_TOP.items()}
+    params["layers"] = {
+        k: _tensor(np.stack([np.asarray(
+            state[f"encoder.layers.{i}.{_BERT_LAYER[k]}"], np.float32)
+            for i in range(cfg.num_hidden_layers)]), dev, dtype)
+        for k in BERT_LAYER_KEYS}
+    return Bert(cfg, params, device=dev)

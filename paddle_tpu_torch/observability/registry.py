@@ -145,6 +145,13 @@ class MetricsRegistry:
             h = self._hists.get(name, {}).get(_label_key(labels))
             return h.stats() if h else None
 
+    def quantile(self, name, q, labels=None):
+        """The q-quantile of a histogram series, or None if never
+        observed."""
+        with self._lock:
+            h = self._hists.get(name, {}).get(_label_key(labels))
+            return h.quantile(q) if h else None
+
     @contextlib.contextmanager
     def timer(self, name, labels=None):
         t0 = time.perf_counter()

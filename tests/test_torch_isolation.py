@@ -37,7 +37,9 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.kernels.flash_attention, "
         "paddle_tpu_torch.distributed, paddle_tpu_torch.core.numerics, "
         "paddle_tpu_torch.core.tree, paddle_tpu_torch.kernels.rms_norm, "
-        "paddle_tpu_torch.serving.spec_decode\n"
+        "paddle_tpu_torch.serving.spec_decode, "
+        "paddle_tpu_torch.serving.disagg, paddle_tpu_torch.serving.router, "
+        "paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.bert\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -126,3 +128,31 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(no_cuda):
             cls(model, max_slots=1, max_len=16)
         assert cls(model, max_slots=1, max_len=16, device="cpu").device.type \
             == "cpu"
+
+
+def test_serving_slice_entry_points_raise_without_cuda(no_cuda):
+    """GPT-2, BERT, the disaggregated pair and the router's backends."""
+    from paddle_tpu_torch.models import (Bert, BertConfig, Gpt, GPTGenArgs,
+                                         Llama, init_params)
+    from paddle_tpu_torch.serving import (BertBackend, DisaggServer,
+                                          GptEngine)
+
+    gargs = GPTGenArgs(vocab_size=32, hidden_size=16, num_layers=1,
+                       num_heads=2, max_position_embeddings=32)
+    bcfg = BertConfig(vocab_size=32, hidden_size=16, num_hidden_layers=1,
+                      num_attention_heads=2, intermediate_size=32,
+                      max_position_embeddings=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Gpt(gargs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Bert(bcfg)
+    gpt, bert = Gpt(gargs, device="cpu"), Bert(bcfg, device="cpu")
+    assert (gpt.device.type, bert.device.type) == ("cpu", "cpu")
+    llama = Llama(_tiny(), init_params(_tiny(), device="cpu"))
+    for make in (lambda **kw: GptEngine(gpt, max_slots=1, max_len=16, **kw),
+                 lambda **kw: BertBackend(bert, **kw),
+                 lambda **kw: DisaggServer(llama, max_slots=1, max_len=16,
+                                           **kw)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+        assert make(device="cpu") is not None
