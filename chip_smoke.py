@@ -66,6 +66,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                   the same bits and one launch a call, then planted faults
                   their bars must reject (B10's dw: a row group left out, a
                   cluster's partial counted twice or left out).
+  2'. c2          fault C2: one row through B4, B5, B6 and B7 in bf16 alone,
+                  among 7 rows with the batch's max_pos and among 3 with pos
+                  on the card (7B's and GPT-2's decode shapes), bit-identical
+                  outputs; one x row through B8's GEMV at M 1, 8, 9 and 16.
+      c3          fault C3: B10 on two streams at once, each call its solo
+                  bits.
+      tune        the block tuner on B8's tile (M 2048 and 8192, K 4096, N
+                  11008), on an empty cache: measured, a cache hit, read from
+                  disk, the PADDLE_TUNE_BLOCKS pin; the output within B8's
+                  bar under each pick.
   2a. train-check the loss and full grad tree of `forward_and_loss` (B1-B3,
                   fused CE) at Llama-2-7B width, 2 layers, s 1024, against an
                   f32 forward written here (materialized attention, unfused
@@ -78,8 +88,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                   timed steps, B1-B3 launched L·M = 8 times each a step and
                   B9/B10 (2L+1)·M = 18; then 2 steps under torch.profiler
                   (where the time goes, the norms' share among it).
+                  The engine's default training monitor reports every
+                  step: its MFU (dispatch time) beside the synchronised
+                  MFU, its HBM gauge equal to torch.cuda.max_memory_allocated.
   2c. train-h2048 the same for bench.py's primary leg (h2048, 16 layers, b8
                   s1024, 2 micro-batches).
+  2d. ckpt        checkpoints at Llama-2-7B width (2 layers, f32 params and
+                  moments, B1-B3, B9, B10; b2 s1024): 5 steps saving every 2
+                  (keep 2); a child process killed (PADDLE_CHAOS, os._exit)
+                  inside step 4's save leaves committed_steps() == [2];
+                  resume=True gives steps 2-4 the uninterrupted losses bit
+                  for bit. Snapshot ms, write MB/s and GB on disk printed.
   3. engine       `PagedEngine` at Llama-2-7B width (32 layers, bf16, random
                   weights from a seed) serves 12 requests with a shared system
                   prefix (radix hits, one mid-page COW split), a short suffix
@@ -115,6 +134,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   `paged_decode_step` against a plain f32 full-sequence forward
                   of the same bf16 weights; then the same with the weights in
                   f32, to a bar that leaves room only for summation order.
+      logits-cuts (not run by default; needs engine) the bf16 check
+                  recorded, not held, with the decode rows' keys cut over
+                  1-4 splits: how far it moves with one kernel's rounding.
   5. generate     `generate` at b=4 (48- and 128-token prompts), the stripe
                   path that runs B4 and B5.
   5a. chunked     chunked prefill against monolithic prefill on the mixed
@@ -168,6 +190,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -209,8 +232,6 @@ TOL = {"bfloat16": 2.0**-6, "float32": 1e-5}
 # launch counters that must read 0 after the main path: B8's wmma tiles
 # serve only shapes off the TMA gate, which no main-path shape is
 OFF_PATH = ("weight_only_matmul_offgate",)
-# published peaks (NVIDIA data sheets, dense): bytes/s and bf16 flop/s
-PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100": (3.35e12, 989e12)}
 
 
 def log(msg):
@@ -240,10 +261,14 @@ def reset_launches():
 
 
 def peaks(name):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no peak rates recorded for {name!r}")
+    """(bytes/s, bf16 flop/s) of the card: the port's one peak table
+    (`observability/hardware.py`), which the training monitor reads too."""
+    from paddle_tpu_torch.observability import hardware
+
+    rates = hardware.peaks_for(name)
+    if rates is None:
+        raise RuntimeError(f"no peak rates recorded for {name!r}")
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -485,10 +510,8 @@ def phase_parity(torch, dev):
                   (q, ck, cv, pos), main and s == 16 and nkv == 32, rows=True)
         for label, *shape in B5_CASES:
             q, ck, cv, pos = b5_case(torch, dev, dtype, *shape)
-            splits = at.window_splits(shape[0], shape[3],
-                                      at._window_last(pos, shape[1],
-                                                      shape[5]),
-                                      at._sms(dev))
+            splits = at.window_splits(at._window_last(pos, shape[1],
+                                                      shape[5]))
             check(f"B5 {dname} {label}: b={shape[0]} s={shape[1]} "
                   f"nh={shape[2]} nkv={shape[3]} hd={shape[4]} "
                   f"len={shape[5]} pos={shape[6]}, "
@@ -526,8 +549,7 @@ def phase_parity(torch, dev):
         # second call bit-identical; f32 runs the shared body
         for label, *shape in PAGED_CASES:
             b, nh, nkv, hd, ps, P, pos = shape
-            splits = (at.paged_splits(b, nkv, P, ps, at._sms(dev)) if main
-                      else 0)
+            splits = at.paged_splits(P, ps) if main else 0
             for quant in (False, True):
                 args, kw = paged_cases(torch, dev, dtype, *shape, q8=quant)
                 check(f"{'B7' if quant else 'B6'} {dname} {label}: b={b} "
@@ -556,9 +578,9 @@ def phase_parity(torch, dev):
                 x, w, sc = matmul_case(torch, dev, dtype, m, k, n)
                 if w_off:
                     w = b8_offset_w(torch, w)
-                split = (qm.gemv_split(m, k, n, qm._sms(dev))
+                split = (qm.gemv_split(k, n, qm._sms(dev))
                          if dtype == torch.bfloat16 else qm._k_split(
-                             m, k, n, dev))
+                             k, n, dev))
                 check(f"B8 GEMV {dname} M={m} K={k} N={n}"
                       + (", w 1 byte off 16-byte alignment" if w_off else "")
                       + f", (K rows a block, blocks) {split}",
@@ -739,10 +761,11 @@ def b5_case(torch, dev, dtype, b, s, nh, nkv, hd, length, pos, seed=7):
 
 
 def window_split_plain(torch, at, q, ck, cv, pos, splits, fault=None):
-    """B5 computed the way the bf16 kernel splits it, in f32: the keys of
-    each row cut by `attention.window_split_keys`, a softmax partial (m, l,
-    O) a split, combined with the max rescale. `fault` plants one of the
-    faults of `planted_b5_faults`."""
+    """B5 computed the way the bf16 kernel splits it, in f32, with each
+    row's keys cut over `splits` splits (`attention.cut_keys`, the kernel's
+    cut; the bar's planted faults need the count set by hand), a softmax
+    partial (m, l, O) a split, combined with the max rescale. `fault`
+    plants one of the faults of `planted_b5_faults`."""
     b, s, nh, hd = q.shape
     nkv, length = ck.shape[1], ck.shape[2]
     g = nh // nkv
@@ -757,7 +780,7 @@ def window_split_plain(torch, at, q, ck, cv, pos, splits, fault=None):
         limit = (p0 + torch.arange(s, device=q.device)).clamp(max=last)
         parts = []
         tile0 = last // at.WINDOW_TILE * at.WINDOW_TILE
-        for z, keys in enumerate(at.window_split_keys(last, splits)):
+        for z, keys in enumerate(at.cut_keys(last, splits)):
             if keys is None or (fault == "drop" and z == splits // 2):
                 continue
             j = torch.arange(keys[0], keys[1] + 1, device=q.device)
@@ -869,7 +892,8 @@ def paged_cases(torch, dev, dtype, b, nh, nkv, hd, ps, P, pos, q8):
 def paged_split_plain(torch, at, q, pk, pv, bt, pos, splits, k_scale=None,
                       v_scale=None, fault=None):
     """B6/B7 computed the way paged_mma_kernel splits them, in f32: each
-    row's keys cut by `attention.paged_split_keys` and read page by page
+    row's keys [0, min(pos, P * ps - 1)] cut over `splits` splits
+    (`attention.cut_keys`, the count set by hand) and read page by page
     through the block table; over an int8 pool the scales folded as the
     kernel folds them (each key's score times its page's sk / 127, its p
     times sv / 127, the codes exact); a softmax partial (m, l, O) a split,
@@ -886,7 +910,7 @@ def paged_split_plain(torch, at, q, pk, pv, bt, pos, splits, k_scale=None,
         last = min(p0, P * ps - 1)
         qs = q[r, 0].float()                                 # [nh, hd]
         parts = []
-        cut = at.paged_split_keys(p0, P, ps, splits)
+        cut = at.cut_keys(last, splits)
         held = [z for z, keys in enumerate(cut) if keys is not None]
         # "drop": the middle split of those holding the row's keys
         drop = (held[len(held) // 2] if fault == "drop" and len(held) > 1
@@ -1048,9 +1072,8 @@ def phase_b4_parity(torch, dev):
             err = (out.float() - ref.float()).abs().max().item()
             tol = TOL[dname] * max(1.0, ref.float().abs().max().item())
             ratio = flash_row_ratio(torch, out, ref32, TOL[dname])
-            splits = (at.decode_splits(b, nkv, at._window_last(
-                pos_t, 1, length), at._sms(dev))
-                if at.paged_route(dtype) == "cluster" else 0)
+            splits = (at.decode_splits(at._window_last(pos_t, 1, length))
+                      if at.paged_route(dtype) == "cluster" else 0)
             same, nan_same = torch.equal(out, again), torch.equal(out,
                                                                   over_nan)
             log(f"[parity] B4 {dname} {label}: b={b} nh={nh} nkv={nkv} "
@@ -1083,7 +1106,7 @@ def b4_shared(torch, q, ck, cv, pos):
     def call():
         rc = lib.pt_decode_attention(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, nh, nkv, length, hd, 1, 0,
+            out.data_ptr(), b, nh, nkv, length, hd, 1, 1, 0,
             1.0 / math.sqrt(hd), stream)
         if rc != 0:
             raise RuntimeError(f"B4's shared body failed: CUDA error {rc}")
@@ -1094,7 +1117,7 @@ def decode_split_plain(torch, at, q, ck, cv, pos, splits, fault=None):
     """B4 computed the way decode_mma_kernel splits it, in f32: the cache
     [b, nkv, len, hd] is a pool of b pages of len keys, row r's table [r],
     so `paged_split_plain` walks each row's keys [0, min(pos, len - 1)]
-    cut by `attention.decode_split_keys`. `fault` plants one of
+    cut over `splits` splits. `fault` plants one of
     PAGED_FAULTS or "tail": the row's last tile read to its end with the
     keys past the row masked out of the softmax but their V rows left in
     P V (p = 0 times what the cache holds there)."""
@@ -1263,7 +1286,7 @@ def phase_rms_parity(torch, dev):
     within its bar (`rms_ratios`); then planted faults the bars must
     reject, at the 7B case and the f32 case. Returns the first case's max
     |error| by launch key (y for B9, dx and dw for B10)."""
-    from paddle_tpu_torch.kernels import attention as at
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
     from paddle_tpu_torch.kernels import rms_norm as rn
 
     main_err = {}
@@ -1288,7 +1311,7 @@ def phase_rms_parity(torch, dev):
         log(f"[parity] rms_norm {label} [{rows}, {h}] {dname}: " + ", ".join(
             f"{k} max_abs_err {errs[k]:.3e} at {ratios[k]:.3f} of its bar"
             for k in got) + f"; B10 grid (blocks, cluster) "
-            f"{rn.bwd_grid(rows, h, x.element_size(), at._sms(dev))}, "
+            f"{rn.bwd_grid(rows, h, x.element_size(), qm._sms(dev))}, "
             f"a second call {'bit-identical' if same else 'DIFFERENT'} (dx, "
             f"dw), {calls} launches for 2 calls")
         if not all(math.isfinite(v) and v <= 1.0 for v in ratios.values()) \
@@ -1301,7 +1324,7 @@ def phase_rms_parity(torch, dev):
             main_err = {"rms_norm_fwd": errs["y"],
                         "rms_norm_bwd": max(errs["dx"], errs["dw"])}
         if label in ("7B micro-batch", "f32"):
-            sms = at._sms(dev)
+            sms = qm._sms(dev)
             split = rms_dw_split(torch, rn, x, rr, g, sms).to(w.dtype)
             ok = rms_ratios(torch, {"dw": split}, {"dw": rdw}, dname)["dw"]
             log(f"[parity] rms_norm bar at {label}: B10's dw split without a "
@@ -1759,7 +1782,7 @@ def phase_train(torch, dev, name, label, warmup=2, steps=8):
 
     import numpy as np
     from paddle_tpu_torch.distributed import HybridParallelEngine
-    from paddle_tpu_torch.distributed.hybrid_engine import flops_per_token
+    from paddle_tpu_torch.observability.hardware import llama_flops_per_token
 
     cfg_kw, batch, seq, mb = TRAIN_LEGS[label]
     torch.cuda.empty_cache()
@@ -1781,15 +1804,22 @@ def phase_train(torch, dev, name, label, warmup=2, steps=8):
         first = loss if first is None else first
     torch.cuda.synchronize(dev)
     reset_launches()
+    mon, lbl = eng.monitor, {"source": "hybrid_engine"}
+    mfu0 = mon.registry.observation("train/mfu", labels=lbl)
+    wall0 = mon.registry.observation("train/step_time_s", labels=lbl)
     t0 = time.perf_counter()
     for _ in range(steps):
         loss, params, opt = eng.train_batch(params, opt, ids, labels)
+    # the gauge as the last step's end_step left it, beside the allocator's
+    # high water now (nothing is allocated after that end_step)
+    hbm_gauge = mon.registry.gauge("train/hbm_high_water_bytes", labels=lbl)
+    hbm_now = torch.cuda.max_memory_allocated(dev)
     torch.cuda.synchronize(dev)
     secs = time.perf_counter() - t0
     launches = launch_counts()
     final = loss.item()
     tps = batch * seq * steps / secs
-    mfu = tps * flops_per_token(args, seq) / peaks(name)[1]
+    mfu = tps * llama_flops_per_token(args, seq) / peaks(name)[1]
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     per_step = {k: launches[k] / steps for k in flash + NORMS}
@@ -1801,6 +1831,23 @@ def phase_train(torch, dev, name, label, warmup=2, steps=8):
         f"first step, {final:.4f} at the last (one batch, repeated, as "
         f"bench.py trains); B1/B2/B3/B9/B10 "
         f"launches a step {per_step}")
+    mfu1 = mon.registry.observation("train/mfu", labels=lbl)
+    wall1 = mon.registry.observation("train/step_time_s", labels=lbl)
+    mon_mfu = (mfu1["sum"] - mfu0["sum"]) / (mfu1["count"] - mfu0["count"])
+    mon_ms = (wall1["sum"] - wall0["sum"]) / steps * 1e3
+    log(f"[{label}] the engine's default monitor (nan_action 'none': each "
+        f"step's wall time is its dispatch, the step never waits for the "
+        f"card): {mon.steps} steps, the timed steps' mean step time "
+        f"{mon_ms:.1f} ms against {secs / steps * 1e3:.1f} ms synchronised "
+        f"and mean MFU {mon_mfu:.1%} against {mfu:.1%} "
+        f"(peak {mon.peak_flops / 1e12:.0f} TFLOP/s), HBM high water "
+        f"{hbm_gauge / 2**30:.2f} GiB (torch.cuda.max_memory_allocated "
+        f"{hbm_now / 2**30:.2f} GiB)")
+    if mon.steps != warmup + steps or hbm_gauge != hbm_now or \
+            mon.peak_flops != peaks(name)[1]:
+        raise AssertionError(f"{label}: monitor steps {mon.steps}, HBM gauge "
+                             f"{hbm_gauge} vs {hbm_now}, peak "
+                             f"{mon.peak_flops}")
     # B1-B3 once a layer, B9/B10 once a norm (2L + 1), each micro-batch
     want = dict.fromkeys(flash, args.num_layers * mb)
     want.update(dict.fromkeys(NORMS, (2 * args.num_layers + 1) * mb))
@@ -1999,7 +2046,7 @@ def phase_timing(torch, dev, name, main_err, launches):
            lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
            kv_bytes + qo_bytes + b * 4, flops,
            f"B4 b=8 nh=nkv=32 hd=128 len=2048, "
-           f"{at.decode_splits(b, nkv, ck.shape[2] - 1, at._sms(dev))} "
+           f"{at.decode_splits(ck.shape[2] - 1)} "
            f"split(s)", methods=True)
     log(f"[timing] B4's shared CUDA-core body (the kernel the cluster kernel "
         f"replaced in bf16, its C entry point with splits 0), same inputs, by "
@@ -2049,8 +2096,7 @@ def phase_timing(torch, dev, name, main_err, launches):
                 qt, ck, cv, attn_mask=mask), l2)
             log(f"[timing] B5's library call as PR 6 timed it, SDPA over the "
                 f"whole {L}-key stripe: {stripe_ms:.4f} ms")
-        splits = at.window_splits(b, nkv, at._window_last(pos, s, L),
-                                  at._sms(dev))
+        splits = at.window_splits(at._window_last(pos, s, L))
         record("window_attention",
                lambda: at.window_attention(q, ck, cv, pos),
                lambda: at.window_attention_plain(q, ck, cv, pos),
@@ -2113,8 +2159,7 @@ def phase_timing(torch, dev, name, main_err, launches):
         qt = args[0].transpose(1, 2)
         kid, name = (("B7", "paged_decode_attention_int8") if q8
                      else ("B6", "paged_decode_attention"))
-        splits = at.paged_splits(8, nkv, 128, ps, at._sms(dev),
-                                 max(eng_pos))
+        splits = at.paged_splits(128, ps, max(eng_pos))
         unbound = cuda_ms(torch, lambda: at.paged_decode_attention(
             *args, **kw), l2)
         record(name,
@@ -2127,7 +2172,7 @@ def phase_timing(torch, dev, name, main_err, launches):
                f"{kid} at the engine's decode shape (8 rows of 257-320 "
                f"keys, ps=16 P=128), max_pos {max(eng_pos)}: {splits} "
                f"split(s); without the bound "
-               f"{at.paged_splits(8, nkv, 128, ps, at._sms(dev))} split(s), "
+               f"{at.paged_splits(128, ps)} split(s), "
                f"{unbound:.4f} ms", row=False)
         del args, kw, ck, cv
 
@@ -2148,7 +2193,7 @@ def phase_timing(torch, dev, name, main_err, launches):
             way += f", tile {qm.tile(m, n, qm._sms(dev))}"
         else:
             way += (f", (K rows a block, cluster) "
-                    f"{qm.gemv_split(m, k, n, qm._sms(dev))}")
+                    f"{qm.gemv_split(k, n, qm._sms(dev))}")
         row = ("weight_only_matmul_prefill" if (m, k, n) == (2048, 4096,
                                                              11008)
                else (m, k, n) == (8, 4096, 11008))
@@ -2190,7 +2235,7 @@ def phase_timing(torch, dev, name, main_err, launches):
                lambda: rn.rms_norm_bwd_plain(x, w, r, g), lib_backward,
                3 * t16 + 2 * h * 2 + n * 4, 9 * n * h,
                f"B10 [{n}, {h}] bf16, (blocks, cluster) "
-               f"{rn.bwd_grid(n, h, 2, at._sms(dev))}", row=main,
+               f"{rn.bwd_grid(n, h, 2, qm._sms(dev))}", row=main,
                methods=True)
 
         def lib_both():
@@ -2689,6 +2734,27 @@ def phase_logits(torch, dev, model, req):
     f32 = as_f32(model)
     compare(torch, "logits", "f32 weights vs the f32 forward",
             paged_logits(torch, dev, f32, req), ref, LOGIT_BARS["float32"])
+
+
+def phase_logits_cuts(torch, dev, model, req):
+    """The logits phase's bf16 check, recorded and not held, with the
+    decode rows' keys (B6, 9-10 tiles) cut over 1, 2, 3 and 4 splits
+    (`attention.PAGED_SPLIT_TILES` set by hand to 16, 5, 4 and 3): how far
+    its statistics move with the rounding of one kernel's split alone."""
+    from paddle_tpu_torch.kernels import attention as at
+
+    n = req.prompt_ids.size
+    ref = reference_logits(torch, model, forward_ids(torch, dev, req))
+    ref = ref[n - 1:n - 1 + len(req.token_ids)]
+    saved = at.PAGED_SPLIT_TILES
+    try:
+        for tiles in (16, 5, 4, 3):
+            at.PAGED_SPLIT_TILES = tiles
+            compare(torch, "logits-cuts", f"bf16 weights vs the f32 forward, "
+                    f"after a {n}-token prompt, {tiles} tiles a split",
+                    paged_logits(torch, dev, model, req), ref)
+    finally:
+        at.PAGED_SPLIT_TILES = saved
 
 
 def phase_logits_int8(torch, dev, qmodel, req, page_size=16):
@@ -3620,6 +3686,468 @@ def phase_router(torch, dev, model, gpt_cfg=None, bert_cfg=None, seed=0):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# c2: a row's bf16 result independent of its batch (B4-B8); c3: B10 on two
+# streams
+# ---------------------------------------------------------------------------
+
+# (label, nh, nkv, hd, cache length, the probed row's pos, the other rows'
+# pos): Llama-2-7B's decode and GPT-2's in the router (12 kv heads). The
+# other rows are shorter and longer than the probed one; at 7B width all
+# under 1024 keys, where the bound on pos used to cut every row's keys
+# over 1 split and the row alone over 2
+C2_SHAPES = (("7B decode", 32, 32, 128, 2048, 600,
+              (50, 200, 800, 950, 1000, 10, 400)),
+             ("GPT-2 decode", 12, 12, 64, 1024, 700,
+              (30, 150, 1000, 400, 90, 1023, 5)))
+# where the probed row sits in the batches of 8 and of 3 rows
+C2_AT = {8: 3, 3: 1}
+C2_PS = 16
+C2_WINDOW = 16        # B5's window: a paged-prefill suffix
+# B8's GEMV: the probed x row among M rows, at row C2_GEMV_AT[M]
+C2_GEMV_AT = {1: 0, 8: 3, 9: 8, 16: 15}
+
+
+def _c2_rows(torch, dev, nh, nkv, hd, length, n, seed):
+    """n rows' bf16 q [n, 1, nh, hd], window q [n, C2_WINDOW, nh, hd],
+    caches [n, nkv, length, hd] and int8 pages (codes, scales): each row
+    its own seed, so a row holds the same values in any batch."""
+    rows = []
+    for i in range(n):
+        g = torch.Generator(device=dev).manual_seed(seed + 1000 * i)
+        k = torch.randn(nkv, length, hd, generator=g, device=dev).bfloat16()
+        v = torch.randn(nkv, length, hd, generator=g, device=dev).bfloat16()
+        q = torch.randn(1, nh, hd, generator=g, device=dev).bfloat16()
+        qw = torch.randn(C2_WINDOW, nh, hd, generator=g,
+                         device=dev).bfloat16()
+        pages = length // C2_PS
+        codes = [torch.randint(-127, 128, (pages, nkv, C2_PS, hd),
+                               generator=g, device=dev, dtype=torch.int8)
+                 for _ in range(2)]
+        scales = [torch.rand(pages, nkv, generator=g, device=dev) * 2 + 0.5
+                  for _ in range(2)]
+        rows.append((q, qw, k, v, codes, scales))
+    return rows
+
+
+def _c2_batch(torch, dev, rows, pos, nkv, hd, length):
+    """The rows as one batch: q, window q, contiguous caches, bf16 and int8
+    pools (page 0 the null page, a row's pages in order) with their block
+    tables, and pos."""
+    b = len(rows)
+    pages = length // C2_PS
+    q = torch.stack([r[0] for r in rows])
+    qw = torch.stack([r[1] for r in rows])
+    ck = torch.stack([r[2] for r in rows])
+    cv = torch.stack([r[3] for r in rows])
+
+    def pool(c):   # [b, nkv, len, hd] -> [1 + b * pages, nkv, ps, hd]
+        body = c.reshape(b, nkv, pages, C2_PS, hd).transpose(1, 2).reshape(
+            b * pages, nkv, C2_PS, hd)
+        return torch.cat([torch.zeros_like(body[:1]), body]).contiguous()
+
+    def stacked(i):   # the int8 codes / scales of half i, page 0 null
+        codes = torch.cat([torch.zeros_like(rows[0][4][i][:1])]
+                          + [r[4][i] for r in rows]).contiguous()
+        scales = torch.cat([torch.ones_like(rows[0][5][i][:1])]
+                           + [r[5][i] for r in rows]).contiguous()
+        return codes, scales
+
+    bt = (torch.arange(b * pages, dtype=torch.int32, device=dev)
+          .reshape(b, pages) + 1).contiguous()
+    (kq, ks), (vq, vs) = stacked(0), stacked(1)
+    return dict(q=q, qw=qw, ck=ck, cv=cv, pk=pool(ck), pv=pool(cv), kq=kq,
+                vq=vq, ks=ks, vs=vs, bt=bt,
+                pos=torch.tensor(pos, dtype=torch.int32))
+
+
+def _c2_outputs(torch, at, d, bound, max_pos):
+    """Each of B4-B7's bf16 output for batch `d`. bound: the host knows
+    every row's pos (a CPU tensor, and max_pos for B6/B7) or only that
+    they are on the card (max_pos None)."""
+    pos = d["pos"] if bound else d["pos"].to(d["q"].device)
+    return {
+        "B4": at.decode_attention(d["q"], d["ck"], d["cv"], pos),
+        "B5": at.window_attention(d["qw"], d["ck"], d["cv"], pos),
+        "B6": at.paged_decode_attention(d["q"], d["pk"], d["pv"], d["bt"],
+                                        pos, max_pos=max_pos),
+        "B7": at.paged_decode_attention(d["q"], d["kq"], d["vq"], d["bt"],
+                                        pos, k_scale=d["ks"], v_scale=d["vs"],
+                                        max_pos=max_pos)}
+
+
+def phase_c2(torch, dev, check=True):
+    """Fault C2: one row through each bf16 kernel in three batches, alone
+    (b = 1, its own pos as the bound), among 7 rows shorter and longer
+    (the batch's largest pos as max_pos, pos known to the host) and among 3
+    rows with max_pos=None (pos on the card): B4, B5, B6 and B7 must give
+    the row bit-identical outputs. B8's GEMV: one x row at M = 1, 8, 9 and
+    16 at the four decode shapes, bit-identical. With check=False (a
+    record of a tree before the repair) it only prints which differ. The
+    disagg phase prints the agreement of whole requests."""
+    from paddle_tpu_torch.kernels import attention as at
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+
+    differ = []
+    for label, nh, nkv, hd, length, pos0, others in C2_SHAPES:
+        rows = _c2_rows(torch, dev, nh, nkv, hd, length, 1 + len(others),
+                        seed=11)
+        target, rest = rows[0], rows[1:]
+        alone = _c2_outputs(torch, at, _c2_batch(
+            torch, dev, [target], [pos0], nkv, hd, length), True, pos0)
+        results = {k: [] for k in alone}
+        for b, bound in ((8, True), (3, False)):
+            at_i = C2_AT[b]
+            brows = rest[:at_i] + [target] + rest[at_i:b - 1]
+            bpos = list(others[:at_i]) + [pos0] + list(others[at_i:b - 1])
+            outs = _c2_outputs(torch, at, _c2_batch(
+                torch, dev, brows, bpos, nkv, hd, length), bound,
+                max(bpos) if bound else None)
+            for k, out in outs.items():
+                results[k].append(torch.equal(out[at_i], alone[k][0]))
+        torch.cuda.synchronize()
+        for k, same in results.items():
+            log(f"[c2] {k} bf16 {label} (nh={nh} nkv={nkv} hd={hd} "
+                f"len={length}), a row at pos {pos0}: among 7 rows with "
+                f"max_pos {'the same bits' if same[0] else 'DIFFERENT'}, "
+                f"among 3 rows with pos on the card "
+                f"{'the same bits' if same[1] else 'DIFFERENT'} as alone")
+            if not all(same):
+                differ.append(f"{k} {label}")
+        del rows, target, rest, alone
+    for k, n, _ in DECODE_MATMULS:
+        x0, w, s = matmul_case(torch, dev, torch.bfloat16, 1, k, n, seed=21)
+        ref = qm.weight_only_matmul(x0, w, s)
+        same = {}
+        for m, row in C2_GEMV_AT.items():
+            g = torch.Generator(device=dev).manual_seed(m)
+            x = torch.randn(m, k, generator=g, device=dev).bfloat16()
+            x[row] = x0[0]
+            same[m] = torch.equal(qm.weight_only_matmul(x, w, s)[row],
+                                  ref[0])
+        log(f"[c2] B8 GEMV bf16 K={k} N={n}, one x row at M = 1, 8, 9, 16: "
+            + ", ".join(f"M={m} {'the same bits' if v else 'DIFFERENT'}"
+                        for m, v in same.items()))
+        if not all(same.values()):
+            differ.append(f"B8 GEMV K={k} N={n}")
+    log(f"[c2] rows whose bf16 output depends on their batch: "
+        f"{differ or 'none'}")
+    if check and differ:
+        raise AssertionError(f"fault C2: a row's output depends on its "
+                             f"batch in {differ}")
+    return differ
+
+
+# B10's rows on the two streams: the 7B micro-batch (132 blocks, one an
+# SM: two calls barely overlap) and 64 rows (32 blocks in 8 clusters: two
+# calls fit on the card at once)
+C3_ROWS = (4096, 64)
+
+
+def phase_c3(torch, dev, check=True, calls=64):
+    """Fault C3: B10 on two streams of one card at once, different inputs
+    (two seeds, [rows, 4096] bf16 for each of C3_ROWS), `calls` calls
+    each, interleaved: every call must give the bits it gives alone on the
+    default stream. With check=False it only prints."""
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    bad = {}
+    for rows in C3_ROWS:
+        ins = []
+        for seed in (6, 60):
+            x, w, g = rms_case(torch, dev, rows, 4096, torch.bfloat16,
+                               seed=seed)
+            _, r = rn.rms_norm_fwd(x, w, RMS_EPS)
+            ins.append((x, w, r, g))
+        solo = [rn.rms_norm_bwd(*a) for a in ins]
+        torch.cuda.synchronize(dev)
+        streams = [torch.cuda.Stream(dev) for _ in ins]
+        for st in streams:
+            st.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(st):
+                # hold both streams while the host enqueues every call, so
+                # that the two streams' calls are queued when they start
+                torch.cuda._sleep(20_000_000)
+        outs = [[], []]
+        for _ in range(calls):
+            for i, (st, a) in enumerate(zip(streams, ins)):
+                with torch.cuda.stream(st):
+                    outs[i].append(rn.rms_norm_bwd(*a))
+        torch.cuda.synchronize(dev)
+        bad[rows] = [(i, j) for i in range(2)
+                     for j, (dx, dw) in enumerate(outs[i])
+                     if not (torch.equal(dx, solo[i][0])
+                             and torch.equal(dw, solo[i][1]))]
+        log(f"[c3] B10 [{rows}, 4096] bf16 on two streams, {calls} calls "
+            f"each, interleaved: {2 * calls - len(bad[rows])} of "
+            f"{2 * calls} calls give their solo bits"
+            + (f"; the rest differ: {bad[rows][:8]}" if bad[rows] else ""))
+    if check and any(bad.values()):
+        raise AssertionError(f"fault C3: B10 calls on two streams differ "
+                             f"from their solo bits: {bad}")
+    return bad
+
+
+# ---------------------------------------------------------------------------
+# tune: the block tuner on B8's tile
+# ---------------------------------------------------------------------------
+
+TUNE_SHAPES = ((2048, 4096, 11008), (8192, 4096, 11008))
+
+
+def phase_tune(torch, dev):
+    """The block tuner on B8's tile, on an empty cache in a temporary
+    directory: with PADDLE_KERNEL_AUTOTUNE=1 a call at M = 2048 and 8192,
+    K = 4096, N = 11008 measures the three TILES candidates
+    (`kernels/timing.py`); a second call is a cache hit, and another after
+    the in-process mirror is dropped reads the disk; PADDLE_TUNE_BLOCKS
+    overrides both; the output under each pick within B8's bar of its
+    plain version. The registry's lookup counter says where each pick came
+    from."""
+    import os
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.kernels import tuning
+    from paddle_tpu_torch.observability import (MetricsRegistry,
+                                                set_global_registry)
+
+    env = ("PADDLE_TUNING_CACHE", "PADDLE_KERNEL_AUTOTUNE",
+           "PADDLE_TUNE_BLOCKS")
+    saved = {k: os.environ.get(k) for k in env}
+    tmp = tempfile.mkdtemp(prefix="tune_")
+    reg = MetricsRegistry()
+    prev = set_global_registry(reg)
+    try:
+        os.environ["PADDLE_TUNING_CACHE"] = os.path.join(tmp, "tuning.json")
+        os.environ["PADDLE_KERNEL_AUTOTUNE"] = "1"
+        os.environ.pop("PADDLE_TUNE_BLOCKS", None)
+        tuning.clear_memory_cache()
+
+        def picked():
+            g = reg.snapshot()["gauges"]["kernel_block"]
+            return (g["kernel=b8_tile,param=tile_m"]["value"],
+                    g["kernel=b8_tile,param=tile_n"]["value"])
+
+        def source():
+            c = reg.snapshot()["counters"].get("kernel_tuning_lookups", {})
+            return {k.split("source=")[1]: v for k, v in c.items()
+                    if "kernel=b8_tile" in k}
+
+        for m, k, n in TUNE_SHAPES:
+            x, w, s = matmul_case(torch, dev, torch.bfloat16, m, k, n)
+            plain = qm.dequant_matmul_plain(x, w, s)
+            tol = TOL["bfloat16"] * max(1.0, plain.float().abs().max().item())
+            rule = qm.tile(m, n, qm._sms(dev))
+            steps = []
+            for what in ("measured", "cache", "disk", "env"):
+                before = dict(source())
+                if what == "disk":
+                    tuning.clear_memory_cache()
+                if what == "env":
+                    os.environ["PADDLE_TUNE_BLOCKS"] = json.dumps(
+                        {"b8_tile": {"tile_m": 128, "tile_n": 128}})
+                out = qm.weight_only_matmul(x, w, s)
+                torch.cuda.synchronize(dev)
+                err = (out.float() - plain.float()).abs().max().item()
+                after = source()
+                got = [src for src in after if after[src] != before.get(src)]
+                steps.append((what, picked(), got, err))
+                if not (math.isfinite(err) and err <= tol):
+                    raise AssertionError(f"tune: B8 at M={m} under tile "
+                                         f"{picked()}: {err} > {tol}")
+            os.environ.pop("PADDLE_TUNE_BLOCKS", None)
+            times = {lbl.split("candidate=")[1].split(",kernel=")[0]:
+                     v["value"] * 1e3
+                     for lbl, v in reg.snapshot()["gauges"][
+                         "kernel_tuning_seconds"].items()
+                     if f"m={tuning.bucket(m)}," in lbl}
+            log(f"[tune] B8 M={m} K={k} N={n}: the rule's tile {rule}; "
+                f"measured (ms) {times}; "
+                + "; ".join(f"{what}: tile {t} from {g}, max_abs_err "
+                            f"{e:.3e} (bar {tol:.3e})"
+                            for what, t, g, e in steps))
+            want = ["measured", "cache", "cache", "env"]
+            if [g for _, _, g, _ in steps] != [[w_] for w_ in want] or \
+                    steps[3][1] != (128, 128) or len(times) != len(qm.TILES):
+                raise AssertionError(f"tune: lookups {steps}, times {times}")
+            del x, w, s, plain, out
+    finally:
+        set_global_registry(prev)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tuning.clear_memory_cache()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# ckpt: save, kill, resume at 7B width
+# ---------------------------------------------------------------------------
+
+# Llama-2-7B's width, 2 layers, f32 params and moments: ~667 M parameters,
+# ~8.0 GB of state; 5 steps of b 2, s 1024, saved every 2 steps
+CKPT_LEG = dict(layers=2, batch=2, seq=1024, steps=5, save_every=2,
+                keep_last_k=2)
+CKPT_CHILD = """
+import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.CKPT_LEG.update({leg!r})
+chip_smoke.ckpt_child({ckpt!r}, {device!r}, {args!r})
+"""
+
+
+def ckpt_args():
+    from paddle_tpu_torch.models import LLAMA2_7B
+
+    return LLAMA2_7B._replace(num_layers=CKPT_LEG["layers"])
+
+
+def _ckpt_batch(step, vocab):
+    import numpy as np
+
+    rng = np.random.default_rng(100 + step)   # a per-step-seeded pipeline
+    shape = (CKPT_LEG["batch"], CKPT_LEG["seq"])
+    return (rng.integers(0, vocab, shape).astype(np.int32),
+            rng.integers(0, vocab, shape).astype(np.int32))
+
+
+def ckpt_run(torch, dev, args, root=None, resume=False):
+    """The ckpt leg's engine over LlamaArgs `args` from seed 0 (resumed
+    when asked), trained to step CKPT_LEG["steps"]; returns ({step: loss},
+    engine)."""
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+
+    kw = {}
+    if root is not None:
+        kw = dict(save_every=CKPT_LEG["save_every"], checkpoint=root,
+                  resume=resume, keep_last_k=CKPT_LEG["keep_last_k"])
+    eng = HybridParallelEngine(args, dtype=torch.float32, remat=False,
+                               lr=1e-4, loss_chunk=128, moments="f32",
+                               device=dev, **kw)
+    params, opt = eng.init_state(0)
+    params, opt, start = eng.maybe_resume(params, opt)
+    losses = {}
+    for step in range(start, CKPT_LEG["steps"]):
+        loss, params, opt = eng.train_batch(
+            params, opt, *_ckpt_batch(step, eng.args.vocab_size))
+        losses[step] = loss.item()
+    if eng.checkpoint_manager is not None:
+        eng.checkpoint_manager.wait()
+    return losses, eng
+
+
+def ckpt_child(root, device, args):
+    """The ckpt phase's child: the leg (LlamaArgs fields `args`) with
+    PADDLE_CHAOS crashing (os._exit) inside step 4's save, after its shards
+    are written (the second save's `after_shards` point)."""
+    import torch
+
+    from paddle_tpu_torch.models import LlamaArgs
+
+    os.environ["PADDLE_CHAOS"] = "crash_at:after_shards#2"
+    losses, _ = ckpt_run(torch, torch.device(device), LlamaArgs(**args),
+                         root)
+    print(f"UNREACHABLE {losses}", flush=True)
+
+
+def phase_ckpt(torch, dev):
+    """Checkpoints at Llama-2-7B width (2 layers, f32 params and moments,
+    B1-B3, B9, B10): (1) 5 steps uninterrupted, saving every 2 steps
+    (keep 2), in a temporary directory; (2) a child process runs the same
+    leg and is killed (os._exit, PADDLE_CHAOS) inside step 4's save: the
+    survivor must see committed_steps() == [2]; (3) resume=True from that
+    directory: steps 2-4 must give run (1)'s losses bit for bit. Prints
+    the snapshot ms, the write MB/s and the GB on disk; the directory is
+    deleted."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.observability import (MetricsRegistry, hardware,
+                                                set_global_registry)
+
+    args = ckpt_args()
+    base = tempfile.mkdtemp(prefix="ckpt_")
+    reg = MetricsRegistry()
+    prev = set_global_registry(reg)
+    try:
+        torch.cuda.empty_cache()
+        root = os.path.join(base, "uninterrupted")
+        t0 = time.perf_counter()
+        ref, eng = ckpt_run(torch, dev, args, root)
+        params = hardware.llama_param_count(eng.args)
+        snap = reg.observation("checkpoint/snapshot_seconds")
+        save = reg.observation("checkpoint/save_seconds")
+        write = reg.observation("checkpoint/write_seconds")
+        written = reg.counter("checkpoint/bytes_written")
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(root) for f in fs)
+        log(f"[ckpt] hidden {args.hidden_size}, {args.num_layers} layers, "
+            f"vocab {args.vocab_size}, f32 params and "
+            f"moments, b{CKPT_LEG['batch']} s{CKPT_LEG['seq']}: "
+            f"{CKPT_LEG['steps']} steps uninterrupted in "
+            f"{time.perf_counter() - t0:.1f} s, losses {ref}; "
+            f"committed {eng.checkpoint_manager.committed_steps()}; "
+            f"snapshot (device to host) {snap['mean'] * 1e3:.1f} ms a save "
+            f"(min {snap['min'] * 1e3:.1f}, {snap['count']} saves), save to "
+            f"commit {save['mean']:.2f} s, of which the write and commit "
+            f"{write['mean']:.2f} s: "
+            f"{written / write['count'] / write['mean'] / 1e6:.0f} MB/s "
+            f"({written / write['count'] / 1e9:.2f} GB a save); "
+            f"{on_disk / 1e9:.2f} GB on disk for "
+            f"{len(eng.checkpoint_manager.committed_steps())} snapshots")
+        del eng
+        shutil.rmtree(root)
+        torch.cuda.empty_cache()
+        root = os.path.join(base, "killed")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c",
+             CKPT_CHILD.format(root=str(ROOT), ckpt=root, device=str(dev),
+                               args=args._asdict(), leg=CKPT_LEG)],
+            capture_output=True, text=True, timeout=600)
+        from paddle_tpu_torch.distributed.checkpoint.chaos import (
+            CRASH_EXIT_CODE)
+
+        survivor = CheckpointManager(root=root, registry=MetricsRegistry())
+        steps = survivor.committed_steps()
+        leftovers = sorted(n for n in os.listdir(root) if ".tmp." in n)
+        log(f"[ckpt] the child killed inside step 4's save: exit "
+            f"{child.returncode} (the injector's {CRASH_EXIT_CODE}) after "
+            f"{time.perf_counter() - t0:.1f} s; the survivor sees committed "
+            f"{steps}, staging leftovers {leftovers}")
+        if child.returncode != CRASH_EXIT_CODE or steps != [2] or \
+                "UNREACHABLE" in child.stdout:
+            raise AssertionError(f"ckpt child: rc {child.returncode}, "
+                                 f"committed {steps}\n{child.stdout[-2000:]}"
+                                 f"\n{child.stderr[-4000:]}")
+        t0 = time.perf_counter()
+        resumed, eng = ckpt_run(torch, dev, args, root, resume=True)
+        rest = reg.observation("checkpoint/restore_seconds")
+        same = {s: resumed[s] == ref[s] for s in resumed}
+        log(f"[ckpt] resumed from step {min(resumed)} in "
+            f"{rest['mean']:.2f} s (restore), steps {sorted(resumed)} in "
+            f"{time.perf_counter() - t0:.1f} s: losses {resumed}, "
+            f"bit-identical to the uninterrupted run's: {same}; committed "
+            f"{eng.checkpoint_manager.committed_steps()}, staging "
+            f"leftovers swept: "
+            f"{not any('.tmp.' in n for n in os.listdir(root))}; "
+            f"{params / 1e6:.1f} M parameters")
+        if sorted(resumed) != [2, 3, 4] or not all(same.values()) or \
+                eng.checkpoint_manager.committed_steps() != [2, 4]:
+            raise AssertionError(f"ckpt resume: {resumed} vs {ref}")
+        del eng
+    finally:
+        set_global_registry(prev)
+        shutil.rmtree(base, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def _add(total, launches):
     for k, v in launches.items():
         total[k] += v
@@ -3628,9 +4156,9 @@ def _add(total, launches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,parity,train-check,train,train-h2048,"
-                    "engine,disagg,router,logits,generate,chunked,spec,"
-                    "engine-int8,logits-int8,capacity,timing",
+                    default="build,parity,c2,c3,tune,train-check,train,"
+                    "train-h2048,ckpt,engine,disagg,router,logits,generate,"
+                    "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -3667,6 +4195,13 @@ def main(argv=None):
         phase_build()
     if "parity" in phases:
         main_err = phase_parity(torch, dev)
+    if "c2" in phases:
+        phase_c2(torch, dev)
+    if "c3" in phases:
+        phase_c3(torch, dev)
+    if "tune" in phases:
+        phase_tune(torch, dev)
+        torch.cuda.empty_cache()
     if "train-check" in phases:
         phase_train_check(torch, dev)
         torch.cuda.empty_cache()
@@ -3675,6 +4210,8 @@ def main(argv=None):
     if "train-h2048" in phases:
         phase_train(torch, dev, name, "train-h2048")
     torch.cuda.empty_cache()
+    if "ckpt" in phases:
+        phase_ckpt(torch, dev)
     model = None
     if {"engine", "disagg", "router", "logits", "generate", "chunked",
             "spec", "engine-int8", "logits-int8", "capacity"} & set(phases):
@@ -3697,6 +4234,8 @@ def main(argv=None):
     if "router" in phases:
         _add(launches, phase_router(torch, dev, model))
         torch.cuda.empty_cache()
+    if "logits-cuts" in phases:
+        phase_logits_cuts(torch, dev, model, reqs[3])
     if "logits" in phases:
         phase_logits(torch, dev, model, reqs[3])
         torch.cuda.empty_cache()

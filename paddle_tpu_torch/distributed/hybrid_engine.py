@@ -8,11 +8,19 @@ accumulated) and then `adamw_update` (:103). The reference compiles the
 step into one XLA program and donates params and optimizer state to it;
 here PyTorch runs it eagerly and updates both in place.
 
-Not ported yet, and raising NotImplementedError: dp/pp/mp/cp > 1 and
-checkpointing (ROADMAP A9), the training monitor (ROADMAP A10).
+As in the reference, every step reports to a `TrainingMonitor` (a default
+one with nan_action='none', which never waits for the card), and
+`save_every` / `checkpoint` / `resume` commit {"params", "opt"} through a
+`CheckpointManager` in the JAX package's on-disk format and resume from
+the newest committed step (`maybe_resume`).
+
+Not ported yet, and raising NotImplementedError: dp/pp/mp/cp > 1
+(ROADMAP A9).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -21,9 +29,9 @@ from paddle_tpu_torch.core.numerics import stochastic_round_bf16
 from paddle_tpu_torch.core.tree import leaves_like, tree_leaves, tree_map
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models import llama_functional as lf
+from paddle_tpu_torch.observability import hardware
 
-__all__ = ["HybridParallelEngine", "adamw_init", "adamw_update", "MOMENTS",
-           "param_count", "flops_per_token"]
+__all__ = ["HybridParallelEngine", "adamw_init", "adamw_update", "MOMENTS"]
 
 MOMENTS = ("f32", "bf16", "factored")
 
@@ -150,27 +158,6 @@ def _adamw_update(params, grads, state, lr, beta1, beta2, eps, weight_decay,
 
 
 # --------------------------------------------------------------------------
-# model FLOPs (bench.py:77 `_param_count`, :86 `_flops_per_token`)
-# --------------------------------------------------------------------------
-
-
-def param_count(args):
-    h, i, v, L = (args.hidden_size, args.intermediate_size, args.vocab_size,
-                  args.num_layers)
-    hd = h // args.num_heads
-    per_layer = (h * args.num_heads * hd + 2 * h * args.num_kv_heads * hd
-                 + args.num_heads * hd * h + 3 * h * i + 2 * h)
-    return v * h * 2 + L * per_layer + h
-
-
-def flops_per_token(args, seq):
-    """Training FLOPs a token: 6·N for the matmuls plus causal attention,
-    12·L·h·s/2 (model FLOPs: a remat recompute is not counted)."""
-    return 6 * param_count(args) + 6 * args.num_layers * args.hidden_size \
-        * seq
-
-
-# --------------------------------------------------------------------------
 # engine
 # --------------------------------------------------------------------------
 
@@ -183,23 +170,25 @@ class HybridParallelEngine:
     `train_batch(params, opt_state, ids, labels)` -> (loss, params,
     opt_state), params and state updated in place and returned; the loss is
     a 0-d f32 tensor on the device, not read back (the step never waits for
-    the card)."""
+    the card).
+
+    monitor: a `TrainingMonitor` (default: one with nan_action='none',
+    source 'hybrid_engine', on the engine's device). save_every=N commits
+    {"params", "opt"} every N completed steps through `checkpoint_manager`
+    (a `CheckpointManager` of `checkpoint`, a root dir or a manager; with
+    neither, $PADDLE_CHECKPOINT_DIR), keeping the newest `keep_last_k`;
+    resume=True makes `maybe_resume` restore the newest committed step."""
 
     def __init__(self, config, dp=1, pp=1, mp=1, micro_batches=None,
                  dtype=torch.float32, remat=True, lr=3e-4, loss_chunk=None,
                  moments="f32", cp=1, monitor=None, master_weights=False,
-                 save_every=None, checkpoint=None, resume=False, device=None):
+                 save_every=None, checkpoint=None, resume=False,
+                 keep_last_k=3, device=None):
         for name, n in (("dp", dp), ("pp", pp), ("mp", mp), ("cp", cp)):
             if n != 1:
                 raise NotImplementedError(
                     f"{name}={n}: multi-GPU training is not ported yet "
                     "(ROADMAP A9); the port trains on one card")
-        if save_every or checkpoint is not None or resume:
-            raise NotImplementedError("checkpointing is not ported yet "
-                                      "(ROADMAP A9)")
-        if monitor is not None:
-            raise NotImplementedError("the training monitor is not ported "
-                                      "yet (ROADMAP A10)")
         if moments not in MOMENTS:
             raise ValueError(f"moments must be one of {MOMENTS}, got "
                              f"{moments!r}")
@@ -217,6 +206,37 @@ class HybridParallelEngine:
         self.moments = moments
         self.master_weights = bool(master_weights)
 
+        # per-step telemetry. The default monitor's nan_action='none' keeps
+        # train_batch free of any wait for the card, so its step times are
+        # dispatch times; pass nan_action='raise'/'warn' for a loss-checked
+        # (synchronised) loop.
+        from paddle_tpu_torch.observability import TrainingMonitor
+
+        if monitor is None:
+            monitor = TrainingMonitor(source="hybrid_engine",
+                                      nan_action="none", device=self.device)
+        elif monitor.device is None:
+            monitor.device = self.device
+        self.monitor = monitor
+        # the flops a token, refreshed when the sequence length changes,
+        # unless the caller's monitor came with its own
+        self._fpt_auto = monitor.flops_per_token is None
+        self._fpt_seq = None
+
+        # periodic atomic checkpoints and resume
+        self._save_every = int(save_every) if save_every else None
+        self._resume = bool(resume)
+        self._global_step = 0   # completed train_batch calls, resume-aware
+        self.checkpoint_manager = None
+        if self._save_every or resume or checkpoint is not None:
+            from paddle_tpu_torch.distributed.checkpoint import (
+                CheckpointManager)
+
+            self.checkpoint_manager = (
+                checkpoint if isinstance(checkpoint, CheckpointManager)
+                else CheckpointManager(root=checkpoint,
+                                       keep_last_k=keep_last_k))
+
     def init_state(self, seed=0):
         """(params, opt_state): random params (`init_params`, from a
         generator seeded with `seed`, leaves requiring grad) and their
@@ -229,6 +249,25 @@ class HybridParallelEngine:
         for p in tree_leaves(params):
             p.requires_grad_(True)
         return params, adamw_init(params, self.moments, self.master_weights)
+
+    def maybe_resume(self, params, opt_state):
+        """(params, opt_state, start_step): restored in place from the
+        newest committed checkpoint when resume=True was asked for and one
+        exists, else passed through with start_step 0, so that a trainer
+        loop is the same either way:
+
+            params, opt = engine.init_state(seed)
+            params, opt, start = engine.maybe_resume(params, opt)
+            for step in range(start, total_steps): ...
+        """
+        if self.checkpoint_manager is None or not self._resume:
+            return params, opt_state, 0
+        extras = self.checkpoint_manager.resume(
+            {"params": params, "opt": opt_state})
+        if extras is None:
+            return params, opt_state, 0
+        self._global_step = int(extras.get("step", 0))
+        return params, opt_state, self._global_step
 
     def _grads_trivial(self, params, ids, labels):
         """Loss and grads over the M micro-batches ids/labels [M, mb, s]
@@ -297,7 +336,30 @@ class HybridParallelEngine:
 
     def train_batch(self, params, opt_state, ids, labels):
         """One optimizer step over the batch (`train_batch` :1227):
-        (loss, params, opt_state), updated in place."""
+        (loss, params, opt_state), updated in place. Reports the step to
+        the monitor, commits a checkpoint every `save_every` steps (the
+        state after the step, as step N of N completed) and passes the
+        `step_end` fault point."""
         step = self.build_train_step()
         ids, labels = self.shard_batch(ids, labels)
-        return step(params, opt_state, ids, labels)
+        if self._fpt_auto and self._fpt_seq != ids.shape[-1]:
+            self.monitor.flops_per_token = hardware.llama_flops_per_token(
+                self.args, ids.shape[-1])
+            self._fpt_seq = ids.shape[-1]
+        self.monitor.start_step()
+        out = step(params, opt_state, ids, labels)
+        self.monitor.end_step(loss=out[0], tokens=ids.numel())
+        self._global_step += 1
+        if (self.checkpoint_manager is not None and self._save_every
+                and self._global_step % self._save_every == 0):
+            # the snapshot is on the host before save returns; the step
+            # counter goes to disk as the int32 the JAX engine writes
+            opt = dict(out[2], step=out[2]["step"].to(torch.int32))
+            self.checkpoint_manager.save({"params": out[1], "opt": opt},
+                                         self._global_step)
+        if os.environ.get("PADDLE_CHAOS"):
+            from paddle_tpu_torch.distributed.checkpoint.integrity import (
+                chaos_point)
+
+            chaos_point("step_end", step=self._global_step)
+        return out

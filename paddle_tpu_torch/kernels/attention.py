@@ -39,9 +39,10 @@ __all__ = ["decode_attention", "window_attention", "paged_decode_attention",
            "decode_attention_plain", "window_attention_plain",
            "paged_decode_attention_plain", "paged_gather", "launches",
            "reset_launches", "WINDOW_MAX_ROWS", "KERNEL_HEAD_DIMS",
-           "window_splits", "window_split_keys", "paged_route",
-           "paged_splits", "paged_split_keys", "decode_splits",
-           "decode_split_keys"]
+           "row_splits", "cut_keys", "window_splits", "window_split_keys",
+           "paged_route", "paged_splits", "paged_split_keys",
+           "decode_splits", "decode_split_keys", "WINDOW_SPLIT_TILES",
+           "PAGED_SPLIT_TILES"]
 
 NEG_INF = -1e30
 # flattened query rows (s * g) a window kernel block holds; wider windows
@@ -50,13 +51,22 @@ WINDOW_MAX_ROWS = 64
 KERNEL_HEAD_DIMS = (64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # B4-B7 in bf16 walk the keys in tiles of WINDOW_TILE, split over at most
-# WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row)
+# WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row).
+# A row takes one split for every WINDOW_SPLIT_TILES (B5) or
+# PAGED_SPLIT_TILES (B4, B6, B7) tiles of its own keys (`row_splits`):
+# a count of the row alone, so that its bf16 result does not depend on the
+# other rows of its batch. Both thresholds come from kernels/sweep_decode.py
+# on an H100. B5: 8 of 2-32, the smallest worst loss (7.7%) against each
+# shape's fastest at b=1, s=16 after 192-2000 keys and on the ragged
+# verify window. B4/B6/B7: 8, between the
+# regimes a batch-blind rule must serve: a row decoding alone wants more
+# splits (600 keys: 1 split 0.0233 ms, 2 splits 0.0169), 8 ragged rows
+# fewer (to 2047 keys: 12 tiles a split 0.0397 ms, 8 tiles 0.0454); the
+# engine's 8 rows of 257-320 keys take 1 split under either
 WINDOW_TILE = 64
 WINDOW_MAX_SPLITS = 8
-# `paged_splits` and `decode_splits` give the longest row they know of at
-# most PAGED_SPLIT_TILES tiles a split
-PAGED_SPLIT_TILES = 16
-_sm_count = {}
+WINDOW_SPLIT_TILES = 8
+PAGED_SPLIT_TILES = 8
 
 launches = {"decode_attention": 0, "window_attention": 0,
             "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
@@ -151,32 +161,24 @@ def _scale(scale, hd):
     return scale if scale is not None else 1.0 / math.sqrt(hd)
 
 
-def _sms(device):
-    if device not in _sm_count:
-        _sm_count[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _sm_count[device]
-
-
 # ---------------------------------------------------------------------------
-# B5's split of the keys (bf16), mirrored by window_mma_kernel
+# the split of a row's keys (bf16), mirrored by window_mma_kernel (B5) and
+# decode_mma_kernel (B4, B6, B7)
 # ---------------------------------------------------------------------------
 
 
-def window_splits(b, nkv, last, sms):
-    """Blocks over the keys of each (kv head, row) for B5 in bf16: as many
-    as give the b * nkv (kv head, row) pairs one block for every two SMs,
-    at most WINDOW_MAX_SPLITS (a portable cluster) and at most the tiles
-    of keys [0, last]. (At b=1, 32 kv heads, 528 keys on an H100, 2 splits
-    ran faster than 4, 1 or 8: `kernels/sweep_decode.py`; each further
-    split adds its partials to every row's combine.)"""
+def row_splits(last, split_tiles):
+    """The splits a row whose keys are [0, last] takes: one for every
+    `split_tiles` tiles of WINDOW_TILE keys, at most WINDOW_MAX_SPLITS (a
+    portable cluster). A function of the row alone: the kernels read it
+    off the row's own pos on the card."""
     tiles = last // WINDOW_TILE + 1
-    return max(1, min(WINDOW_MAX_SPLITS, sms // (2 * b * nkv), tiles))
+    return min(WINDOW_MAX_SPLITS, -(-tiles // split_tiles))
 
 
-def window_split_keys(last, splits):
+def cut_keys(last, splits):
     """The keys [first, last] split z of `splits` walks for a row whose
-    watermark is `last`, as the kernel cuts them: whole tiles z * T //
+    keys are [0, last], as the kernels cut them: whole tiles z * T //
     splits up to (z + 1) * T // splits of the row's T tiles, the last one
     ending at `last`. A split is None when it holds no tile (more splits
     than the row has tiles)."""
@@ -187,6 +189,29 @@ def window_split_keys(last, splits):
         keys.append((tb * WINDOW_TILE, min(te * WINDOW_TILE, last + 1) - 1)
                     if te > tb else None)
     return keys
+
+
+def _row_cut(last, cluster, split_tiles):
+    """What each of a cluster's blocks walks for a row whose keys are [0,
+    last]: the row's own `row_splits` cut (`cut_keys`), fewer when the
+    cluster is smaller, then None for every block past them."""
+    own = min(cluster, row_splits(last, split_tiles))
+    return cut_keys(last, own) + [None] * (cluster - own)
+
+
+def window_splits(last):
+    """The cluster of B5 in bf16: `row_splits` of the widest watermark the
+    host knows of, keys [0, last] (`_window_last`), WINDOW_SPLIT_TILES
+    tiles a split. Each row cuts its own keys over its own count of these
+    blocks (`window_split_keys`)."""
+    return row_splits(last, WINDOW_SPLIT_TILES)
+
+
+def window_split_keys(last, cluster):
+    """The keys [first, last] each of `cluster` blocks walks for a row
+    whose watermark is `last`, as window_mma_kernel cuts them: the row's
+    own `row_splits` (WINDOW_SPLIT_TILES), None past them."""
+    return _row_cut(last, cluster, WINDOW_SPLIT_TILES)
 
 
 def _window_last(pos, s, max_len):
@@ -215,52 +240,41 @@ def paged_route(dtype):
     return "cluster" if dtype == torch.bfloat16 else "shared"
 
 
-def _key_splits(keys, b, nkv, sms):
-    """Blocks over the keys of each of b * nkv (kv head, row) pairs whose
-    longest row has `keys` keys: enough that it gets at most
-    PAGED_SPLIT_TILES tiles a split, at least one block for every two SMs
-    (B5's rule), at most WINDOW_MAX_SPLITS (a portable cluster) and at
-    most the row's tiles."""
-    tiles = (max(keys, 1) - 1) // WINDOW_TILE + 1
-    want = max(-(-tiles // PAGED_SPLIT_TILES), sms // (2 * b * nkv))
-    return max(1, min(WINDOW_MAX_SPLITS, tiles, want))
-
-
-def paged_splits(b, nkv, P, ps, sms, max_pos=None):
-    """Blocks over the keys of each (kv head, row) for B6/B7 in bf16. The
-    host cannot read a device `pos`, so the split is cut for the widest row
-    it knows of: the table's P * ps keys, or max_pos + 1 when the caller
-    knows a bound on every row's pos (the engine's scheduler does), by
-    `_key_splits`' rule. Each row's own keys are cut over these splits by
-    the kernel (`paged_split_keys`), so a bound below a row's pos costs
-    time, never the result."""
+def paged_splits(P, ps, max_pos=None):
+    """The cluster of B6/B7 in bf16. The host cannot read a device `pos`,
+    so it is cut for the widest row it knows of: the table's P * ps keys,
+    or max_pos + 1 when the caller knows a bound on every row's pos (the
+    engine's scheduler does), by `row_splits` (PAGED_SPLIT_TILES). Each row
+    cuts its own keys over its own count of these blocks
+    (`paged_split_keys`), so a bound at or above every pos gives each row
+    the cut it gets alone; a bound below a row's pos costs that row its
+    own cut (fewer splits), never the result."""
     keys = P * ps if max_pos is None else min(max_pos + 1, P * ps)
-    return _key_splits(keys, b, nkv, sms)
+    return row_splits(keys - 1, PAGED_SPLIT_TILES)
 
 
-def paged_split_keys(pos, P, ps, splits):
-    """The keys [first, last] each of `splits` splits walks for a row at
+def paged_split_keys(pos, P, ps, cluster):
+    """The keys [first, last] each of `cluster` blocks walks for a row at
     `pos` over a table of P pages of ps keys, as decode_mma_kernel cuts
-    them: the row's keys [0, min(pos, P * ps - 1)] in whole tiles of
-    WINDOW_TILE, B5's cut (`window_split_keys`); None for a split past the
-    row's end."""
-    return window_split_keys(min(pos, P * ps - 1), splits)
+    them: the row's keys [0, min(pos, P * ps - 1)] over its own
+    `row_splits` (PAGED_SPLIT_TILES), in whole tiles; None past them."""
+    return _row_cut(min(pos, P * ps - 1), cluster, PAGED_SPLIT_TILES)
 
 
-def decode_splits(b, nkv, last, sms):
-    """Blocks over the keys of each (kv head, row) for B4 in bf16, cut for
-    the longest row the host knows of, keys [0, last] (`_window_last(pos,
-    1, len)`: min(pos, len - 1) for a pos on the host, len - 1 for one on
-    the card), by `_key_splits`' rule."""
-    return _key_splits(last + 1, b, nkv, sms)
+def decode_splits(last):
+    """The cluster of B4 in bf16, cut for the longest row the host knows
+    of, keys [0, last] (`_window_last(pos, 1, len)`: min(pos, len - 1) for
+    a pos on the host, len - 1 for one on the card), by `row_splits`
+    (PAGED_SPLIT_TILES)."""
+    return row_splits(last, PAGED_SPLIT_TILES)
 
 
-def decode_split_keys(pos, length, splits):
-    """The keys [first, last] each of `splits` splits walks for a row at
+def decode_split_keys(pos, length, cluster):
+    """The keys [first, last] each of `cluster` blocks walks for a row at
     `pos` over a cache of `length` keys, as decode_mma_kernel cuts them:
-    the row's keys [0, min(pos, length - 1)] in whole tiles; None for a
-    split past the row's end."""
-    return window_split_keys(min(pos, length - 1), splits)
+    the row's keys [0, min(pos, length - 1)] over its own `row_splits`;
+    None past them."""
+    return _row_cut(min(pos, length - 1), cluster, PAGED_SPLIT_TILES)
 
 
 # ---------------------------------------------------------------------------
@@ -344,8 +358,9 @@ def decode_attention(q, cache_k, cache_v, pos, scale=None):
     cache [b, nkv, len, hd], keys [0, pos[r]] for row r. The kernel follows
     `paged_route`: in bf16 the keys of each (kv head, row) arrive by TMA and
     are split over `decode_splits` blocks of one cluster; f32 runs the
-    shared body. Cache slots past a row's pos are never part of its result,
-    whatever they hold."""
+    shared body. Each row cuts its keys over its own `row_splits` of the
+    cluster's blocks, so its result is the same in any batch. Cache slots
+    past a row's pos are never part of its result, whatever they hold."""
     b, s, nh, hd = q.shape
     if s != 1:
         raise ValueError(f"decode attention takes one query per row, got {s}")
@@ -364,15 +379,14 @@ def decode_attention(q, cache_k, cache_v, pos, scale=None):
         if q.data_ptr() % 4:
             raise ValueError("q must be 4-byte aligned (read a column pair "
                              "at a time)")
-        splits = decode_splits(b, nkv, _window_last(pos, 1, max_len),
-                               _sms(q.device))
+        splits = decode_splits(_window_last(pos, 1, max_len))
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
     rc = _build.launch(
         "attention", "pt_decode_attention", q.device, q.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
-        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype], splits,
-        _scale(scale, hd))
+        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype],
+        PAGED_SPLIT_TILES, splits, _scale(scale, hd))
     _raise_on(rc, "decode_attention")
     launches["decode_attention"] += 1
     return out
@@ -383,9 +397,9 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     contiguous cache: query i of row r sits at pos[r] + i and attends keys
     [0, pos[r] + i]; the walk stops at the last query's watermark, clamped
     to the cache end. The kernel takes s * (nh // nkv) <= 64. In bf16 the
-    keys of each (kv head, row) are split over `window_splits` blocks of
-    one cluster, which combine their partial softmax sums in a fixed
-    order."""
+    keys of each (kv head, row) are split over the row's own `row_splits`
+    of a cluster of `window_splits` blocks, which combine their partial
+    softmax sums in a fixed order."""
     b, s, nh, hd = q.shape
     if cache_k.dim() != 4 or cache_k.shape[0] != b or \
             cache_v.shape != cache_k.shape:
@@ -397,8 +411,7 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     if not _on_card(q, cache_k, cache_v):
         return window_attention_plain(q, cache_k, cache_v, pos, scale)
     _check_kernel(q, (cache_k, cache_v), s * (nh // nkv))
-    splits = (window_splits(b, nkv, _window_last(pos, s, max_len),
-                            _sms(q.device))
+    splits = (window_splits(_window_last(pos, s, max_len))
               if q.dtype == torch.bfloat16 else 1)
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
@@ -406,7 +419,7 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
         "attention", "pt_window_attention", q.device, q.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
         out.data_ptr(), b, s, nh, nkv, max_len, hd, _DTYPES[q.dtype],
-        splits, _scale(scale, hd))
+        WINDOW_SPLIT_TILES, splits, _scale(scale, hd))
     _raise_on(rc, "window_attention")
     launches["window_attention"] += 1
     return out
@@ -423,8 +436,9 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
     codes (scale 0 reads as zeros).
 
     The kernel follows `paged_route`: in bf16 the keys of each (kv head,
-    row) are split over `paged_splits` blocks of one cluster (cut for
-    max_pos, an int bound on pos known to the caller, when given), B7's
+    row) are split over the row's own `row_splits` of a cluster of
+    `paged_splits` blocks (cut for max_pos, an int bound on pos known to
+    the caller, when given), B7's
     scales folded into the scores and probabilities; f32 runs the shared
     body, which dequantizes B7's keys in shared memory."""
     b, s, nh, hd = q.shape
@@ -464,7 +478,7 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
         if q.data_ptr() % 4:
             raise ValueError("q must be 4-byte aligned (read a column pair "
                              "at a time)")
-        splits = paged_splits(b, nkv, P, ps, _sms(q.device), max_pos)
+        splits = paged_splits(P, ps, max_pos)
     pos_t = _int32_on(pos, b, q.device)
     out = torch.empty_like(q)
     if quantized:
@@ -473,14 +487,14 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
             pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], splits, _scale(scale, hd))
+            _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, _scale(scale, hd))
         name = "paged_decode_attention_int8"
     else:
         rc = _build.launch(
             "attention", "pt_paged_decode_attention", q.device, q.data_ptr(),
             pool_k.data_ptr(), pool_v.data_ptr(), block_tables.data_ptr(),
             pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], splits, _scale(scale, hd))
+            _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, _scale(scale, hd))
         name = "paged_decode_attention"
     _raise_on(rc, name)
     launches[name] += 1

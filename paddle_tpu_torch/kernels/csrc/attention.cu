@@ -396,12 +396,16 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_q8_kernel(
 // B5 in bf16: the keys split across a cluster, scores and P.V on mma.sync
 // ---------------------------------------------------------------------------
 //
-// One block per (kv head, row, split); the splits of a (kv head, row) form
-// one thread-block cluster. Split z of nsplit walks key tiles [z T / nsplit,
-// (z + 1) T / nsplit) of the row's T = last / 64 + 1 tiles (every key the
-// row's window sees lies in one of them); the caller picks nsplit
-// (`window_splits`: 2 at b = 1 and 32 kv heads, one block for every two
-// SMs, which ran faster than 4 or 8). Its K/V tiles stream through a ring of
+// One block per (kv head, row, split); the blocks of a (kv head, row) form
+// one thread-block cluster of nsplit blocks, cut by the host for the widest
+// watermark it knows of (`window_splits`). A row splits its own T = last /
+// 64 + 1 tiles (every key the row's window sees lies in one of them) over
+// ns = min(nsplit, row_splits(T, split_tiles)) splits, a count of the row
+// alone (`attention.row_splits`, split_tiles = WINDOW_SPLIT_TILES), so its
+// result does not depend on the other rows of the batch: split z < ns walks
+// tiles [z T / ns, (z + 1) T / ns); blocks z >= ns walk none and only join
+// the cluster's barriers and the combine's share of rows. Its K/V tiles
+// stream through a ring of
 // cp.async stages (64 keys x head_dim, 16-byte chunks, swizzled so ldmatrix
 // reads without bank conflicts; keys past the watermark are written as
 // zeros and read no memory). The R = s * g query rows (at most 64) are
@@ -414,7 +418,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_q8_kernel(
 // 0), and P is rounded to bf16 for the product, as the Pallas kernel does
 // (p.astype(v.dtype)). Each warp keeps its own (m, l, O) in f32 and leaves
 // it in shared memory; after a cluster barrier, block z combines rows z,
-// z + nsplit, ...: a warp a row, one lane per (split, warp) partial read
+// z + nsplit, ...: a warp a row, one lane per (split z < ns, warp) partial
+// read
 // from the owning block's shared memory (distributed shared memory), M the
 // largest m, L = sum l e^(m - M), out = sum O e^(m - M) / L in split order,
 // so the result does not depend on block timing. A second cluster barrier
@@ -424,6 +429,12 @@ constexpr int kWinThreads = 128;
 constexpr int kWinKeys = 64;       // keys a tile
 constexpr int kMaxSplits = 8;      // blocks a portable cluster holds
 constexpr float kLog2e = 1.4426950408889634f;
+
+// the splits a row whose keys span `tiles` tiles takes: one for every
+// `split_tiles` tiles, at most a cluster's kMaxSplits (attention.row_splits)
+__device__ __forceinline__ int row_splits(int tiles, int split_tiles) {
+  return min(kMaxSplits, (tiles + split_tiles - 1) / split_tiles);
+}
 
 template <int HD>
 struct Win {
@@ -462,7 +473,7 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
     __nv_bfloat16* __restrict__ out, int s, int nh, int nkv, int len,
-    float scale) {
+    int split_tiles, float scale) {
   using namespace hopper;
   using W = Win<HD>;
   constexpr int kW = kWinKeys / KG;   // keys of a tile a warp takes
@@ -481,8 +492,10 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
   const int last = min(p0 + s - 1, len - 1);
   const int n_tiles = last / kWinKeys + 1;
   const int nsplit = gridDim.z, z = blockIdx.z;   // z: the cluster rank
-  const int tb = z * n_tiles / nsplit;
-  const int nt = (z + 1) * n_tiles / nsplit - tb;
+  // the row's own split count; blocks past it walk no tile
+  const int ns = min(nsplit, row_splits(n_tiles, split_tiles));
+  const int tb = z < ns ? z * n_tiles / ns : 0;
+  const int nt = z < ns ? (z + 1) * n_tiles / ns - tb : 0;
   const int64_t kv0 = ((int64_t)b * nkv + h) * len * HD;
   auto q_off = [&](int r) -> int64_t {
     return (((int64_t)b * s + r / g) * nh + (int64_t)h * g + r % g) * HD;
@@ -651,9 +664,9 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
   }
   cluster_sync();
 
-  // combine: a warp a row; lane p < nsplit * KG holds partial p (split
-  // p / KG, warp p % KG of the row's tile)
-  const int parts = nsplit * KG;
+  // combine: a warp a row; lane p < ns * KG holds partial p (split p / KG,
+  // warp p % KG of the row's tile)
+  const int parts = ns * KG;
   const uint32_t slots_u32 = smem_u32(slots);
   constexpr int kCols = HD / 32;        // output columns a lane
   for (int r = z + nsplit * warp; r < rows; r += nsplit * 4) {
@@ -714,17 +727,21 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
 // row, each walking all of the row's tiles with one tile in flight.
 //
 // Design. One block of 128 threads per (kv head, row, split); the nsplit
-// splits of a (kv head, row) form one thread-block cluster. The host cannot
+// blocks of a (kv head, row) form one thread-block cluster. The host cannot
 // read pos (a device tensor in the engine), so it cuts nsplit for the
 // longest row it knows of (`attention.decode_splits` for B4: min(pos, len -
 // 1) for a pos it holds, else the cache's len; `attention.paged_splits` for
-// B6/B7: the table's P * ps keys or the engine scheduler's bound on pos;
-// both at most 16 tiles a split of that row, at least B5's one block for
-// every two SMs, at most a cluster's 8 blocks). Split z walks key tiles [z
-// T / nsplit, (z + 1) T / nsplit) of the row's own T = last / 64 + 1 tiles:
-// a long row's keys spread over the cluster, a short row's over some of its
-// blocks. A split past the row's end holds no tile, leaves the empty
-// partial (m = -1e30, l = 0) and joins the cluster barriers. Every block
+// B6/B7: the table's P * ps keys or the engine scheduler's bound on pos).
+// Each row then splits its own T = last / 64 + 1 tiles over ns = min(nsplit,
+// row_splits(T, split_tiles)) splits, read off its own pos on the card
+// (split_tiles = PAGED_SPLIT_TILES: at most 8 tiles a split, at most a
+// cluster's 8 blocks), so a row's cut, and with it the rounding of its
+// result, does not depend on the other rows of the batch. Split z < ns walks
+// key tiles [z T / ns, (z + 1) T / ns); the blocks past ns walk none: a row
+// of one split writes its output from block 0 and its other blocks return
+// at once, otherwise they join the cluster barriers and the combine's share
+// of rows. A host bound below a row's pos makes nsplit too small for that
+// row: it is still right, cut over fewer splits. Every block
 // pays a chain of dependent reads (pos, for B6/B7 the table, its first
 // tile) and holds its slot until its cluster is done, so more splits than
 // the rule gives ran slower on an H100 (`kernels/sweep_decode.py`: 8 rows
@@ -874,15 +891,16 @@ __device__ __forceinline__ void merge_warps(float* slots, int rows, int tid,
 
 // The combine of a cluster's partials, after merge_warps and a cluster
 // barrier: block z of nsplit writes rows z, z + nsplit, ..., a warp a row;
-// lane p < nsplit holds split p's partial of the row's tile, read from the
+// lane p < ns (the row's own splits) holds split p's partial of the row's
+// tile, read from the
 // owning block's shared memory (distributed shared memory), every split's
 // columns loaded before any is summed. M the largest m, L = sum l e^(m -
 // M), out = sum O e^(m - M) / L in split order, so the result does not
 // depend on block timing. dst(r): row r's output.
 template <int HD, int KG, typename Dst>
 __device__ __forceinline__ void combine_splits(float* slots, int rows, int z,
-                                               int nsplit, int warp, int lane,
-                                               Dst dst) {
+                                               int nsplit, int ns, int warp,
+                                               int lane, Dst dst) {
   using namespace hopper;
   using W = Win<HD>;
   const uint32_t slots_u32 = smem_u32(slots);
@@ -891,20 +909,20 @@ __device__ __forceinline__ void combine_splits(float* slots, int rows, int z,
     const int rr = r % 16;
     float mp = kNegInf, lp = 0.f;
     uint32_t base = 0;
-    if (lane < nsplit) {
+    if (lane < ns) {
       base = map_rank(slots_u32 + (r / 16) * KG * W::kSlotFloats * 4, lane);
       mp = ld_cluster(base + rr * 4);
       lp = ld_cluster(base + (16 + rr) * 4);
     }
     const float mx = warp_max(mp);
-    const float wgt = lane < nsplit ? exp2f(mp - mx) : 0.f;
+    const float wgt = lane < ns ? exp2f(mp - mx) : 0.f;
     const float L = __shfl_sync(0xffffffffu, warp_sum(lp * wgt), 0);
     float4 t[kMaxSplits];
 #pragma unroll
     for (int p = 0; p < kMaxSplits; ++p) {
       const uint32_t a = __shfl_sync(0xffffffffu, base, p) +
                          (32 + rr * W::kAccLd + lane * kCols) * 4;
-      if (p < nsplit) {
+      if (p < ns) {
         if constexpr (kCols == 4) {
           t[p] = ld_cluster4(a);
         } else {
@@ -917,7 +935,7 @@ __device__ __forceinline__ void combine_splits(float* slots, int rows, int z,
 #pragma unroll
     for (int p = 0; p < kMaxSplits; ++p) {
       const float wp = __shfl_sync(0xffffffffu, wgt, p);
-      if (p < nsplit) {
+      if (p < ns) {
         acc[0] += wp * t[p].x; acc[1] += wp * t[p].y;
         acc[2] += wp * t[p].z; acc[3] += wp * t[p].w;
       }
@@ -1010,7 +1028,7 @@ template <typename Keys, int HD, int KG, bool kTop>
 __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __grid_constant__ Keys keys,
     const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int nh,
-    int nkv, float scale) {
+    int nkv, int split_tiles, float scale) {
   using namespace hopper;
   using KVT = typename Keys::KVT;
   using T = PagedTile<KVT, HD>;
@@ -1041,8 +1059,11 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
   const int last = min(pos[b], keys.keys() - 1);
   const int n_tiles = last / kWinKeys + 1;
   const int nsplit = gridDim.z, z = blockIdx.z;   // z: the cluster rank
-  const int tb = z * n_tiles / nsplit;
-  const int nt = (z + 1) * n_tiles / nsplit - tb;
+  // the row's own split count: a row of one split is block 0's alone
+  const int ns = min(nsplit, row_splits(n_tiles, split_tiles));
+  if (z >= ns && ns == 1) return;
+  const int tb = z < ns ? z * n_tiles / ns : 0;
+  const int nt = z < ns ? (z + 1) * n_tiles / ns - tb : 0;
   auto q_off = [&](int r) -> int64_t {
     return ((int64_t)b * nh + (int64_t)h * g + r) * HD;
   };
@@ -1341,17 +1362,20 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
   __syncthreads();
 
   // this warp's partial over the ring, merged with the other warps' (the
-  // output itself when the row has one split), then the combine
+  // output itself when the row has one split), then the combine of the
+  // row's ns splits (a block past them leaves no partial)
   float* slots = reinterpret_cast<float*>(ring);
-  if (active)
-    leave_partial<HD, kQ8, kE>(slots + warp * Win<HD>::kSlotFloats, gq, qq,
-                               m0, m1, l0, l1, o);
-  __syncthreads();
   auto dst = [&](int r) { return out + q_off(r); };
-  merge_warps<HD, KG>(slots, rows, tid, nsplit == 1, dst);
-  if (nsplit == 1) return;
+  if (z < ns) {
+    if (active)
+      leave_partial<HD, kQ8, kE>(slots + warp * Win<HD>::kSlotFloats, gq,
+                                 qq, m0, m1, l0, l1, o);
+    __syncthreads();
+    merge_warps<HD, KG>(slots, rows, tid, ns == 1, dst);
+  }
+  if (ns == 1) return;
   cluster_sync();
-  combine_splits<HD, KG>(slots, rows, z, nsplit, warp, lane, dst);
+  combine_splits<HD, KG>(slots, rows, z, nsplit, ns, warp, lane, dst);
   cluster_sync();   // no block leaves while another reads its partials
 }
 
@@ -1398,30 +1422,30 @@ void launch_window_f32(const void* q, const void* k, const void* v,
 template <int HD, int KG>
 cudaError_t launch_window_mma(const void* q, const void* k, const void* v,
                               const void* pos, void* out, int b, int s,
-                              int nh, int nkv, int len, int splits,
-                              float scale, cudaStream_t st) {
+                              int nh, int nkv, int len, int split_tiles,
+                              int splits, float scale, cudaStream_t st) {
   hopper::opt_in_smem<window_mma_kernel<HD, KG>>(Win<HD>::kSmem);
   return hopper::launch_cluster(
       window_mma_kernel<HD, KG>, dim3(nkv, b, splits), dim3(kWinThreads),
       Win<HD>::kSmem, st, dim3(1, 1, splits), q, k, v, pos, out, s, nh, nkv,
-      len, scale);
+      len, split_tiles, scale);
 }
 
 // KG, the warps that share a tile of keys: 4 / the 16-row tiles (3 -> 4)
 template <int HD>
 cudaError_t launch_window_bf16(const void* q, const void* k, const void* v,
                                const void* pos, void* out, int b, int s,
-                               int nh, int nkv, int len, int splits,
-                               float scale, cudaStream_t st) {
+                               int nh, int nkv, int len, int split_tiles,
+                               int splits, float scale, cudaStream_t st) {
   const int tiles = (s * (nh / nkv) + 15) / 16;
   if (tiles == 1)
     return launch_window_mma<HD, 4>(q, k, v, pos, out, b, s, nh, nkv, len,
-                                    splits, scale, st);
+                                    split_tiles, splits, scale, st);
   if (tiles == 2)
     return launch_window_mma<HD, 2>(q, k, v, pos, out, b, s, nh, nkv, len,
-                                    splits, scale, st);
+                                    split_tiles, splits, scale, st);
   return launch_window_mma<HD, 1>(q, k, v, pos, out, b, s, nh, nkv, len,
-                                  splits, scale, st);
+                                  split_tiles, splits, scale, st);
 }
 
 template <typename T, int HD>
@@ -1451,14 +1475,14 @@ void launch_paged_q8(const void* q, const void* pk, const void* pv,
 template <typename Keys, int HD, int KG, bool kTop>
 cudaError_t launch_decode_mma(const void* q, const Keys& keys,
                               const void* pos, void* out, int b, int nh,
-                              int nkv, int splits, float scale,
-                              cudaStream_t st) {
+                              int nkv, int split_tiles, int splits,
+                              float scale, cudaStream_t st) {
   constexpr int kSmem = decode_smem<Keys, HD>();
   hopper::opt_in_smem<decode_mma_kernel<Keys, HD, KG, kTop>>(kSmem);
   return hopper::launch_cluster(
       decode_mma_kernel<Keys, HD, KG, kTop>, dim3(nkv, b, splits),
       dim3(kWinThreads), kSmem, st, dim3(1, 1, splits), q, keys, pos, out,
-      nh, nkv, scale);
+      nh, nkv, split_tiles, scale);
 }
 
 // KG as for B5: 4 / the 16-row tiles of the g query rows (3 -> 4); g <= 8
@@ -1466,34 +1490,37 @@ cudaError_t launch_decode_mma(const void* q, const Keys& keys,
 template <typename Keys, int HD>
 cudaError_t launch_decode_bf16(const void* q, const Keys& keys,
                                const void* pos, void* out, int b, int nh,
-                               int nkv, int splits, float scale,
-                               cudaStream_t st) {
+                               int nkv, int split_tiles, int splits,
+                               float scale, cudaStream_t st) {
   const int g = nh / nkv, tiles = (g + 15) / 16;
   if (g <= 8)
-    return launch_decode_mma<Keys, HD, 4, true>(q, keys, pos, out, b, nh,
-                                                nkv, splits, scale, st);
+    return launch_decode_mma<Keys, HD, 4, true>(
+        q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
   if (tiles == 1)
-    return launch_decode_mma<Keys, HD, 4, false>(q, keys, pos, out, b, nh,
-                                                 nkv, splits, scale, st);
+    return launch_decode_mma<Keys, HD, 4, false>(
+        q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
   if (tiles == 2)
-    return launch_decode_mma<Keys, HD, 2, false>(q, keys, pos, out, b, nh,
-                                                 nkv, splits, scale, st);
-  return launch_decode_mma<Keys, HD, 1, false>(q, keys, pos, out, b, nh, nkv,
-                                               splits, scale, st);
+    return launch_decode_mma<Keys, HD, 2, false>(
+        q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
+  return launch_decode_mma<Keys, HD, 1, false>(
+      q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
 }
 
 template <typename KVT>
 cudaError_t launch_paged_split(const void* q, const void* pk, const void* pv,
                                const void* sk, const void* sv, const void* bt,
                                const void* pos, void* out, int b, int nh,
-                               int nkv, int ps, int P, int hd, int splits,
-                               float scale, cudaStream_t st) {
+                               int nkv, int ps, int P, int hd,
+                               int split_tiles, int splits, float scale,
+                               cudaStream_t st) {
   const PagedKeys<KVT> keys{(const KVT*)pk, (const KVT*)pv, (const float*)sk,
                             (const float*)sv, (const int*)bt, ps, P};
   return hd == 128 ? launch_decode_bf16<PagedKeys<KVT>, 128>(
-                         q, keys, pos, out, b, nh, nkv, splits, scale, st)
+                         q, keys, pos, out, b, nh, nkv, split_tiles, splits,
+                         scale, st)
                    : launch_decode_bf16<PagedKeys<KVT>, 64>(
-                         q, keys, pos, out, b, nh, nkv, splits, scale, st);
+                         q, keys, pos, out, b, nh, nkv, split_tiles, splits,
+                         scale, st);
 }
 
 // B4 in bf16: the tensor maps of k and v, viewed as [b * nkv][len][hd], in
@@ -1501,8 +1528,8 @@ cudaError_t launch_paged_split(const void* q, const void* pk, const void* pv,
 // zeros. cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses a map.
 cudaError_t launch_cache_split(const void* q, const void* k, const void* v,
                                const void* pos, void* out, int b, int nh,
-                               int nkv, int len, int hd, int splits,
-                               float scale, cudaStream_t st) {
+                               int nkv, int len, int hd, int split_tiles,
+                               int splits, float scale, cudaStream_t st) {
   CacheKeys keys;
   keys.len = len;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)len,
@@ -1515,9 +1542,11 @@ cudaError_t launch_cache_split(const void* q, const void* k, const void* v,
                           dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
       return cudaErrorInvalidValue;
   return hd == 128 ? launch_decode_bf16<CacheKeys, 128>(
-                         q, keys, pos, out, b, nh, nkv, splits, scale, st)
+                         q, keys, pos, out, b, nh, nkv, split_tiles, splits,
+                         scale, st)
                    : launch_decode_bf16<CacheKeys, 64>(
-                         q, keys, pos, out, b, nh, nkv, splits, scale, st);
+                         q, keys, pos, out, b, nh, nkv, split_tiles, splits,
+                         scale, st);
 }
 
 bool shape_ok(int rows, int hd) {
@@ -1526,16 +1555,20 @@ bool shape_ok(int rows, int hd) {
 
 // B4, B6 and B7 take `splits`: 1 to kMaxSplits (the caller's
 // `decode_splits` / `paged_splits`) runs the key-split kernel over a
-// cluster of that many blocks (bf16 only); 0 runs the shared body, f32's
-// route (kernels/sweep_decode.py also times it in bf16, beside the
-// key-split kernel)
-bool splits_ok(int dtype, int splits) {
-  return splits >= 0 && splits <= kMaxSplits && (dtype == 1 || splits == 0);
+// cluster of that many blocks (bf16 only), each row cut over its own
+// row_splits(tiles, split_tiles) of them (split_tiles >= 1; 1 gives every
+// row min(splits, its tiles), the sweeps' forced counts); 0 runs the shared
+// body, f32's route (kernels/sweep_decode.py also times it in bf16, beside
+// the key-split kernel)
+bool splits_ok(int dtype, int split_tiles, int splits) {
+  return splits >= 0 && splits <= kMaxSplits && split_tiles >= 1 &&
+         (dtype == 1 || splits == 0);
 }
 
-bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype, int splits) {
+bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype,
+              int split_tiles, int splits) {
   return nkv >= 1 && nh % nkv == 0 && ps >= 1 && P >= 1 &&
-         shape_ok(nh / nkv, hd) && splits_ok(dtype, splits);
+         shape_ok(nh / nkv, hd) && splits_ok(dtype, split_tiles, splits);
 }
 
 }  // namespace
@@ -1556,40 +1589,44 @@ bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype, int splits) {
 extern "C" int pt_decode_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* out,
                                    int b, int nh, int nkv, int len, int hd,
-                                   int dtype, int splits, float scale,
-                                   void* stream) {
+                                   int dtype, int split_tiles, int splits,
+                                   float scale, void* stream) {
   if (nkv < 1 || nh % nkv || !shape_ok(nh / nkv, hd) || len < 1 ||
-      !splits_ok(dtype, splits))
+      !splits_ok(dtype, split_tiles, splits))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (splits == 0) {
     PT_DISPATCH(launch_decode, q, k, v, pos, out, b, nh, nkv, len, scale, st)
   } else {
-    const cudaError_t e = launch_cache_split(q, k, v, pos, out, b, nh, nkv,
-                                             len, hd, splits, scale, st);
+    const cudaError_t e =
+        launch_cache_split(q, k, v, pos, out, b, nh, nkv, len, hd,
+                           split_tiles, splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }
 
 // B5 takes `splits` (1 to kMaxSplits, the caller's `window_splits`): the
-// blocks, and the cluster, over the keys of each (kv head, row) in bf16;
-// f32 runs the shared body and takes 1
+// blocks, and the cluster, over the keys of each (kv head, row) in bf16,
+// each row cut over its own row_splits(tiles, split_tiles) of them; f32
+// runs the shared body and takes 1
 extern "C" int pt_window_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* out,
                                    int b, int s, int nh, int nkv, int len,
-                                   int hd, int dtype, int splits, float scale,
-                                   void* stream) {
+                                   int hd, int dtype, int split_tiles,
+                                   int splits, float scale, void* stream) {
   if (nkv < 1 || nh % nkv || !shape_ok(s * (nh / nkv), hd) || splits < 1 ||
-      splits > kMaxSplits || (dtype != 1 && splits != 1))
+      splits > kMaxSplits || split_tiles < 1 || (dtype != 1 && splits != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) {
     const cudaError_t e =
         hd == 128 ? launch_window_bf16<128>(q, k, v, pos, out, b, s, nh, nkv,
-                                            len, splits, scale, st)
+                                            len, split_tiles, splits, scale,
+                                            st)
                   : launch_window_bf16<64>(q, k, v, pos, out, b, s, nh, nkv,
-                                           len, splits, scale, st);
+                                           len, split_tiles, splits, scale,
+                                           st);
     if (e != cudaSuccess) return (int)e;
   } else if (hd == 128) {
     launch_window_f32<128>(q, k, v, pos, out, b, s, nh, nkv, len, scale, st);
@@ -1603,9 +1640,10 @@ extern "C" int pt_paged_decode_attention(const void* q, const void* pk,
                                          const void* pv, const void* bt,
                                          const void* pos, void* out, int b,
                                          int nh, int nkv, int ps, int P,
-                                         int hd, int dtype, int splits,
-                                         float scale, void* stream) {
-  if (!paged_ok(nh, nkv, ps, P, hd, dtype, splits))
+                                         int hd, int dtype, int split_tiles,
+                                         int splits, float scale,
+                                         void* stream) {
+  if (!paged_ok(nh, nkv, ps, P, hd, dtype, split_tiles, splits))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (splits == 0) {
@@ -1614,7 +1652,7 @@ extern "C" int pt_paged_decode_attention(const void* q, const void* pk,
   } else {
     const cudaError_t e = launch_paged_split<__nv_bfloat16>(
         q, pk, pv, nullptr, nullptr, bt, pos, out, b, nh, nkv, ps, P, hd,
-        splits, scale, st);
+        split_tiles, splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -1623,9 +1661,9 @@ extern "C" int pt_paged_decode_attention(const void* q, const void* pk,
 extern "C" int pt_paged_decode_attention_q8(
     const void* q, const void* pk, const void* pv, const void* sk,
     const void* sv, const void* bt, const void* pos, void* out, int b, int nh,
-    int nkv, int ps, int P, int hd, int dtype, int splits, float scale,
-    void* stream) {
-  if (!paged_ok(nh, nkv, ps, P, hd, dtype, splits))
+    int nkv, int ps, int P, int hd, int dtype, int split_tiles, int splits,
+    float scale, void* stream) {
+  if (!paged_ok(nh, nkv, ps, P, hd, dtype, split_tiles, splits))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (splits == 0) {
@@ -1633,8 +1671,8 @@ extern "C" int pt_paged_decode_attention_q8(
                 ps, P, scale, st)
   } else {
     const cudaError_t e = launch_paged_split<int8_t>(
-        q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv, ps, P, hd, splits, scale,
-        st);
+        q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv, ps, P, hd, split_tiles,
+        splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();

@@ -938,8 +938,8 @@ int launch_tiled(const void* x, const void* w, const float* sc, void* out,
 //     turns of 128 K rows (k_per_split = 128 ceil(ceil(K / 16) / (8
 //     splits))), partial unused. f32: the
 //     CUDA-core GEMV, partial f32 [splits, M, N] when splits > 1, summed by
-//     a second launch; the columns a block covers (128 for M <= 8, 64
-//     above) are `_gemv_cols`;
+//     a second launch (the caller cuts K the same at every M: a row's sums
+//     do not depend on the rows beside it);
 //   1 TMA + wgmma (bf16; K % 8 == 0, N % 16 == 0, x and w 16-byte aligned),
 //     output tiles tile_m x tile_n: 128 x 128, 128 x 256 or 256 x 128;
 //   2 wmma tiles (bf16, any shape: the shapes the TMA cannot take);

@@ -58,8 +58,9 @@
 //     the 100.7 MB the bound counts, and no second launch reads them.
 // Gate (checked by the wrapper, again here): bf16 or f32, x, g and w of one
 // dtype, H % 8 == 0, H <= 16384, rows 16-byte aligned (row strides a
-// multiple of 8 elements), any row count. Calls that share `counter` (one
-// a device) must not run concurrently: the port issues them on one stream.
+// multiple of 8 elements), any row count. Calls that share `counter` and
+// `part` must not run concurrently: the wrapper keeps one pair a (device,
+// stream) (`rms_norm._bwd_scratch`), and calls on one stream run in order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -27,7 +27,8 @@ from the shape, the dtype and the pointers' alignment before the launch
           second launch of the same library reduces them in a fixed order);
   "tma"   M > 16, bf16 x, K % 8 == 0, N % 16 == 0, x and w 16-byte aligned
           (what a TMA copy needs): TMA ring + wgmma, the output tile
-          from `tile`;
+          from the block tuner (`tuned_tile`: an env pin, the disk
+          cache, a measurement of TILES, else `tile`'s rule);
   "mma"   M > 16, bf16 x, any other shape: wmma tiles (off the gate);
   "simt"  M > 16, f32 x: 64x64 tiles on the CUDA cores in f32 (f32
           activations are a check of the arithmetic, not the serving path).
@@ -41,11 +42,11 @@ from __future__ import annotations
 
 import torch
 
-from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels import _build, tuning
 
 __all__ = ["quantize_absmax", "dequant_matmul_plain", "weight_only_matmul",
-           "route", "tile", "TILES", "launches", "reset_launches",
-           "GEMV_MAX_ROWS", "GEMV_COLS", "gemv_split"]
+           "route", "tile", "tuned_tile", "TILES", "launches",
+           "reset_launches", "GEMV_MAX_ROWS", "GEMV_COLS", "gemv_split"]
 
 GEMV_MAX_ROWS = 16
 # the bf16 GEMV: output columns a block covers, blocks a cluster at most
@@ -120,6 +121,25 @@ def tile(m, n, sms):
     return min(TILES, key=cost)
 
 
+def tuned_tile(m, k, n, dtype, device, measure=None):
+    """The "tma" route's output tile through the block tuner
+    (`tuning.get_blocks("b8_tile", {m, k, n}, ...)`): a PADDLE_TUNE_BLOCKS
+    pin, the disk cache of this card, a measurement of the TILES
+    candidates (PADDLE_KERNEL_AUTOTUNE=1 on a card: `measure(blocks) ->
+    seconds`), else `tile`'s rule, which is therefore the pick with no env
+    and no cache. A pick off TILES raises."""
+    rule = tile(m, n, _sms(device))
+    rule = {"tile_m": rule[0], "tile_n": rule[1]}
+    got = tuning.get_blocks(
+        "b8_tile", {"m": m, "k": k, "n": n}, dtype, rule, measure=measure,
+        candidates=[{"tile_m": a, "tile_n": b} for a, b in TILES],
+        fallback=rule, device=device)
+    pick = (got["tile_m"], got["tile_n"])
+    if pick not in TILES:
+        raise ValueError(f"b8_tile {pick} is not one of TILES {list(TILES)}")
+    return pick
+
+
 def _sms(device):
     if device not in _sm_count:
         _sm_count[device] = torch.cuda.get_device_properties(
@@ -127,19 +147,21 @@ def _sms(device):
     return _sm_count[device]
 
 
-def gemv_split(m, k, n, sms):
+def gemv_split(k, n, sms):
     """(K rows a block, blocks a cluster) of the bf16 GEMV: the largest
     power-of-two cluster, at most GEMV_MAX_CLUSTER blocks and at least one
     k16 step a warp, whose N / 128 column tiles times the cluster stay
-    within 4/3 of a block an SM (2/3 above 8 rows of x, where a block
-    takes the registers of two). At every decode shape on an H100 that is
-    the fastest cluster size of `kernels/sweep_decode.py`, which also
-    showed a cluster of 3 slower than 2 or 4. The blocks of a cluster take
-    turns of 8 k16 steps (one a warp, 128 rows) in rank order; the K rows
-    a block are at most 128 times its turns."""
+    within 4/3 of a block an SM. It does not read M: the cluster sets the
+    order in which a row's K partials are summed, so every M <= 16 takes
+    one cluster and a row's bf16 result does not depend on the rows beside
+    it. At 8 rows on an H100 that is the fastest cluster size of
+    `kernels/sweep_decode.py`, which also showed a cluster of 3 slower
+    than 2 or 4 (above 8 rows a block takes the registers of two). The
+    blocks of a cluster take turns of 8 k16 steps (one a warp, 128 rows)
+    in rank order; the K rows a block are at most 128 times its turns."""
     tiles = -(-n // GEMV_COLS)
     steps = -(-k // 16)
-    limit = (4 if m <= 8 else 2) * sms // 3
+    limit = 4 * sms // 3
     ranks = 1
     while (ranks * 2 <= GEMV_MAX_CLUSTER and tiles * ranks * 2 <= limit
            and _GEMV_WARPS * ranks * 2 <= steps):
@@ -148,20 +170,50 @@ def gemv_split(m, k, n, sms):
     return turn * -(-steps // (_GEMV_WARPS * ranks)), ranks
 
 
-def _gemv_cols(m):
-    """Output columns a GEMV block covers: 8 lanes share a K row, each
-    with 16 columns (8 when M > 8, so that a thread keeps 128 sums)."""
-    return 8 * (16 if m <= 8 else 8)
-
-
-def _k_split(m, k, n, device):
-    """(rows of K per block, number of splits) for the f32 GEMV."""
-    blocks_n = -(-n // _gemv_cols(m))
+def _k_split(k, n, device):
+    """(rows of K per block, number of splits) for the f32 GEMV. It does not
+    read M (a block covers 128 output columns up to 8 rows of x, 64 above):
+    the splits set the order of a row's K sums, so every M <= 16 takes the
+    same, that of 128-column blocks."""
+    blocks_n = -(-n // 128)
     want = -(-_WAVES * _sms(device) // blocks_n)
     splits = max(1, min(want, k // _MIN_K_PER_SPLIT))
     per = -(-k // splits)
     per = -(-per // 32) * 32
     return per, -(-k // per)
+
+
+def _launch(x2, w_q, scale, out, partial, per, splits, way, tiling):
+    """One launch of B8's C entry point on route `way`, on x's device;
+    raises on a CUDA error."""
+    m, k = x2.shape
+    rc = _build.launch(
+        "quantized_matmul", "pt_weight_only_matmul", x2.device,
+        x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        0 if partial is None else partial.data_ptr(), m, k, w_q.shape[1],
+        per, splits, _DTYPES[x2.dtype], _ROUTES[way], *tiling)
+    if rc != 0:
+        raise RuntimeError(f"weight_only_matmul kernel launch failed "
+                           f"({way} route): CUDA error {rc}")
+
+
+def _tile_timer(x2, w_q, scale, out):
+    """The tuner's `measure` for the "tma" route on these tensors: the
+    device seconds of one launch at a candidate tile (`kernels/timing.py`'s
+    method, L2 flushed before each call). Launches made to measure count
+    none."""
+    cold = []
+
+    def measure(blocks):
+        from paddle_tpu_torch.kernels import timing
+
+        if not cold:
+            cold.append(timing.ColdL2(x2.device))
+        tiling = (blocks["tile_m"], blocks["tile_n"])
+        return timing.cold_ms(lambda: _launch(
+            x2, w_q, scale, out, None, x2.shape[1], 1, "tma", tiling),
+            cold[0]) / 1e3
+    return measure
 
 
 def weight_only_matmul(x, w_q, scale, out_dtype=None):
@@ -199,22 +251,16 @@ def weight_only_matmul(x, w_q, scale, out_dtype=None):
         partial, per, splits, tiling = None, k, 1, (0, 0)
         way = route(m, k, n, x.dtype, x2.data_ptr(), w_q.data_ptr())
         if way == "gemv" and x.dtype == torch.bfloat16:
-            per, splits = gemv_split(m, k, n, _sms(dev))
+            per, splits = gemv_split(k, n, _sms(dev))
         elif way == "gemv":
-            per, splits = _k_split(m, k, n, dev)
+            per, splits = _k_split(k, n, dev)
             if splits > 1:
                 partial = torch.empty((splits, m, n), dtype=torch.float32,
                                       device=dev)
         elif way == "tma":
-            tiling = tile(m, n, _sms(dev))
-        rc = _build.launch(
-            "quantized_matmul", "pt_weight_only_matmul", dev, x2.data_ptr(),
-            w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            0 if partial is None else partial.data_ptr(), m, k, n, per,
-            splits, _DTYPES[x.dtype], _ROUTES[way], *tiling)
-        if rc != 0:
-            raise RuntimeError(f"weight_only_matmul kernel launch failed "
-                               f"({way} route): CUDA error {rc}")
+            tiling = tuned_tile(m, k, n, x.dtype, dev,
+                                measure=_tile_timer(x2, w_q, scale, out))
+        _launch(x2, w_q, scale, out, partial, per, splits, way, tiling)
         launches["weight_only_matmul"] += 1
         if way == "tma":
             launches["weight_only_matmul_prefill"] += 1

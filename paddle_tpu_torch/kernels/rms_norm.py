@@ -51,7 +51,7 @@ BWD_CLUSTER = 4
 launches = {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
 _sm_count = {}
 # B10's arrival counter (int32 [1], left at 0 by every call) and its f32
-# scratch for the clusters' dw partials, one pair a device
+# scratch for the clusters' dw partials, one pair a (device, stream)
 _scratch = {}
 
 
@@ -193,15 +193,19 @@ def bwd_rows(rows, blocks, groups):
 
 
 def _bwd_scratch(device, clusters, h):
-    """(counter, part) for B10 on `device`: the arrival counter, zeroed
-    once, and a partial buffer of at least clusters * h f32, grown when a
-    call needs more."""
-    counter, part = _scratch.get(device, (None, None))
+    """(counter, part) for B10 on `device` and its current stream: the
+    arrival counter, zeroed once, and a partial buffer of at least clusters
+    * h f32, grown when a call needs more. Kept per (device, stream): calls
+    on one stream run one after another, calls on two streams may overlap
+    and so each stream has its own. Both are made on that stream, so the
+    caching allocator hands their memory to no other stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    counter, part = _scratch.get(key, (None, None))
     if counter is None:
         counter = torch.empty(1, dtype=torch.int32, device=device).zero_()
     if part is None or part.numel() < clusters * h:
         part = torch.empty(clusters * h, dtype=torch.float32, device=device)
-    _scratch[device] = (counter, part)
+    _scratch[key] = (counter, part)
     return counter, part
 
 
@@ -210,8 +214,9 @@ def rms_norm_bwd(x2d, w, r, g2d):
     rms_norm(x, w) under the cotangent g [rows, H], from the r [rows] f32
     that B9 stored. One launch over `bwd_grid`'s blocks: dx row by row, dw
     summed on the card in a fixed order (two calls give the same bits).
-    Calls on one device share its scratch, so they run on one stream at a
-    time, as the port issues them."""
+    The arrival counter and partial sums are the current stream's
+    (`_bwd_scratch`), so calls on different streams of one card may run at
+    once."""
     _check_shapes(x2d, w, g2d)
     if r.shape != (x2d.shape[0],):
         raise ValueError(f"r {tuple(r.shape)} is not [{x2d.shape[0]}]")

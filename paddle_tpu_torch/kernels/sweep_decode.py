@@ -6,10 +6,15 @@ one NVIDIA card.
     python3 -m paddle_tpu_torch.kernels.sweep_decode
 
 1. Each kernel through its C entry point at the serving shapes, with the
-   number of blocks over the keys (B4-B7) or over K (B8: the cluster) set
-   by hand beside the one the wrapper's rule picks (`decode_splits`,
+   number of blocks over the keys (B4-B7: every row cut over min(that
+   count, its tiles), split_tiles 1) or over K (B8: the cluster) set by
+   hand beside the one the wrapper's rule picks (`decode_splits`,
    `window_splits`, `paged_splits` with and without the engine's bound
-   on pos, `gemv_split`), each checked against the plain version run in
+   on pos, `gemv_split`); then B4-B7 under the per-row rule at several
+   thresholds (`row_splits`' tiles a split, the cluster cut for the
+   longest row as the wrappers cut it), the data that sets
+   WINDOW_SPLIT_TILES and PAGED_SPLIT_TILES; each checked against the
+   plain version run in
    f32 (the per-row bar of `chip_smoke.py`), beside the library call: SDPA
    over the keys the kernel reads (B4-B7; B7 over the dequantized keys),
    `torch.matmul` over the dequantized weight (B8). B4, B6 and B7 also run
@@ -42,6 +47,9 @@ one NVIDIA card.
          asm.
    Their outputs are wrong by construction; only their times are read.
 
+`--rule-only` skips part 2 (no variant is built): the split counts and
+the per-row rule's thresholds alone.
+
 Times are CUDA-event medians of 20 calls under the kernel table's method
 (`timing.METHOD`: the L2 cache flushed before each call, the card held
 busy while the host enqueues it, so that no host time is counted). Needs
@@ -71,11 +79,19 @@ B4_SHAPES = (("ragged to 2047", 8, 32, 32, 128, 2048,
 # (b, s, nh, nkv, hd, cache length, pos): the paged-prefill suffix and the
 # speculative verify window at Llama-2-7B width
 B5_SHAPES = ((1, 16, 32, 32, 128, 2064, [512]),
-             (8, 5, 32, 32, 128, 1100, [1000, 3, 64, 59, 0, 500, 127, 777]))
-# (label, pos): B6/B7 at Llama-2-7B width, 8 rows, pages of 16, tables of
-# 128 pages: the timing phase's ragged rows, and the engine's decode shape
-# (chip_smoke.phase_profile: 8 rows at 256-320 keys)
+             (8, 5, 32, 32, 128, 1100, [1000, 3, 64, 59, 0, 500, 127, 777]),
+             (1, 16, 32, 32, 128, 2064, [1024]),
+             (1, 16, 32, 32, 128, 2064, [2000]),
+             (1, 16, 32, 32, 128, 2064, [192]))
+# tiles a split tried for the per-row rule (`attention.row_splits`)
+SPLIT_TILES = (2, 4, 6, 8, 12, 16, 24, 32)
+# (label, pos): B6/B7 at Llama-2-7B width, a row a pos, pages of 16, tables
+# of 128 pages: the timing phase's ragged rows, one row alone (a request
+# decoding by itself: `generate` at b=1, the logits check), and the engine's
+# decode shape (chip_smoke.phase_profile: 8 rows at 256-320 keys)
 PAGED_SHAPES = (("ragged to 2047", (2047, 1500, 777, 513, 64, 17, 1, 0)),
+                ("one row of 600 keys", (599,)),
+                ("one row of 1000 keys", (999,)),
                 ("the engine's decode, 256-319 keys",
                  tuple(256 + 9 * i for i in range(8))))
 # (M, K, N): the decode step's four shapes at 8 rows, and 1 and 16 rows
@@ -217,7 +233,10 @@ def _print_resources(what, report):
                   flush=True)
 
 
-def _b5_call(lib, q, ck, cv, pos, out, splits):
+def _b5_call(lib, q, ck, cv, pos, out, splits, split_tiles=1):
+    """B5 through its C entry point: a cluster of `splits` blocks, each row
+    cut over its own `row_splits` of them (split_tiles 1: min(splits, the
+    row's tiles))."""
     b, s, nh, hd = q.shape
     nkv, length = ck.shape[1], ck.shape[2]
     stream = torch.cuda.current_stream().cuda_stream
@@ -225,16 +244,17 @@ def _b5_call(lib, q, ck, cv, pos, out, splits):
     def call():
         rc = lib.pt_window_attention(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, s, nh, nkv, length, hd, 1, splits,
-            1.0 / math.sqrt(hd), stream)
+            out.data_ptr(), b, s, nh, nkv, length, hd, 1, split_tiles,
+            splits, 1.0 / math.sqrt(hd), stream)
         if rc != 0:
             raise RuntimeError(f"B5 launch failed: CUDA error {rc}")
     return call
 
 
-def _b4_call(lib, q, ck, cv, pos, out, splits):
+def _b4_call(lib, q, ck, cv, pos, out, splits, split_tiles=1):
     """B4 through its C entry point: `splits` blocks a cluster (the TMA
-    source), or 0 for the shared body."""
+    source), each row cut over its own `row_splits` of them, or 0 for the
+    shared body."""
     b, _, nh, hd = q.shape
     nkv, length = ck.shape[1], ck.shape[2]
     stream = torch.cuda.current_stream().cuda_stream
@@ -242,16 +262,18 @@ def _b4_call(lib, q, ck, cv, pos, out, splits):
     def call():
         rc = lib.pt_decode_attention(
             q.data_ptr(), ck.data_ptr(), cv.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), b, nh, nkv, length, hd, 1, splits,
+            out.data_ptr(), b, nh, nkv, length, hd, 1, split_tiles, splits,
             1.0 / math.sqrt(hd), stream)
         if rc != 0:
             raise RuntimeError(f"B4 launch failed: CUDA error {rc}")
     return call
 
 
-def _paged_call(lib, q, pool_k, pool_v, bt, pos, out, splits, scales=None):
+def _paged_call(lib, q, pool_k, pool_v, bt, pos, out, splits, scales=None,
+                split_tiles=1):
     """B6 (B7 with `scales` = (k_scale, v_scale)) through its C entry point:
-    `splits` blocks a cluster, or 0 for the shared body."""
+    `splits` blocks a cluster, each row cut over its own `row_splits` of
+    them, or 0 for the shared body."""
     b, _, nh, hd = q.shape
     nkv, ps = pool_k.shape[1], pool_k.shape[2]
     P = bt.shape[1]
@@ -263,7 +285,8 @@ def _paged_call(lib, q, pool_k, pool_v, bt, pos, out, splits, scales=None):
 
     def call():
         rc = fn(*ptrs, bt.data_ptr(), pos.data_ptr(), out.data_ptr(), b, nh,
-                nkv, ps, P, hd, 1, splits, 1.0 / math.sqrt(hd), stream)
+                nkv, ps, P, hd, 1, split_tiles, splits, 1.0 / math.sqrt(hd),
+                stream)
         if rc != 0:
             raise RuntimeError(f"B6/B7 launch failed: CUDA error {rc}")
     return call
@@ -294,8 +317,8 @@ def _b5_case(dev, b, s, nh, nkv, hd, length, pos):
 def _paged_case(dev, pos, q8, b=8, nh=32, nkv=32, hd=128, ps=16, P=128):
     """(q, pool_k, pool_v, bt, pos) over b rows of P shuffled pages (page 0
     the null page), and (k_scale, v_scale) or None: an int8 pool of codes
-    in [-127, 127] with scales in [0.5, 2.5], row 1's first page at scale 0
-    (a fresh page)."""
+    in [-127, 127] with scales in [0.5, 2.5], the last row's first page at
+    scale 0 (a fresh page)."""
     g = torch.Generator(device=dev).manual_seed(2)
     n_pages = 1 + b * P
     shape = (n_pages, nkv, ps, hd)
@@ -312,7 +335,7 @@ def _paged_case(dev, pos, q8, b=8, nh=32, nkv=32, hd=128, ps=16, P=128):
     scales = [torch.rand(n_pages, nkv, generator=g, device=dev) * 2 + 0.5
               for _ in range(2)]
     for sc in scales:
-        sc[bt[1, 0]] = 0.0
+        sc[bt[min(1, b - 1), 0]] = 0.0
     return (q, *codes, bt, pos_t), tuple(scales)
 
 
@@ -343,7 +366,7 @@ def _b4_case(dev, b, nh, nkv, hd, length, pos):
     return q, ck, cv, torch.tensor(pos, dtype=torch.int32, device=dev)
 
 
-def _b4_shape(dev, sms, l2, attn, libs, label, b, nh, nkv, hd, length, pos):
+def _b4_shape(dev, l2, attn, libs, label, b, nh, nkv, hd, length, pos):
     """B4 at one B4_SHAPES row: the shared body, every split count, the
     rule, the library call; the same keys through the contiguous cp.async
     source and (len 2048) through B6 over pages of 16; then the variants
@@ -351,7 +374,7 @@ def _b4_shape(dev, sms, l2, attn, libs, label, b, nh, nkv, hd, length, pos):
     q, ck, cv, p = _b4_case(dev, b, nh, nkv, hd, length, pos)
     ref = at.decode_attention_plain(q.float(), ck.float(), cv.float(), p)
     out = torch.empty_like(q)
-    rule = at.decode_splits(b, nkv, length - 1, sms)
+    rule = at.decode_splits(length - 1)
     mask = (torch.arange(length, device=dev)[None, :]
             <= p[:, None].long())[:, None, None, :]
     qt = q.transpose(1, 2)
@@ -372,11 +395,17 @@ def _b4_shape(dev, sms, l2, attn, libs, label, b, nh, nkv, hd, length, pos):
     for splits in (0, 1, 2, 4, 8):
         timed("the shared body" if splits == 0 else f"{splits} split(s)",
               _b4_call(attn, q, ck, cv, p, out, splits))
+    for tiles in SPLIT_TILES:
+        cluster = at.row_splits(length - 1, tiles)
+        timed(f"the per-row rule at {tiles} tiles a split (cluster "
+              f"{cluster})", _b4_call(attn, q, ck, cv, p, out, cluster,
+                                      tiles))
     # the cache as a pool of b pages of len keys, page r row r's
     table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
     timed(f"the contiguous cp.async source (the paged entry point, one page "
           f"a row), {rule} split(s)",
-          _paged_call(attn, q, ck, cv, table, p, out, rule))
+          _paged_call(attn, q, ck, cv, table, p, out, rule,
+                      split_tiles=at.PAGED_SPLIT_TILES))
     if length % 16 == 0:
         # B6 over pages of 16 holding the same keys, in table order
         def pages(c):
@@ -385,24 +414,26 @@ def _b4_shape(dev, sms, l2, attn, libs, label, b, nh, nkv, hd, length, pos):
 
         bt = torch.arange(b * length // 16, dtype=torch.int32,
                           device=dev).reshape(b, -1)
-        split6 = at.paged_splits(b, nkv, length // 16, 16, sms)
+        split6 = at.paged_splits(length // 16, 16)
         timed(f"B6 over pages of 16 holding the same keys, {split6} "
               f"split(s)", _paged_call(attn, q, pages(ck), pages(cv), bt, p,
-                                       out, split6))
+                                       out, split6,
+                                       split_tiles=at.PAGED_SPLIT_TILES))
     for vlabel, lib in libs.items():
         if vlabel.startswith("B7"):
             continue
-        t = _ms(_b4_call(lib, q, ck, cv, p, out, rule), l2)
+        t = _ms(_b4_call(lib, q, ck, cv, p, out, rule,
+                         at.PAGED_SPLIT_TILES), l2)
         print(f"  {vlabel} ({rule} split(s)): {t:.4f} ms", flush=True)
 
 
-def _paged_shape(dev, sms, l2, attn, libs, label, pos):
+def _paged_shape(dev, l2, attn, libs, label, pos):
     """B6 and B7 at one PAGED_SHAPES row: the shared body, every split
     count, the rule, the library call; then the variants at the split
     counts the rule picks with and without the bound on pos."""
     for q8 in (False, True):
         kid = "B7" if q8 else "B6"
-        args, scales = _paged_case(dev, pos, q8)
+        args, scales = _paged_case(dev, pos, q8, b=len(pos))
         bt = args[3]
         if q8:
             kw = {"k_scale": scales[0], "v_scale": scales[1]}
@@ -421,8 +452,8 @@ def _paged_shape(dev, sms, l2, attn, libs, label, pos):
         qt = q.transpose(1, 2)
         lib_ms = _ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, ck, cv, attn_mask=mask), l2)
-        rule = at.paged_splits(b, nkv, P, ps, sms)
-        bound = at.paged_splits(b, nkv, P, ps, sms, max(pos))
+        rule = at.paged_splits(P, ps)
+        bound = at.paged_splits(P, ps, max(pos))
         print(f"{kid} b={b} ps={ps} P={P} {label}: the rule picks {rule} "
               f"split(s), {bound} with the bound max(pos) = {max(pos)}; "
               f"SDPA over the {'dequantized ' if q8 else ''}keys "
@@ -439,17 +470,36 @@ def _paged_shape(dev, sms, l2, attn, libs, label, pos):
             what = "the shared body" if splits == 0 else f"{splits} split(s)"
             print(f"  {what}: {_ms(call, l2):.4f} ms, worst row at "
                   f"{ratio:.3f} of its bar", flush=True)
+        for tiles in SPLIT_TILES:
+            cluster = at.row_splits(max(pos), tiles)
+            call = _paged_call(attn, *args, out, cluster, scales, tiles)
+            call()
+            torch.cuda.synchronize()
+            ratio = _row_ratio(out, ref)
+            if not ratio <= 1.0:
+                raise AssertionError(f"{kid} {tiles} tiles a split: row "
+                                     f"ratio {ratio}")
+            print(f"  the per-row rule at {tiles} tiles a split (cluster "
+                  f"{cluster}, the bound max(pos)): {_ms(call, l2):.4f} ms",
+                  flush=True)
         for vlabel, lib in libs.items():
             if vlabel.startswith("B7") and not q8:
                 continue
             for splits in sorted({rule, bound}):
-                t = _ms(_paged_call(lib, *args, out, splits, scales), l2)
+                t = _ms(_paged_call(lib, *args, out, splits, scales,
+                                    at.PAGED_SPLIT_TILES), l2)
                 print(f"  {vlabel} ({splits} split(s)): {t:.4f} ms",
                       flush=True)
         del args, ck, cv
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rule-only", action="store_true",
+                    help="no variants: split counts and thresholds only")
+    rule_only = ap.parse_args(argv).rule_only
     dev = torch.device("cuda", 0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -460,22 +510,24 @@ def main():
     for name in ("attention", "quantized_matmul"):
         _print_resources(name, _build.build(name)[1])
     attn, qmm = _build.lib("attention"), _build.lib("quantized_matmul")
-    b5_libs = _variant_libs("attention", B5_VARIANTS)
-    paged_libs = _variant_libs("attention", PAGED_VARIANTS)
-    b8_libs = _variant_libs("quantized_matmul", B8_VARIANTS)
+    b5_libs = {} if rule_only else _variant_libs("attention", B5_VARIANTS)
+    paged_libs = ({} if rule_only
+                  else _variant_libs("attention", PAGED_VARIANTS))
+    b8_libs = ({} if rule_only
+               else _variant_libs("quantized_matmul", B8_VARIANTS))
 
     for label, *shape in B4_SHAPES:
-        _b4_shape(dev, sms, l2, attn, paged_libs, label, *shape)
+        _b4_shape(dev, l2, attn, paged_libs, label, *shape)
 
     for label, pos in PAGED_SHAPES:
-        _paged_shape(dev, sms, l2, attn, paged_libs, label, pos)
+        _paged_shape(dev, l2, attn, paged_libs, label, pos)
 
     for shape in B5_SHAPES:
         b, s, nh, nkv, hd, length, pos = shape
         q, ck, cv, p = _b5_case(dev, *shape)
         ref = at.window_attention_plain(q.float(), ck.float(), cv.float(), p)
         out = torch.empty_like(q)
-        rule = at.window_splits(b, nkv, length - 1, sms)
+        rule = at.window_splits(length - 1)
         print(f"B5 b={b} s={s} nh={nh} nkv={nkv} len={length} pos={pos}: "
               f"the rule picks {rule} split(s); SDPA over the keys read "
               f"{_ms(_b5_sdpa(q, ck, cv, p), l2):.4f} ms", flush=True)
@@ -488,16 +540,28 @@ def main():
                 raise AssertionError(f"B5 {splits} splits: row ratio {ratio}")
             print(f"  {splits} split(s): {_ms(call, l2):.4f} ms, worst row "
                   f"at {ratio:.3f} of its bar", flush=True)
+        watermark = min(max(pos) + s - 1, length - 1)
+        for tiles in SPLIT_TILES:
+            cluster = at.row_splits(watermark, tiles)
+            call = _b5_call(attn, q, ck, cv, p, out, cluster, tiles)
+            call()
+            torch.cuda.synchronize()
+            ratio = _row_ratio(out, ref)
+            if not ratio <= 1.0:
+                raise AssertionError(f"B5 {tiles} tiles a split: row ratio "
+                                     f"{ratio}")
+            print(f"  the per-row rule at {tiles} tiles a split (cluster "
+                  f"{cluster}): {_ms(call, l2):.4f} ms", flush=True)
         for label, lib in b5_libs.items():
-            print(f"  {label} ({rule} splits): "
-                  f"{_ms(_b5_call(lib, q, ck, cv, p, out, rule), l2):.4f}"
-                  " ms", flush=True)
+            t = _ms(_b5_call(lib, q, ck, cv, p, out, rule,
+                             at.WINDOW_SPLIT_TILES), l2)
+            print(f"  {label} ({rule} splits): {t:.4f} ms", flush=True)
 
     for m, k, n in B8_SHAPES:
         x, w, s = _b8_case(dev, m, k, n)
         ref = qm.dequant_matmul_plain(x.float(), w, s)
         out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
-        rule = qm.gemv_split(m, k, n, sms)
+        rule = qm.gemv_split(k, n, sms)
         wd = w.to(torch.bfloat16) * (s.to(torch.bfloat16) / 127.0)
         print(f"B8 M={m} K={k} N={n}: the rule picks (K rows a block, "
               f"cluster) {rule}; torch.matmul "

@@ -4,10 +4,11 @@ Thread-safe counters (monotonic, labeled), gauges (last value + running
 max, labeled) and fixed-bucket histograms with p50/p95/p99 (Prometheus
 `histogram_quantile` rule, clamped to the observed [min, max]); exports a
 deterministic, JSON-able `snapshot()`. The port keeps its own copy so that
-it imports nothing of the JAX package, and only what serving reads: the
-reference's process-global registry, Prometheus exporter and declared
-bucket bounds are not carried over (the serving engine owns a private
-registry per `Metrics`).
+it imports nothing of the JAX package. The process-global registry
+(`global_registry`) is what the training monitor, the checkpoint manager
+and the kernel tuner report to by default; the serving engine owns a
+private registry per `Metrics`. The reference's Prometheus exporter and
+declared bucket bounds are not carried over.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ import math
 import threading
 import time
 
-__all__ = ["MetricsRegistry", "DEFAULT_BUCKETS"]
+__all__ = ["MetricsRegistry", "DEFAULT_BUCKETS", "global_registry",
+           "set_global_registry"]
 
 # 1-2.5-5 ladder per decade, 1us .. 5e9: wide enough that the same default
 # serves second-scale timers, tokens/sec rates, and byte counts. Bounds are
@@ -187,3 +189,21 @@ class MetricsRegistry:
             self._gauges = {}
             self._hists = {}
 
+
+
+_GLOBAL = MetricsRegistry()
+_GLOBAL_LOCK = threading.Lock()
+
+
+def global_registry():
+    """The process-wide registry."""
+    return _GLOBAL
+
+
+def set_global_registry(registry):
+    """Swap the process-wide registry (tests isolate their runs this way);
+    returns the previous one."""
+    global _GLOBAL
+    with _GLOBAL_LOCK:
+        prev, _GLOBAL = _GLOBAL, registry
+    return prev

@@ -16,6 +16,8 @@ Inputs are made with numpy from a seed and handed to both packages.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import jax.numpy as jnp
 
@@ -166,18 +168,17 @@ def test_wrappers_reject_what_they_cannot_take():
 
 # B5's split of the keys in bf16 (`window_splits`, `window_split_keys`): the
 # kernel cuts each row's keys the same way on the card
-@pytest.mark.parametrize("b,nkv,last,sms", [
-    (1, 32, 527, 132), (1, 32, 2063, 132), (8, 32, 1003, 132),
-    (1, 2, 4, 132), (2, 4, 128, 132), (1, 8, 147, 132), (1, 1, 63, 132),
-    (1, 1, 64, 132), (3, 5, 999, 114), (1, 32, 0, 132)])
-def test_window_splits_cover_the_keys(b, nkv, last, sms):
-    """Every split the rule picks for a watermark holds keys, the splits
-    are in order and together cover [0, last] once; at most one cluster
-    of WINDOW_MAX_SPLITS blocks, and no more blocks than fill the card
-    once b * nkv alone does not."""
-    splits = at.window_splits(b, nkv, last, sms)
-    assert 1 <= splits <= at.WINDOW_MAX_SPLITS
-    assert splits == 1 or 2 * b * nkv * splits <= sms
+@pytest.mark.parametrize("last", [527, 2063, 1003, 4, 128, 147, 63, 64, 999,
+                                  0])
+def test_window_splits_cover_the_keys(last):
+    """The cluster the rule picks for a watermark is one split for every
+    WINDOW_SPLIT_TILES tiles, at most WINDOW_MAX_SPLITS; a row at that
+    watermark uses each of its blocks, every split holds keys, the splits
+    are in order and together cover [0, last] once."""
+    splits = at.window_splits(last)
+    tiles = last // at.WINDOW_TILE + 1
+    assert splits == min(at.WINDOW_MAX_SPLITS,
+                         -(-tiles // at.WINDOW_SPLIT_TILES))
     keys = at.window_split_keys(last, splits)
     assert len(keys) == splits and None not in keys
     assert keys[0][0] == 0 and keys[-1][1] == last
@@ -187,9 +188,12 @@ def test_window_splits_cover_the_keys(b, nkv, last, sms):
 
 def test_window_split_keys_for_a_row_short_of_the_split_count():
     """A row whose watermark is short of the host's bound (a device pos)
-    has fewer tiles than splits: some splits hold none, and the ones with
-    tiles still cover [0, last] in order."""
-    assert at.window_split_keys(100, 4) == [None, (0, 63), None, (64, 100)]
+    takes its own count of the cluster's blocks, in order from the first;
+    the blocks past them hold none."""
+    assert at.window_split_keys(100, 4) == [(0, 100), None, None, None]
+    # 18 tiles: 3 splits of 6 tiles
+    assert at.window_split_keys(1100, 4) == [(0, 383), (384, 767),
+                                             (768, 1100), None]
 
 
 def test_window_last_reads_no_device_tensor():
@@ -233,25 +237,25 @@ def test_paged_route_takes_bf16_to_the_cluster_kernel():
     assert at.paged_route(torch.float32) == "shared"
 
 
-@pytest.mark.parametrize("b,nkv,P,ps,sms,max_pos,want", [
-    (8, 32, 128, 16, 132, None, 2),   # the engine's table: 2048 keys
-    (8, 32, 128, 16, 132, 319, 1),    # ... its scheduler's bound: 5 tiles
-    (8, 32, 128, 16, 132, 5000, 2),   # a bound past the table clamps
-    (8, 32, 256, 16, 132, None, 4),   # 4096 keys: 64 tiles
-    (8, 32, 64, 16, 132, None, 1),    # 1024 keys: one split holds them
-    (1, 32, 16, 16, 132, None, 2),    # few (kv head, row) pairs: B5's rule
-    (1, 1, 16, 16, 132, None, 4),     # ... capped by the table's 4 tiles
-    (1, 8, 512, 8, 132, None, 8),     # a cluster's 8 blocks
-    (4, 8, 1, 128, 132, None, 2),     # one page of 128 keys: 2 tiles
-    (2, 4, 3, 7, 114, None, 1),       # 21 keys: one tile
-    (8, 32, 128, 16, 132, 0, 1),      # every row at pos 0
+@pytest.mark.parametrize("P,ps,max_pos,want", [
+    (128, 16, None, 4),   # the engine's table: 2048 keys, 32 tiles
+    (128, 16, 319, 1),    # ... its scheduler's bound: 5 tiles
+    (128, 16, 5000, 4),   # a bound past the table clamps
+    (256, 16, None, 8),   # 4096 keys: 64 tiles
+    (32, 16, None, 1),    # 512 keys: one split holds their 8 tiles
+    (16, 16, None, 1),    # 256 keys: 4 tiles
+    (128, 16, 1024, 3),   # 1025 keys: 17 tiles
+    (192, 8, None, 3),    # 1536 keys: 24 tiles
+    (1, 128, None, 1),    # one page of 128 keys: 2 tiles
+    (1024, 16, None, 8),  # 16384 keys: a cluster's 8 blocks
+    (128, 16, 0, 1),      # every row at pos 0
 ])
-def test_paged_splits_follow_the_longest_row(b, nkv, P, ps, sms, max_pos,
-                                             want):
-    """The split is cut for the longest row the host knows of (the table,
-    or the caller's bound on pos): at most PAGED_SPLIT_TILES tiles a
-    split, at least B5's one block for every two SMs, at most a cluster."""
-    assert at.paged_splits(b, nkv, P, ps, sms, max_pos) == want
+def test_paged_splits_follow_the_longest_row(P, ps, max_pos, want):
+    """The cluster is cut for the longest row the host knows of (the
+    table, or the caller's bound on pos): one split for every
+    PAGED_SPLIT_TILES tiles of it, at most a cluster's 8 blocks; nothing
+    of the batch (rows, kv heads, the card's SMs) enters."""
+    assert at.paged_splits(P, ps, max_pos) == want
 
 
 @pytest.mark.parametrize("ps", [8, 16, 64, 128])
@@ -259,10 +263,11 @@ def test_paged_splits_follow_the_longest_row(b, nkv, P, ps, sms, max_pos,
 @pytest.mark.parametrize("pos", [0, 1, 7, 63, 64, 100, 511, 1023, 4095,
                                  5000])
 def test_paged_split_keys_cover_each_row_once(ps, P, pos):
-    """For every split count the rule can pick, the splits that hold keys
-    cover [0, min(pos, P * ps - 1)] once, in order and in whole tiles (a
-    split may be empty: a row shorter than the split count, pos 0, a row
-    ending mid-page); tables up to P * ps = 4096 keys."""
+    """For every cluster the rule can pick, the splits that hold keys
+    cover [0, min(pos, P * ps - 1)] once, in order and in whole tiles, and
+    are the row's own count of the cluster's first blocks (pos 0, a row
+    ending mid-page, a row shorter than the cluster); tables up to P * ps
+    = 4096 keys."""
     if P * ps > 4096:
         pytest.skip("tables up to 4096 keys")
     last = min(pos, P * ps - 1)
@@ -275,8 +280,9 @@ def test_paged_split_keys_cover_each_row_once(ps, P, pos):
             assert first % at.WINDOW_TILE == 0 and first <= end
         for (_, end), (start, _) in zip(held, held[1:]):
             assert start == end + 1
-        # a split holds keys when the row has a tile for it
-        assert len(held) == min(splits, last // at.WINDOW_TILE + 1)
+        # the row's own count, from the cluster's first block
+        own = min(splits, at.row_splits(last, at.PAGED_SPLIT_TILES))
+        assert keys[:own] == held and len(held) == own
 
 
 def _paged_small(q8, dtype=torch.bfloat16):
@@ -328,22 +334,60 @@ def test_paged_bar_rejects_planted_faults(q8):
 # B4's split of the keys in bf16 (`decode_splits`, `decode_split_keys`):
 # decode_mma_kernel cuts each row's keys of the contiguous cache the same
 # way on the card
-@pytest.mark.parametrize("b,nkv,last,sms,want", [
-    (8, 32, 2047, 132, 2),    # the timing shape: 32 tiles
-    (8, 16, 1028, 132, 2),    # the draft's stripe: 17 tiles
-    (8, 32, 255, 132, 1),     # a host-known pos early in the cache
-    (1, 32, 2047, 132, 2),    # few pairs: B5's one block for two SMs
-    (1, 1, 4095, 132, 8),     # ... capped by a cluster's 8 blocks
-    (1, 1, 100, 132, 2),      # ... and by the row's 2 tiles
-    (4, 8, 0, 132, 1),        # every row at pos 0
-    (2, 4, 5000, 114, 7),     # 79 tiles want 5; 8 pairs on 114 SMs, 7
-    (8, 8, 5000, 132, 5),     # 79 tiles: at most 16 a split
+@pytest.mark.parametrize("last,want", [
+    (2047, 4),    # the timing shape: 32 tiles
+    (1028, 3),    # the draft's stripe: 17 tiles
+    (255, 1),     # a host-known pos early in the cache
+    (511, 1),     # 8 tiles: one split holds them
+    (8191, 8),    # 128 tiles: a cluster's 8 blocks
+    (100000, 8),  # ... and no more
+    (0, 1),       # every row at pos 0
+    (3071, 6),    # 48 tiles
+    (2500, 5),    # 40 tiles: at most 8 a split
 ])
-def test_decode_splits_follow_the_longest_row(b, nkv, last, sms, want):
-    """B4's split is cut for the longest row the host knows of, keys [0,
-    last]: paged_splits' rule, at most PAGED_SPLIT_TILES tiles a split, at
-    least one block for every two SMs, at most a cluster."""
-    assert at.decode_splits(b, nkv, last, sms) == want
+def test_decode_splits_follow_the_longest_row(last, want):
+    """B4's cluster is cut for the longest row the host knows of, keys [0,
+    last]: paged_splits' rule, one split for every PAGED_SPLIT_TILES
+    tiles, at most a cluster."""
+    assert at.decode_splits(last) == want
+
+
+def _held(cut):
+    return [k for k in cut if k is not None]
+
+
+# fault C2: a row's cut of its keys is a function of the row alone, whatever
+# else its batch holds, as long as the host's bound covers every row
+@settings(max_examples=150, deadline=None)
+@given(pos=st.integers(0, 6000),
+       others=st.lists(st.integers(0, 6000), max_size=15),
+       table=st.sampled_from([(8, 16), (64, 16), (128, 16), (256, 16),
+                              (16, 64), (512, 8)]),
+       slack=st.none() | st.integers(0, 3000),
+       s=st.integers(1, 16))
+def test_a_rows_cut_does_not_depend_on_its_batch(pos, others, table, slack,
+                                                 s):
+    """B6/B7 (`paged_splits` with or without the scheduler's bound on pos),
+    B4 (`decode_splits` of a host-known pos, or a pos on the card) and B5
+    (`window_splits`) give a row the keys it gets alone in any batch: the
+    same splits, each the same keys."""
+    P, ps = table
+    batch = torch.tensor(others + [pos], dtype=torch.int32)
+    max_pos = None if slack is None else int(batch.max()) + slack
+    alone = at.paged_split_keys(pos, P, ps, at.paged_splits(P, ps, pos))
+    cut = at.paged_split_keys(pos, P, ps, at.paged_splits(P, ps, max_pos))
+    assert _held(cut) == _held(alone)
+    length = P * ps
+    for on_card in (False, True):
+        known = batch.to("meta") if on_card else batch
+        cluster = at.decode_splits(at._window_last(known, 1, length))
+        alone = at.decode_splits(at._window_last(pos, 1, length))
+        assert _held(at.decode_split_keys(pos, length, cluster)) == \
+            _held(at.decode_split_keys(pos, length, alone))
+        last = min(pos + s - 1, length - 1)
+        cluster = at.window_splits(at._window_last(known, s, length))
+        assert _held(at.window_split_keys(last, cluster)) == \
+            _held(at.window_split_keys(last, at.window_splits(last)))
 
 
 @pytest.mark.parametrize("length", [64, 130, 1029, 2048])
@@ -362,7 +406,8 @@ def test_decode_split_keys_cover_each_row_once(length, pos):
             assert first % at.WINDOW_TILE == 0 and first <= end
         for (_, end), (start, _) in zip(held, held[1:]):
             assert start == end + 1
-        assert len(held) == min(splits, last // at.WINDOW_TILE + 1)
+        own = min(splits, at.row_splits(last, at.PAGED_SPLIT_TILES))
+        assert keys[:own] == held and len(held) == own
 
 
 def _b4_small(dtype):

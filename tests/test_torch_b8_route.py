@@ -75,12 +75,13 @@ def test_gemv_split_covers_the_weight(m, k, n, sms):
     take every k16 step of K exactly once, each block at most `per` rows
     and every block at least one step a warp; the cluster is a power of
     two, stays portable (<= 8) and keeps the grid within 4/3 of a block
-    an SM (2/3 above 8 rows) whenever it is split at all."""
-    per, ranks = qm.gemv_split(m, k, n, sms)
+    an SM whenever it is split at all. The split is the same at every M
+    of a decode batch (it does not read M)."""
+    per, ranks = qm.gemv_split(k, n, sms)
     tiles = -(-n // qm.GEMV_COLS)
     assert tiles * qm.GEMV_COLS >= n
     assert ranks in (1, 2, 4, 8) and ranks <= qm.GEMV_MAX_CLUSTER
-    assert ranks == 1 or tiles * ranks <= (4 if m <= 8 else 2) * sms // 3
+    assert ranks == 1 or tiles * ranks <= 4 * sms // 3
     steps = -(-k // 16)
     assert ranks == 1 or 8 * ranks <= steps
     assert per * ranks >= k
@@ -94,13 +95,15 @@ def test_gemv_split_covers_the_weight(m, k, n, sms):
 
 
 @pytest.mark.parametrize("m,k,n,want", [
-    # the fastest cluster of kernels/sweep_decode.py on an H100 (132 SMs)
+    # the fastest cluster of kernels/sweep_decode.py at 8 rows on an H100
+    # (132 SMs); every M takes 8 rows' cluster, so that a row's K sums do
+    # not depend on the batch
     (8, 4096, 4096, 4), (8, 4096, 11008, 2), (8, 11008, 4096, 4),
     (8, 4096, 32000, 1), (1, 4096, 4096, 4), (1, 4096, 11008, 2),
-    (16, 4096, 4096, 2), (16, 4096, 11008, 1), (16, 11008, 4096, 2),
+    (16, 4096, 4096, 4), (16, 4096, 11008, 2), (16, 11008, 4096, 4),
     (16, 4096, 32000, 1)])
 def test_gemv_split_at_the_decode_shapes(m, k, n, want):
-    assert qm.gemv_split(m, k, n, 132)[1] == want
+    assert qm.gemv_split(k, n, 132)[1] == want
 
 
 # prompt, chunk and batched-prefill rows of the serving path: the engine's

@@ -13,6 +13,8 @@ from types import SimpleNamespace
 
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels import attention as at
@@ -86,7 +88,6 @@ def runtime(monkeypatch):
     monkeypatch.setattr(qm, "_sm_count", {})
     monkeypatch.setattr(rn, "_sm_count", {})
     monkeypatch.setattr(rn, "_scratch", {})
-    monkeypatch.setattr(at, "_sm_count", {})
     for mod in (fa, at, qm, rn):
         monkeypatch.setattr(mod, "launches", dict(mod.launches))
     yield seen
@@ -157,15 +158,17 @@ def test_matmul_and_norm_wrappers_launch_on_their_tensors_device(runtime):
 def test_paged_wrapper_launches_its_route(runtime, monkeypatch):
     """B6/B7 on a CUDA tensor: bf16 launches the key-split kernel with
     `paged_splits` blocks a cluster (cut for the caller's bound on pos when
-    given), f32 the shared body (`splits` 0); each call one launch."""
+    given) and PAGED_SPLIT_TILES tiles a row's split, f32 the shared body
+    (`splits` 0); each call one launch."""
     import numpy as np
 
     calls = []
     monkeypatch.setattr(_build, "launch",
                         lambda name, fn, dev, *args: calls.append(
-                            (fn, args[-2])) or 0)
+                            (fn, args[-2])) or 0 if args[-3] ==
+                        at.PAGED_SPLIT_TILES else 1)
     gen = np.random.default_rng(3)
-    # 2048 keys a table; 8 x 8 (kv head, row) pairs: B5's term gives 1
+    # 2048 keys a table, 32 tiles: a cluster of 4; the bound 40: 1
     b, nh, nkv, hd, ps, P = 8, 8, 8, 64, 16, 128
     pos = _card(torch.arange(5, 5 + b, dtype=torch.int32))
     bt = _card(torch.arange(1, 1 + b * P, dtype=torch.int32).reshape(b, P))
@@ -178,9 +181,8 @@ def test_paged_wrapper_launches_its_route(runtime, monkeypatch):
         at.paged_decode_attention(q, pool, pool, bt, pos, max_pos=40)
         at.paged_decode_attention(q, codes, codes, bt, pos, k_scale=scales,
                                   v_scale=scales, max_pos=40)
-    table, bound = (at.paged_splits(b, nkv, P, ps, 132, m)
-                    for m in (None, 40))
-    assert (table, bound) == (2, 1)
+    table, bound = (at.paged_splits(P, ps, m) for m in (None, 40))
+    assert (table, bound) == (4, 1)
     assert calls == [
         ("pt_paged_decode_attention", table),
         ("pt_paged_decode_attention", bound),
@@ -202,7 +204,8 @@ def test_decode_wrapper_launches_its_route(runtime, monkeypatch):
     calls = []
     monkeypatch.setattr(_build, "launch",
                         lambda name, fn, dev, *args: calls.append(
-                            (fn, args[-2])) or 0)
+                            (fn, args[-2])) or 0 if args[-3] ==
+                        at.PAGED_SPLIT_TILES else 1)
     # an int pos goes to the card as a tensor: here, a tensor on `cuda:1`
     monkeypatch.setattr(at, "_int32_on", lambda x, b, device: _card(
         torch.as_tensor(x, dtype=torch.int32).expand(b)))
@@ -215,8 +218,88 @@ def test_decode_wrapper_launches_its_route(runtime, monkeypatch):
         cache = _card(torch.zeros(b, nkv, length, hd, dtype=dtype))
         at.decode_attention(q, cache, cache, pos)
         at.decode_attention(q, cache, cache, 300)
-    assert (at.decode_splits(b, nkv, length - 1, 132),
-            at.decode_splits(b, nkv, 300, 132)) == (2, 1)
-    assert calls == [("pt_decode_attention", 2), ("pt_decode_attention", 1),
+    assert (at.decode_splits(length - 1), at.decode_splits(300)) == (3, 1)
+    assert calls == [("pt_decode_attention", 3), ("pt_decode_attention", 1),
                      ("pt_decode_attention", 0), ("pt_decode_attention", 0)]
     assert at.launches["decode_attention"] == 4
+
+
+def test_gemv_split_does_not_read_m(runtime, monkeypatch):
+    """Fault C2 for B8's GEMV: at M = 1, 8, 9 and 16 a call launches the
+    same K split (bf16: the cluster; f32: the blocks over K), so a row's
+    K sums are added in one order whatever rows share its batch."""
+    import numpy as np
+
+    calls = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: calls.append(
+                            (args[-6], args[-5], args[-9])) or 0)
+    gen = np.random.default_rng(5)
+    for k, n in ((4096, 4096), (4096, 11008), (11008, 4096), (1000, 999)):
+        w = _card(torch.ones(k, n, dtype=torch.int8))
+        s = _card(torch.ones(n))
+        for dtype in (torch.bfloat16, torch.float32):
+            calls.clear()
+            for m in (1, 8, 9, 16):
+                qm.weight_only_matmul(_rnd(gen, m, k, dtype=dtype), w, s)
+            assert [c[2] for c in calls] == [1, 8, 9, 16]
+            assert len({c[:2] for c in calls}) == 1, (k, n, dtype, calls)
+
+
+def test_b10_scratch_is_per_stream(runtime, monkeypatch):
+    """Fault C3: two streams of one card get two scratches (counter and
+    partials) for B10, each stream the same one on every call."""
+    import numpy as np
+
+    stream = {"now": 7}
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(
+                            cuda_stream=stream["now"]))
+    seen = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: seen.append(
+                            (stream["now"], args[6], args[7])) or 0)
+    gen = np.random.default_rng(6)
+    x, g, w = _rnd(gen, 4, 64), _rnd(gen, 4, 64), _rnd(gen, 64)
+    r = _card(torch.ones(4))
+    for now in (7, 9, 7, 9):
+        stream["now"] = now
+        rn.rms_norm_bwd(x, w, r, g)
+    assert [s for s, _, _ in seen] == [7, 9, 7, 9]
+    assert seen[0][1:] == seen[2][1:] and seen[1][1:] == seen[3][1:]
+    assert seen[0][1] != seen[1][1] and seen[0][2] != seen[1][2]
+    assert set(rn._scratch) == {(CARD, 7), (CARD, 9)}
+
+
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(b=st.integers(1, 6), nkv=st.sampled_from([1, 2, 4]),
+       ps=st.sampled_from([8, 16]), P=st.sampled_from([4, 16, 64]),
+       data=st.data())
+def test_paged_wrapper_gives_a_row_its_own_cut(runtime, monkeypatch, b, nkv,
+                                               ps, P, data):
+    """Fault C2 through the B6 wrapper: whatever the batch (rows, kv heads,
+    the other rows' pos, the caller's bound on pos at or above every row's),
+    the cluster it launches and the split tiles it passes give row 0 the
+    keys it gets in a batch of its own."""
+    pos = data.draw(st.lists(st.integers(0, P * ps - 1), min_size=b,
+                             max_size=b))
+    bound = data.draw(st.none() | st.integers(max(pos), P * ps + 100))
+    launched = []
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, fn, dev, *args: launched.append(
+                            (args[-3], args[-2])) or 0)
+
+    def cut(batch_pos, max_pos):
+        launched.clear()
+        q = _card(torch.zeros(len(batch_pos), 1, nkv, 64,
+                              dtype=torch.bfloat16))
+        pool = _card(torch.zeros(1, nkv, ps, 64, dtype=torch.bfloat16))
+        bt = _card(torch.zeros(len(batch_pos), P, dtype=torch.int32))
+        at.paged_decode_attention(q, pool, pool, bt, _card(torch.tensor(
+            batch_pos, dtype=torch.int32)), max_pos=max_pos)
+        (split_tiles, cluster), = launched
+        assert split_tiles == at.PAGED_SPLIT_TILES
+        return [k for k in at.paged_split_keys(pos[0], P, ps, cluster) if k]
+
+    assert cut(pos, bound) == cut(pos[:1], pos[0])

@@ -39,7 +39,13 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.core.tree, paddle_tpu_torch.kernels.rms_norm, "
         "paddle_tpu_torch.serving.spec_decode, "
         "paddle_tpu_torch.serving.disagg, paddle_tpu_torch.serving.router, "
-        "paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.bert\n"
+        "paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.bert, "
+        "paddle_tpu_torch.kernels.tuning, "
+        "paddle_tpu_torch.distributed.checkpoint, "
+        "paddle_tpu_torch.distributed.checkpoint.chaos, "
+        "paddle_tpu_torch.observability.monitor, "
+        "paddle_tpu_torch.observability.hardware, "
+        "paddle_tpu_torch.observability.telemetry\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -156,3 +162,39 @@ def test_serving_slice_entry_points_raise_without_cuda(no_cuda):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
         assert make(device="cpu") is not None
+
+
+def test_checkpoint_monitor_and_tuner_entry_points_without_cuda(no_cuda,
+                                                                tmp_path):
+    """The engine with save_every / resume raises without a card unless
+    the CPU is asked for; on the CPU it builds its manager and monitor.
+    The tuner never measures without a card, and the monitor reads no
+    card's memory or peak on the CPU. The fault injector is the port's own
+    copy (no `tools`)."""
+    from paddle_tpu_torch.distributed import HybridParallelEngine
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.kernels import tuning
+    from paddle_tpu_torch.observability import TrainingMonitor
+
+    args = _tiny()
+    for kw in (dict(save_every=2), dict(resume=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            HybridParallelEngine(args, checkpoint=str(tmp_path), **kw)
+        eng = HybridParallelEngine(args, checkpoint=str(tmp_path),
+                                   device="cpu", **kw)
+        assert isinstance(eng.checkpoint_manager, CheckpointManager)
+        params, opt = eng.init_state(0)
+        assert eng.maybe_resume(params, opt)[2] == 0
+    mon = TrainingMonitor(nan_action="none")
+    assert mon.record_step(0.1, tokens=8)["hbm_high_water_bytes"] == 0
+    assert mon.peak_flops is None
+    calls = []
+    for device in (None, "cpu"):
+        tuning.get_blocks("b8_tile", {"m": 2048}, torch.bfloat16,
+                          {"tile_m": 256}, device=device,
+                          measure=lambda b: calls.append(b) or 1.0,
+                          candidates=[{"tile_m": 128}])
+    assert not calls
+    assert "tools" not in {name.split(".")[0] for f in
+                           (PACKAGE / "distributed" / "checkpoint").glob(
+                               "*.py") for name in _imports(f)}

@@ -535,7 +535,7 @@ def test_rms_norm_bar_rejects_planted_faults_on_card(cuda):
     another row, a row group or a cluster's partial left out of dw or
     counted twice) fails."""
     x, w, g = cs.rms_case(torch, cuda, 4096, 4096, torch.bfloat16)
-    sms = at._sms(cuda)
+    sms = qm._sms(cuda)
     _, r = rn.rms_norm_fwd_plain(x, w, cs.RMS_EPS)
     _, dw = rn.rms_norm_bwd_plain(x, w, r, g)
     split = cs.rms_dw_split(torch, rn, x, r, g, sms).to(w.dtype)
@@ -655,3 +655,18 @@ def test_every_kernel_launches_on_its_tensors_card(second_card):
     for got, ref in plain:
         assert (got.float() - ref.float()).abs().max().item() <= \
             _bf16_bar(ref)
+
+
+def test_bf16_rows_do_not_depend_on_their_batch_on_card(cuda):
+    """Fault C2: `chip_smoke.phase_c2` on the card: one row through B4,
+    B5, B6 and B7 in bf16 gives the same bits alone, among 7 rows with the
+    batch's max_pos and among 3 with pos on the card, at 7B's and GPT-2's
+    decode shapes; one x row through B8's GEMV the same bits at M = 1, 8,
+    9 and 16."""
+    assert cs.phase_c2(torch, cuda) == []
+
+
+def test_b10_on_two_streams_gives_solo_bits_on_card(cuda):
+    """Fault C3: `chip_smoke.phase_c3` on the card: B10 calls on two
+    streams at once each give the bits they give alone."""
+    assert not any(cs.phase_c3(torch, cuda, calls=16).values())

@@ -297,3 +297,29 @@ def test_bwd_bars_reject_planted_faults():
     for fault, wrong, right in faults:
         bad = cs.rms_ratios(torch, wrong, right, "bfloat16")
         assert max(bad.values()) > 1.0, fault
+
+
+def test_b10_scratch_is_kept_per_stream(monkeypatch):
+    """Fault C3: B10's arrival counter and partial sums are kept per
+    (device, current stream): two streams get two, a stream gets its own
+    back on every call (the partials grown when a call needs more)."""
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    now = {"stream": 1}
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(
+                            cuda_stream=now["stream"]))
+    monkeypatch.setattr(rn, "_scratch", {})
+    cpu = torch.device("cpu")
+    a = rn._bwd_scratch(cpu, 2, 64)
+    now["stream"] = 2
+    b = rn._bwd_scratch(cpu, 2, 64)
+    assert a[0] is not b[0] and a[1] is not b[1]
+    now["stream"] = 1
+    again = rn._bwd_scratch(cpu, 2, 64)
+    assert again[0] is a[0] and again[1] is a[1]
+    grown = rn._bwd_scratch(cpu, 4, 64)
+    assert grown[0] is a[0] and grown[1].numel() == 256
+    assert set(rn._scratch) == {(cpu, 1), (cpu, 2)}

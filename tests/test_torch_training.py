@@ -250,17 +250,23 @@ def test_five_step_trajectory_matches_jax_engine(master_weights):
     assert torch.equal(out, ref)
 
 
-def test_engine_rejects_what_is_not_ported():
+def test_engine_rejects_what_is_not_ported(tmp_path):
+    """dp/pp/mp/cp > 1 still raise (ROADMAP A9); checkpointing and the
+    monitor are ported (ROADMAP A11): each option builds its part."""
+    from paddle_tpu_torch.distributed.checkpoint import CheckpointManager
+    from paddle_tpu_torch.observability import TrainingMonitor
+
     cfg = _cfg()
     for kw in (dict(dp=2), dict(pp=2), dict(mp=2), dict(cp=2)):
         with pytest.raises(NotImplementedError, match="A9"):
             HybridParallelEngine(cfg, device=CPU, **kw)
-    for kw in (dict(save_every=10), dict(resume=True),
-               dict(checkpoint="ckpt")):
-        with pytest.raises(NotImplementedError, match="A9"):
-            HybridParallelEngine(cfg, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="A10"):
-        HybridParallelEngine(cfg, device=CPU, monitor=object())
+    for kw in (dict(save_every=10), dict(resume=True), dict()):
+        eng = HybridParallelEngine(cfg, device=CPU,
+                                   checkpoint=str(tmp_path / "ckpt"), **kw)
+        assert isinstance(eng.checkpoint_manager, CheckpointManager)
+    mon = TrainingMonitor(nan_action="none")
+    assert HybridParallelEngine(cfg, device=CPU, monitor=mon).monitor is mon
+    assert mon.device == torch.device(CPU)
     with pytest.raises(ValueError, match="moments"):
         HybridParallelEngine(cfg, device=CPU, moments="f16")
     eng = HybridParallelEngine(cfg, device=CPU, micro_batches=3)
