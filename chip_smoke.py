@@ -82,6 +82,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                   CE, plain autograd): f32 weights, then the same weights in
                   bf16 through the bf16 kernels, beside the plain bf16
                   attention (use_flash=False).
+  2a'. eager      the eager surface (`import paddle_tpu_torch as paddle`):
+                  a to_tensor with no place lands on cuda:0; a Llama loss
+                  written against the surface (`eager_llama_loss`:
+                  index_select, mean/rsqrt, split/concat RoPE,
+                  nn.functional.flash_attention, sigmoid SwiGLU,
+                  logsumexp/take_along_axis CE) at Llama-2-7B width, 2
+                  layers, b 1 s 2048, causal, against `forward_and_loss`
+                  (remat off) on the same weights: f32 loss rel <= 1e-5 and
+                  worst grad leaf <= 1e-3, bf16 loss rel <= 1e-3; B1
+                  launched >= 2 times in its forward, B2 and B3 >= 2 in its
+                  backward. The bf16 step's ms, aten ops and device-busy
+                  share beside the functional path's (recorded).
   2b. train       `HybridParallelEngine` on the 7B-width training leg of
                   bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
                   loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
@@ -1688,6 +1700,257 @@ def phase_train_check(torch, dev, seq=1024, loss_chunk=128):
         raise AssertionError(f"train-check bf16: B1-B3 {bf}, the plain "
                              f"attention {plain}, bars {bf_bars}, grad "
                              f"{grad_bar}")
+
+
+# the eager phase: Llama-2-7B width, 2 layers, b 1, s 2048, causal, written
+# against the port's eager surface; held to `forward_and_loss` on the same
+# weights. f32 bars are train-check's; bf16 holds the loss only.
+EAGER_LEG = dict(layers=2, batch=1, seq=2048)
+EAGER_BARS = {"loss_rel": 1e-5, "grad_rel": 1e-3}
+EAGER_BF16_LOSS_REL = 1e-3
+
+
+def eager_llama_loss(P, params, ids, labels, args):
+    """Mean next-token CE of a Llama over the eager surface of module `P`
+    (`paddle_tpu_torch`, or `paddle_tpu` in the CPU tests): embedding by
+    `index_select`, RMSNorm from `mean` and `rsqrt` (normalised in f32,
+    cast back, scaled by w), RoPE from `split` / `concat` (in f32), causal
+    `nn.functional.flash_attention`, SwiGLU from `sigmoid`, the CE from
+    `logsumexp` and `take_along_axis` over f32 logits. `params` is
+    `llama_functional`'s tree of P Tensors (layer leaves stacked on L),
+    ids / labels [B, T] int Tensors."""
+    B, T = ids.shape
+    nh, nkv, hd = args.num_heads, args.num_kv_heads, args.head_dim
+    inv = 1.0 / (args.rope_theta ** (P.arange(0, hd, 2, dtype="float32")
+                                     / hd))
+    ang = P.unsqueeze(P.arange(T, dtype="float32"), 1) * P.unsqueeze(inv, 0)
+    ang = P.reshape(P.concat([ang, ang], axis=-1), [1, T, 1, hd])
+    cos, sin = P.cos(ang), P.sin(ang)
+
+    def norm(x, w):
+        xf = P.cast(x, "float32")
+        r = P.rsqrt(P.mean(xf * xf, axis=-1, keepdim=True) + args.rms_eps)
+        return P.cast(xf * r, x.dtype) * w
+
+    def rope(x):
+        xf = P.cast(x, "float32")
+        x1, x2 = P.split(xf, 2, axis=-1)
+        return P.cast(xf * cos + P.concat([-x2, x1], axis=-1) * sin,
+                      x.dtype)
+
+    lay = params["layers"]
+    h = P.reshape(P.index_select(params["embedding"], P.reshape(ids, [-1])),
+                  [B, T, -1])
+    for i in range(args.num_layers):
+        x = norm(h, lay["ln1"][i])
+        q = P.reshape(P.matmul(x, lay["wq"][i]), [B, T, nh, hd])
+        k = P.reshape(P.matmul(x, lay["wk"][i]), [B, T, nkv, hd])
+        v = P.reshape(P.matmul(x, lay["wv"][i]), [B, T, nkv, hd])
+        o, _ = P.nn.functional.flash_attention(rope(q), rope(k), v,
+                                               causal=True)
+        h = h + P.matmul(P.reshape(o, [B, T, nh * hd]), lay["wo"][i])
+        x = norm(h, lay["ln2"][i])
+        g = P.matmul(x, lay["w_gate"][i])
+        h = h + P.matmul(g * P.sigmoid(g) * P.matmul(x, lay["w_up"][i]),
+                         lay["w_down"][i])
+    logits = P.cast(P.matmul(norm(h, params["final_norm"]),
+                             params["lm_head"]), "float32")
+    true = P.take_along_axis(logits, P.unsqueeze(labels, -1), axis=-1)
+    return P.mean(P.logsumexp(logits, axis=-1) - P.squeeze(true, axis=-1))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _ops_dispatched(torch, fn):
+    """(result of fn(), the aten ops it dispatched), counted by a
+    TorchDispatchMode (every op torch runs for the call, forward and
+    backward, below the Python surface)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def _busy_share(torch, dev, fn, n_steps=2, top=8):
+    """(wall ms a step, device-busy ms a step, {group: busy ms a step},
+    [(kernel, ms a step, launches a step)] of the `top` kernels by device
+    time) of fn() under torch.profiler, or None when the profiler sees no
+    device activity. The groups: matrix products (MATMUL_NAMES), B1-B3
+    (names holding `flash_`), and the rest (norms, RoPE, casts, SwiGLU, CE, embedding)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            fn()
+        torch.cuda.synchronize(dev)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+            and e.time_range.end > e.time_range.start]
+    if not kern:
+        return None
+    per_name, groups = {}, {"matmul": 0.0, "B1-B3": 0.0, "rest": 0.0}
+    for e in kern:
+        us = e.time_range.end - e.time_range.start
+        t, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + us, n + 1)
+        g = ("B1-B3" if "flash_" in e.name else "matmul"
+             if any(f in e.name for f in MATMUL_NAMES) else "rest")
+        groups[g] += us
+    busy = sum(groups.values())
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return (wall_us / n_steps / 1e3, busy / n_steps / 1e3,
+            {g: us / n_steps / 1e3 for g, us in groups.items()},
+            [(name, us / n_steps / 1e3, n / n_steps)
+             for name, (us, n) in ranked])
+
+
+def phase_eager(torch, dev, warmup=2, steps=8):
+    """The eager surface on the card: a to_tensor with no place lands on
+    cuda:0; `eager_llama_loss` at Llama-2-7B width (2 layers, b 1, s 2048)
+    against `forward_and_loss(remat=False)` on the same weights, f32 (loss
+    and every grad leaf) and bf16 (loss); B1 launched >= L times in the
+    forward, B2 and B3 >= L times in the backward, from the eager path.
+    Then, in bf16, the eager step's ms (2 warm-up, `steps` synchronised),
+    its aten ops and device-busy share, beside the functional path's.
+    Returns the launch counts of the eager runs."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import LLAMA2_7B, init_params
+    from paddle_tpu_torch.models import llama_functional as lf
+
+    device_mod._current = None   # the default: no set_device
+    placed = paddle.to_tensor([1.0, 2.0]).place
+    log(f"[eager] paddle.to_tensor with no place and no set_device lands on "
+        f"{placed}")
+    if placed != torch.device("cuda", 0):
+        raise AssertionError(f"eager: to_tensor landed on {placed}")
+    args = LLAMA2_7B._replace(num_layers=EAGER_LEG["layers"])
+    B, T = EAGER_LEG["batch"], EAGER_LEG["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = init_params(args, gen, device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    ids, labels = (torch.from_numpy(rng.integers(
+        0, args.vocab_size, (B, T)).astype(np.int64)).to(dev)
+        for _ in range(2))
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    total = {k: 0 for k in launch_counts()}
+    readings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        ref_tree = _tree_map(lambda t: t.detach().to(dtype)
+                             .requires_grad_(True), base)
+        ref = lf.forward_and_loss(ref_tree, ids, labels, args, remat=False)
+        ref.backward()
+        tree = _tree_map(lambda t: paddle.Tensor(t.detach().to(dtype),
+                                                 stop_gradient=False), base)
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        loss = eager_llama_loss(paddle, tree, paddle.Tensor(ids),
+                                paddle.Tensor(labels), args)
+        torch.cuda.synchronize(dev)
+        fwd = dict(launch_counts())
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        after = launch_counts()
+        _add(total, after)
+        bwd = {k: after[k] - fwd[k] for k in flash}
+        loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+        worst = ("", 0.0)
+        for (path, t), (_, r) in zip(_leaves(tree), _leaves(ref_tree)):
+            rel = ((t._data.grad.float() - r.grad.float()).norm()
+                   / r.grad.float().norm()).item()
+            if not math.isfinite(rel) or rel > worst[1]:
+                worst = (path, rel)
+        readings[dname] = (loss_rel, worst)
+        log(f"[eager] Llama-2-7B width, {args.num_layers} layers, b {B} s "
+            f"{T}, {dname}: eager loss {loss.item():.6f} vs forward_and_loss "
+            f"{ref.item():.6f}, rel {loss_rel:.3e}; worst grad leaf "
+            f"{worst[0]} ||d||/||ref|| {worst[1]:.3e}; B1 launches in the "
+            f"forward {fwd['flash_fwd']}, B2/B3 in the backward "
+            f"{bwd['flash_bwd_dq']}/{bwd['flash_bwd_dkv']}")
+        L = args.num_layers
+        if fwd["flash_fwd"] < L or bwd["flash_bwd_dq"] < L or \
+                bwd["flash_bwd_dkv"] < L or fwd["flash_bwd_dq"]:
+            raise AssertionError(f"eager {dname}: launches forward {fwd}, "
+                                 f"backward {bwd}")
+        del ref_tree, ref, loss
+        if dtype == torch.float32:
+            del tree
+    f32_rel, f32_worst = readings["float32"]
+    bf_rel, bf_worst = readings["bfloat16"]
+    log(f"[eager] bars: f32 loss rel {EAGER_BARS['loss_rel']}, worst grad "
+        f"leaf {EAGER_BARS['grad_rel']}; bf16 loss rel "
+        f"{EAGER_BF16_LOSS_REL} (its worst leaf {bf_worst[0]} "
+        f"{bf_worst[1]:.3e}, recorded)")
+    if not (f32_rel <= EAGER_BARS["loss_rel"]
+            and f32_worst[1] <= EAGER_BARS["grad_rel"]
+            and bf_rel <= EAGER_BF16_LOSS_REL):
+        raise AssertionError(f"eager: f32 {readings['float32']}, bf16 "
+                             f"{readings['bfloat16']}")
+
+    # speed, bf16: the eager step beside the functional one, same weights
+    ref_tree = _tree_map(lambda t: t.detach().requires_grad_(True),
+                         _tree_map(lambda p: p._data, tree))
+    pids, plabels = paddle.Tensor(ids), paddle.Tensor(labels)
+
+    def eager_step():
+        for _, t in _leaves(tree):
+            t.clear_grad()
+        eager_llama_loss(paddle, tree, pids, plabels, args).backward()
+
+    def functional_step():
+        for _, t in _leaves(ref_tree):
+            t.grad = None
+        lf.forward_and_loss(ref_tree, ids, labels, args,
+                            remat=False).backward()
+
+    rows = {}
+    for label, step in (("eager", eager_step),
+                        ("functional", functional_step)):
+        for _ in range(warmup):
+            step()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        _, n_ops = _ops_dispatched(torch, step)
+        prof = _busy_share(torch, dev, step)
+        rows[label] = (ms, n_ops, prof)
+        busy = ("busy not measured: the profiler saw no device activity"
+                if prof is None else
+                f"profiled wall {prof[0]:.2f} ms, device busy {prof[1]:.2f} "
+                f"ms ({prof[1] / prof[0]:.1%}): " + ", ".join(
+                    f"{g} {v:.2f} ms" for g, v in prof[2].items()))
+        log(f"[eager] bf16 {label} forward + backward: {ms:.2f} ms a step "
+            f"(mean of {steps} synchronised after {warmup} warm-up); "
+            f"{n_ops} aten ops dispatched a step; {busy}")
+        if prof is not None:
+            for name, kms, n in prof[3]:
+                log(f"[eager]   {label} kernel {kms:.3f} ms in {n:g} "
+                    f"launches a step: {name[:110]}")
+    log(f"[eager] eager / functional step time "
+        f"{rows['eager'][0] / rows['functional'][0]:.3f}x, aten ops "
+        f"{rows['eager'][1]} vs {rows['functional'][1]}")
+    device_mod._current = None
+    return total
 
 
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -4156,7 +4419,7 @@ def _add(total, launches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,parity,c2,c3,tune,train-check,train,"
+                    default="build,parity,c2,c3,tune,train-check,eager,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -4204,6 +4467,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "train-check" in phases:
         phase_train_check(torch, dev)
+        torch.cuda.empty_cache()
+    if "eager" in phases:
+        _add(launches, phase_eager(torch, dev))
         torch.cuda.empty_cache()
     if "train" in phases:
         _add(launches, phase_train(torch, dev, name, "train"))
@@ -4290,7 +4556,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"train", "engine", "disagg", "router", "generate",
+    main_path = {"eager", "train", "engine", "disagg", "router", "generate",
                  "chunked", "spec", "engine-int8", "capacity"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items()

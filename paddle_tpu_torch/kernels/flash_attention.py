@@ -17,10 +17,11 @@ and lse -1e30, and no gradient.
 
 Routing is by the tensors' device, as the other wrappers route: a CPU
 tensor goes to the plain version beside the kernel, a CUDA tensor to the
-hand-written kernel in `csrc/flash_attention.cu`, checked first (bf16 or
-f32, head_dim 64 or 128, H a multiple of Hk, contiguous, 16-byte aligned;
-any Sq and Sk). Nothing falls back. `launches` counts kernel launches only
-(`flash_fwd`, `flash_bwd_dq`, `flash_bwd_dkv`).
+hand-written kernel in `csrc/flash_attention.cu`, checked first (B1's
+gate `supports`: bf16 or f32, head_dim 64 or 128, H a multiple of Hk, any
+Sq and Sk; then contiguous and 16-byte aligned). Nothing falls back.
+`launches` counts kernel launches only (`flash_fwd`, `flash_bwd_dq`,
+`flash_bwd_dkv`).
 
 The plain versions compute the same function over a materialized [Sq, Sk]
 score matrix, in f32, and round where the Pallas kernels round: p to v's
@@ -45,7 +46,7 @@ from paddle_tpu_torch.kernels import _build
 __all__ = ["flash_fwd", "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
            "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "flash_attention_fwd",
            "flash_attention_with_lse", "FLASH_FWD_OP", "launches",
-           "reset_launches", "KERNEL_HEAD_DIMS"]
+           "reset_launches", "KERNEL_HEAD_DIMS", "supports"]
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
@@ -64,19 +65,27 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 
+def _shape_error(q, k, v):
+    """Why q/k/v are not q [B, Sq, H, D], k/v [B, Sk, Hk, D] with H a
+    multiple of Hk, or None."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        return (f"want q [B, Sq, H, D], k/v [B, Sk, Hk, D]; got "
+                f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        return f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}"
+    if k.shape[2] < 1 or q.shape[2] % k.shape[2]:
+        return (f"query heads {q.shape[2]} not a multiple of kv heads "
+                f"{k.shape[2]}")
+    return None
+
+
 def _shapes(q, k, v):
     """(B, Sq, Sk, H, Hk, D); raises on shapes no path takes."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"want q [B, Sq, H, D], k/v [B, Sk, Hk, D]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    err = _shape_error(q, k, v)
+    if err is not None:
+        raise ValueError(err)
     B, Sq, H, D = q.shape
-    _, Sk, Hk, Dk = k.shape
-    if k.shape[0] != B or Dk != D:
-        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
-    if Hk < 1 or H % Hk:
-        raise ValueError(f"query heads {H} not a multiple of kv heads {Hk}")
-    return B, Sq, Sk, H, Hk, D
+    return B, Sq, k.shape[1], H, k.shape[2], D
 
 
 def _on_card(*tensors):
@@ -90,27 +99,49 @@ def _on_card(*tensors):
     return dev.type == "cuda"
 
 
-def _check_kernel(dtype_like, halves, floats=()):
-    """What the kernels take: one dtype, bf16 or f32, for q/k/v/do/out;
-    f32 lse/delta; contiguous and 16-byte aligned; head_dim 64 or 128."""
-    if dtype_like.dtype not in _DTYPES:
-        raise TypeError(f"kernel takes bfloat16 or float32, got "
-                        f"{dtype_like.dtype}")
-    for t in halves:
-        if t.dtype != dtype_like.dtype:
-            raise TypeError(f"dtype mismatch: {t.dtype} vs "
-                            f"{dtype_like.dtype}")
+def _off_gate(q, k, v):
+    """Why B1-B3 do not take q/k/v, by shape and dtype only, as the error
+    to raise, or None: the shapes of `_shape_error`, one dtype of bf16/f32,
+    head_dim 64 or 128."""
+    err = _shape_error(q, k, v)
+    if err is not None:
+        return ValueError(err)
+    if q.dtype not in _DTYPES:
+        return TypeError(f"kernel takes bfloat16 or float32, got {q.dtype}")
+    for t in (k, v):
+        if t.dtype != q.dtype:
+            return TypeError(f"dtype mismatch: {t.dtype} vs {q.dtype}")
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        return ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+                          f"got {q.shape[-1]}")
+    return None
+
+
+def supports(q, k, v=None):
+    """B1's gate, by shape and dtype only (`_off_gate`). A caller routes on
+    it before the launch (`nn.functional.flash_attention`) and hands the
+    kernel dense tensors; on a CPU tensor the wrappers then run their plain
+    versions."""
+    return _off_gate(q, k, k if v is None else v) is None
+
+
+def _check_kernel(q, k, v, others=(), floats=()):
+    """What the kernels take: B1's gate (`_off_gate`), `others` (do) in q's
+    dtype, f32 lse/delta, and every input contiguous and 16-byte aligned."""
+    err = _off_gate(q, k, v)
+    if err is not None:
+        raise err
+    for t in others:
+        if t.dtype != q.dtype:
+            raise TypeError(f"dtype mismatch: {t.dtype} vs {q.dtype}")
     for t in floats:
         if t.dtype != torch.float32:
             raise TypeError(f"lse/delta must be float32, got {t.dtype}")
-    for t in (*halves, *floats):
+    for t in (q, k, v, *others, *floats):
         if not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("kernel inputs must be 16-byte aligned")
-    if dtype_like.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, got "
-                         f"{dtype_like.shape[-1]}")
 
 
 def _raise_on(rc, name):
@@ -249,7 +280,7 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
     sm_scale = _scale(sm_scale, D)
     if not _on_card(q, k, v):
         return flash_fwd_plain(q, k, v, causal, sm_scale)
-    _check_kernel(q, (q, k, v))
+    _check_kernel(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     rc = _build.launch(
@@ -302,7 +333,7 @@ def flash_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None, g_lse=None):
         return flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale, g_lse)
     do = do.contiguous()
     delta = _delta(o, do, g_lse)
-    _check_kernel(q, (q, k, v, do), (lse, delta))
+    _check_kernel(q, k, v, (do,), (lse, delta))
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     return dq, dk, dv

@@ -45,7 +45,17 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.distributed.checkpoint.chaos, "
         "paddle_tpu_torch.observability.monitor, "
         "paddle_tpu_torch.observability.hardware, "
-        "paddle_tpu_torch.observability.telemetry\n"
+        "paddle_tpu_torch.observability.telemetry, "
+        "paddle_tpu_torch.framework, paddle_tpu_torch.framework.dtypes, "
+        "paddle_tpu_torch.framework.device, "
+        "paddle_tpu_torch.framework.random, "
+        "paddle_tpu_torch.framework.flags, paddle_tpu_torch.core.tensor, "
+        "paddle_tpu_torch.core.backward, paddle_tpu_torch.core.ops_patch, "
+        "paddle_tpu_torch.core.tensor_methods, paddle_tpu_torch.autograd, "
+        "paddle_tpu_torch.ops.creation, paddle_tpu_torch.ops.math, "
+        "paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.ops.logic, "
+        "paddle_tpu_torch.ops.search, paddle_tpu_torch.ops.linalg, "
+        "paddle_tpu_torch.nn.functional.flash_attention\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -71,7 +81,12 @@ def _imports(path):
 
 def test_no_source_imports_jax_or_the_reference():
     files = sorted(PACKAGE.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
+        ROOT / "tests" / "test_torch_eager_cuda.py",
+        ROOT / "tests" / "torch_op_cases.py"]
+    for mod in ("framework", "core", "autograd", "ops", "nn"):
+        assert any(f.parent.name == mod or f.parent.parent.name == mod
+                   for f in files), mod
     assert len(files) > 10
     bad = {str(f.relative_to(ROOT)): name for f in files
            for name in _imports(f) if _forbidden(name)}
@@ -198,3 +213,25 @@ def test_checkpoint_monitor_and_tuner_entry_points_without_cuda(no_cuda,
     assert "tools" not in {name.split(".")[0] for f in
                            (PACKAGE / "distributed" / "checkpoint").glob(
                                "*.py") for name in _imports(f)}
+
+
+def test_eager_creation_raises_without_cuda_unless_asked_for_cpu(no_cuda,
+                                                                 monkeypatch):
+    """With no card and no set_device('cpu'), the eager surface creates
+    nothing: every creation path raises instead of landing on the CPU;
+    an explicit place or set_device('cpu') works."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+
+    monkeypatch.setattr(device_mod, "_current", None)
+    for make in (lambda: paddle.to_tensor([1.0]), lambda: paddle.zeros([2]),
+                 lambda: paddle.randn([2]), lambda: paddle.arange(3),
+                 lambda: paddle.Tensor(np.ones(2)), paddle.get_device,
+                 lambda: paddle.set_device("gpu")):
+        with pytest.raises(RuntimeError, match="CUDA|device='cpu'"):
+            make()
+    with pytest.raises(ValueError, match="'gpu'"):
+        paddle.set_device("tpu")
+    assert paddle.to_tensor([1.0], place="cpu").place.type == "cpu"
+    paddle.set_device("cpu")
+    assert paddle.zeros([2]).place.type == "cpu"
