@@ -1712,13 +1712,14 @@ EAGER_BF16_LOSS_REL = 1e-3
 
 def eager_llama_loss(P, params, ids, labels, args):
     """Mean next-token CE of a Llama over the eager surface of module `P`
-    (`paddle_tpu_torch`, or `paddle_tpu` in the CPU tests): embedding by
-    `index_select`, RMSNorm from `mean` and `rsqrt` (normalised in f32,
-    cast back, scaled by w), RoPE from `split` / `concat` (in f32), causal
-    `nn.functional.flash_attention`, SwiGLU from `sigmoid`, the CE from
-    `logsumexp` and `take_along_axis` over f32 logits. `params` is
-    `llama_functional`'s tree of P Tensors (layer leaves stacked on L),
-    ids / labels [B, T] int Tensors."""
+    (`paddle_tpu_torch`, or `paddle_tpu` in the CPU tests), written as a
+    user of `nn.functional` writes it: embedding by `index_select`,
+    `F.rms_norm` (B9, backward B10, on the card), RoPE from `split` /
+    `concat` (in f32), causal `F.flash_attention`, SwiGLU with `F.silu`,
+    `F.cross_entropy` over f32 logits. `params` is `llama_functional`'s
+    tree of P Tensors (layer leaves stacked on L), ids / labels [B, T] int
+    Tensors."""
+    F = P.nn.functional
     B, T = ids.shape
     nh, nkv, hd = args.num_heads, args.num_kv_heads, args.head_dim
     inv = 1.0 / (args.rope_theta ** (P.arange(0, hd, 2, dtype="float32")
@@ -1726,11 +1727,6 @@ def eager_llama_loss(P, params, ids, labels, args):
     ang = P.unsqueeze(P.arange(T, dtype="float32"), 1) * P.unsqueeze(inv, 0)
     ang = P.reshape(P.concat([ang, ang], axis=-1), [1, T, 1, hd])
     cos, sin = P.cos(ang), P.sin(ang)
-
-    def norm(x, w):
-        xf = P.cast(x, "float32")
-        r = P.rsqrt(P.mean(xf * xf, axis=-1, keepdim=True) + args.rms_eps)
-        return P.cast(xf * r, x.dtype) * w
 
     def rope(x):
         xf = P.cast(x, "float32")
@@ -1742,21 +1738,19 @@ def eager_llama_loss(P, params, ids, labels, args):
     h = P.reshape(P.index_select(params["embedding"], P.reshape(ids, [-1])),
                   [B, T, -1])
     for i in range(args.num_layers):
-        x = norm(h, lay["ln1"][i])
+        x = F.rms_norm(h, lay["ln1"][i], args.rms_eps)
         q = P.reshape(P.matmul(x, lay["wq"][i]), [B, T, nh, hd])
         k = P.reshape(P.matmul(x, lay["wk"][i]), [B, T, nkv, hd])
         v = P.reshape(P.matmul(x, lay["wv"][i]), [B, T, nkv, hd])
-        o, _ = P.nn.functional.flash_attention(rope(q), rope(k), v,
-                                               causal=True)
+        o, _ = F.flash_attention(rope(q), rope(k), v, causal=True)
         h = h + P.matmul(P.reshape(o, [B, T, nh * hd]), lay["wo"][i])
-        x = norm(h, lay["ln2"][i])
-        g = P.matmul(x, lay["w_gate"][i])
-        h = h + P.matmul(g * P.sigmoid(g) * P.matmul(x, lay["w_up"][i]),
-                         lay["w_down"][i])
-    logits = P.cast(P.matmul(norm(h, params["final_norm"]),
-                             params["lm_head"]), "float32")
-    true = P.take_along_axis(logits, P.unsqueeze(labels, -1), axis=-1)
-    return P.mean(P.logsumexp(logits, axis=-1) - P.squeeze(true, axis=-1))
+        x = F.rms_norm(h, lay["ln2"][i], args.rms_eps)
+        h = h + P.matmul(F.silu(P.matmul(x, lay["w_gate"][i]))
+                         * P.matmul(x, lay["w_up"][i]), lay["w_down"][i])
+    logits = P.cast(P.matmul(F.rms_norm(h, params["final_norm"],
+                                        args.rms_eps), params["lm_head"]),
+                    "float32")
+    return F.cross_entropy(logits, labels)
 
 
 def _tree_map(fn, tree):
@@ -1824,7 +1818,9 @@ def phase_eager(torch, dev, warmup=2, steps=8):
     cuda:0; `eager_llama_loss` at Llama-2-7B width (2 layers, b 1, s 2048)
     against `forward_and_loss(remat=False)` on the same weights, f32 (loss
     and every grad leaf) and bf16 (loss); B1 launched >= L times in the
-    forward, B2 and B3 >= L times in the backward, from the eager path.
+    forward, B2 and B3 >= L times in the backward, B9 >= 2L + 1 times in
+    the forward (`F.rms_norm`) and B10 >= 2L + 1 in the backward, from the
+    eager path.
     Then, in bf16, the eager step's ms (2 warm-up, `steps` synchronised),
     its aten ops and device-busy share, beside the functional path's.
     Returns the launch counts of the eager runs."""
@@ -1849,6 +1845,7 @@ def phase_eager(torch, dev, warmup=2, steps=8):
         0, args.vocab_size, (B, T)).astype(np.int64)).to(dev)
         for _ in range(2))
     flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    norms = ("rms_norm_fwd", "rms_norm_bwd")
     total = {k: 0 for k in launch_counts()}
     readings = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -1869,7 +1866,7 @@ def phase_eager(torch, dev, warmup=2, steps=8):
         torch.cuda.synchronize(dev)
         after = launch_counts()
         _add(total, after)
-        bwd = {k: after[k] - fwd[k] for k in flash}
+        bwd = {k: after[k] - fwd[k] for k in flash + norms}
         loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
         worst = ("", 0.0)
         for (path, t), (_, r) in zip(_leaves(tree), _leaves(ref_tree)):
@@ -1883,10 +1880,14 @@ def phase_eager(torch, dev, warmup=2, steps=8):
             f"{ref.item():.6f}, rel {loss_rel:.3e}; worst grad leaf "
             f"{worst[0]} ||d||/||ref|| {worst[1]:.3e}; B1 launches in the "
             f"forward {fwd['flash_fwd']}, B2/B3 in the backward "
-            f"{bwd['flash_bwd_dq']}/{bwd['flash_bwd_dkv']}")
+            f"{bwd['flash_bwd_dq']}/{bwd['flash_bwd_dkv']}; B9 in the "
+            f"forward {fwd['rms_norm_fwd']}, B10 in the backward "
+            f"{bwd['rms_norm_bwd']}")
         L = args.num_layers
         if fwd["flash_fwd"] < L or bwd["flash_bwd_dq"] < L or \
-                bwd["flash_bwd_dkv"] < L or fwd["flash_bwd_dq"]:
+                bwd["flash_bwd_dkv"] < L or fwd["flash_bwd_dq"] or \
+                fwd["rms_norm_fwd"] < 2 * L + 1 or fwd["rms_norm_bwd"] or \
+                bwd["rms_norm_bwd"] < 2 * L + 1:
             raise AssertionError(f"eager {dname}: launches forward {fwd}, "
                                  f"backward {bwd}")
         del ref_tree, ref, loss
@@ -1951,6 +1952,253 @@ def phase_eager(torch, dev, warmup=2, steps=8):
         f"{rows['eager'][1]} vs {rows['functional'][1]}")
     device_mod._current = None
     return total
+
+
+# the functional phase: the op table's cases of the modules ported with
+# A10a part 2 and nn.functional on the card against the port's own CPU
+# results (the card test's bars, TF32 off for the whole run); F.rms_norm on
+# B9/B10 at the 7B micro-batch's norm shape and off the gate; save/load of
+# a 7B-width bf16 tree; the native core
+FUNCTIONAL_MODULES = ("extras", "legacy_ps", "fft", "functional.activation",
+                      "functional.common", "functional.norm",
+                      "functional.loss", "functional.conv",
+                      "functional.pooling", "functional.extra_fns",
+                      "functional.flash_attention")
+CARD_RTOL, CARD_ATOL = 1e-4, 1e-5
+FUNCTIONAL_RMS = (2048, 4096)
+STORE_MASTER = """
+import sys
+sys.path.insert(0, {root!r})
+from paddle_tpu_torch.core import native
+store = native.TCPStore("127.0.0.1", {port}, is_master=True, world_size=2)
+store.set("from_master", b"card")
+store.add("counter", 5)
+store.wait("from_client", timeout=60.0)
+store.set("echo", store.get("from_client") + b" echoed")
+store.wait("done", timeout=60.0)
+"""
+
+
+def _functional_cases(torch, paddle, T):
+    """Every case of FUNCTIONAL_MODULES (random ones aside) on cuda:0
+    against the port on the CPU, forward and gradient."""
+    import numpy as np
+
+    cases = [c for c in T.cases(*FUNCTIONAL_MODULES) if c.check != "random"]
+    bad = []
+    for c in cases:
+        paddle.set_device("cpu")
+        ref, ref_grads = T.run(paddle, c)
+        paddle.set_device("gpu")
+        try:
+            got, got_grads = T.run(paddle, c)
+            T.compare(c, ref, got, rtol=CARD_RTOL, atol=CARD_ATOL)
+            for i, r, g in zip(c.grad, ref_grads or (), got_grads or ()):
+                assert (r is None) == (g is None), (c.id, i)
+                if r is not None:
+                    np.testing.assert_allclose(
+                        g, r, rtol=CARD_RTOL, atol=CARD_ATOL,
+                        err_msg=f"{c.id} grad of input {i}")
+        except Exception as e:   # collected, then raised together below
+            bad.append(f"{c.id}: {type(e).__name__}: {str(e)[:300]}")
+    return len(cases), bad
+
+
+def _functional_rms(torch, dev, paddle, rn):
+    """F.rms_norm forward and backward on the card at FUNCTIONAL_RMS in
+    bf16 and f32: B9 and B10 once each, within the rms_parity bars of the
+    plain versions; off the gate (H 4100, mixed dtypes, weight=None) no
+    launch. Returns the worst ratio to the bars."""
+    F = paddle.nn.functional
+    rows, h = FUNCTIONAL_RMS
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        x, w, g = rms_case(torch, dev, rows, h, dtype)
+        xt = paddle.Tensor(x.clone(), stop_gradient=False)
+        wt = paddle.Tensor(w.clone(), stop_gradient=False)
+        reset_launches()
+        y = F.rms_norm(xt, wt, RMS_EPS)
+        torch.cuda.synchronize(dev)
+        fwd = dict(rn.launches)
+        y.backward(paddle.Tensor(g))
+        torch.cuda.synchronize(dev)
+        after = dict(rn.launches)
+        y_ref, r_ref = rn.rms_norm_fwd_plain(x, w, RMS_EPS)
+        dx_ref, dw_ref = rn.rms_norm_bwd_plain(x, w, r_ref, g)
+        ratios = rms_ratios(torch, {"y": y._data, "dx": xt.grad._data,
+                                    "dw": wt.grad._data},
+                            {"y": y_ref, "dx": dx_ref, "dw": dw_ref}, dname)
+        log(f"[functional] F.rms_norm [{rows}, {h}] {dname}: launches "
+            f"forward {fwd}, after backward {after}; error / "
+            "bar " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+        if fwd != {"rms_norm_fwd": 1, "rms_norm_bwd": 0} or \
+                after != {"rms_norm_fwd": 1, "rms_norm_bwd": 1} or \
+                max(ratios.values()) > 1.0:
+            raise AssertionError(f"functional rms_norm {dname}: {fwd}, "
+                                 f"{after}, {ratios}")
+        worst = max(worst, max(ratios.values()))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    odd = torch.randn(rows, 4100, device=dev, generator=gen)
+    xb = torch.randn(rows, h, device=dev, generator=gen)
+    reset_launches()
+    for a, b in ((odd, torch.ones(4100, device=dev)),
+                 (xb.bfloat16(), torch.ones(h, device=dev)), (xb, None)):
+        at = paddle.Tensor(a, stop_gradient=False)
+        bt = None if b is None else paddle.Tensor(b, stop_gradient=False)
+        F.rms_norm(at, bt).astype("float32").sum().backward()
+    torch.cuda.synchronize(dev)
+    log(f"[functional] F.rms_norm off the gate (H 4100; bf16 x with f32 w; "
+        f"weight=None): launches {dict(rn.launches)}")
+    if any(rn.launches.values()):
+        raise AssertionError(f"off-gate rms_norm launched: {rn.launches}")
+    return worst
+
+
+def _functional_io(torch, dev, paddle):
+    """paddle.save / paddle.load of the Llama-2-7B-width, 2-layer bf16
+    parameter tree from the card: the same bits back, on cuda:0 with no
+    place given (`dev`, the run's cuda:0). Returns (GB, save MB/s, load
+    MB/s)."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import LLAMA2_7B, init_params
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = _tree_map(paddle.Tensor, init_params(
+        LLAMA2_7B._replace(num_layers=2), gen, device=dev,
+        dtype=torch.bfloat16))
+    nbytes = sum(t._data.numel() * t._data.element_size()
+                 for _, t in _leaves(tree))
+    root = tempfile.mkdtemp(prefix="functional_io_")
+    path = os.path.join(root, "llama7b_2l.pdparams")
+    try:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        paddle.save(tree, path)
+        t_save = time.perf_counter() - t0
+        device_mod._current = None
+        t0 = time.perf_counter()
+        back = paddle.load(path)
+        torch.cuda.synchronize(dev)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for (p, a), (q, b) in zip(_leaves(tree), _leaves(back)):
+        if p != q or b._data.device != dev or \
+                b._data.dtype != torch.bfloat16 or not torch.equal(
+                    a._data.view(torch.int16), b._data.view(torch.int16)):
+            raise AssertionError(f"functional save/load: leaf {p} / {q} "
+                                 f"came back as {b._data.dtype} on "
+                                 f"{b._data.device} or with other bits")
+    mb = nbytes / 1e6
+    log(f"[functional] paddle.save / paddle.load of the Llama-2-7B-width "
+        f"2-layer bf16 tree ({nbytes / 1e9:.3f} GB, {len(_leaves(tree))} "
+        f"leaves): the same bits back on {dev}; save {t_save:.2f} s "
+        f"({mb / t_save:.1f} MB/s, from the card to a file under "
+        f"{tempfile.gettempdir()}), load {t_load:.2f} s "
+        f"({mb / t_load:.1f} MB/s, to the card)")
+    return nbytes / 1e9, mb / t_save, mb / t_load
+
+
+def _functional_native(paddle):
+    """The native core builds here; a TCPStore set/get/add/wait between
+    this process and a master in another; a flag set through set_flags
+    reads back from the C++ registry; a watchdog fires."""
+    import socket
+
+    from paddle_tpu_torch.core import native
+    from paddle_tpu_torch.framework import flags
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    log(f"[functional] native core: available() {ok} "
+        f"({time.perf_counter() - t0:.1f} s, {native.library_path().name})")
+    if not ok:
+        raise AssertionError("functional: the native core did not build")
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", STORE_MASTER.format(root=str(ROOT),
+                                                   port=port)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        client = None
+        for _ in range(200):
+            try:
+                client = native.TCPStore("127.0.0.1", port, world_size=2,
+                                         timeout=5.0)
+                break
+            except RuntimeError:
+                time.sleep(0.1)
+        if client is None:
+            raise AssertionError("functional: no TCPStore master listened")
+        client.wait("from_master", timeout=30.0)
+        got = (client.get("from_master"), client.add("counter", 2))
+        client.set("from_client", b"client")
+        echo = client.get("echo", timeout=30.0)
+        client.set("done", "1")
+        proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    saved = paddle.get_flags(["FLAGS_v"])
+    paddle.set_flags({"FLAGS_v": 5})
+    flag = native.flags_get("FLAGS_v")
+    flags._flags.update(saved)
+    fired = []
+    wd = native.Watchdog(poll_interval=0.05,
+                         on_timeout=lambda name, ms: fired.append(name))
+    wd.begin("collective", timeout=0.1)
+    deadline = time.time() + 5.0
+    while not fired and time.time() < deadline:
+        time.sleep(0.05)
+    wd.stop()
+    log(f"[functional] TCPStore between two processes: get {got[0]!r}, "
+        f"add -> {got[1]}, echo {echo!r}, master exit {proc.returncode}; "
+        f"set_flags FLAGS_v=5 reads back {flag!r} from the C++ registry; "
+        f"watchdog fired {fired}")
+    if got != (b"card", 7) or echo != b"client echoed" or \
+            proc.returncode != 0 or flag != "5" or fired != ["collective"]:
+        raise AssertionError(f"functional native: {got}, {echo}, "
+                             f"{proc.returncode}, {flag}, {fired}")
+
+
+def phase_functional(torch, dev):
+    """A10a part 2 and nn.functional on the card (TF32 off, as for the
+    whole run): every case of FUNCTIONAL_MODULES against the port on the
+    CPU (rtol 1e-4, atol 1e-5, forward and gradient); F.rms_norm on B9/B10
+    and off its gate; save/load of a 7B-width bf16 tree; the native
+    core."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_op_cases as T
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    t0 = time.perf_counter()
+    n, bad = _functional_cases(torch, paddle, T)
+    log(f"[functional] {n - len(bad)} of {n} op cases (extras, legacy_ps, "
+        f"fft, nn.functional) agree on cuda:0 with the port on the CPU at "
+        f"rtol {CARD_RTOL}, atol {CARD_ATOL}, forward and gradient, TF32 "
+        f"off ({time.perf_counter() - t0:.1f} s)")
+    for line in bad:
+        log(f"[functional]   {line}")
+    device_mod._current = None
+    worst = _functional_rms(torch, dev, paddle, rn)
+    _functional_io(torch, dev, paddle)
+    _functional_native(paddle)
+    device_mod._current = None
+    log(f"[functional] phase {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise AssertionError(f"functional: {len(bad)} op cases disagree")
+    return worst
 
 
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
@@ -4419,7 +4667,8 @@ def _add(total, launches):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="build,parity,c2,c3,tune,train-check,eager,train,"
+                    default="build,parity,c2,c3,tune,train-check,eager,"
+                    "functional,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -4470,6 +4719,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "eager" in phases:
         _add(launches, phase_eager(torch, dev))
+        torch.cuda.empty_cache()
+    if "functional" in phases:
+        phase_functional(torch, dev)
         torch.cuda.empty_cache()
     if "train" in phases:
         _add(launches, phase_train(torch, dev, name, "train"))

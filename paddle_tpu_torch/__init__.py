@@ -28,8 +28,11 @@ training, the eager Tensor and its op surface):
   - the eager surface: `core/tensor` (`Tensor` over a torch.Tensor, with
     torch's autograd), `core/backward`, `autograd`, `framework/` (dtypes,
     device, flags, RNG), `ops/` (creation, math, manipulation, logic,
-    search, linalg) and `nn.functional.flash_attention` (B1-B3), all
-    re-exported here as `paddle_tpu/__init__.py` does.
+    search, linalg, extras, legacy_ps), `nn.functional` (with flash
+    attention on B1-B3 and `rms_norm` on B9/B10), the `linalg` and `fft`
+    namespaces, `save`/`load` (`framework/io`), `_C_ops` and the native
+    core (`core/native`: TCPStore, flags, watchdog), re-exported here as
+    `paddle_tpu/__init__.py` does.
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401
@@ -63,6 +66,8 @@ from paddle_tpu_torch.ops.manipulation import *  # noqa: F401,F403,E402
 from paddle_tpu_torch.ops.linalg import *  # noqa: F401,F403,E402
 from paddle_tpu_torch.ops.logic import *  # noqa: F401,F403,E402
 from paddle_tpu_torch.ops.search import *  # noqa: F401,F403,E402
+from paddle_tpu_torch.ops.legacy_ps import *  # noqa: F401,F403,E402
+from paddle_tpu_torch.ops.extras import *  # noqa: F401,F403,E402
 
 from paddle_tpu_torch.core import ops_patch as _ops_patch  # noqa: E402
 
@@ -71,6 +76,8 @@ _ops_patch.install()
 from paddle_tpu_torch import autograd  # noqa: F401,E402
 from paddle_tpu_torch import framework  # noqa: F401,E402
 from paddle_tpu_torch import nn  # noqa: F401,E402
+from paddle_tpu_torch.framework.io import save, load  # noqa: F401,E402
+from paddle_tpu_torch import fft, linalg  # noqa: F401,E402
 
 _ops_patch._install_inplace_variants()
 

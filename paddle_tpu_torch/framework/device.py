@@ -17,8 +17,9 @@ _current = None   # torch.device chosen by set_device, or None
 
 
 def _canonical(device):
-    """'gpu' / 'gpu:N' / 'cuda:N' / 'cpu' / torch.device -> the string
-    `resolve_device` takes."""
+    """'gpu' / 'gpu:N' / 'cuda:N' / 'cpu' / torch.device / a place object
+    (`CPUPlace`, `CUDAPlace(n)`) -> the string `resolve_device` takes."""
+    device = getattr(device, "device", device)
     if isinstance(device, torch.device):
         return str(device)
     name = str(device).lower()
@@ -44,6 +45,7 @@ def place(device=None):
     the one `set_device` chose, else the current CUDA device (raises when
     there is none)."""
     if device is not None:
+        device = getattr(device, "device", device)
         if isinstance(device, torch.device) and device.type == "cpu":
             return device
         return resolve_device(_canonical(device))

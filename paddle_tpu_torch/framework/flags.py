@@ -8,12 +8,15 @@ that reference scripts run unchanged. No flag has an effect on the port
 yet: a slice that makes one act says so here. Setting one of the flags
 whose reference effect a user would rely on (`EFFECT_PENDING`: nan/inf
 checks, determinism, per-op sync and tracing, bf16 matmul) to another value
-than its default warns that nothing changed. The JAX package also mirrors
-every `set_flags` into its C++ registry (`core/native`); the port has no
-such bridge yet.
+than its default warns that nothing changed. Once the native core
+(`core/native`) has loaded its library, every `set_flags` is mirrored into
+its C++ registry, as the JAX package's is, so native components read the
+same values; the library takes this registry's values when it loads.
+Setting a flag never builds or loads the library.
 """
 
 import os
+import sys
 import warnings
 
 # the JAX package's subset of the reference's 184 flags (`paddle/common/
@@ -88,6 +91,13 @@ def set_flags(flags_dict):
             warnings.warn(f"{k}={v!r} is recorded but has no effect in "
                           "paddle_tpu_torch yet", stacklevel=2)
         _flags[k] = v
+    # the one registry both languages read (reference `paddle/common/
+    # flags.cc`), if the library is loaded; `native._load` seeds it
+    native = sys.modules.get("paddle_tpu_torch.core.native")
+    lib = native._lib if native is not None else None
+    if lib is not None:
+        for k, v in flags_dict.items():
+            lib.pt_flags_set(k.encode(), str(v).encode())
 
 
 def get_flags(flags):

@@ -95,6 +95,15 @@ def _on_card(*tensors):
     return dev.type == "cuda"
 
 
+def _dense(t):
+    """t as the kernels read it: contiguous and 16-byte aligned (a fresh
+    copy, differentiable, when a view is not). A caller that routes a
+    strided view to a kernel hands it this."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_gqa(q, nkv, hd):
     if q.shape[-1] != hd:
         raise ValueError(f"q head_dim {q.shape[-1]} != cache head_dim {hd}")

@@ -42,6 +42,7 @@ import math
 import torch
 
 from paddle_tpu_torch.kernels import _build
+from paddle_tpu_torch.kernels.attention import _on_card
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
            "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "flash_attention_fwd",
@@ -86,17 +87,6 @@ def _shapes(q, k, v):
         raise ValueError(err)
     B, Sq, H, D = q.shape
     return B, Sq, k.shape[1], H, k.shape[2], D
-
-
-def _on_card(*tensors):
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError("tensors on different devices: "
-                         f"{sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
 
 
 def _off_gate(q, k, v):

@@ -37,7 +37,8 @@ from paddle_tpu_torch.kernels import _build
 from paddle_tpu_torch.kernels.attention import _on_card, _raise_on
 
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
-           "rms_norm_bwd_plain", "rms_norm", "launches", "reset_launches",
+           "rms_norm_bwd_plain", "rms_norm", "supports", "launches",
+           "reset_launches",
            "MAX_HIDDEN", "bwd_plan", "bwd_grid", "bwd_rows"]
 
 MAX_HIDDEN = 16384
@@ -111,20 +112,39 @@ def _check_shapes(x2d, w, *others):
                              f"{tuple(x2d.shape)}")
 
 
-def _check_kernel(w, *rows):
-    """What the kernels take: one dtype, bf16 or f32; H % 8 == 0 and
-    H <= MAX_HIDDEN; rows with a unit last stride, 16-byte aligned."""
-    h = w.shape[0]
+def _off_gate(w, *rows):
+    """Why B9/B10 do not take w and the rows, by shape and dtype only, as
+    the error to raise, or None: one dtype, bf16 or f32; H % 8 == 0 and
+    H <= MAX_HIDDEN."""
+    h = w.shape[-1]
     if w.dtype not in _DTYPES:
-        raise TypeError(f"kernel takes bfloat16 or float32, got {w.dtype}")
+        return TypeError(f"kernel takes bfloat16 or float32, got {w.dtype}")
     if h % 8 or h > MAX_HIDDEN:
-        raise ValueError(f"kernel takes H % 8 == 0 and H <= {MAX_HIDDEN}, "
-                         f"got {h}")
+        return ValueError(f"kernel takes H % 8 == 0 and H <= {MAX_HIDDEN}, "
+                          f"got {h}")
+    for t in rows:
+        if t.dtype != w.dtype:
+            return TypeError(f"dtype mismatch: {t.dtype} vs w {w.dtype}")
+    return None
+
+
+def supports(x, w):
+    """B9's gate for x [..., H] and w [H], by shape and dtype only
+    (`_off_gate`). A caller routes on it before the launch
+    (`nn.functional.rms_norm`) and hands the kernel dense rows."""
+    return w.dim() == 1 and x.shape[-1:] == w.shape and \
+        _off_gate(w, x) is None
+
+
+def _check_kernel(w, *rows):
+    """What the kernels take: B9's gate (`_off_gate`), w contiguous and
+    rows with a unit last stride, all 16-byte aligned."""
+    err = _off_gate(w, *rows)
+    if err is not None:
+        raise err
     if not w.is_contiguous() or w.data_ptr() % 16:
         raise ValueError("w must be contiguous and 16-byte aligned")
     for t in rows:
-        if t.dtype != w.dtype:
-            raise TypeError(f"dtype mismatch: {t.dtype} vs w {w.dtype}")
         if t.stride(1) != 1 or (t.shape[0] > 1 and t.stride(0) % 8) or \
                 t.data_ptr() % 16:
             raise ValueError("kernel rows must have a unit last stride and "
@@ -275,7 +295,12 @@ def _backward(ctx, g_y, _g_r):
     if g_y is None:
         return None, None, None
     h = x.shape[-1]
-    dx, dw = rms_norm_bwd(x.reshape(-1, h), w, r, g_y.reshape(-1, h))
+    g2d = g_y.reshape(-1, h)
+    # autograd may hand over an expanded or strided cotangent (the
+    # gradient of a sum has stride 0): B10 reads dense, aligned rows
+    if not g2d.is_contiguous() or g2d.data_ptr() % 16:
+        g2d = g2d.clone(memory_format=torch.contiguous_format)
+    dx, dw = rms_norm_bwd(x.reshape(-1, h), w, r, g2d)
     return dx.reshape(x.shape), dw, None
 
 

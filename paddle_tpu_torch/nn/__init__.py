@@ -1,4 +1,5 @@
-"""paddle.nn of the port. So far only `functional.flash_attention`; the rest
-of nn (layers, losses, initializers) is ported with ROADMAP A10b."""
+"""paddle.nn of the port. So far `functional` (every functional of the JAX
+package's `nn.functional`); the layers, initializers and the rest of nn are
+ported with ROADMAP A10b."""
 
 from paddle_tpu_torch.nn import functional  # noqa: F401

@@ -17,10 +17,12 @@ shape before it launches anything, as the JAX package's `_use_pallas`
 A failed build or launch raises: nothing falls back to the plain path, and
 no switch changes the route.
 
-`flash_attn_unpadded` and `sdp_kernel` are ported with the rest of nn
-(ROADMAP A10b).
+`flash_attn_unpadded` (and its packed form) re-pads the packed sequences to
+a dense batch with a key-validity mask and runs the plain masked attention,
+as the JAX package does (:108); `sdp_kernel` is a null context.
 """
 
+import contextlib
 import math
 
 import torch
@@ -28,6 +30,7 @@ import torch
 from paddle_tpu_torch.core.tensor import Tensor, apply
 from paddle_tpu_torch.framework import random as _rng
 from paddle_tpu_torch.kernels import flash_attention as _fa
+from paddle_tpu_torch.kernels.attention import _dense
 
 
 def _sdpa_reference(q, k, v, causal=False, dropout=0.0, scale=None,
@@ -68,14 +71,6 @@ def _use_kernel(q, k, v, dropout=0.0, training=True, mask=None):
         # B1-B3 are deterministic; attention dropout takes the plain path
         return False
     return _fa.supports(q, k, v)
-
-
-def _dense(t):
-    """t as B1 reads it: contiguous and 16-byte aligned (a fresh copy,
-    differentiable, when a view is not)."""
-    if t.is_contiguous() and t.data_ptr() % 16 == 0:
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _attend(query, key, value, causal, dropout, training, mask, name):
@@ -119,3 +114,60 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     mask = attn_mask._data if isinstance(attn_mask, Tensor) else attn_mask
     return _attend(query, key, value, is_causal, dropout_p, training, mask,
                    "sdpa")
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale=None, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Variable-length attention over the tokens of all sequences packed
+    along dim 0 ([total, H, D]) with cu_seqlens boundaries: re-padded to
+    [nseq, max_seqlen, H, D], keys past each sequence's end masked, the
+    plain attention, then re-packed. Returns (out, None)."""
+    cq = [int(v) for v in (cu_seqlens_q.tolist() if isinstance(
+        cu_seqlens_q, Tensor) else cu_seqlens_q)]
+    ck = [int(v) for v in (cu_seqlens_k.tolist() if isinstance(
+        cu_seqlens_k, Tensor) else cu_seqlens_k)]
+    nseq, mq, mk = len(cq) - 1, int(max_seqlen_q), int(max_seqlen_k)
+    drop = dropout if training else 0.0
+
+    def pad_batch(a, cu, m):
+        out = a.new_zeros((nseq, m) + tuple(a.shape[1:]))
+        for i in range(nseq):
+            out[i, :cu[i + 1] - cu[i]] = a[cu[i]:cu[i + 1]]
+        return out
+
+    def fn(qa, ka, va):
+        klens = torch.tensor([ck[i + 1] - ck[i] for i in range(nseq)],
+                             device=qa.device)
+        keep = torch.arange(mk, device=qa.device)[None, :] < klens[:, None]
+        bias = torch.where(keep, 0.0, float("-inf"))[:, None, None, :]
+        gen = _rng.generator(qa.device) if drop > 0.0 else None
+        out = _sdpa_reference(pad_batch(qa, cq, mq), pad_batch(ka, ck, mk),
+                              pad_batch(va, ck, mk), causal=causal,
+                              dropout=drop, scale=scale, mask=bias,
+                              generator=gen)
+        return torch.cat([out[i, :cq[i + 1] - cq[i]] for i in range(nseq)])
+
+    return apply(fn, query, key, value, _name="flash_attn_unpadded"), None
+
+
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
+                                max_seqlen_q, max_seqlen_k, scale=None,
+                                dropout=0.0, causal=False,
+                                return_softmax=False, fixed_seed_offset=None,
+                                rng_name="", training=True, varlen_padded=True,
+                                name=None):
+    """Packed QKV [total, 3, H, D] through `flash_attn_unpadded`."""
+    return flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2], cu_seqlens_q,
+                               cu_seqlens_k, max_seqlen_q, max_seqlen_k,
+                               scale=scale, dropout=dropout, causal=causal,
+                               return_softmax=return_softmax,
+                               training=training)
+
+
+def sdp_kernel(*args, **kwargs):
+    """The backend switch of the reference: a null context here (the route
+    is decided by shape, `_use_kernel`)."""
+    return contextlib.nullcontext()

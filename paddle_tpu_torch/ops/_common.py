@@ -71,3 +71,12 @@ def as_tensor(v, ref):
                                  or ref.dtype.is_complex):
         return torch.tensor(v, dtype=ref.dtype, device=ref.device)
     return _as_torch(v, like=ref)
+
+
+
+def waits_for(name, slice_id, why):
+    """The NotImplementedError a name raises whose JAX body reaches a
+    subsystem the port has not ported yet: it names the ROADMAP slice that
+    ports it."""
+    return NotImplementedError(
+        f"paddle.{name} is ported with ROADMAP {slice_id} ({why})")

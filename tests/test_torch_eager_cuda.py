@@ -9,7 +9,13 @@ it without them, from the repo's root:
 
 Bars: rtol 1e-4, atol 1e-5, ten times the CPU parity bars: cuBLAS,
 cuSOLVER and the card's reductions sum in other orders than the CPU's, and
-the decompositions (lstsq, pinv, cond) amplify that.
+the decompositions (lstsq, pinv, cond) amplify that. The fixture turns
+TF32 off for cuBLAS and cuDNN while a test runs (f32 convolutions and
+matmuls would otherwise round their inputs to 10 bits) and restores the
+caller's settings after it.
+
+Also: `nn.functional.rms_norm` on the card launches B9 forward and B10
+backward on the gate, and nothing off it.
 """
 
 import numpy as np
@@ -30,7 +36,13 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("the port's card path runs only on a card")
     prev = port_device._current
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
     port_device._current = prev
 
 
@@ -56,3 +68,25 @@ def test_creation_with_no_place_lands_on_the_current_card(card):
         assert t.place == card
     paddle.set_device("gpu:0")
     assert paddle.get_device() == "gpu:0"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_launches_b9_and_b10_on_the_gate_only(card, dtype):
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    paddle.set_device("gpu")
+    F = paddle.nn.functional
+    rng = np.random.default_rng(0)
+    x = paddle.to_tensor(rng.standard_normal((64, 256)).astype(np.float32),
+                         stop_gradient=False)
+    w = paddle.to_tensor(rng.standard_normal(256).astype(np.float32),
+                         stop_gradient=False)
+    xd, wd = x.astype(dtype), w.astype(dtype)
+    rn.reset_launches()
+    F.rms_norm(xd, wd).astype("float32").sum().backward()
+    assert rn.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1}
+    odd = paddle.to_tensor(rng.standard_normal((4, 260)).astype(np.float32))
+    F.rms_norm(odd, paddle.ones([260]))
+    F.rms_norm(xd, w.astype("float16"))
+    F.rms_norm(xd)
+    assert rn.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1}

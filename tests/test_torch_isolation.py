@@ -55,7 +55,11 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.ops.creation, paddle_tpu_torch.ops.math, "
         "paddle_tpu_torch.ops.manipulation, paddle_tpu_torch.ops.logic, "
         "paddle_tpu_torch.ops.search, paddle_tpu_torch.ops.linalg, "
-        "paddle_tpu_torch.nn.functional.flash_attention\n"
+        "paddle_tpu_torch.nn.functional.flash_attention, "
+        "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.extras, "
+        "paddle_tpu_torch.ops.legacy_ps, paddle_tpu_torch.linalg, "
+        "paddle_tpu_torch.fft, paddle_tpu_torch.framework.io, "
+        "paddle_tpu_torch._C_ops, paddle_tpu_torch.core.native\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -235,3 +239,24 @@ def test_eager_creation_raises_without_cuda_unless_asked_for_cpu(no_cuda,
     assert paddle.to_tensor([1.0], place="cpu").place.type == "cpu"
     paddle.set_device("cpu")
     assert paddle.zeros([2]).place.type == "cpu"
+
+
+def test_part_2_entry_points_raise_without_cuda_unless_asked_for_cpu(
+        no_cuda, monkeypatch, tmp_path):
+    """A place-less `load`, `fft.fftfreq` and the legacy ops that build
+    their outputs on the host go to the card like creation does: without
+    one they raise; asked for the CPU they run there."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+
+    monkeypatch.setattr(device_mod, "_current", None)
+    path = tmp_path / "t.pdparams"
+    paddle.save({"w": paddle.to_tensor([1.0], place="cpu")}, str(path))
+    for make in (lambda: paddle.load(str(path)),
+                 lambda: paddle.fft.fftfreq(4),
+                 lambda: paddle.SelectedRows([0], np.ones((1, 2)))):
+        with pytest.raises(RuntimeError, match="CUDA|device='cpu'"):
+            make()
+    paddle.set_device("cpu")
+    assert paddle.load(str(path))["w"].place.type == "cpu"
+    assert paddle.fft.fftfreq(4).place.type == "cpu"

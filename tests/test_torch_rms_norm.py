@@ -323,3 +323,185 @@ def test_b10_scratch_is_kept_per_stream(monkeypatch):
     grown = rn._bwd_scratch(cpu, 4, 64)
     assert grown[0] is a[0] and grown[1].numel() == 256
     assert set(rn._scratch) == {(cpu, 1), (cpu, 2)}
+
+
+# --------------------------------------------------------------------------
+# `nn.functional.rms_norm`'s route: B9/B10 on the card when on the gate,
+# else the plain composite
+# --------------------------------------------------------------------------
+
+
+def test_gate_predicate_decides_by_shape_and_dtype_alone():
+    bf = torch.bfloat16
+    x, w = torch.zeros(4, 64, dtype=bf), torch.ones(64, dtype=bf)
+    assert rn.supports(x, w) and rn.supports(x.float(), w.float())
+    assert rn.supports(torch.zeros(2, 3, 64, dtype=bf), w)
+    # layout is not part of the gate: the route hands B9 a dense copy
+    assert rn.supports(torch.zeros(64, 4, dtype=bf).T, w)
+    assert rn.supports(torch.zeros(4, 72, dtype=bf)[:, 1:65], w)
+    assert not rn.supports(x.float(), w)              # mixed dtypes
+    assert not rn.supports(x.half(), w.half())        # neither bf16 nor f32
+    assert not rn.supports(torch.zeros(4, 60, dtype=bf),
+                           torch.ones(60, dtype=bf))  # H % 8
+    h = rn.MAX_HIDDEN + 8
+    assert not rn.supports(torch.zeros(1, h), torch.ones(h))
+    assert not rn.supports(x, torch.ones(32, dtype=bf))   # w does not fit
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """The functional's view of a card (`_on_card` true for these CPU
+    tensors) and a stand-in for the kernel wrapper that records its
+    inputs and computes the plain version."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as port_device
+    from paddle_tpu_torch.nn.functional import norm
+
+    calls = []
+
+    def kernel(x, w, eps):
+        calls.append((x.shape, x.is_contiguous(), w.is_contiguous(), eps))
+        y, _ = rn.rms_norm_fwd_plain(x.reshape(-1, x.shape[-1]), w, eps)
+        return y.reshape(x.shape)
+
+    monkeypatch.setattr(norm, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(rn, "rms_norm", kernel)
+    prev = port_device._current
+    paddle.set_device("cpu")
+    yield paddle, calls
+    port_device._current = prev
+
+
+def test_a_gated_call_reaches_the_kernel_and_an_off_gate_call_never(
+        kernel_route):
+    paddle, calls = kernel_route
+    F = paddle.nn.functional
+    rng = np.random.default_rng(4)
+    x = paddle.to_tensor(rng.standard_normal((2, 3, 64)).astype(np.float32))
+    w = paddle.to_tensor(rng.standard_normal(64).astype(np.float32))
+    F.rms_norm(x, w, 1e-5)
+    F.rms_norm(x.astype("bfloat16"), w.astype("bfloat16"))
+    assert calls == [((2, 3, 64), True, True, 1e-5),
+                     ((2, 3, 64), True, True, 1e-6)]
+    # a strided view on the gate is handed over as a dense copy
+    wide = paddle.to_tensor(rng.standard_normal((6, 72)).astype(np.float32))
+    F.rms_norm(wide[:, 1:65], w)
+    assert calls[-1] == ((6, 64), True, True, 1e-6)
+    n = len(calls)
+    odd = paddle.to_tensor(rng.standard_normal((2, 60)).astype(np.float32))
+    F.rms_norm(odd, paddle.ones([60]))                  # H % 8
+    F.rms_norm(x, w.astype("bfloat16"))                 # mixed dtypes
+    F.rms_norm(x)                                       # weight=None
+    F.rms_norm(x.astype("float16"), w.astype("float16"))
+    assert len(calls) == n
+
+
+def test_x_and_weight_on_different_devices_raise():
+    """The functional routes on the kernel wrappers' device check, which
+    raises on a mix (here the CPU and the meta device) rather than
+    sending the call to the plain path."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as port_device
+
+    prev = port_device._current
+    paddle.set_device("cpu")
+    try:
+        x = paddle.to_tensor(np.ones((2, 64), np.float32))
+        w = paddle.Tensor(torch.ones(64, device="meta"))
+        with pytest.raises(ValueError, match="different devices"):
+            paddle.nn.functional.rms_norm(x, w)
+    finally:
+        port_device._current = prev
+
+
+def test_the_kernel_route_is_differentiable_through_the_wrapper(
+        kernel_route, monkeypatch):
+    """On the gate the functional calls the wrapper inside `apply`, so its
+    custom operator (B10 on the card) takes the gradient: here the real
+    wrapper on CPU tensors, against the plain composite's gradient."""
+    paddle, _ = kernel_route
+    monkeypatch.undo()
+    from paddle_tpu_torch.nn.functional import norm
+
+    seen = []
+    real = rn.rms_norm
+
+    def wrapper(x, w, eps):
+        seen.append(1)
+        return real(x, w, eps)
+
+    monkeypatch.setattr(norm, "_on_card", lambda *ts: True)
+    monkeypatch.setattr(rn, "rms_norm", wrapper)
+    rng = np.random.default_rng(5)
+    xa = rng.standard_normal((3, 16)).astype(np.float32)
+    wa = rng.standard_normal(16).astype(np.float32)
+    grads = []
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(norm, "_on_card", lambda *ts: False)
+        x = paddle.to_tensor(xa, stop_gradient=False)
+        w = paddle.to_tensor(wa, stop_gradient=False)
+        (paddle.nn.functional.rms_norm(x, w) ** 2).sum().backward()
+        grads.append((x.grad.numpy(), w.grad.numpy()))
+    assert seen == [1]
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_route_matches_the_jax_functional(dtype):
+    """The plain composite against the JAX package's `F.rms_norm` on the
+    same inputs: f32 to 1e-6, bf16 within one bf16 unit in the last place
+    of |y|."""
+    import paddle_tpu
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as port_device
+
+    x, w, _ = _inputs(48, 128, seed=7)
+    prev = port_device._current
+    paddle.set_device("cpu")
+    try:
+        got = paddle.nn.functional.rms_norm(
+            paddle.to_tensor(x).astype(dtype),
+            paddle.to_tensor(w).astype(dtype), 1e-6)
+        got = got.astype("float32").numpy()
+    finally:
+        port_device._current = prev
+    ref = paddle_tpu.nn.functional.rms_norm(
+        paddle_tpu.to_tensor(x).astype(dtype),
+        paddle_tpu.to_tensor(w).astype(dtype), 1e-6)
+    ref = np.asarray(ref.astype("float32").numpy())
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-6,
+                                   atol=1e-6 * np.abs(ref).max())
+    else:
+        assert np.all(np.abs(got - ref) <= _bf16_ulp(ref)), \
+            np.max(np.abs(got - ref) / _bf16_ulp(ref))
+
+
+def test_backward_hands_b10_a_dense_cotangent(monkeypatch):
+    """The gradient of y.sum() reaches the custom operator expanded
+    (stride 0): B10 takes dense, 16-byte aligned rows, so the operator
+    makes them so before the call (found by the card test
+    `test_rms_norm_launches_b9_and_b10_on_the_gate_only`)."""
+    seen = []
+    real = rn.rms_norm_bwd
+
+    def record(x2d, w, r, g2d):
+        seen.append((g2d.is_contiguous(), g2d.stride()))
+        rn._check_kernel(w, x2d, g2d)
+        return real(x2d, w, r, g2d)
+
+    monkeypatch.setattr(rn, "rms_norm_bwd", record)
+    x = torch.randn(4, 3, 64, requires_grad=True)
+    w = torch.randn(64, requires_grad=True)
+    rn.rms_norm(x, w, EPS).sum().backward()
+    assert seen == [(True, (64, 1))]
+    xr = x.detach().clone().requires_grad_(True)
+    wr = w.detach().clone().requires_grad_(True)
+    y, _ = rn.rms_norm_fwd_plain(xr.reshape(-1, 64), wr, EPS)
+    y.sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), xr.grad.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(w.grad.numpy(), wr.grad.numpy(), rtol=1e-5,
+                               atol=1e-5)

@@ -1,11 +1,16 @@
 """The port's eager surface against the JAX package's, by name: every public
-callable of the six op modules is exported by the port's module of the
-same name, every Tensor method the JAX package installs is a method of the
-port's Tensor, and what is left for the second part of ROADMAP A10a is one
-explicit list here (and in ROADMAP), so nothing is missing silently."""
+callable of the op modules, of `linalg`, `fft`, `framework/io` and of
+`nn.functional` is exported by the port's module of the same name and has a
+case in the op table; `_C_ops` has the JAX module's names with equal
+signatures; every Tensor method the JAX package installs is a method of the
+port's Tensor. What waits for a later slice is explicit here (and in
+ROADMAP): the names that raise NotImplementedError naming their slice
+(`LATER`), the Tensor methods not ported yet (`PART2_TENSOR_METHODS`) and
+the `_C_ops` targets in unported namespaces (`C_OPS_LATER`)."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import importlib
+import inspect
 
 import pytest
 
@@ -17,25 +22,31 @@ from paddle_tpu_torch.core.tensor import Tensor
 
 MODULES = ("creation", "math", "manipulation", "logic", "search", "linalg")
 
-# ROADMAP A10a part 2, in its order: ops/extras.py, ops/legacy_ps.py,
-# _C_ops.py, the linalg.py and fft.py namespaces, framework/io.py,
-# core/native.py. The Tensor methods that wait for them:
-PART2_TENSOR_METHODS = {
-    # ops/extras.py
-    "as_strided", "bitwise_invert", "bitwise_invert_", "block_diag",
-    "cdist", "combinations", "cumulative_trapezoid", "diagonal_scatter",
-    "dsplit", "frexp", "histogram_bin_edges", "hsplit", "index_fill",
-    "index_fill_", "is_complex", "is_floating_point", "is_integer", "isin",
-    "isneginf", "isposinf", "less", "less_", "matrix_transpose",
-    "multigammaln", "multigammaln_", "nanquantile", "polar", "reverse",
-    "sgn", "signbit", "sinc", "sinc_", "slice_scatter", "take",
-    "tensor_split", "trapezoid", "unflatten", "unfold", "vander", "view_as",
-    "vsplit",
-    # paddle_tpu.signal (A10g) and static.create_parameter (A10f)
-    "stft", "istft", "create_parameter",
-}
-PART2_MODULES = ("paddle_tpu.ops.extras", "paddle_tpu.ops.legacy_ps",
-                 "paddle_tpu.framework.io")
+# the names the port exports whose JAX body reaches a subsystem a later
+# slice ports: calling one raises NotImplementedError naming its slice
+LATER = {"enable_static": "A10f", "disable_static": "A10f",
+         "flops": "A10b", "summary": "A10b"}
+# the Tensor methods still to port: paddle_tpu.signal (A10g) and
+# static.create_parameter (A10f)
+PART2_TENSOR_METHODS = {"stft", "istft", "create_parameter"}
+# `_C_ops` targets in namespaces a later slice ports (they raise when
+# called): vision.ops (A10d), quantization (A10f), geometric, signal and
+# text (A10g)
+C_OPS_LATER = {"paddle.vision.": ("A10d", 20), "paddle.quantization.":
+               ("A10f", 10), "paddle.geometric.": ("A10g", 7),
+               "paddle.signal.": ("A10g", 3), "paddle.text.": ("A10g", 1)}
+# module of the JAX package -> the port's module of the same surface, and
+# the op table's name for it
+PART2 = {"paddle_tpu.ops.extras": "extras",
+         "paddle_tpu.ops.legacy_ps": "legacy_ps",
+         "paddle_tpu.fft": "fft",
+         "paddle_tpu.nn.functional.activation": "functional.activation",
+         "paddle_tpu.nn.functional.common": "functional.common",
+         "paddle_tpu.nn.functional.norm": "functional.norm",
+         "paddle_tpu.nn.functional.loss": "functional.loss",
+         "paddle_tpu.nn.functional.conv": "functional.conv",
+         "paddle_tpu.nn.functional.pooling": "functional.pooling",
+         "paddle_tpu.nn.functional.extra_fns": "functional.extra_fns"}
 
 
 def _public(module):
@@ -57,7 +68,84 @@ def test_every_public_callable_is_exported_by_the_port(name):
 def test_the_six_modules_hold_315_ops():
     assert sum(len(_public(importlib.import_module(
         f"paddle_tpu_torch.ops.{m}"))) for m in MODULES) == 315
-    assert len(T.CASES) == 315
+    assert len(T.cases(*MODULES)) == 315
+
+
+@pytest.mark.parametrize("ref_name", sorted(PART2))
+def test_every_part_2_callable_is_exported_and_has_a_case(ref_name):
+    """extras, legacy_ps, fft and the seven nn.functional files: the same
+    public callables, each with a case in the op table (the LATER names
+    instead raise naming their slice)."""
+    ref = importlib.import_module(ref_name)
+    port = importlib.import_module(ref_name.replace("paddle_tpu",
+                                                    "paddle_tpu_torch", 1))
+    names = _public(ref)
+    assert names == _public(port)
+    if hasattr(ref, "__all__"):
+        assert sorted(port.__all__) == sorted(ref.__all__)
+    else:
+        assert set(port.__all__) == set(names)
+    exported = {n for n in set(port.__all__) | set(names)
+                if callable(getattr(port, n))}
+    assert {c.name for c in T.cases(PART2[ref_name])} == \
+        exported - set(LATER)
+
+
+def test_the_namespaces_and_io_match_the_jax_packages():
+    import paddle_tpu.framework.io as ref_io
+    import paddle_tpu.linalg as ref_linalg
+    import paddle_tpu.nn.functional as ref_f
+    import paddle_tpu_torch.framework.io as port_io
+
+    assert sorted(paddle_tpu_torch.linalg.__all__) == \
+        sorted(ref_linalg.__all__)
+    assert _public(port_io) == _public(ref_io)
+    assert paddle_tpu_torch.save is port_io.save
+    assert paddle_tpu_torch.load is port_io.load
+    ref_names = {n for n in dir(ref_f) if not n.startswith("_")
+                 and callable(getattr(ref_f, n))
+                 and getattr(getattr(ref_f, n), "__module__", "")
+                 .startswith("paddle_tpu.nn.functional")}
+    port_f = paddle_tpu_torch.nn.functional
+    assert ref_names <= {n for n in dir(port_f) if not n.startswith("_")}
+    assert len(ref_names) == 127 + 6
+
+
+@pytest.mark.parametrize("name", sorted(LATER))
+def test_a_name_that_waits_raises_naming_its_slice(name):
+    with pytest.raises(NotImplementedError, match=LATER[name]):
+        getattr(paddle_tpu_torch, name)(None, None) if name in (
+            "flops", "summary") else getattr(paddle_tpu_torch, name)()
+
+
+def test_c_ops_has_the_jax_modules_names_and_signatures():
+    from paddle_tpu import _C_ops as ref
+    from paddle_tpu_torch import _C_ops as port
+
+    assert port.__all__ == ref.__all__ and len(port.__all__) == 343
+    assert port._TARGETS == ref._TARGETS
+    for name in ref.__all__:
+        assert inspect.signature(getattr(port, name)) == \
+            inspect.signature(getattr(ref, name)), name
+
+
+def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
+    from paddle_tpu_torch import _C_ops as port
+
+    resolved, later = 0, {p: 0 for p in C_OPS_LATER}
+    for name, target in port._TARGETS.items():
+        prefix = next((p for p in C_OPS_LATER if target.startswith(p)),
+                      None)
+        if prefix is None:
+            assert callable(port._t(name)), name
+            resolved += 1
+            continue
+        with pytest.raises(NotImplementedError,
+                           match=C_OPS_LATER[prefix][0]):
+            port._t(name)
+        later[prefix] += 1
+    assert resolved == 302
+    assert later == {p: n for p, (_, n) in C_OPS_LATER.items()}
 
 
 def _methods(cls):
@@ -67,6 +155,7 @@ def _methods(cls):
 
 
 def test_every_tensor_method_is_ported_or_listed_for_part_2():
+    """The Tensor methods still to port are PART2_TENSOR_METHODS."""
     ref = _methods(RefTensor) - {"_refill"}
     missing = ref - _methods(Tensor)
     assert missing == PART2_TENSOR_METHODS
@@ -74,24 +163,20 @@ def test_every_tensor_method_is_ported_or_listed_for_part_2():
 
 def test_the_top_level_namespace_carries_the_six_modules():
     """`import paddle_tpu_torch as paddle` gives every op the JAX package's
-    top level gives from the six modules (and their in-place variants);
-    the rest waits for part 2."""
+    top level gives (and their in-place variants), the part-2 modules'
+    included; what is missing waits for a later slice."""
     ref_names = {n for n in dir(paddle_tpu) if not n.startswith("_")
                  and callable(getattr(paddle_tpu, n))}
     missing = {n for n in ref_names if not hasattr(paddle_tpu_torch, n)}
-    part2 = {n for n in missing if getattr(getattr(paddle_tpu, n),
-                                           "__module__", "") in PART2_MODULES
-             or n.rstrip("_") in PART2_TENSOR_METHODS}
     # not ops: hapi's Model and nn's ParamAttr (A10b), the dispatch waist
-    # and the dtype leftovers the JAX package's star imports carry along
-    rest = missing - part2
-    assert rest == {"Model", "ParamAttr", "apply",
-                    "apply_multi", "builtins_slice", "float8_e4m3fn",
-                    "float8_e5m2"}
+    # the JAX package's star imports carry along; static's
+    # create_parameter (A10f)
+    assert missing == {"Model", "ParamAttr", "apply", "apply_multi",
+                       "builtins_slice", "create_parameter"}
     for n in ("to_tensor", "Tensor", "grad", "no_grad", "seed",
-              "set_device", "matmul", "flash_attention"):
-        assert hasattr(paddle_tpu_torch, n) or \
-            hasattr(paddle_tpu_torch.nn.functional, n)
+              "set_device", "matmul", "save", "load", "block_diag",
+              "batch_fc", "float8_e4m3fn"):
+        assert hasattr(paddle_tpu_torch, n), n
 
 
 def test_flags_keep_the_jax_packages_defaults_and_say_they_do_nothing():
