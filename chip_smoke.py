@@ -94,6 +94,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                   launched >= 2 times in its forward, B2 and B3 >= 2 in its
                   backward. The bf16 step's ms, aten ops and device-busy
                   share beside the functional path's (recorded).
+  2a''. layers    the training API (ROADMAP A10b) through the public
+                  surface, with no set_device: (a) BASELINE config 1,
+                  `paddle.Model(LeNet()).fit` on the synthetic MNIST (batch
+                  64, Adam 1e-3, 30 steps, 2 DataLoader workers forked after
+                  CUDA is up, whose batches must equal num_workers=0's): the
+                  fixed 32-sample loss must fall (< 0.1 recorded), evaluate
+                  and a save/load round trip (equal eval outputs); the train
+                  step's ms, samples/s and host share (recorded); (b) the
+                  layer-built `LlamaForCausalLM` at Llama-2-7B width (2
+                  layers, b 1 s 2048, f32, seed 0) against
+                  `forward_and_loss` on `params_from_layer` (loss rel <= 1e-5,
+                  worst grad leaf <= 1e-3), B1 2 launches a forward, B2/B3 2
+                  a backward, B9 5 a forward, B10 5 a backward, from the
+                  nn.Layers; then 3 AdamW steps in f32 and 3 under
+                  amp.decorate (O2, bf16, f32 masters), each loss below the
+                  last, the step's ms and AdamW's share (recorded); (c)
+                  nn.MultiHeadAttention(4096, 32) bf16 at s 2048: B1-B3 one
+                  launch each, the attention output within B1's bar of
+                  `flash_fwd_plain` on the layer's q/k/v; (d) auto_cast makes
+                  matmul bf16, keeps softmax f32 and hands B1 bf16 from
+                  f32 q/k/v, a float16 GradScaler skips a step with a
+                  planted inf and halves its scale.
   2b. train       `HybridParallelEngine` on the 7B-width training leg of
                   bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
                   loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
@@ -1951,6 +1973,376 @@ def phase_eager(torch, dev, warmup=2, steps=8):
         f"{rows['eager'][0] / rows['functional'][0]:.3f}x, aten ops "
         f"{rows['eager'][1]} vs {rows['functional'][1]}")
     device_mod._current = None
+    return total
+
+
+# the layers phase: the training API (ROADMAP A10b) on the card through
+# the public surface: BASELINE config 1 (LeNet on the synthetic MNIST
+# through `paddle.Model.fit`), the layer-built Llama at 7B width held to
+# `forward_and_loss` on `params_from_layer` and trained by AdamW in f32 and
+# under amp.decorate (O2, bf16), `nn.MultiHeadAttention` on B1-B3, and AMP
+LENET_LEG = dict(batch=64, steps=30, lr=1e-3, workers=2)
+LAYERS_LEG = dict(layers=2, batch=1, seq=2048, steps=3, lr=1e-4)
+MHA_LEG = dict(width=4096, heads=32, seq=2048)
+
+
+def _sync_ms(torch, dev, fn):
+    """(fn(), its wall ms), synchronised on both sides."""
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _layers_lenet(torch, dev, paddle, tmp):
+    """(a): LeNet `Model.fit` (batch 64, Adam 1e-3, 30 steps, 2 workers
+    forked after CUDA is up); the fixed 32-sample loss before and after;
+    the workers' batches against num_workers=0's; evaluate; a save/load
+    round trip; the train step's ms, samples/s and host share."""
+    import numpy as np
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    leg = LENET_LEG
+    paddle.seed(0)
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+    model = paddle.Model(LeNet())
+    if {p.place for p in model.parameters()} != {dev}:
+        raise AssertionError("layers: LeNet's parameters are not on the card")
+    model.prepare(paddle.optimizer.Adam(learning_rate=leg["lr"],
+                                        parameters=model.parameters()),
+                  nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    x0 = paddle.to_tensor(np.stack([train[i][0] for i in range(32)]))
+    y0 = paddle.to_tensor(np.stack([train[i][1] for i in range(32)]))
+
+    def fixed_loss():
+        with paddle.no_grad():
+            return float(nn.CrossEntropyLoss()(model.network(x0), y0))
+
+    batches = {}
+    for w in (0, leg["workers"]):
+        loader = paddle.io.DataLoader(train, batch_size=leg["batch"],
+                                      num_workers=w)
+        batches[w] = [[t.numpy() for t in b] for b in loader]
+    same = len(batches[0]) == len(batches[leg["workers"]]) and all(
+        np.array_equal(a, b) for ra, rb in zip(batches[0],
+                                               batches[leg["workers"]])
+        for a, b in zip(ra, rb))
+    init = fixed_loss()
+    t0 = time.perf_counter()
+    model.fit(train, batch_size=leg["batch"], epochs=1,
+              num_iters=leg["steps"], num_workers=leg["workers"], verbose=0)
+    torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    final = fixed_loss()
+    mon = model._monitor
+    ev = model.evaluate(test, batch_size=leg["batch"], verbose=0)
+    path = os.path.join(tmp, "lenet")
+    model.save(path)
+    other = paddle.Model(LeNet())
+    other.prepare(paddle.optimizer.Adam(parameters=other.parameters()),
+                  nn.CrossEntropyLoss())
+    other.load(path)
+    other._optimizer.set_state_dict(paddle.load(path + ".pdopt"))
+    round_trip = all(np.array_equal(a, b) for a, b in zip(
+        model.predict_batch([x0]), other.predict_batch([x0])))
+    log(f"[layers] (a) LeNet Model.fit on the synthetic MNIST: "
+        f"{mon.steps} steps of batch {leg['batch']}, Adam "
+        f"{leg['lr']}, {leg['workers']} workers forked after CUDA was up, "
+        f"in {fit_s:.2f} s; the fixed 32-sample loss {init:.4f} -> "
+        f"{final:.4f} (falls: {final < init}; the verify skill's bar < 0.1 "
+        f"in 30 steps: {final < 0.1}); last batch loss "
+        f"{mon.last.get('loss', float('nan')):.4f}; {leg['workers']} "
+        f"workers' batches equal num_workers=0's in order: {same} "
+        f"({len(batches[0])} batches); evaluate on {len(test)} test "
+        f"samples: loss {ev['loss']:.4f}, acc {float(ev['acc']):.4f}; "
+        f"save/load round trip gives equal eval outputs: {round_trip}")
+    if not (final < init and same and round_trip and mon.steps ==
+            leg["steps"]):
+        raise AssertionError(f"layers (a): loss {init} -> {final}, batches "
+                             f"equal {same}, round trip {round_trip}")
+
+    # speed: train_batch on device batches held ready (what fit runs a step)
+    xs = [paddle.to_tensor(b[0]) for b in batches[0][:12]]
+    ys = [paddle.to_tensor(b[1]) for b in batches[0][:12]]
+    for i in range(2):
+        model.train_batch([xs[i]], [ys[i]])
+    _, ms = _sync_ms(torch, dev, lambda: [model.train_batch([xs[i]],
+                                                            [ys[i]])
+                                          for i in range(2, 12)])
+    step_ms = ms / 10
+    prof = _busy_share(torch, dev, lambda: model.train_batch(
+        [xs[2]], [ys[2]]), n_steps=2)
+    host = ("host share not measured: the profiler saw no device activity"
+            if prof is None else
+            f"profiled wall {prof[0]:.3f} ms a step, device busy "
+            f"{prof[1]:.3f} ms: host share {1 - prof[1] / prof[0]:.1%}")
+    log(f"[layers] (a) LeNet train step (batch {leg['batch']}, f32, "
+        f"forward + backward + Adam + the loss read back): {step_ms:.3f} ms "
+        f"(mean of 10 synchronised after 2 warm-up), "
+        f"{leg['batch'] / step_ms * 1e3:.0f} samples/s; {host}")
+
+
+def _layers_llama(torch, dev, paddle):
+    """(b): the layer-built Llama at 7B width (2 layers, b 1, s 2048, f32
+    from seed 0) against `forward_and_loss` on `params_from_layer`, its
+    launches, then AdamW steps in f32 and under amp.decorate (O2, bf16,
+    f32 masters). Returns the launch counts of the checked run."""
+    import numpy as np
+    from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                         params_from_layer)
+    from paddle_tpu_torch.models import llama_functional as lf
+
+    leg = LAYERS_LEG
+    L, B, T = leg["layers"], leg["batch"], leg["seq"]
+    paddle.seed(0)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=L)
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg)
+    n_params = sum(p.size for p in model.parameters())
+    rng = np.random.default_rng(0)
+    ids_np, labels_np = (rng.integers(0, cfg.vocab_size, (B, T)).astype(
+        np.int64) for _ in range(2))
+    ids, labels = paddle.to_tensor(ids_np), paddle.to_tensor(labels_np)
+    tree = _tree_map(lambda t: t.clone().requires_grad_(True),
+                     params_from_layer(model))
+    args = lf.LlamaArgs.from_config(cfg)
+    ref = lf.forward_and_loss(tree, ids._data, labels._data, args,
+                              remat=False)
+    ref.backward()
+    torch.cuda.synchronize(dev)
+    reset_launches()
+    loss = model(ids, labels=labels)
+    torch.cuda.synchronize(dev)
+    fwd = dict(launch_counts())
+    loss.backward()
+    torch.cuda.synchronize(dev)
+    after = launch_counts()
+    total = dict(after)
+    bwd = {k: after[k] - fwd[k] for k in after}
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    core = model.model
+    got = {"embedding": core.embed_tokens.weight.grad._data,
+           "final_norm": core.norm.weight.grad._data,
+           "lm_head": model.lm_head.weight.grad._data,
+           "layers": {k: torch.stack([g(l).grad._data for l in core.layers])
+                      for k, g in (
+                          ("wq", lambda l: l.self_attn.q_proj.weight),
+                          ("wk", lambda l: l.self_attn.k_proj.weight),
+                          ("wv", lambda l: l.self_attn.v_proj.weight),
+                          ("wo", lambda l: l.self_attn.o_proj.weight),
+                          ("w_gate", lambda l: l.mlp.gate_proj.weight),
+                          ("w_up", lambda l: l.mlp.up_proj.weight),
+                          ("w_down", lambda l: l.mlp.down_proj.weight),
+                          ("ln1", lambda l: l.input_layernorm.weight),
+                          ("ln2", lambda l:
+                           l.post_attention_layernorm.weight))}}
+    worst = ("", 0.0)
+    for (path, g), (_, r) in zip(_leaves(got), _leaves(tree)):
+        rel = ((g.float() - r.grad).norm() / r.grad.norm()).item()
+        if not math.isfinite(rel) or rel > worst[1]:
+            worst = (path, rel)
+    want = {"flash_fwd": (L, 0), "flash_bwd_dq": (0, L),
+            "flash_bwd_dkv": (0, L), "rms_norm_fwd": (2 * L + 1, 0),
+            "rms_norm_bwd": (0, 2 * L + 1)}
+    counts = {k: (fwd[k], bwd[k]) for k in want}
+    log(f"[layers] (b) LlamaForCausalLM(LlamaConfig.llama2_7b("
+        f"num_hidden_layers={L})), {n_params / 1e9:.3f} B parameters from "
+        f"seed 0 in {time.perf_counter() - t0:.1f} s, b {B} s {T}, f32: "
+        f"loss {loss.item():.6f} vs forward_and_loss on params_from_layer "
+        f"{ref.item():.6f}, rel {loss_rel:.3e} (bar "
+        f"{EAGER_BARS['loss_rel']}); worst grad leaf {worst[0]} "
+        f"||d||/||ref|| {worst[1]:.3e} (bar {EAGER_BARS['grad_rel']}); "
+        f"launches (forward, backward) from the nn.Layers {counts}, want "
+        f"{want}")
+    if loss_rel > EAGER_BARS["loss_rel"] or \
+            worst[1] > EAGER_BARS["grad_rel"] or counts != want:
+        raise AssertionError(f"layers (b): loss rel {loss_rel}, worst "
+                             f"{worst}, launches {counts}")
+    del tree, ref, got, loss
+    torch.cuda.empty_cache()
+
+    def train(opt, label):
+        losses, steps, opt_ms = [], [], []
+        for _ in range(leg["steps"]):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss = model(ids, labels=labels)
+            loss.backward()
+            _, oms = _sync_ms(torch, dev, opt.step)
+            opt.clear_grad()
+            losses.append(loss.item())
+            steps.append((time.perf_counter() - t0) * 1e3)
+            opt_ms.append(oms)
+        falls = all(b < a for a, b in zip(losses, losses[1:]))
+        log(f"[layers] (b) {label}: {leg['steps']} AdamW steps (lr "
+            f"{leg['lr']}), losses {[round(x, 6) for x in losses]} (falls "
+            f"each step: {falls}); step ms (forward + backward + AdamW, "
+            f"synchronised) {[round(x, 2) for x in steps]}, of which the "
+            f"optimizer {[round(x, 2) for x in opt_ms]} "
+            f"({opt_ms[-1] / steps[-1]:.1%} of the last step); peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+        if not falls:
+            raise AssertionError(f"layers (b) {label}: losses {losses}")
+        return steps[-1], opt_ms[-1]
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = paddle.optimizer.AdamW(leg["lr"], parameters=model.parameters())
+    f32 = train(opt, "f32, from seed 0")
+    del opt, model
+    torch.cuda.empty_cache()
+    paddle.seed(0)   # the bf16 leg starts from the f32 leg's weights
+    model = LlamaForCausalLM(cfg)
+    opt = paddle.optimizer.AdamW(leg["lr"], parameters=model.parameters(),
+                                 multi_precision=True)
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16", master_weight=True)
+    if {p.dtype for p in model.parameters()} != {paddle.bfloat16}:
+        raise AssertionError("layers (b): decorate left a non-bf16 weight")
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    bf16 = train(opt, "amp.decorate O2 bf16, f32 masters, from seed 0")
+    log(f"[layers] (b) the last step: f32 {f32[0]:.2f} ms (AdamW "
+        f"{f32[1]:.2f} ms), bf16 {bf16[0]:.2f} ms (AdamW {bf16[1]:.2f} ms), "
+        f"beside the eager phase's bf16 forward + backward (PERF.md §5)")
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    return total
+
+
+def _layers_mha(torch, dev, paddle):
+    """(c): nn.MultiHeadAttention at width 4096, 32 heads, s 2048, bf16:
+    forward and backward launch B1-B3 once each. The attention output (the
+    out projection's input) is held, head_dim vector by head_dim vector,
+    to B1's bar against B1's plain version (`flash_fwd_plain`) on the q, k
+    and v the layer's projections gave it; beside it (recorded) the layer
+    run with the route's predicate false, whose plain softmax(QK^T)V
+    rounds P to bf16 before P·V."""
+    import importlib
+
+    import numpy as np
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    fmod = importlib.import_module(
+        "paddle_tpu_torch.nn.functional.flash_attention")
+    leg = MHA_LEG
+    hd = leg["width"] // leg["heads"]
+    paddle.seed(1)
+    mha = paddle.nn.MultiHeadAttention(leg["width"], leg["heads"]).to(
+        dtype="bfloat16")
+    rng = np.random.default_rng(1)
+    x = paddle.to_tensor(rng.standard_normal(
+        (1, leg["seq"], leg["width"])).astype(np.float32)).astype("bfloat16")
+    x.stop_gradient = False
+    seen = {}
+
+    def keep(name):
+        return lambda layer, ins, out: seen.setdefault(
+            name, []).append(out._data.detach().unflatten(-1, (-1, hd)))
+
+    hooks = [getattr(mha, f"{n}_proj").register_forward_post_hook(keep(n))
+             for n in "qkv"]
+    hooks.append(mha.out_proj.register_forward_pre_hook(
+        lambda layer, ins: seen.setdefault("attn", []).append(
+            ins[0]._data.detach().unflatten(-1, (-1, hd)))))
+    reset_launches()
+    out = mha(x)
+    torch.cuda.synchronize(dev)
+    fwd = dict(launch_counts())
+    out.astype("float32").sum().backward()
+    torch.cuda.synchronize(dev)
+    total = dict(launch_counts())
+    use = fmod._use_kernel
+    fmod._use_kernel = lambda *a, **k: False
+    try:
+        with paddle.no_grad():
+            mha(x)
+    finally:
+        fmod._use_kernel = use
+        for h in hooks:
+            h.remove()
+    q, k, v = (seen[n][0] for n in "qkv")
+    ref = fa.flash_fwd_plain(q, k, v, False)[0]
+    ratio = flash_row_ratio(torch, seen["attn"][0], ref, TOL["bfloat16"])
+    route = flash_row_ratio(torch, seen["attn"][0], seen["attn"][1],
+                            TOL["bfloat16"])
+    plains = flash_row_ratio(torch, seen["attn"][1], ref, TOL["bfloat16"])
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    got = {k: (fwd[k], total[k] - fwd[k]) for k in flash}
+    log(f"[layers] (c) nn.MultiHeadAttention({leg['width']}, "
+        f"{leg['heads']}) bf16, s {leg['seq']}: launches (forward, "
+        f"backward) {got}; the attention output against B1's plain "
+        f"version on the layer's q/k/v: worst head_dim vector {ratio:.3f} "
+        f"of B1's bar ({TOL['bfloat16']}); against the layer run with the "
+        f"route's predicate false {route:.3f} of the bar, that run against "
+        f"B1's plain version {plains:.3f} (both recorded)")
+    if got != {"flash_fwd": (1, 0), "flash_bwd_dq": (0, 1),
+               "flash_bwd_dkv": (0, 1)} or not ratio <= 1.0:
+        raise AssertionError(f"layers (c): launches {got}, ratio {ratio}")
+    return total
+
+
+def _layers_amp(torch, dev, paddle):
+    """(d): auto_cast makes `paddle.matmul` bf16, keeps `F.softmax` f32
+    and hands B1 bf16 from f32 q/k/v; a float16 GradScaler skips a step
+    with a planted inf and halves its scale."""
+    import numpy as np
+
+    a = paddle.randn([64, 64])
+    q = paddle.randn([1, 256, 4, 128])                   # f32, B1's gate
+    reset_launches()
+    with paddle.amp.auto_cast():
+        mm = paddle.matmul(a, a).dtype
+        sm = paddle.nn.functional.softmax(a).dtype
+        fl = paddle.nn.functional.flash_attention(q, q, q, causal=True)[0]
+    b1 = launch_counts()["flash_fwd"]
+    lin = paddle.nn.Linear(64, 64).to(dtype="float16")
+    opt = paddle.optimizer.SGD(0.1, parameters=lin.parameters())
+    scaler = paddle.amp.GradScaler(init_loss_scaling=1024.0)
+    x = paddle.randn([8, 64]).astype("float16")
+    scaler.scale(lin(x).astype("float32").mean()).backward()
+    g = lin.weight.grad.numpy().copy()
+    g[0, 0] = np.inf
+    lin.weight.grad = paddle.to_tensor(g)
+    w0 = lin.weight.numpy().copy()
+    scaler.step(opt)
+    skipped = np.array_equal(lin.weight.numpy(), w0)
+    log(f"[layers] (d) under auto_cast paddle.matmul gives {mm}, F.softmax "
+        f"{sm}, F.flash_attention on f32 q/k/v {fl.dtype} with {b1} B1 "
+        f"launch; GradScaler(float16, 1024) with an inf planted: step "
+        f"skipped {skipped}, scale -> {scaler._scale}")
+    if mm != paddle.bfloat16 or sm != paddle.float32 or not skipped or \
+            fl.dtype != paddle.bfloat16 or b1 != 1 or \
+            scaler._scale != 512.0:
+        raise AssertionError(f"layers (d): {mm}, {sm}, {fl.dtype}, B1 {b1}, "
+                             f"skipped {skipped}, scale {scaler._scale}")
+
+
+def phase_layers(torch, dev):
+    """The training API on the card (see LENET_LEG, LAYERS_LEG, MHA_LEG):
+    (a) LeNet `Model.fit`, (b) the layer-built Llama at 7B width, (c)
+    `nn.MultiHeadAttention`, (d) AMP. Returns the launch counts of (b)'s
+    checked run and (c)'s."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+
+    device_mod._current = None   # the default: the card, no set_device
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="layers_")
+    try:
+        _layers_lenet(torch, dev, paddle, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = _layers_llama(torch, dev, paddle)
+    torch.cuda.empty_cache()
+    _add(total, _layers_mha(torch, dev, paddle))
+    _layers_amp(torch, dev, paddle)
+    torch.cuda.empty_cache()
+    log(f"[layers] the phase took {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -4668,7 +5060,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
-                    "functional,train,"
+                    "functional,layers,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -4722,6 +5114,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "functional" in phases:
         phase_functional(torch, dev)
+        torch.cuda.empty_cache()
+    if "layers" in phases:
+        _add(launches, phase_layers(torch, dev))
         torch.cuda.empty_cache()
     if "train" in phases:
         _add(launches, phase_train(torch, dev, name, "train"))

@@ -9,7 +9,8 @@ or anything of `paddle_tpu`.
     x = paddle.randn([4, 8]); y = paddle.matmul(x, x.T)
 
 Layout (slices so far: paged-KV and int8 Llama serving, single-card
-training, the eager Tensor and its op surface):
+training, the eager Tensor and its op surface, the layers and the
+training API):
 
   - `device`: device resolution — entry points run on CUDA unless the
     caller passes `device="cpu"`, and raise when no card is present;
@@ -32,7 +33,13 @@ training, the eager Tensor and its op surface):
     attention on B1-B3 and `rms_norm` on B9/B10), the `linalg` and `fft`
     namespaces, `save`/`load` (`framework/io`), `_C_ops` and the native
     core (`core/native`: TCPStore, flags, watchdog), re-exported here as
-    `paddle_tpu/__init__.py` does.
+    `paddle_tpu/__init__.py` does;
+  - the training API: `nn` (layers, initializers, utils, `ClipGrad*`),
+    `optimizer` (14 optimizers, 15 LR schedulers), `amp` (auto_cast on
+    the dispatch waist, decorate, GradScaler), `io` (datasets, samplers,
+    DataLoader with worker processes), `metric`, `hapi` (`Model`),
+    `vision` (LeNet, MNIST), and the layer-built Llama
+    (`models.llama.LlamaForCausalLM`).
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401
@@ -76,6 +83,14 @@ _ops_patch.install()
 from paddle_tpu_torch import autograd  # noqa: F401,E402
 from paddle_tpu_torch import framework  # noqa: F401,E402
 from paddle_tpu_torch import nn  # noqa: F401,E402
+from paddle_tpu_torch import optimizer  # noqa: F401,E402
+from paddle_tpu_torch import io  # noqa: F401,E402
+from paddle_tpu_torch import metric  # noqa: F401,E402
+from paddle_tpu_torch import amp  # noqa: F401,E402
+from paddle_tpu_torch import vision  # noqa: F401,E402
+from paddle_tpu_torch import hapi  # noqa: F401,E402
+from paddle_tpu_torch.hapi.model import Model  # noqa: F401,E402
+from paddle_tpu_torch.nn.layer.layers import ParamAttr  # noqa: F401,E402
 from paddle_tpu_torch.framework.io import save, load  # noqa: F401,E402
 from paddle_tpu_torch import fft, linalg  # noqa: F401,E402
 

@@ -23,12 +23,17 @@ Tensors are created on the place `framework.device` gives: the device of
 `set_device`, else the current CUDA device; with no card and no
 `set_device('cpu')`, creation raises.
 
-Not ported here: the hooks the JAX package hangs on its dispatch waist
-(AMP, the nan/inf sanitizer, the profiler's tracer, SOT capture, the static
-tape). Each arrives with the slice that ports its subsystem.
+AMP hangs on the dispatch waist as in the JAX package: inside
+`amp.auto_cast`, `apply` casts the float32 inputs of a white-list op (by
+its `_name`) to the AMP dtype before the op runs (`amp_local`). Not ported
+here: the waist's other hooks (the nan/inf sanitizer, the profiler's
+tracer, SOT capture, the static tape); each arrives with the slice that
+ports its subsystem.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -444,12 +449,24 @@ def _as_torch(x, like=None):
 # --------------------------------------------------------------------------
 
 
+# the auto_cast scope of this thread (`amp.auto_cast` sets `state`: the
+# AMP dtype and the white and black lists), or no `state` outside one
+amp_local = threading.local()
+
+
 def apply(fn, *tensors, _name="op"):
     """Run `fn(*torch_tensors) -> tensor | tuple(tensors)` over Tensor args
     and wrap the result (a list for several outputs). Torch records the
-    graph when grad is enabled and an input needs a gradient; `_name`
-    names the op for the hooks later slices hang here."""
-    out = fn(*[t._data for t in tensors])
+    graph when grad is enabled and an input needs a gradient. `_name`
+    names the op: inside an auto_cast scope, the float32 inputs of a
+    white-list op are cast to the AMP dtype first (the cast is recorded,
+    so gradients reach the float32 inputs)."""
+    datas = [t._data for t in tensors]
+    st = getattr(amp_local, "state", None)
+    if st is not None and _name in st["white"]:
+        dt = st["dtype"]
+        datas = [d.to(dt) if d.dtype == torch.float32 else d for d in datas]
+    out = fn(*datas)
     if isinstance(out, (tuple, list)):
         return [Tensor(o) for o in out]
     return Tensor(out)

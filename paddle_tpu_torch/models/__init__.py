@@ -1,24 +1,29 @@
 """Llama: functional building blocks and the training forward and loss,
-the weights module, generation over stripe and paged caches, weight-only
-int8 quantization, and the bridge from the JAX parameter and optimizer
-trees. GPT-2 (`models/gpt.py`: the cached forward and `gpt_generate`) and
+the weights module, the layer-built `LlamaForCausalLM` (with
+`params_from_layer` into the functional tree), generation over stripe
+and paged caches, weight-only int8 quantization, and the bridge from the
+JAX parameter and optimizer trees (and from a JAX layer's state dict,
+`layer_from_numpy`). GPT-2 (`models/gpt.py`: the cached forward and `gpt_generate`) and
 the BERT encoder (`models/bert.py`), with their bridges from the JAX
 trees."""
 
 from paddle_tpu_torch.models.generation import (QuantizedKVPage,
                                                 QuantizedWeight, decode_step,
                                                 draft_from_params, generate,
-                                                paged_decode_step, prefill,
+                                                paged_decode_step,
+                                                params_from_layer, prefill,
                                                 quantize_params)
 from paddle_tpu_torch.models.bert import Bert, BertConfig, init_bert_params
 from paddle_tpu_torch.models.gpt import (Gpt, GPTConfig, GPTGenArgs,
                                          gpt_generate, init_gpt_params)
-from paddle_tpu_torch.models.llama import Llama
+from paddle_tpu_torch.models.llama import (Llama, LlamaConfig,
+                                           LlamaForCausalLM)
 from paddle_tpu_torch.models.llama_functional import (LLAMA2_7B, LlamaArgs,
                                                       init_params)
 from paddle_tpu_torch.models.weights import (adamw_state_from_numpy,
                                              bert_params_from_numpy,
                                              gpt_params_from_numpy,
+                                             layer_from_numpy,
                                              params_from_numpy,
                                              tree_from_numpy, tree_to_numpy)
 
@@ -29,4 +34,5 @@ __all__ = ["Llama", "LlamaArgs", "LLAMA2_7B", "init_params",
            "tree_to_numpy", "draft_from_params", "Gpt", "GPTConfig",
            "GPTGenArgs", "gpt_generate", "init_gpt_params",
            "gpt_params_from_numpy", "Bert", "BertConfig", "init_bert_params",
-           "bert_params_from_numpy"]
+           "bert_params_from_numpy", "LlamaConfig", "LlamaForCausalLM",
+           "params_from_layer", "layer_from_numpy"]

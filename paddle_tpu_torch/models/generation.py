@@ -58,7 +58,7 @@ from paddle_tpu_torch.models import llama_functional as lf
 
 __all__ = ["generate", "prefill", "decode_step", "paged_decode_step",
            "QuantizedWeight", "QuantizedKVPage", "quantize_params",
-           "draft_from_params"]
+           "draft_from_params", "params_from_layer"]
 
 NEG_INF = -1e30
 
@@ -166,6 +166,40 @@ def draft_from_params(model, num_layers):
                   if isinstance(v, QuantizedWeight) else v[:n])
               for k, v in tree["layers"].items()}
     return Llama(model.args._replace(num_layers=n), dict(tree, layers=layers))
+
+
+def params_from_layer(model):
+    """The functional tree (`llama_functional.init_params`'s layout, layer
+    leaves stacked on a leading [L] dim) of a layer-built
+    `LlamaForCausalLM` / `LlamaModel` (`models.llama`;
+    `paddle_tpu/models/generation.py:152`). Every weight is [in, out] in
+    both. The leaves are new tensors, detached from the layers' (a
+    stacked copy; the embedding and the norms are detached views)."""
+    core = getattr(model, "model", model)
+    lm_head = getattr(model, "lm_head", None)
+
+    def arr(t):
+        return t._data.detach()
+
+    layers = core.layers
+    names = [("wq", lambda l: l.self_attn.q_proj.weight),
+             ("wk", lambda l: l.self_attn.k_proj.weight),
+             ("wv", lambda l: l.self_attn.v_proj.weight),
+             ("wo", lambda l: l.self_attn.o_proj.weight),
+             ("w_gate", lambda l: l.mlp.gate_proj.weight),
+             ("w_up", lambda l: l.mlp.up_proj.weight),
+             ("w_down", lambda l: l.mlp.down_proj.weight),
+             ("ln1", lambda l: l.input_layernorm.weight),
+             ("ln2", lambda l: l.post_attention_layernorm.weight)]
+    stacked = {key: torch.stack([arr(get(l)) for l in layers])
+               for key, get in names}
+    return {
+        "embedding": arr(core.embed_tokens.weight),
+        "layers": stacked,
+        "final_norm": arr(core.norm.weight),
+        "lm_head": (arr(lm_head.weight) if lm_head is not None
+                    else arr(core.embed_tokens.weight).T),
+    }
 
 
 def _wmm(x, w):

@@ -144,3 +144,17 @@ def bert_params_from_numpy(state, cfg, device=None, dtype=torch.float32):
             for i in range(cfg.num_hidden_layers)]), dev, dtype)
         for k in BERT_LAYER_KEYS}
     return Bert(cfg, params, device=dev)
+
+
+def layer_from_numpy(layer, state):
+    """Load a JAX layer's state into the port's layer of the same class:
+    `state` maps the JAX layer's structured names to numpy arrays
+    (`{k: v.numpy() for k, v in jax_layer.state_dict().items()}`). The
+    layouts are the same, so nothing is transposed; each value takes the
+    port parameter's dtype and device. Raises when a name is missing on
+    either side. Returns the layer."""
+    missing, unexpected = layer.set_state_dict(state)
+    if missing or unexpected:
+        raise KeyError(f"state dict names differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    return layer

@@ -6,10 +6,10 @@ classes and framework toggles.
 Where the JAX package drops a gradient because it wraps a raw result
 (`combinations`, `tensor_split`) the port keeps it, as Paddle does.
 `take(mode="raise")` raises on an index out of range, as Paddle does; the
-JAX package clamps. Four names reach subsystems that later slices port
-and raise NotImplementedError naming the slice: `enable_static` and
-`disable_static` (the static graph, ROADMAP A10f), `flops` and `summary`
-(over `nn.Layer`, A10b).
+JAX package clamps. Two names reach a subsystem a later slice ports and
+raise NotImplementedError naming it: `enable_static` and `disable_static`
+(the static graph, ROADMAP A10f). `flops` and `summary` walk an
+`nn.Layer`.
 """
 
 from __future__ import annotations
@@ -455,11 +455,58 @@ def tolist(x):
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):
-    raise waits_for("flops", "A10b", "nn.Layer")
+    """Model FLOPs estimate (reference `paddle.flops` / hapi dynamic_flops):
+    counts matmul/conv MACs via a shape-driven walk of the layers."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    total = [0]
+
+    def hook(layer, ins, out):
+        x = ins[0]
+        if isinstance(layer, nn.Linear):
+            total[0] += 2 * int(np.prod(x.shape)) * layer.weight.shape[-1]
+        elif hasattr(layer, "weight") and getattr(layer, "_kernel_size",
+                                                  None) is not None:
+            w = layer.weight
+            total[0] += 2 * int(np.prod(out[0].shape if isinstance(
+                out, (tuple, list)) else out.shape)) \
+                * int(np.prod(w.shape[1:]))
+
+    handles = [l.register_forward_post_hook(hook)
+               for l in net.sublayers(include_self=True)]
+    try:
+        net(paddle.zeros(list(input_size)))
+    finally:
+        for h in handles:
+            h.remove()
+    if print_detail:
+        print(f"Total FLOPs: {total[0]}")
+    return total[0]
 
 
 def summary(net, input_size=None, dtypes=None, input=None):
-    raise waits_for("summary", "A10b", "nn.Layer")
+    """Layer/parameter summary (reference `paddle.summary` / hapi): prints
+    a per-layer table and returns {'total_params', 'trainable_params'}."""
+    rows = []
+    total = trainable = 0
+    for name, sub in net.named_sublayers(include_self=True):
+        n_p = 0
+        for p in sub.parameters(include_sublayers=False) \
+                if hasattr(sub, "parameters") else []:
+            n_p += int(np.prod(p.shape))
+            if not p.stop_gradient:
+                trainable += int(np.prod(p.shape))
+        total += n_p
+        if n_p:
+            rows.append((name or type(sub).__name__,
+                         type(sub).__name__, n_p))
+    width = max((len(r[0]) for r in rows), default=10) + 2
+    print(f"{'Layer'.ljust(width)}{'Type'.ljust(20)}Params")
+    for nm, ty, n_p in rows:
+        print(f"{nm.ljust(width)}{ty.ljust(20)}{n_p}")
+    print(f"Total params: {total}")
+    return {"total_params": total, "trainable_params": trainable}
 
 
 # dtype-name compat strings

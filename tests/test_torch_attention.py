@@ -24,6 +24,11 @@ import jax.numpy as jnp
 from paddle_tpu.kernels import quantized_matmul as qm
 from paddle_tpu_torch.kernels import attention as at
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 # f32 on both sides, outputs of magnitude <= ~3: only the summation order
 # differs (XLA's einsum and online softmax vs torch's matmul)
 ATOL = 2e-5

@@ -18,6 +18,11 @@ from paddle_tpu_torch.kernels import quantized_matmul as qm
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.llama_functional import LLAMA2_7B
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 BF16, F32 = torch.bfloat16, torch.float32
 
 

@@ -36,6 +36,12 @@ from paddle_tpu.core import native as ref_native
 from paddle_tpu_torch import _C_ops as PC
 from paddle_tpu_torch.core import native
 from paddle_tpu_torch.framework import device as port_device
+import torch
+
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -46,6 +46,11 @@ from paddle_tpu_torch.distributed.checkpoint.integrity import (
     read_commit_marker)
 from paddle_tpu_torch.observability import MetricsRegistry
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

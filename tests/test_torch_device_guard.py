@@ -22,6 +22,11 @@ from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import quantized_matmul as qm
 from paddle_tpu_torch.kernels import rms_norm as rn
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 CARD = torch.device("cuda", 1)
 
 

@@ -48,6 +48,11 @@ from paddle_tpu_torch.serving import (DecodeWorker, DisaggServer, KVHandoff,
 from paddle_tpu_torch.serving.disagg import _extract_pages, _scatter_pages
 from paddle_tpu_torch.serving.paged_engine import _leaves
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = "cpu"
 ARGS = jlf.LlamaArgs(vocab_size=128, hidden_size=64, intermediate_size=176,

@@ -16,6 +16,12 @@ caller's settings after it.
 
 Also: `nn.functional.rms_norm` on the card launches B9 forward and B10
 backward on the gate, and nothing off it.
+
+The layer table (`torch_layer_cases`, one case per nn layer class) runs
+here too: each value case's layer built on the CPU from a seed, its state
+loaded into the same layer on the card, outputs, input and parameter
+gradients and buffers against the CPU run at the same bars. `nn.RMSNorm`
+launches B9/B10 and `nn.MultiHeadAttention` B1-B3 on their gates only.
 """
 
 import numpy as np
@@ -23,6 +29,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as paddle
+import torch_layer_cases as L
 import torch_op_cases as T
 from paddle_tpu_torch.framework import device as port_device
 
@@ -90,3 +97,59 @@ def test_rms_norm_launches_b9_and_b10_on_the_gate_only(card, dtype):
     F.rms_norm(xd, w.astype("float16"))
     F.rms_norm(xd)
     assert rn.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1}
+
+
+LAYERS = [c for c in L.CASES if c.check == "value"]
+
+
+@pytest.mark.parametrize("c", LAYERS, ids=lambda c: c.id)
+def test_layer_on_the_card_matches_the_port_on_the_cpu(card, c):
+    paddle.set_device("cpu")
+    paddle.seed(11)
+    state = {k: v.numpy() for k, v in c.make(paddle).state_dict().items()}
+    ref = L.run(paddle, c, state=state)[1:]
+    paddle.set_device("gpu")
+    layer, *got = L.run(paddle, c, state=state)
+    assert all(p.place == card for p in layer.parameters())
+    L.compare(c, ref, got, rtol=CARD_RTOL, atol=CARD_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_layer_launches_b9_and_b10_on_the_gate_only(card, dtype):
+    from paddle_tpu_torch.kernels import rms_norm as rn
+
+    paddle.set_device("gpu")
+    rng = np.random.default_rng(1)
+    norm = paddle.nn.RMSNorm(256).to(dtype=dtype)
+    x = paddle.to_tensor(rng.standard_normal((4, 16, 256)).astype(
+        np.float32)).astype(dtype)
+    x.stop_gradient = False
+    rn.reset_launches()
+    norm(x).astype("float32").sum().backward()
+    assert rn.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1}
+    assert norm.weight.grad is not None and x.grad is not None
+    paddle.nn.RMSNorm(260)(paddle.ones([2, 260]))   # H % 8 != 0: off the gate
+    assert rn.launches == {"rms_norm_fwd": 1, "rms_norm_bwd": 1}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_multi_head_attention_launches_b1_to_b3_on_the_gate_only(card,
+                                                                 dtype):
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    paddle.set_device("gpu")
+    rng = np.random.default_rng(2)
+    mha = paddle.nn.MultiHeadAttention(256, 2).to(dtype=dtype)  # head_dim 128
+    x = paddle.to_tensor(rng.standard_normal((2, 64, 256)).astype(
+        np.float32)).astype(dtype)
+    x.stop_gradient = False
+    fa.reset_launches()
+    mha(x).astype("float32").sum().backward()
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}
+    mask = paddle.zeros([2, 1, 64, 64])
+    mha(x, attn_mask=mask)                                 # a mask: plain
+    paddle.nn.MultiHeadAttention(8, 2).to(dtype=dtype)(
+        paddle.ones([1, 4, 8]).astype(dtype))              # head_dim 4
+    assert fa.launches == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                           "flash_bwd_dkv": 1}

@@ -22,6 +22,12 @@ from paddle_tpu_torch.framework import device as port_device
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models import LlamaArgs
 from paddle_tpu_torch.models import llama_functional as lf
+import torch
+
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
 
 # the module (the package's `flash_attention` attribute is the function)
 port_fa = importlib.import_module(

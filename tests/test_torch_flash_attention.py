@@ -22,6 +22,11 @@ import torch
 from paddle_tpu.kernels import flash_attention as ref_fa
 from paddle_tpu_torch.kernels import flash_attention as fa
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 FWD_BAR, GRAD_BAR = 1e-5, 1e-4
 SCALE = 0.125
 

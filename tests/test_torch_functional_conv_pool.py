@@ -14,6 +14,12 @@ import paddle_tpu
 import paddle_tpu_torch as P
 import torch_op_cases as T
 from paddle_tpu_torch.framework import device as port_device
+import torch
+
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

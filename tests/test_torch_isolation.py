@@ -17,6 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "paddle_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -59,7 +64,17 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.nn.functional, paddle_tpu_torch.ops.extras, "
         "paddle_tpu_torch.ops.legacy_ps, paddle_tpu_torch.linalg, "
         "paddle_tpu_torch.fft, paddle_tpu_torch.framework.io, "
-        "paddle_tpu_torch._C_ops, paddle_tpu_torch.core.native\n"
+        "paddle_tpu_torch._C_ops, paddle_tpu_torch.core.native, "
+        "paddle_tpu_torch.nn.layer.layers, paddle_tpu_torch.nn.layer.common, "
+        "paddle_tpu_torch.nn.layer.rnn, paddle_tpu_torch.nn.layer.extras, "
+        "paddle_tpu_torch.nn.layer.transformer, "
+        "paddle_tpu_torch.nn.initializer, paddle_tpu_torch.nn.utils, "
+        "paddle_tpu_torch.optimizer, paddle_tpu_torch.optimizer.lr, "
+        "paddle_tpu_torch.amp, paddle_tpu_torch.io, "
+        "paddle_tpu_torch.metric, paddle_tpu_torch.hapi, "
+        "paddle_tpu_torch.hapi.callbacks, paddle_tpu_torch.vision, "
+        "paddle_tpu_torch.vision.models, paddle_tpu_torch.vision.datasets, "
+        "paddle_tpu_torch.models.llama\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -87,8 +102,11 @@ def test_no_source_imports_jax_or_the_reference():
     files = sorted(PACKAGE.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py",
         ROOT / "tests" / "test_torch_eager_cuda.py",
-        ROOT / "tests" / "torch_op_cases.py"]
-    for mod in ("framework", "core", "autograd", "ops", "nn"):
+        ROOT / "tests" / "torch_op_cases.py",
+        ROOT / "tests" / "torch_layer_cases.py"]
+    for mod in ("framework", "core", "autograd", "ops", "nn", "optimizer",
+                "amp", "io", "metric", "hapi", "vision", "layer",
+                "initializer"):
         assert any(f.parent.name == mod or f.parent.parent.name == mod
                    for f in files), mod
     assert len(files) > 10
@@ -260,3 +278,36 @@ def test_part_2_entry_points_raise_without_cuda_unless_asked_for_cpu(
     paddle.set_device("cpu")
     assert paddle.load(str(path))["w"].place.type == "cpu"
     assert paddle.fft.fftfreq(4).place.type == "cpu"
+
+
+def test_layer_and_optimizer_creation_raise_without_cuda_unless_cpu(
+        no_cuda, monkeypatch):
+    """A layer's parameters, an initializer's draw, a DataLoader's batches
+    and the layer-built Llama are created on the creation place: without
+    a card and without set_device('cpu') they raise; asked for the CPU
+    they land there, and the optimizer keeps its state beside them."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    monkeypatch.setattr(device_mod, "_current", None)
+    tiny = LlamaConfig.tiny(num_hidden_layers=1)
+    ds = paddle.io.TensorDataset([np.ones((4, 2), np.float32)])
+    for make in (lambda: paddle.nn.Linear(2, 3),
+                 lambda: paddle.nn.BatchNorm1D(3),
+                 lambda: paddle.nn.initializer.XavierNormal()([2, 3],
+                                                            "float32"),
+                 lambda: paddle.vision.models.LeNet(),
+                 lambda: LlamaForCausalLM(tiny),
+                 lambda: next(iter(paddle.io.DataLoader(ds, batch_size=2)))):
+        with pytest.raises(RuntimeError, match="CUDA|device='cpu'"):
+            make()
+    paddle.set_device("cpu")
+    lin = paddle.nn.Linear(2, 3)
+    opt = paddle.optimizer.AdamW(0.1, parameters=lin.parameters())
+    lin(paddle.ones([1, 2])).sum().backward()
+    opt.step()
+    assert {p.place.type for p in lin.parameters()} == {"cpu"}
+    assert {v.device.type for v in opt._accumulators.values()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lin.to(device="gpu")

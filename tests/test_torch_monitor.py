@@ -29,6 +29,11 @@ from paddle_tpu_torch.observability import (MetricsRegistry,
                                             set_global_registry,
                                             write_run_telemetry)
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 
 def _pair(**kw):
     """(port monitor, JAX monitor), each over its own fresh registry."""

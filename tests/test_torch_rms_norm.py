@@ -31,6 +31,11 @@ from paddle_tpu_torch.kernels import rms_norm as rn
 from paddle_tpu_torch.models import LlamaArgs, tree_from_numpy
 from paddle_tpu_torch.models import llama_functional as lf
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 EPS = 1e-6
 # (rows, H): tests/test_rms_norm_kernel.py's shapes flattened, and row
 # counts past the Pallas kernel's 256-row block

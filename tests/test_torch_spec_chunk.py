@@ -46,6 +46,11 @@ from paddle_tpu_torch.serving.spec_decode import SpecDecoder
 from paddle_tpu_torch.kernels import attention as at
 from tools import serving_trace
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 ARGS = jlf.LlamaArgs(vocab_size=128, hidden_size=64, intermediate_size=176,
                      num_layers=2, num_heads=4, num_kv_heads=2,
                      rope_theta=10000.0, rms_eps=1e-6, use_flash=False)

@@ -31,6 +31,11 @@ from paddle_tpu_torch.models import (Llama, LlamaArgs, adamw_state_from_numpy,
                                      tree_from_numpy, tree_to_numpy)
 from paddle_tpu_torch.models import llama_functional as lf
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 CPU = "cpu"
 
 

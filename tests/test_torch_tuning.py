@@ -18,6 +18,11 @@ from paddle_tpu_torch.observability import (MetricsRegistry,
                                             set_global_registry,
                                             write_run_telemetry)
 
+# one intra-op thread a process: six xdist workers each running torch's
+# default pool of a thread a core oversubscribe the machine, and every
+# file of the run, the JAX package's too, then runs many times slower
+torch.set_num_threads(1)
+
 DEFAULTS = {"block_q": 512, "block_k": 1024}
 SHAPE = {"seq_q": 1024, "seq_k": 1024, "head_dim": 128}
 # the call site's rule, as B8 passes `tile()`'s pick

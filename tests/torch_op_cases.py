@@ -848,6 +848,16 @@ case(M, "take", lambda P, x, i, j: [P.take(x, i), P.take(x, j, mode="wrap"),
      lambda r: [U(r, 3, 4), np.array([[0, 5], [11, 2]], np.int64),
                 np.array([13, -1, 30, -20], np.int64)], grad=(0,))
 case(M, "tolist", lambda P, x: P.tolist(x), lambda r: [U(r, 2, 3)])
+
+
+def _lenet_like(P):
+    return P.nn.Sequential(P.nn.Conv2D(1, 4, 3), P.nn.ReLU(),
+                           P.nn.Flatten(), P.nn.Linear(4 * 6 * 6, 5))
+
+
+case(M, "flops", lambda P: P.flops(_lenet_like(P), [2, 1, 8, 8]))
+case(M, "summary", lambda P: [P.summary(_lenet_like(P))[k] for k in
+                              ("total_params", "trainable_params")])
 case(M, "trapezoid", lambda P, y, x: [P.trapezoid(y, dx=0.5),
                                       P.trapezoid(y, x, axis=0)],
      lambda r: [U(r, 4, 3), np.sort(U(r, 4, 3), axis=0)], grad=(0, 1))
