@@ -116,6 +116,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                   matmul bf16, keeps softmax f32 and hands B1 bf16 from
                   f32 q/k/v, a float16 GradScaler skips a step with a
                   planted inf and halves its scale.
+  2a'''. configs BASELINE configs 3 and 2 on one card (ROADMAP A10c/A10d),
+                  through the public API with no set_device: (a) config 3,
+                  `bert_base()` (dropout 0.1) through `distributed.Engine(
+                  dp=1, sharding_stage=2)`, AdamW 5e-5, b 64 s 128 with
+                  bench.py's synthetic MLM/NSP labels, 3 warm-up and 16
+                  timed steps in f32 (TF32 off) and under amp_level O1: the
+                  loss finite and falling, step ms, tokens/s and MFU (6 N
+                  tokens/s over the bf16 peak) recorded; two engines from
+                  seed 0 give equal losses; eval_batch launches B1 12 times;
+                  bert_tiny's 3 Engine steps on the card within rel 1e-4 of
+                  the CPU's (losses, every parameter after sync_to_model);
+                  (b) bert_base(hidden_dropout_prob=0.0), no mask, Engine
+                  O2: B1 12 launches a forward, B2/B3 12 a backward, the
+                  first step's loss within rel 1e-2 of the route's predicate
+                  false, step ms and MFU; (c) config 2, `Model(resnet50(
+                  1000)).fit`, Momentum(1e-2, 0.9), b 64 224^2, 4 warm-up
+                  and 24 timed iterations on bench.py's synthetic samples:
+                  imgs/s, MFU (3 x 4.089 GFLOPs an image) and the host share
+                  of a profiled train_batch; resnet18 one fit step within
+                  rel 1e-4 of the CPU's (cuDNN deterministic); (d)
+                  vit_b_16 bf16 under amp.decorate(O2), b 8: B1 12, B2/B3
+                  12, the loss within rel 1e-2 of the plain route's; (e)
+                  GPT-2 small from layers: gpt_params_from_layer -> Gpt ->
+                  greedy gpt_generate (B5, B4) against the layer model's
+                  full forward (prefill logits rel 1e-4, tokens its argmax),
+                  then 3 AdamW steps at b 8 s 1024; (f) nms, roi_align,
+                  roi_pool, deform_conv2d and box_coder on the card equal to
+                  the CPU's.
   2b. train       `HybridParallelEngine` on the 7B-width training leg of
                   bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
                   loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
@@ -222,6 +250,8 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
 import json
 import math
 import os
@@ -1460,6 +1490,206 @@ def flash_lse_ratio(torch, got, ref):
     return ((got.float() - ref.float()).abs() / bar).max().item()
 
 
+@contextlib.contextmanager
+def plain_route():
+    """The attention route's predicate false for the block: the layers take
+    their plain attention, never B1-B3."""
+    fmod = importlib.import_module(
+        "paddle_tpu_torch.nn.functional.flash_attention")
+    use = fmod._use_kernel
+    fmod._use_kernel = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        fmod._use_kernel = use
+
+
+@contextlib.contextmanager
+def on_cpu(paddle):
+    """The port's default device the CPU for the block, restored after."""
+    from paddle_tpu_torch.framework import device as device_mod
+
+    prev = device_mod._current
+    paddle.set_device("cpu")
+    try:
+        yield
+    finally:
+        device_mod._current = prev
+
+
+@contextlib.contextmanager
+def flash_calls():
+    """For the block, keeps a copy of the inputs and outputs of B1's first
+    call (`flash_fwd`) and of B2 + B3's first (`flash_bwd`), as the main
+    path makes them: {"fwd" | "bwd": (args, outputs)}. The wrappers run as
+    they are, launch counts included."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seen = {}
+    wrapped = {"fwd": fa.flash_fwd, "bwd": fa.flash_bwd}
+
+    def keeping(name):
+        def call(*args):
+            outs = wrapped[name](*args)
+            if name not in seen:
+                seen[name] = tuple(
+                    tuple(x.detach().clone() if hasattr(x, "detach") else x
+                          for x in xs) for xs in (args, outs))
+            return outs
+        return call
+
+    fa.flash_fwd, fa.flash_bwd = keeping("fwd"), keeping("bwd")
+    try:
+        yield seen
+    finally:
+        fa.flash_fwd, fa.flash_bwd = wrapped["fwd"], wrapped["bwd"]
+
+
+def flash_f64(torch, fa, q, k, v, causal, scale, o=None, do=None, g_lse=None):
+    """B1's out, and given `do` B2 + B3's (dq, dk, dv), in float64 from the
+    same inputs; delta = rowsum(dO·O) - g_lse from the `o` B2/B3 were
+    given, as theirs is."""
+    g = q.shape[2] // k.shape[2]
+    B, Sk, Hk, D = k.shape
+
+    def heads(x, rep=1):   # [B, S, h, D] -> [B, h * rep, S, D] in f64
+        return x.double().transpose(1, 2).repeat_interleave(rep, dim=1)
+
+    Q, K, V = heads(q), heads(k, g), heads(v, g)
+    s = Q @ K.transpose(-1, -2) * scale
+    vis = fa._visible(q.shape[1], Sk, causal, q.device)
+    if vis is not None:
+        s = s.masked_fill(~vis, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    if do is None:
+        return ((p @ V).transpose(1, 2),)
+    dO = heads(do)
+    delta = (dO * heads(o)).sum(-1, keepdim=True)
+    if g_lse is not None:
+        delta = delta - g_lse.double()[..., None]
+    ds = p * (dO @ V.transpose(-1, -2) - delta)
+
+    def group(x):   # [B, H, Sk, D] -> [B, Sk, Hk, D]
+        return x.reshape(B, Hk, g, Sk, D).sum(dim=2).transpose(1, 2)
+
+    return ((ds @ K * scale).transpose(1, 2),
+            group(ds.transpose(-1, -2) @ Q * scale),
+            group(p.transpose(-1, -2) @ dO))
+
+
+def flash_path_check(torch, seen, label):
+    """B1's out and lse, and B2 + B3's dq, dk and dv where the path ran
+    them, from the calls `flash_calls` kept, against the plain versions on
+    those same inputs (`flash_row_ratio` at TOL of the dtype,
+    `flash_lse_ratio`). Where the plain version itself is not within that
+    bar of the float64 value (`flash_f64`) on these inputs, an output is
+    held instead to be no further from the float64 value than twice the
+    plain version's distance, by its worst vector and by ||d|| / ||f64||:
+    in the deep layers of a post-LN stack at a random init the tokens are
+    nearly equal (rank collapse), so dq and dk are small differences of
+    near-equal terms and any bf16 order of summation lands several bars
+    from any other. Then B1-B3 at that shape on N(0, 1) inputs
+    (`flash_case`), whose attention is far from uniform, all at the bars
+    alone; there the mean of v over the keys in place of B1's out must fail
+    the bar. Returns {name: worst ratio}; raises where one fails."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    args, (out, lse) = seen["fwd"]
+    q, k, v, causal, scale = args
+    dname = str(q.dtype).split(".")[-1]
+    tol = TOL[dname]
+    g = q.shape[2] // k.shape[2]
+
+    def mean_v(v, ref):
+        m = v.float().mean(1, keepdim=True).repeat_interleave(g, dim=2)
+        return m.expand(ref.shape)
+
+    # (name, kernel's, plain's, float64's) on the path's inputs
+    ref_out, ref_lse = fa.flash_fwd_plain(*args)
+    path = [("out", out, ref_out, flash_f64(torch, fa, *args)[0])]
+    if "bwd" in seen:
+        bargs, got = seen["bwd"]
+        bq, bk, bv, bo, _, bdo, bcausal, bscale, bg = bargs
+        path += list(zip(("dq", "dk", "dv"), got, fa.flash_bwd_plain(*bargs),
+                         flash_f64(torch, fa, bq, bk, bv, bcausal, bscale,
+                                   bo, bdo, bg)))
+    r = {"lse": flash_lse_ratio(torch, lse, ref_lse),
+         "mean_v_at_path": flash_row_ratio(torch, mean_v(v, ref_out),
+                                           ref_out, tol)}
+    far, bad = {}, {}
+    for name, got, plain, f64 in path:
+        r[name] = flash_row_ratio(torch, got, plain, tol)
+        if math.isfinite(r[name]) and r[name] <= 1.0:
+            continue
+        rows = (flash_row_ratio(torch, got, f64, tol),
+                flash_row_ratio(torch, plain, f64, tol))
+        fro = (_rel(torch, got, f64), _rel(torch, plain, f64))
+        far[name] = {"rows kernel/plain to f64": [round(x, 3) for x in rows],
+                     "||d||/||f64|| kernel/plain": [f"{x:.3e}" for x in fro]}
+        if not (rows[1] > 1.0 and rows[0] <= 2 * rows[1] and
+                fro[0] <= 2 * fro[1]):
+            bad[name] = far[name]
+    if not r["lse"] <= 1.0:
+        bad["lse"] = r["lse"]
+
+    def common(k):   # the keys' mean over the sequence over their spread
+        spread = k.float() - k.float().mean(1, keepdim=True)
+        return round(float((k.float().mean(1).norm(dim=-1) / spread.pow(
+            2).sum(-1).mean(1).sqrt()).median()), 3)
+
+    commons = [common(k)] + ([common(seen["bwd"][0][1])] if "bwd" in seen
+                             else [])
+
+    b, sq, h, d = q.shape
+    rq, rk, rv, rdo = flash_case(torch, q.device, b, sq, k.shape[1], h,
+                                 k.shape[2], d, q.dtype)
+    o2, l2 = fa.flash_fwd(rq, rk, rv, causal, scale)
+    ro, rl = fa.flash_fwd_plain(rq, rk, rv, causal, scale)
+    r["out_n01"] = flash_row_ratio(torch, o2, ro, tol)
+    r["lse_n01"] = flash_lse_ratio(torch, l2, rl)
+    r["mean_v_n01"] = flash_row_ratio(torch, mean_v(rv, ro), ro, tol)
+    if "bwd" in seen:
+        for name, a, b in zip(
+                ("dq_n01", "dk_n01", "dv_n01"),
+                fa.flash_bwd(rq, rk, rv, ro, rl, rdo, causal, scale),
+                fa.flash_bwd_plain(rq, rk, rv, ro, rl, rdo, causal, scale)):
+            r[name] = flash_row_ratio(torch, a, b, tol)
+    torch.cuda.synchronize(q.device)
+    for name, x in r.items():
+        if name.endswith("_n01") and name != "mean_v_n01" and \
+                not (math.isfinite(x) and x <= 1.0):
+            bad[name] = x
+    log(f"[configs] {label}: B1{'-B3' if 'bwd' in seen else ''} against "
+        f"the plain versions on the inputs the path gave them "
+        f"(q {tuple(q.shape)} {dname}, causal {causal}; the keys' mean over "
+        f"the sequence over their spread, median over (batch, head), in "
+        f"B1's kept call{' and B2/B3' if 'bwd' in seen else ''}'s: "
+        f"{commons}) and at that shape on N(0, 1) inputs, worst vector at (fraction of its bar, {tol}) "
+        f"{ {n: round(x, 4) for n, x in r.items()} }; over the bar against "
+        f"the plain version, each against the float64 value: {far}; the "
+        f"mean of v in place of B1's out must fail the bar on the N(0, 1) "
+        f"inputs")
+    if bad or not r["mean_v_n01"] > 1.0:
+        raise AssertionError(f"{label}: B1-B3 against their plain versions "
+                             f"{r}; failing {bad}")
+    return r
+
+
+def adam_reach(steps, beta1=0.9, beta2=0.999):
+    """How far `steps` Adam updates can move a parameter, in units of lr,
+    whatever its gradients: update t is |m_t| / sqrt(v_t) (both bias-
+    corrected) <= sqrt(sum_i a_i^2 / b_i) by Cauchy-Schwarz, a_i and b_i
+    the weights m_t and v_t give gradient i (3.005 summed over 3 steps)."""
+    reach = 0.0
+    for t in range(1, steps + 1):
+        a = [beta1 ** (t - i) * (1 - beta1) / (1 - beta1 ** t)
+             for i in range(1, t + 1)]
+        b = [beta2 ** (t - i) * (1 - beta2) / (1 - beta2 ** t)
+             for i in range(1, t + 1)]
+        reach += math.sqrt(sum(x * x / y for x, y in zip(a, b)))
+    return reach
+
+
 def planted_flash_faults(torch, fa, q, k, v, do, causal, tile=64):
     """B1-B3 outputs with a fault planted, built from the plain versions:
     [(fault, output name, faulty, right)]. The bar must reject each."""
@@ -2219,13 +2449,9 @@ def _layers_mha(torch, dev, paddle):
     and v the layer's projections gave it; beside it (recorded) the layer
     run with the route's predicate false, whose plain softmax(QK^T)V
     rounds P to bf16 before P·V."""
-    import importlib
-
     import numpy as np
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    fmod = importlib.import_module(
-        "paddle_tpu_torch.nn.functional.flash_attention")
     leg = MHA_LEG
     hd = leg["width"] // leg["heads"]
     paddle.seed(1)
@@ -2253,13 +2479,10 @@ def _layers_mha(torch, dev, paddle):
     out.astype("float32").sum().backward()
     torch.cuda.synchronize(dev)
     total = dict(launch_counts())
-    use = fmod._use_kernel
-    fmod._use_kernel = lambda *a, **k: False
     try:
-        with paddle.no_grad():
+        with plain_route(), paddle.no_grad():
             mha(x)
     finally:
-        fmod._use_kernel = use
         for h in hooks:
             h.remove()
     q, k, v = (seen[n][0] for n in "qkv")
@@ -2343,6 +2566,579 @@ def phase_layers(torch, dev):
     _layers_amp(torch, dev, paddle)
     torch.cuda.empty_cache()
     log(f"[layers] the phase took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# the configs phase: BASELINE configs 3 and 2 on one card through the
+# public API (the `distributed.Engine` over BERT-base, `Model.fit` over
+# ResNet-50), B1-B3 from BERT's and ViT-B/16's layers, B4/B5 from GPT-2's
+# layer weights through `gpt_params_from_layer`, and vision.ops on the card
+CONFIG3_LEG = dict(batch=64, seq=128, warmup=3, steps=16, lr=5e-5,
+                   repro_steps=4)            # bench.py:1399 _bench_bert_zero2
+FINETUNE_LEG = dict(batch=64, seq=128, warmup=2, steps=8, lr=5e-5)
+CONFIG2_LEG = dict(batch=64, size=224, warmup=4, iters=24,
+                   lr=1e-2)                  # bench.py:1350 _bench_resnet_fit
+VIT_LEG = dict(batch=8, size=224, classes=1000)
+GPT_LEG = dict(prompts=(16, 32, 48, 64), new=32, batch=8, seq=1024,
+               steps=3, lr=1e-4)
+CARD_CPU_RTOL = 1e-4
+ROUTE_RTOL = 1e-2
+RESNET50_FWD_FLOPS = 4.089e9                 # bench.py: an image at 224^2
+
+
+def _bert_batch(np, cfg, batch, seq, seed=0):
+    """bench.py:1409-1414: random ids, zero token types, MLM labels at 15%
+    (the token itself), NSP labels."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq)).astype("int64")
+    tt = np.zeros((batch, seq), "int64")
+    mlm = np.where(rng.random((batch, seq)) < 0.15, ids,
+                   -100).astype("int64")
+    nsp = rng.integers(0, 2, (batch,)).astype("int64")
+    return [ids, tt], [mlm, nsp]
+
+
+def _n_params(model):
+    return sum(int(p.size) for p in model.parameters())
+
+
+def _rel(torch, a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _engine_steps(torch, dev, eng, inputs, labels, warmup, steps):
+    """(losses of every step, ms a timed step): `warmup` then `steps`
+    synchronised train_batch calls."""
+    losses = [float(eng.train_batch(inputs, labels)) for _ in range(warmup)]
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    timed = [eng.train_batch(inputs, labels) for _ in range(steps)]
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return losses + [float(l) for l in timed], ms
+
+
+def _configs_bert(torch, dev, paddle, peak):
+    """(a) config 3 in f32 and O1, its reproducibility, eval_batch's B1
+    launches and bert_tiny card against CPU; (b) the fine-tune on B1-B3.
+    Returns the launch counts of the checked runs."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import (BertPretrainingLoss, bert_base,
+                                         bert_tiny)
+    from paddle_tpu_torch.models.weights import layer_from_numpy
+
+    leg = CONFIG3_LEG
+    B, S = leg["batch"], leg["seq"]
+    total = {k: 0 for k in launch_counts()}
+
+    def engine(model, **kw):
+        opt = paddle.optimizer.AdamW(leg["lr"],
+                                     parameters=model.parameters())
+        return Engine(model, loss=BertPretrainingLoss(), optimizer=opt,
+                      dp=1, sharding_stage=2, **kw)
+
+    paddle.seed(0)
+    model = bert_base()
+    n = _n_params(model)
+    inputs, labels = _bert_batch(np, model.bert.config, B, S)
+    rec = {}
+    for amp in (None, "O1"):
+        eng = engine(model, amp_level=amp)
+        losses, ms = _engine_steps(torch, dev, eng, inputs, labels,
+                                   leg["warmup"], leg["steps"])
+        tps = B * S / ms * 1e3
+        rec[amp or "f32"] = (losses, ms, tps, 6 * n * tps / peak)
+        timed = losses[leg["warmup"]:]
+        if not all(math.isfinite(x) for x in losses) or \
+                not timed[-1] < timed[0]:
+            raise AssertionError(f"configs (a) {amp}: losses {losses}")
+        prof = _busy_share(torch, dev, lambda: eng.train_batch(inputs,
+                                                               labels))
+        log(f"[configs] (a) config 3 {amp or 'f32'}, a profiled step: " + (
+            "the profiler saw no device activity" if prof is None else
+            f"wall {prof[0]:.2f} ms, device busy {prof[1]:.2f} ms (host "
+            f"share {1 - prof[1] / prof[0]:.1%}); busy by group "
+            f"{ {g: round(v, 2) for g, v in prof[2].items()} }; top kernels "
+            f"(ms, launches a step) "
+            f"{[(n[:48], round(t, 2), c) for n, t, c in prof[3]]}"))
+        if amp is None:
+            # two runs from seed 0 (dropout from the engine's generator),
+            # deterministic kernels: equal losses
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                rep = [[float(e.train_batch(inputs, labels))
+                        for _ in range(leg["repro_steps"])]
+                       for e in (engine(model), engine(model))]
+            finally:
+                torch.use_deterministic_algorithms(False)
+            if rep[0] != rep[1]:
+                raise AssertionError(f"configs (a): seed 0 twice gives "
+                                     f"{rep}")
+            reset_launches()
+            with flash_calls() as seen:
+                ev = float(eng.eval_batch(inputs, labels))
+            torch.cuda.synchronize(dev)
+            ev_launch = dict(launch_counts())
+            _add(total, ev_launch)
+            flash_path_check(torch, seen, "(a) eval_batch, config 3 f32")
+            seen = None
+            want = model.bert.config.num_hidden_layers
+            if ev_launch["flash_fwd"] != want or \
+                    ev_launch["flash_bwd_dq"] or ev_launch["flash_bwd_dkv"]:
+                raise AssertionError(f"configs (a): eval_batch launches "
+                                     f"{ev_launch}, want B1 {want}")
+        eng = None
+    for k, (losses, ms, tps, mfu) in rec.items():
+        log(f"[configs] (a) config 3: bert_base() ({n / 1e6:.1f} M "
+            f"parameters, dropout 0.1) through Engine(dp=1, "
+            f"sharding_stage=2), AdamW {leg['lr']}, b {B} s {S}, {k}"
+            f"{' (TF32 off)' if k == 'f32' else ' (bf16 autocast)'}: "
+            f"losses {[round(x, 4) for x in losses]} (finite, the timed "
+            f"ones fall); step {ms:.2f} ms (mean of {leg['steps']} after "
+            f"{leg['warmup']} warm-up), {tps:.0f} tokens/s, MFU {mfu:.4f} "
+            f"(6 N tokens/s over the bf16 peak)")
+    log(f"[configs] (a) two Engines from seed 0, deterministic kernels: "
+        f"{leg['repro_steps']} equal losses {[round(x, 6) for x in rep[0]]};"
+        f" eval_batch {ev:.4f} launched {ev_launch}")
+
+    # bert_tiny, card against CPU: 3 steps in f32, losses and parameters
+    paddle.seed(0)
+    tiny = bert_tiny()
+    state = {k: v.numpy() for k, v in tiny.state_dict().items()}
+    steps = 3
+    with on_cpu(paddle):
+        cpu_model = layer_from_numpy(bert_tiny(), state)
+        cpu_eng = engine(cpu_model)
+        tin, tlab = _bert_batch(np, tiny.bert.config, 8, 64, seed=1)
+        cpu_losses = [float(cpu_eng.train_batch(tin, tlab))
+                      for _ in range(steps)]
+        cpu_eng.sync_to_model()
+    card_eng = engine(tiny)
+    card_losses = [float(card_eng.train_batch(tin, tlab))
+                   for _ in range(steps)]
+    card_eng.sync_to_model()
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                      cpu_losses))
+    pairs = list(zip(tiny.named_parameters(), cpu_model.named_parameters()))
+    finite = all(math.isfinite(x) for x in card_losses + cpu_losses) and \
+        all(bool(torch.isfinite(p._data).all() and
+                 torch.isfinite(q._data).all()) for (_, p), (_, q) in pairs)
+    worst = max((_rel(torch, p._data, q._data), k) for (k, p), (_, q) in
+                pairs if not k.endswith("k_proj.bias"))
+    # a key bias has a zero true gradient (the softmax ignores a constant
+    # added to a row's logits), so each side carries its own rounding noise,
+    # which AdamW scales to up to lr a step: it is held on each side within
+    # what the steps can move it (adam_reach, plus the decoupled decay)
+    opt = card_eng.optimizer
+    reach = adam_reach(steps, opt._beta1, opt._beta2)
+    moved, bias_bar = 0.0, 0.0
+    for (k, p), (_, q) in pairs:
+        if k.endswith("k_proj.bias"):
+            p0 = torch.as_tensor(state[k]).double()
+            top = float(p0.abs().max()) + reach * leg["lr"]
+            bias_bar = leg["lr"] * (reach + steps * (opt._wd or 0.0) * top) \
+                * (1 + CARD_CPU_RTOL)
+            moved = max(moved, *(float((x.detach().double().cpu() - p0).abs()
+                                       .max()) for x in (p._data, q._data)))
+    log(f"[configs] (a) bert_tiny through the Engine, {steps} f32 steps on "
+        f"the card against the CPU: losses "
+        f"{[round(x, 6) for x in card_losses]} vs "
+        f"{[round(x, 6) for x in cpu_losses]}, worst rel {loss_rel:.2e};"
+        f" worst parameter after sync_to_model {worst[1]} ||d||/||cpu|| "
+        f"{worst[0]:.2e} (bar {CARD_CPU_RTOL}); losses and parameters "
+        f"finite {finite}; the key biases moved at most {moved:.3e} from "
+        f"their start on either side (bar {bias_bar:.3e}, AdamW's reach)")
+    if not finite or not loss_rel <= CARD_CPU_RTOL or \
+            not worst[0] <= CARD_CPU_RTOL or not moved <= bias_bar:
+        raise AssertionError(f"configs (a) card vs CPU: finite {finite}, "
+                             f"{loss_rel}, {worst}, {moved}")
+    model = eng = card_eng = None
+    torch.cuda.empty_cache()
+    _add(total, _configs_finetune(torch, dev, paddle, peak))
+    return total
+
+
+def _configs_finetune(torch, dev, paddle, peak):
+    """(b) bert_base(hidden_dropout_prob=0.0), no mask, Engine under O2:
+    B1 L launches a forward, B2/B3 L a backward; the first step's loss
+    against the same step with the route's predicate false."""
+    import numpy as np
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.models import BertPretrainingLoss, bert_base
+
+    leg = FINETUNE_LEG
+    B, S = leg["batch"], leg["seq"]
+    paddle.seed(0)
+    model = bert_base(hidden_dropout_prob=0.0)
+    L = model.bert.config.num_hidden_layers
+    n = _n_params(model)
+    inputs, labels = _bert_batch(np, model.bert.config, B, S, seed=2)
+
+    def engine():
+        opt = paddle.optimizer.AdamW(leg["lr"],
+                                     parameters=model.parameters())
+        return Engine(model, loss=BertPretrainingLoss(), optimizer=opt,
+                      dp=1, amp_level="O2")
+
+    eng = engine()
+    reset_launches()
+    with flash_calls() as seen:
+        first = float(eng.train_batch(inputs, labels))
+    torch.cuda.synchronize(dev)
+    step = dict(launch_counts())
+    flash_path_check(torch, seen, "(b) the fine-tune's first step, O2")
+    seen = None
+    with plain_route():
+        plain = float(engine().train_batch(inputs, labels))
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    got = {k: step[k] for k in want}
+    rel = abs(first - plain) / abs(plain)
+    losses, ms = _engine_steps(torch, dev, eng, inputs, labels,
+                               leg["warmup"], leg["steps"])
+    tps = B * S / ms * 1e3
+    log(f"[configs] (b) bert_base(hidden_dropout_prob=0.0) fine-tune, no "
+        f"mask, Engine(amp_level='O2'), b {B} s {S}: a step launched "
+        f"{got} (want {want}); the first step's loss {first:.6f} vs "
+        f"{plain:.6f} with the route's predicate false, rel {rel:.2e} (bar "
+        f"{ROUTE_RTOL}); step {ms:.2f} ms (mean of {leg['steps']} after "
+        f"{leg['warmup'] + 1} warm-up), {tps:.0f} tokens/s, MFU "
+        f"{6 * n * tps / peak:.4f}; losses "
+        f"{[round(x, 4) for x in [first] + losses]}")
+    if got != want or not rel <= ROUTE_RTOL or \
+            not all(math.isfinite(x) for x in [first, plain] + losses):
+        raise AssertionError(f"configs (b): launches {got}, rel {rel}, "
+                             f"losses {losses}")
+    return step
+
+
+def _configs_resnet(torch, dev, paddle, peak):
+    """(c) config 2: ResNet-50 `Model.fit` at b 64, 224^2 on bench.py's
+    synthetic samples (imgs/s, MFU, the host share of a profiled step),
+    then resnet18 one fit step, card against CPU."""
+    import numpy as np
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models.weights import layer_from_numpy
+    from paddle_tpu_torch.vision.models import resnet18, resnet50
+
+    leg = CONFIG2_LEG
+    batch, size = leg["batch"], leg["size"]
+    paddle.seed(0)
+    rng = np.random.default_rng(0)
+
+    class SynthImageNet(Dataset):
+        def __len__(self):
+            return batch * (leg["iters"] + leg["warmup"] + 1)
+
+        def __getitem__(self, idx):
+            img = rng.standard_normal((3, size, size)).astype("float32")
+            return img, np.asarray([idx % 1000], "int64")
+
+    def prepared(net):
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Momentum(
+            learning_rate=leg["lr"], momentum=0.9,
+            parameters=model.parameters()), nn.CrossEntropyLoss(),
+            Accuracy())
+        return model
+
+    model = prepared(resnet50(num_classes=1000))
+    ds = SynthImageNet()
+    model.fit(ds, epochs=1, batch_size=batch, verbose=0,
+              num_iters=leg["warmup"])
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    model.fit(ds, epochs=1, batch_size=batch, verbose=0,
+              num_iters=leg["iters"])
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    ips = batch * leg["iters"] / dt
+    last = model._monitor.last.get("loss", float("nan"))
+    x = paddle.to_tensor(np.random.default_rng(1).standard_normal(
+        (batch, 3, size, size)).astype("float32"))
+    y = paddle.to_tensor((np.arange(batch) % 1000).astype("int64")[:, None])
+    model.train_batch([x], [y])
+    _, step_ms = _sync_ms(torch, dev, lambda: model.train_batch([x], [y]))
+    prof = _busy_share(torch, dev, lambda: model.train_batch([x], [y]),
+                       n_steps=2)
+    host = ("host share not measured: the profiler saw no device activity"
+            if prof is None else
+            f"profiled wall {prof[0]:.2f} ms a step, device busy "
+            f"{prof[1]:.2f} ms: host share {1 - prof[1] / prof[0]:.1%}")
+    mfu = ips * 3 * RESNET50_FWD_FLOPS * (size / 224.0) ** 2 / peak
+    log(f"[configs] (c) config 2: Model(resnet50(num_classes=1000)).fit, "
+        f"Momentum({leg['lr']}, 0.9), CrossEntropyLoss, Accuracy, b {batch}"
+        f" {size}^2, f32 (TF32 off), bench.py's synthetic samples drawn in "
+        f"__getitem__: {leg['iters']} iterations after {leg['warmup']} in "
+        f"{dt:.2f} s, {ips:.1f} imgs/s, MFU {mfu:.4f} (3 x 4.089 GFLOPs an "
+        f"image over the bf16 peak); last loss {last:.4f}; a train_batch "
+        f"on device batches {step_ms:.2f} ms; {host}")
+    if not math.isfinite(last):
+        raise AssertionError(f"configs (c): loss {last}")
+    model = x = None
+    torch.cuda.empty_cache()
+
+    # resnet18, one fit step, card against CPU (cuDNN deterministic)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        paddle.seed(0)
+        net = resnet18(num_classes=10)
+        state = {k: v.numpy() for k, v in net.state_dict().items()}
+        data = np.random.default_rng(3).standard_normal(
+            (2, 3, 64, 64)).astype("float32")
+        small = paddle.io.TensorDataset([data, np.array([[1], [7]],
+                                                        "int64")])
+        with on_cpu(paddle):
+            cpu_net = layer_from_numpy(resnet18(num_classes=10), state)
+            cpu_model = prepared(cpu_net)
+            cpu_model.fit(small, epochs=1, batch_size=2, verbose=0)
+            cpu_loss = cpu_model._monitor.last["loss"]
+        card_model = prepared(net)
+        card_model.fit(small, epochs=1, batch_size=2, verbose=0)
+        card_loss = card_model._monitor.last["loss"]
+    finally:
+        torch.backends.cudnn.deterministic = det
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    pairs = list(zip(net.named_parameters(), cpu_net.named_parameters()))
+    finite = math.isfinite(card_loss) and math.isfinite(cpu_loss) and \
+        all(bool(torch.isfinite(p._data).all() and
+                 torch.isfinite(q._data).all()) for (_, p), (_, q) in pairs)
+    worst = max((_rel(torch, p._data, q._data), k) for (k, p), (_, q) in
+                pairs)
+    log(f"[configs] (c) resnet18(num_classes=10), one fit step at b 2 64^2 "
+        f"in f32, card against CPU: loss {card_loss:.6f} vs "
+        f"{cpu_loss:.6f}, rel {loss_rel:.2e}; worst parameter {worst[1]} "
+        f"||d||/||cpu|| {worst[0]:.2e} (bar {CARD_CPU_RTOL}); loss and "
+        f"parameters finite {finite}")
+    if not finite or not loss_rel <= CARD_CPU_RTOL or \
+            not worst[0] <= CARD_CPU_RTOL:
+        raise AssertionError(f"configs (c) card vs CPU: {loss_rel}, {worst}")
+
+
+def _configs_vit(torch, dev, paddle):
+    """(d) ViT-B/16 bf16 under amp.decorate(O2): B1 12 launches a forward,
+    B2/B3 12 a backward, the loss against the plain route's."""
+    import numpy as np
+    from paddle_tpu_torch.vision.models import vit_b_16
+
+    leg = VIT_LEG
+    paddle.seed(0)
+    model = paddle.amp.decorate(vit_b_16(num_classes=leg["classes"]),
+                                level="O2", dtype="bfloat16")
+    depth = len(model.blocks)
+    rng = np.random.default_rng(4)
+    x = paddle.to_tensor(rng.standard_normal(
+        (leg["batch"], 3, leg["size"], leg["size"])).astype(
+            "float32")).astype("bfloat16")
+    y = paddle.to_tensor(rng.integers(0, leg["classes"],
+                                      (leg["batch"],)).astype("int64"))
+    ce = paddle.nn.CrossEntropyLoss()
+
+    def step():
+        loss = ce(model(x).astype("float32"), y)
+        loss.backward()
+        model.clear_gradients()
+        return float(loss)
+
+    reset_launches()
+    with flash_calls() as seen:
+        loss = ce(model(x).astype("float32"), y)
+        torch.cuda.synchronize(dev)
+        fwd = dict(launch_counts())
+        loss.backward()
+    model.clear_gradients()
+    torch.cuda.synchronize(dev)
+    total = dict(launch_counts())
+    flash_path_check(torch, seen, "(d) ViT-B/16 forward + backward, O2")
+    seen = None
+    with plain_route(), paddle.no_grad():
+        plain = float(ce(model(x).astype("float32"), y))
+    rel = abs(float(loss) - plain) / abs(plain)
+    step()
+    _, ms = _sync_ms(torch, dev, lambda: [step() for _ in range(3)])
+    got = {"flash_fwd": (fwd["flash_fwd"], total["flash_fwd"] -
+                         fwd["flash_fwd"]),
+           "flash_bwd_dq": (fwd["flash_bwd_dq"], total["flash_bwd_dq"] -
+                            fwd["flash_bwd_dq"]),
+           "flash_bwd_dkv": (fwd["flash_bwd_dkv"], total["flash_bwd_dkv"] -
+                             fwd["flash_bwd_dkv"])}
+    want = {"flash_fwd": (depth, 0), "flash_bwd_dq": (0, depth),
+            "flash_bwd_dkv": (0, depth)}
+    log(f"[configs] (d) vit_b_16(num_classes={leg['classes']}) under "
+        f"amp.decorate(O2, bf16), b {leg['batch']} {leg['size']}^2 (197 "
+        f"tokens, head_dim 64): launches (forward, backward) {got} (want "
+        f"{want}); loss {float(loss):.6f} vs {plain:.6f} with the route's "
+        f"predicate false, rel {rel:.2e} (bar {ROUTE_RTOL}); forward + "
+        f"backward {ms / 3:.2f} ms (mean of 3)")
+    if got != want or not rel <= ROUTE_RTOL or not math.isfinite(ms):
+        raise AssertionError(f"configs (d): launches {got}, rel {rel}")
+    return total
+
+
+def _configs_gpt(torch, dev, paddle):
+    """(e) GPT-2 small from seed 0, f32, eval(): gpt_params_from_layer ->
+    Gpt -> greedy gpt_generate (B5 prefill windows, B4 decode) against the
+    layer model's full forward; then AdamW steps of the layer model."""
+    import numpy as np
+    from paddle_tpu_torch.models import (Gpt, GPTConfig, GPTForCausalLM,
+                                         GPTGenArgs, gpt_generate,
+                                         gpt_params_from_layer)
+    from paddle_tpu_torch.models import gpt as gpt_mod
+
+    leg = GPT_LEG
+    paddle.seed(0)
+    cfg = GPTConfig()
+    layer = GPTForCausalLM(cfg)
+    layer.eval()
+    gen = Gpt(GPTGenArgs.from_config(cfg), gpt_params_from_layer(layer))
+    rng = np.random.default_rng(5)
+    reset_launches()
+    prefills, flips, t_gen = [], [], 0.0
+    for s in leg["prompts"]:
+        prompt = rng.integers(0, cfg.vocab_size, (1, s)).astype(np.int32)
+        ids = torch.as_tensor(prompt, device=dev)
+        ck, cv = gpt_mod.gpt_cache(gen, 1, s)
+        pre = gpt_mod._gpt_forward_cached(gen, ids, ck, cv, 0)[0]
+        with paddle.no_grad():
+            full = layer(paddle.to_tensor(prompt.astype(np.int64)))
+        prefills.append(_rel(torch, pre[0], full._data[0, -1]))
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = gpt_generate(gen, prompt, max_new_tokens=leg["new"])
+        torch.cuda.synchronize(dev)
+        t_gen += time.perf_counter() - t0
+        seq = out.cpu().numpy()
+        with paddle.no_grad():
+            logits = layer(paddle.to_tensor(seq[:, :-1].astype(
+                np.int64)))._data[0, s - 1:].float()
+        top2 = logits.topk(2, dim=-1)
+        want = top2.indices[:, 0].cpu().numpy()
+        for i, (g, w) in enumerate(zip(seq[0, s:], want)):
+            if g != w:
+                gap = float(top2.values[i, 0] - top2.values[i, 1])
+                flips.append((s, i, int(g), int(w), gap))
+    counts = dict(launch_counts())
+    worst_prefill = max(prefills)
+    log(f"[configs] (e) GPTForCausalLM(GPTConfig()) (GPT-2 small, "
+        f"{_n_params(layer) / 1e6:.1f} M parameters) from seed 0, f32, "
+        f"eval(): gpt_params_from_layer -> Gpt -> greedy gpt_generate, "
+        f"prompts {list(leg['prompts'])}, {leg['new']} new tokens: the "
+        f"prefill's last-position logits against the layer model's full "
+        f"forward, worst ||d||/||ref|| {worst_prefill:.2e} (bar "
+        f"{CARD_CPU_RTOL}); tokens off the full forward's argmax {flips} "
+        f"((prompt, step, token, argmax, its top-2 gap)); launches "
+        f"B5 {counts['window_attention']}, B4 {counts['decode_attention']}; "
+        f"generate {t_gen * 1e3 / len(leg['prompts']):.1f} ms a prompt "
+        f"(mean)")
+    if not all(x <= CARD_CPU_RTOL for x in prefills) or \
+            not counts["window_attention"] or \
+            not counts["decode_attention"] or \
+            not all(f[4] <= 1e-3 for f in flips):
+        raise AssertionError(f"configs (e): prefill {worst_prefill}, "
+                             f"launches {counts}, flips {flips}")
+    gen = None
+
+    layer.train()
+    opt = paddle.optimizer.AdamW(leg["lr"], parameters=layer.parameters())
+    ids = paddle.to_tensor(rng.integers(0, cfg.vocab_size, (
+        leg["batch"], leg["seq"])).astype(np.int64))
+    losses, ms = [], []
+    for _ in range(leg["steps"]):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = layer(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[configs] (e) {leg['steps']} AdamW steps ({leg['lr']}) of the "
+        f"layer model on GPTPretrainingLoss, b {leg['batch']} s "
+        f"{leg['seq']}, f32, dropout 0.1, plain masked attention: losses "
+        f"{[round(x, 4) for x in losses]}, step ms "
+        f"{[round(x, 1) for x in ms]}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"configs (e): losses {losses}")
+    return counts
+
+
+def _configs_vision_ops(torch, dev, paddle):
+    """(f) nms, roi_align, roi_pool, deform_conv2d and box_coder on the
+    card against the same calls on the CPU."""
+    import numpy as np
+    from paddle_tpu_torch.vision import ops
+
+    rng = np.random.default_rng(6)
+    scores = rng.random(64).astype("float32")
+    xy = rng.uniform(0, 40, (64, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(4, 24, (64, 2))],
+                           1).astype("float32")
+    feat = rng.standard_normal((2, 8, 32, 32)).astype("float32")
+    num = np.array([24, 40], "int32")
+    weight = rng.standard_normal((6, 4, 3, 3)).astype("float32")
+    offset = rng.standard_normal((2, 18, 16, 16)).astype("float32")
+    xin = rng.standard_normal((2, 8, 16, 16)).astype("float32")
+    var = rng.uniform(0.1, 0.3, (64, 4)).astype("float32")
+    calls = {
+        "nms": lambda P: ops.nms(P(boxes), 0.4, scores=P(scores)),
+        "roi_align": lambda P: ops.roi_align(P(feat), P(boxes), P(num), 4,
+                                             spatial_scale=0.5),
+        "roi_pool": lambda P: ops.roi_pool(P(feat), P(boxes), P(num), 4,
+                                           spatial_scale=0.5),
+        "deform_conv2d": lambda P: ops.deform_conv2d(
+            P(xin), P(offset), P(weight), padding=1, groups=2),
+        "box_coder": lambda P: ops.box_coder(P(boxes), P(var), P(boxes[:8])),
+    }
+    worst = {}
+    for name, call in calls.items():
+        card = call(lambda a: paddle.to_tensor(a))
+        cpu = call(lambda a: paddle.to_tensor(a, place="cpu"))
+        if card.place != dev or cpu.place.type != "cpu":
+            raise AssertionError(f"configs (f) {name}: places {card.place}, "
+                                 f"{cpu.place}")
+        g, w = card.numpy(), cpu.numpy()
+        if name == "nms":
+            ok = np.array_equal(g, w)
+            worst[name] = f"{len(g)} kept, equal {ok}"
+        else:
+            err = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-30))
+            ok = g.shape == w.shape and err <= 1e-5
+            worst[name] = f"{err:.1e}"
+        if not ok:
+            raise AssertionError(f"configs (f) {name}: {worst[name]}")
+    log(f"[configs] (f) vision.ops on the card against the CPU (indices "
+        f"exactly, floats max|d|/max|cpu| <= 1e-5): {worst}")
+
+
+def phase_configs(torch, dev, name):
+    """BASELINE configs 3 and 2 on one card and the kernel paths of the
+    A10c/A10d layers (CONFIG3_LEG, FINETUNE_LEG, CONFIG2_LEG, VIT_LEG,
+    GPT_LEG): (a) config 3, (b) the fine-tune on B1-B3, (c) config 2, (d)
+    ViT-B/16, (e) GPT-2 small from layers, (f) vision.ops. Returns the
+    launch counts of the checked runs."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+
+    device_mod._current = None   # the default: the card, no set_device
+    peak = peaks(name)[1]
+    t0 = time.perf_counter()
+    total = _configs_bert(torch, dev, paddle, peak)
+    torch.cuda.empty_cache()
+    _configs_resnet(torch, dev, paddle, peak)
+    torch.cuda.empty_cache()
+    _add(total, _configs_vit(torch, dev, paddle))
+    torch.cuda.empty_cache()
+    _add(total, _configs_gpt(torch, dev, paddle))
+    torch.cuda.empty_cache()
+    _configs_vision_ops(torch, dev, paddle)
+    log(f"[configs] the phase took {time.perf_counter() - t0:.1f} s; peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB")
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
     return total
 
 
@@ -5060,7 +5856,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
-                    "functional,layers,train,"
+                    "functional,layers,configs,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -5117,6 +5913,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "layers" in phases:
         _add(launches, phase_layers(torch, dev))
+        torch.cuda.empty_cache()
+    if "configs" in phases:
+        _add(launches, phase_configs(torch, dev, name))
         torch.cuda.empty_cache()
     if "train" in phases:
         _add(launches, phase_train(torch, dev, name, "train"))
@@ -5203,8 +6002,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"eager", "train", "engine", "disagg", "router", "generate",
-                 "chunked", "spec", "engine-int8", "capacity"}
+    main_path = {"eager", "configs", "train", "engine", "disagg", "router",
+                 "generate", "chunked", "spec", "engine-int8", "capacity"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items()
                    if v == 0 and k not in OFF_PATH]

@@ -38,8 +38,9 @@ training API):
     `optimizer` (14 optimizers, 15 LR schedulers), `amp` (auto_cast on
     the dispatch waist, decorate, GradScaler), `io` (datasets, samplers,
     DataLoader with worker processes), `metric`, `hapi` (`Model`),
-    `vision` (LeNet, MNIST), and the layer-built Llama
-    (`models.llama.LlamaForCausalLM`).
+    `vision` (the model zoo, datasets, transforms, ops), the layer-built
+    Llama, GPT and BERT (`models`), and `distributed.Engine`, the
+    model-generic trainer on one card.
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401
@@ -88,6 +89,7 @@ from paddle_tpu_torch import io  # noqa: F401,E402
 from paddle_tpu_torch import metric  # noqa: F401,E402
 from paddle_tpu_torch import amp  # noqa: F401,E402
 from paddle_tpu_torch import vision  # noqa: F401,E402
+from paddle_tpu_torch import distributed  # noqa: F401,E402
 from paddle_tpu_torch import hapi  # noqa: F401,E402
 from paddle_tpu_torch.hapi.model import Model  # noqa: F401,E402
 from paddle_tpu_torch.nn.layer.layers import ParamAttr  # noqa: F401,E402

@@ -8,6 +8,7 @@ the same seed gives other numbers than the JAX package, so the two are held
 to seed reproducibility and to statistics, not to bits.
 """
 
+import contextlib
 import threading
 
 import torch
@@ -35,6 +36,25 @@ def generator(device):
             gen.manual_seed(_seed_value)
             _generators[key] = gen
         return gen
+
+
+@contextlib.contextmanager
+def use_generator(gen):
+    """Make `gen` the framework generator of its device inside the block,
+    restoring the one it replaced after (`distributed.Engine` draws its
+    dropout from a generator seeded by its own `seed`)."""
+    key = _key(gen.device)
+    with _lock:
+        prev = _generators.get(key)
+        _generators[key] = gen
+    try:
+        yield gen
+    finally:
+        with _lock:
+            if prev is None:
+                _generators.pop(key, None)
+            else:
+                _generators[key] = prev
 
 
 def seed(s):

@@ -3,9 +3,10 @@ the weights module, the layer-built `LlamaForCausalLM` (with
 `params_from_layer` into the functional tree), generation over stripe
 and paged caches, weight-only int8 quantization, and the bridge from the
 JAX parameter and optimizer trees (and from a JAX layer's state dict,
-`layer_from_numpy`). GPT-2 (`models/gpt.py`: the cached forward and `gpt_generate`) and
-the BERT encoder (`models/bert.py`), with their bridges from the JAX
-trees."""
+`layer_from_numpy`). GPT-2 (`models/gpt.py`: the cached forward, `gpt_generate`, the
+layer-built `GPTForCausalLM` and `gpt_params_from_layer`) and BERT
+(`models/bert.py`: the serving encoder and the layer-built
+`BertForPretraining`), with their bridges from the JAX trees."""
 
 from paddle_tpu_torch.models.generation import (QuantizedKVPage,
                                                 QuantizedWeight, decode_step,
@@ -13,11 +14,23 @@ from paddle_tpu_torch.models.generation import (QuantizedKVPage,
                                                 paged_decode_step,
                                                 params_from_layer, prefill,
                                                 quantize_params)
-from paddle_tpu_torch.models.bert import Bert, BertConfig, init_bert_params
-from paddle_tpu_torch.models.gpt import (Gpt, GPTConfig, GPTGenArgs,
-                                         gpt_generate, init_gpt_params)
-from paddle_tpu_torch.models.llama import (Llama, LlamaConfig,
-                                           LlamaForCausalLM)
+from paddle_tpu_torch.models.bert import (Bert, BertConfig,
+                                          BertForPretraining, BertModel,
+                                          BertPretrainingLoss, bert_base,
+                                          bert_tiny, init_bert_params)
+from paddle_tpu_torch.models.gpt import (Gpt, GPTConfig, GPTForCausalLM,
+                                         GPTGenArgs, GPTModel,
+                                         GPTPretrainingLoss, gpt_generate,
+                                         gpt_params_from_layer,
+                                         gpt_pipeline_descs, gpt_tiny,
+                                         init_gpt_params)
+from paddle_tpu_torch.models.llama import (Llama, LlamaAttention,
+                                           LlamaConfig, LlamaDecoderLayer,
+                                           LlamaForCausalLM, LlamaMLP,
+                                           LlamaModel,
+                                           LlamaPretrainingCriterion,
+                                           LlamaRMSNorm,
+                                           LlamaRotaryEmbedding)
 from paddle_tpu_torch.models.llama_functional import (LLAMA2_7B, LlamaArgs,
                                                       init_params)
 from paddle_tpu_torch.models.weights import (adamw_state_from_numpy,
@@ -35,4 +48,10 @@ __all__ = ["Llama", "LlamaArgs", "LLAMA2_7B", "init_params",
            "GPTGenArgs", "gpt_generate", "init_gpt_params",
            "gpt_params_from_numpy", "Bert", "BertConfig", "init_bert_params",
            "bert_params_from_numpy", "LlamaConfig", "LlamaForCausalLM",
-           "params_from_layer", "layer_from_numpy"]
+           "params_from_layer", "layer_from_numpy", "LlamaRMSNorm",
+           "LlamaRotaryEmbedding", "LlamaAttention", "LlamaMLP",
+           "LlamaDecoderLayer", "LlamaModel", "LlamaPretrainingCriterion",
+           "BertForPretraining",
+           "BertModel", "BertPretrainingLoss", "bert_base", "bert_tiny",
+           "GPTForCausalLM", "GPTModel", "GPTPretrainingLoss",
+           "gpt_pipeline_descs", "gpt_tiny", "gpt_params_from_layer"]

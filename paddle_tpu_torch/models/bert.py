@@ -1,4 +1,6 @@
-"""BERT encoder forward (port of `paddle_tpu/models/bert.py:21-83`).
+"""BERT: the serving encoder forward over a functional tree (port of
+`paddle_tpu/models/bert.py:21-83`), and the layer-built model of the same
+file at the end.
 
 The embeddings (word + position + token type when given, then LayerNorm
 at the config's ε), post-LN encoder layers as `paddle_tpu.nn.layer
@@ -27,8 +29,6 @@ layers stacked on a leading [num_layers] dim:
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,7 +38,9 @@ from paddle_tpu_torch.models.gpt import _layer_norm, check_tree
 from paddle_tpu_torch.models.llama import _param
 
 __all__ = ["BertConfig", "BERT_LAYER_KEYS", "init_bert_params", "Bert",
-           "bert_forward"]
+           "bert_forward", "BertModel", "BertForPretraining",
+           "BertPretrainingLoss", "BertMLMHead", "BertMLMLoss",
+           "BertEmbeddings", "bert_pipeline_descs", "bert_base", "bert_tiny"]
 
 BERT_LAYER_KEYS = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo", "ln1_w",
                    "ln1_b", "fc1_w", "fc1_b", "fc2_w", "fc2_b", "ln2_w",
@@ -48,18 +50,25 @@ ENCODER_LN_EPS = 1e-5
 MASK_VALUE = -1e4
 
 
-class BertConfig(NamedTuple):
-    """`paddle_tpu.models.bert.BertConfig`'s shape fields and defaults
-    (BERT-base)."""
+class BertConfig:
+    """`paddle_tpu.models.bert.BertConfig`: its fields, defaults and
+    keywords (BERT-base). The functional `Bert` reads the shape fields, the
+    layer classes below all of them."""
 
-    vocab_size: int = 30522
-    hidden_size: int = 768
-    num_hidden_layers: int = 12
-    num_attention_heads: int = 12
-    intermediate_size: int = 3072
-    max_position_embeddings: int = 512
-    type_vocab_size: int = 2
-    layer_norm_eps: float = 1e-12
+    def __init__(self, vocab_size=30522, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512,
+                 type_vocab_size=2, hidden_dropout_prob=0.1,
+                 layer_norm_eps=1e-12):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.intermediate_size = intermediate_size
+        self.max_position_embeddings = max_position_embeddings
+        self.type_vocab_size = type_vocab_size
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.layer_norm_eps = layer_norm_eps
 
 
 def _shapes(cfg):
@@ -184,3 +193,144 @@ def bert_forward(model, ids, attention_mask=None, token_type_ids=None):
         h = _encoder_layer(model.layer(i), h, mask, cfg.num_attention_heads)
     pooled = torch.tanh(h[:, 0] @ model.pool_w + model.pool_b)
     return h, pooled
+
+
+# ---------------------------------------------------------------------------
+# the layer-built BERT (`paddle_tpu/models/bert.py`): BASELINE config 3's
+# model, trained through the Paddle API and `distributed.Engine`
+# ---------------------------------------------------------------------------
+
+import paddle_tpu_torch as paddle  # noqa: E402
+from paddle_tpu_torch import nn as pnn  # noqa: E402
+
+
+class BertEmbeddings(pnn.Layer):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.word_embeddings = pnn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = pnn.Embedding(cfg.max_position_embeddings,
+                                                 cfg.hidden_size)
+        self.token_type_embeddings = pnn.Embedding(cfg.type_vocab_size,
+                                                   cfg.hidden_size)
+        self.layer_norm = pnn.LayerNorm(cfg.hidden_size,
+                                        epsilon=cfg.layer_norm_eps)
+        self.dropout = pnn.Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids, token_type_ids=None):
+        s = input_ids.shape[1]
+        pos = paddle.arange(s, dtype="int32")
+        emb = self.word_embeddings(input_ids) \
+            + self.position_embeddings(pos)
+        if token_type_ids is not None:
+            emb = emb + self.token_type_embeddings(token_type_ids)
+        return self.dropout(self.layer_norm(emb))
+
+
+class BertModel(pnn.Layer):
+    """Embeddings, post-LN encoder layers (their norms at
+    TransformerEncoderLayer's ε 1e-5, as in the JAX package) and the tanh
+    pooler. With no attention mask and no dropout in training (or in
+    eval()), each layer's attention runs kernel B1 forward and B2/B3
+    backward on the card (`nn.functional.scaled_dot_product_attention`)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.config = cfg
+        self.embeddings = BertEmbeddings(cfg)
+        enc_layer = pnn.TransformerEncoderLayer(
+            d_model=cfg.hidden_size, nhead=cfg.num_attention_heads,
+            dim_feedforward=cfg.intermediate_size,
+            dropout=cfg.hidden_dropout_prob, activation="gelu")
+        self.encoder = pnn.TransformerEncoder(enc_layer,
+                                              cfg.num_hidden_layers)
+        self.pooler = pnn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.pooler_act = pnn.Tanh()
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        h = self.embeddings(input_ids, token_type_ids)
+        if attention_mask is not None and len(attention_mask.shape) == 2:
+            # [b, s] 1 = token / 0 = pad -> the additive [b, 1, 1, s] mask
+            attention_mask = paddle.unsqueeze(
+                paddle.unsqueeze(
+                    (1.0 - attention_mask.astype("float32")) * MASK_VALUE,
+                    1), 1)
+        h = self.encoder(h, src_mask=attention_mask)
+        pooled = self.pooler_act(self.pooler(h[:, 0]))
+        return h, pooled
+
+
+class BertMLMHead(pnn.Layer):
+    """MLM head: transform, GELU, norm, vocab projection."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.mlm_transform = pnn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.mlm_act = pnn.GELU()
+        self.mlm_norm = pnn.LayerNorm(cfg.hidden_size,
+                                      epsilon=cfg.layer_norm_eps)
+        self.mlm_head = pnn.Linear(cfg.hidden_size, cfg.vocab_size)
+
+    def forward(self, h):
+        return self.mlm_head(self.mlm_norm(self.mlm_act(
+            self.mlm_transform(h))))
+
+
+class BertForPretraining(pnn.Layer):
+    """MLM + NSP heads (the config-3 pretraining objective)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.bert = BertModel(cfg)
+        self.mlm = BertMLMHead(cfg)
+        self.nsp_head = pnn.Linear(cfg.hidden_size, 2)
+
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
+        h, pooled = self.bert(input_ids, token_type_ids, attention_mask)
+        return self.mlm(h), self.nsp_head(pooled)
+
+
+def _mlm_ce(mlm_logits, mlm_labels):
+    vocab = mlm_logits.shape[-1]
+    return pnn.functional.cross_entropy(
+        paddle.reshape(mlm_logits, [-1, vocab]),
+        paddle.reshape(mlm_labels, [-1]), ignore_index=-100)
+
+
+class BertPretrainingLoss(pnn.Layer):
+    """MLM CE over masked positions (-100 = ignore) + NSP CE."""
+
+    def forward(self, outputs, mlm_labels, nsp_labels=None):
+        mlm_logits, nsp_logits = outputs
+        loss = _mlm_ce(mlm_logits, mlm_labels)
+        if nsp_labels is not None:
+            loss = loss + pnn.functional.cross_entropy(
+                nsp_logits, paddle.reshape(nsp_labels, [-1]))
+        return loss
+
+
+class BertMLMLoss(pnn.Layer):
+    """MLM-only CE (-100 = ignore), the pipelined objective."""
+
+    def forward(self, mlm_logits, mlm_labels):
+        return _mlm_ce(mlm_logits, mlm_labels)
+
+
+def bert_pipeline_descs(cfg: BertConfig):
+    """The LayerDesc stack of a pipelined BERT: pipeline parallelism across
+    cards is ROADMAP A9."""
+    from paddle_tpu_torch.ops._common import waits_for
+
+    raise waits_for("models.bert_pipeline_descs", "A9",
+                    "pipeline parallelism across cards")
+
+
+def bert_base(**kwargs):
+    return BertForPretraining(BertConfig(**kwargs))
+
+
+def bert_tiny(**kwargs):
+    cfg = dict(vocab_size=1024, hidden_size=64, num_hidden_layers=2,
+               num_attention_heads=4, intermediate_size=128,
+               max_position_embeddings=128, hidden_dropout_prob=0.0)
+    cfg.update(kwargs)
+    return BertForPretraining(BertConfig(**cfg))

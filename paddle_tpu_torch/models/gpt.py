@@ -1,6 +1,6 @@
-"""GPT-2 generation over a stripe KV cache (port of the GPT-2 family in
-`paddle_tpu/models/generation.py:759-931` and the config of
-`paddle_tpu/models/gpt.py:24-37`).
+"""GPT-2: generation over a stripe KV cache (port of the GPT-2 family in
+`paddle_tpu/models/generation.py:759-931`), and the layer-built model of
+`paddle_tpu/models/gpt.py` with `gpt_params_from_layer` between the two.
 
 Pre-LN decoder blocks, learned positions, a head tied to the word
 embedding. The parameter tree keeps the reference's stacked layout
@@ -35,24 +35,34 @@ from paddle_tpu_torch.models import generation as gen
 from paddle_tpu_torch.models.llama import _param
 
 __all__ = ["GPTConfig", "GPTGenArgs", "GPT_LAYER_KEYS", "init_gpt_params",
-           "Gpt", "gpt_generate"]
+           "Gpt", "gpt_generate", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingLoss", "GPTEmbeddings", "GPTDecoderLayer",
+           "GPTFinalNorm", "gpt_pipeline_descs", "gpt_tiny",
+           "gpt_params_from_layer"]
 
 GPT_LAYER_KEYS = ("ln1_w", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv",
                   "wo", "bo", "ln2_w", "ln2_b", "fc1_w", "fc1_b", "fc2_w",
                   "fc2_b")
 
 
-class GPTConfig(NamedTuple):
-    """`paddle_tpu.models.gpt.GPTConfig`'s shape fields and defaults
-    (GPT-2 small, 124M; the vocab padded to 50304)."""
+class GPTConfig:
+    """`paddle_tpu.models.gpt.GPTConfig`: its fields, defaults and keywords
+    (GPT-2 small, 124M; the vocab padded to 50304). The functional `Gpt`
+    reads the shape fields (`GPTGenArgs.from_config`), the layer classes
+    below all of them."""
 
-    vocab_size: int = 50304
-    hidden_size: int = 768
-    num_hidden_layers: int = 12
-    num_attention_heads: int = 12
-    intermediate_size: int = 3072
-    max_position_embeddings: int = 1024
-    layer_norm_eps: float = 1e-5
+    def __init__(self, vocab_size=50304, hidden_size=768,
+                 num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=1024,
+                 hidden_dropout_prob=0.1, layer_norm_eps=1e-5):
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_hidden_layers = num_hidden_layers
+        self.num_attention_heads = num_attention_heads
+        self.intermediate_size = intermediate_size
+        self.max_position_embeddings = max_position_embeddings
+        self.hidden_dropout_prob = hidden_dropout_prob
+        self.layer_norm_eps = layer_norm_eps
 
 
 class GPTGenArgs(NamedTuple):
@@ -283,3 +293,166 @@ def gpt_generate(model, prompt_ids, max_new_tokens=32, temperature=0.0,
                             temperature if sample else 1.0, top_p, generator,
                             use_eos, int(eos_token_id) if use_eos else 0,
                             int(pad_token_id))
+
+
+# ---------------------------------------------------------------------------
+# the layer-built GPT (`paddle_tpu/models/gpt.py`): pre-LN blocks over the
+# port's nn.Layers, trained through the Paddle API; `gpt_params_from_layer`
+# stacks one into the tree `Gpt` serves
+# ---------------------------------------------------------------------------
+
+import paddle_tpu_torch as paddle  # noqa: E402
+from paddle_tpu_torch import nn as pnn  # noqa: E402
+
+
+class GPTEmbeddings(pnn.Layer):
+    """Token + learned position embeddings; `word_embeddings.weight` is the
+    tied output projection."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.word_embeddings = pnn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = pnn.Embedding(cfg.max_position_embeddings,
+                                                 cfg.hidden_size)
+        self.dropout = pnn.Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        pos = paddle.arange(s, dtype="int32")
+        return self.dropout(self.word_embeddings(input_ids)
+                            + self.position_embeddings(pos))
+
+
+class GPTDecoderLayer(pnn.Layer):
+    """Pre-LN causal transformer block (GPT-2 layout). The causal mask is
+    additive (-1e9 above the diagonal, f32), so the attention is the plain
+    masked one, as in the JAX package; serving reaches B4/B5 through
+    `gpt_params_from_layer` and `gpt_generate`."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln1 = pnn.LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
+        self.attn = pnn.MultiHeadAttention(cfg.hidden_size,
+                                           cfg.num_attention_heads,
+                                           dropout=cfg.hidden_dropout_prob)
+        self.ln2 = pnn.LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
+        self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.act = pnn.GELU()
+        self.dropout = pnn.Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, x):
+        s = x.shape[1]
+        mask = paddle.triu(paddle.full([s, s], -1e9, dtype="float32"),
+                           diagonal=1)
+        h = self.ln1(x)
+        x = x + self.attn(h, h, h, attn_mask=mask)
+        h = self.ln2(x)
+        return x + self.dropout(self.fc2(self.act(self.fc1(h))))
+
+
+class GPTFinalNorm(pnn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln_f = pnn.LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps)
+
+    def forward(self, x):
+        return self.ln_f(x)
+
+
+class GPTModel(pnn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.embeddings = GPTEmbeddings(cfg)
+        self.layers = pnn.LayerList(
+            [GPTDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers)])
+        self.final = GPTFinalNorm(cfg)
+
+    def forward(self, input_ids):
+        x = self.embeddings(input_ids)
+        for layer in self.layers:
+            x = layer(x)
+        return self.final(x)
+
+
+class GPTForCausalLM(pnn.Layer):
+    """Tied LM: logits = h @ word_embeddings.weight^T, one parameter for
+    both uses (its gradient sums the two)."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.gpt = GPTModel(cfg)
+
+    def forward(self, input_ids, labels=None):
+        h = self.gpt(input_ids)
+        logits = paddle.matmul(
+            h, self.gpt.embeddings.word_embeddings.weight, transpose_y=True)
+        if labels is not None:
+            return GPTPretrainingLoss()(logits, labels)
+        return logits
+
+
+class GPTPretrainingLoss(pnn.Layer):
+    """Next-token CE with the shift inside the loss: pass labels ==
+    input_ids (logits[:, :-1] against labels[:, 1:]); padding positions
+    use ignore_index -100."""
+
+    def forward(self, logits, labels):
+        from paddle_tpu_torch.nn import functional as PF
+
+        lg = logits[:, :-1, :]
+        lb = labels[:, 1:]
+        return PF.cross_entropy(
+            lg.reshape([-1, lg.shape[-1]]), lb.reshape([-1]),
+            ignore_index=-100)
+
+
+def gpt_pipeline_descs(cfg: GPTConfig):
+    """The SharedLayerDesc stack of a pipelined GPT: pipeline parallelism
+    across cards is ROADMAP A9."""
+    from paddle_tpu_torch.ops._common import waits_for
+
+    raise waits_for("models.gpt_pipeline_descs", "A9",
+                    "pipeline parallelism across cards")
+
+
+def gpt_tiny(**kwargs):
+    cfg = dict(vocab_size=512, hidden_size=64, num_hidden_layers=4,
+               num_attention_heads=4, intermediate_size=128,
+               max_position_embeddings=128, hidden_dropout_prob=0.0)
+    cfg.update(kwargs)
+    return GPTForCausalLM(GPTConfig(**cfg))
+
+
+_GPT_LAYER_LEAVES = (("ln1_w", "ln1.weight"), ("ln1_b", "ln1.bias"),
+                     ("wq", "attn.q_proj.weight"), ("bq", "attn.q_proj.bias"),
+                     ("wk", "attn.k_proj.weight"), ("bk", "attn.k_proj.bias"),
+                     ("wv", "attn.v_proj.weight"), ("bv", "attn.v_proj.bias"),
+                     ("wo", "attn.out_proj.weight"),
+                     ("bo", "attn.out_proj.bias"),
+                     ("ln2_w", "ln2.weight"), ("ln2_b", "ln2.bias"),
+                     ("fc1_w", "fc1.weight"), ("fc1_b", "fc1.bias"),
+                     ("fc2_w", "fc2.weight"), ("fc2_b", "fc2.bias"))
+
+
+def gpt_params_from_layer(model):
+    """The functional tree `Gpt` takes (`paddle_tpu/models/generation.py
+    :781`) of a layer-built `GPTForCausalLM` / `GPTModel`: every matrix
+    [in, out] in both, the layer leaves stacked on a leading [L] dim. The
+    leaves are detached (a stacked copy; the rest detached views)."""
+    core = getattr(model, "gpt", model)
+
+    def arr(layer, path):
+        for part in path.split("."):
+            layer = getattr(layer, part)
+        return layer._data.detach()
+
+    return {
+        "word_emb": arr(core, "embeddings.word_embeddings.weight"),
+        "pos_emb": arr(core, "embeddings.position_embeddings.weight"),
+        "layers": {k: torch.stack([arr(l, path) for l in core.layers])
+                   for k, path in _GPT_LAYER_LEAVES},
+        "lnf_w": arr(core, "final.ln_f.weight"),
+        "lnf_b": arr(core, "final.ln_f.bias"),
+    }

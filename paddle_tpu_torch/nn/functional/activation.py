@@ -29,7 +29,10 @@ def relu_(x, name=None):
 
 
 def relu6(x, name=None):
-    return apply(lambda a: torch.clamp(a, 0.0, 6.0), x, _name="relu6")
+    # TF.relu6, not a clamp: its gradient is 0 at x == 0 and x == 6, as the
+    # JAX package's jax.nn.relu6 and Paddle's; a clamp's is 1 there (a
+    # batch-norm output of exactly 0 feeds it in MobileNetV2)
+    return apply(TF.relu6, x, _name="relu6")
 
 
 def sigmoid(x, name=None):
@@ -103,8 +106,11 @@ def celu(x, alpha=1.0, name=None):
     return apply(lambda a: TF.celu(a, alpha), x, _name="celu")
 
 
+# hardtanh, hardsigmoid and hardswish clip through TF.hardtanh: its
+# gradient at the clip points is 0, Paddle's; torch.clamp's is 1 there and
+# the JAX package's jnp.clip 0.5 (ROADMAP §C)
 def hardtanh(x, min=-1.0, max=1.0, name=None):
-    return apply(lambda a: torch.clamp(a, min, max), x, _name="hardtanh")
+    return apply(lambda a: TF.hardtanh(a, min, max), x, _name="hardtanh")
 
 
 def hardshrink(x, threshold=0.5, name=None):
@@ -124,12 +130,12 @@ def tanhshrink(x, name=None):
 
 
 def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
-    return apply(lambda a: torch.clamp(slope * a + offset, 0.0, 1.0), x,
+    return apply(lambda a: TF.hardtanh(slope * a + offset, 0.0, 1.0), x,
                  _name="hardsigmoid")
 
 
 def hardswish(x, name=None):
-    return apply(lambda a: a * torch.clamp(a + 3.0, 0.0, 6.0) / 6.0, x,
+    return apply(lambda a: a * TF.hardtanh(a + 3.0, 0.0, 6.0) / 6.0, x,
                  _name="hardswish")
 
 

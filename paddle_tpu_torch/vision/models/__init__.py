@@ -1,6 +1,46 @@
-"""Vision models of the port: `LeNet` (`paddle_tpu/vision/models/`); the
-other models are ported with ROADMAP A10d."""
+"""Vision models of the port (`paddle_tpu/vision/models/`; reference
+`python/paddle/vision/models/`): the JAX package's zoo over the port's nn
+layers. `pretrained=True` is accepted and ignored, as there: nothing
+downloads. ViT's attention runs kernels B1-B3 on the card; the CNNs are
+plain torch (cuDNN convolutions), as they are plain jnp in the JAX
+package."""
 
 from paddle_tpu_torch.vision.models.lenet import LeNet  # noqa: F401
-
-__all__ = ["LeNet"]
+from paddle_tpu_torch.vision.models.resnet import (  # noqa: F401
+    ResNet, resnet18, resnet34, resnet50, resnet101, resnet152,
+)
+from paddle_tpu_torch.vision.models.vgg import VGG, vgg11, vgg13, vgg16, vgg19  # noqa: F401
+from paddle_tpu_torch.vision.models.mobilenetv2 import MobileNetV2, mobilenet_v2  # noqa: F401
+from paddle_tpu_torch.vision.models.alexnet import AlexNet, alexnet  # noqa: F401
+from paddle_tpu_torch.vision.models.squeezenet import (  # noqa: F401
+    SqueezeNet, squeezenet1_0, squeezenet1_1,
+)
+from paddle_tpu_torch.vision.models.densenet import (  # noqa: F401
+    DenseNet, densenet121, densenet161, densenet169, densenet201,
+)
+from paddle_tpu_torch.vision.models.shufflenetv2 import (  # noqa: F401
+    ShuffleNetV2, shufflenet_v2_x0_25, shufflenet_v2_x0_5,
+    shufflenet_v2_x1_0, shufflenet_v2_x1_5, shufflenet_v2_x2_0,
+)
+from paddle_tpu_torch.vision.models.vit import (  # noqa: F401
+    VisionTransformer, vit_b_16, vit_tiny, vit_pipeline_descs,
+)
+from paddle_tpu_torch.vision.models.resnet import (  # noqa: F401
+    resnext50_32x4d, resnext50_64x4d, resnext101_32x4d, resnext101_64x4d,
+    resnext152_32x4d, resnext152_64x4d, wide_resnet50_2, wide_resnet101_2,
+)
+from paddle_tpu_torch.vision.models.densenet import densenet264  # noqa: F401
+from paddle_tpu_torch.vision.models.shufflenetv2 import (  # noqa: F401
+    shufflenet_v2_x0_33, shufflenet_v2_swish,
+)
+from paddle_tpu_torch.vision.models.mobilenetv1 import (  # noqa: F401
+    MobileNetV1, mobilenet_v1,
+)
+from paddle_tpu_torch.vision.models.mobilenetv3 import (  # noqa: F401
+    MobileNetV3Large, MobileNetV3Small, mobilenet_v3_large,
+    mobilenet_v3_small,
+)
+from paddle_tpu_torch.vision.models.googlenet import GoogLeNet, googlenet  # noqa: F401
+from paddle_tpu_torch.vision.models.inceptionv3 import (  # noqa: F401
+    InceptionV3, inception_v3,
+)

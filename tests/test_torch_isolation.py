@@ -74,7 +74,21 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.metric, paddle_tpu_torch.hapi, "
         "paddle_tpu_torch.hapi.callbacks, paddle_tpu_torch.vision, "
         "paddle_tpu_torch.vision.models, paddle_tpu_torch.vision.datasets, "
-        "paddle_tpu_torch.models.llama\n"
+        "paddle_tpu_torch.models.llama, paddle_tpu_torch.distributed.engine, "
+        "paddle_tpu_torch.vision.ops, paddle_tpu_torch.vision.transforms, "
+        "paddle_tpu_torch.vision.transforms.functional, "
+        "paddle_tpu_torch.vision.models.resnet, "
+        "paddle_tpu_torch.vision.models.vit, "
+        "paddle_tpu_torch.vision.models.densenet, "
+        "paddle_tpu_torch.vision.models.googlenet, "
+        "paddle_tpu_torch.vision.models.inceptionv3, "
+        "paddle_tpu_torch.vision.models.mobilenetv1, "
+        "paddle_tpu_torch.vision.models.mobilenetv2, "
+        "paddle_tpu_torch.vision.models.mobilenetv3, "
+        "paddle_tpu_torch.vision.models.shufflenetv2, "
+        "paddle_tpu_torch.vision.models.squeezenet, "
+        "paddle_tpu_torch.vision.models.vgg, "
+        "paddle_tpu_torch.vision.models.alexnet\n"
         "bad = sorted(m for m in sys.modules\n"
         f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -106,7 +120,7 @@ def test_no_source_imports_jax_or_the_reference():
         ROOT / "tests" / "torch_layer_cases.py"]
     for mod in ("framework", "core", "autograd", "ops", "nn", "optimizer",
                 "amp", "io", "metric", "hapi", "vision", "layer",
-                "initializer"):
+                "initializer", "transforms", "models", "distributed"):
         assert any(f.parent.name == mod or f.parent.parent.name == mod
                    for f in files), mod
     assert len(files) > 10
@@ -311,3 +325,32 @@ def test_layer_and_optimizer_creation_raise_without_cuda_unless_cpu(
     assert {v.device.type for v in opt._accumulators.values()} == {"cpu"}
     with pytest.raises(RuntimeError, match="CUDA"):
         lin.to(device="gpu")
+
+
+def test_engine_and_model_creation_raise_without_cuda_unless_cpu(
+        no_cuda, monkeypatch):
+    """GPT, BERT and the vision zoo are created on the creation place, and
+    the Engine runs where the model's parameters are: without a card and
+    without set_device('cpu') creating them raises; asked for the CPU the
+    Engine trains there."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import Engine
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import bert_tiny, gpt_tiny
+
+    monkeypatch.setattr(device_mod, "_current", None)
+    for make in (lambda: gpt_tiny(num_hidden_layers=1),
+                 lambda: bert_tiny(num_hidden_layers=1),
+                 lambda: paddle.vision.models.resnet18(num_classes=2),
+                 lambda: paddle.vision.models.vit_tiny(depth=1)):
+        with pytest.raises(RuntimeError, match="CUDA|device='cpu'"):
+            make()
+    paddle.set_device("cpu")
+    model = paddle.nn.Linear(3, 2)
+    eng = Engine(model, loss=paddle.nn.CrossEntropyLoss(),
+                 optimizer=paddle.optimizer.SGD(
+                     0.1, parameters=model.parameters()))
+    loss = eng.train_batch([np.ones((2, 3), np.float32)],
+                           [np.zeros((2,), np.int64)])
+    assert loss.place.type == "cpu" and eng.device.type == "cpu"
+    assert {t.device.type for t in eng.state[0].values()} == {"cpu"}

@@ -35,10 +35,9 @@ LATER = {"enable_static": "A10f", "disable_static": "A10f"}
 # static.create_parameter (A10f)
 PART2_TENSOR_METHODS = {"stft", "istft", "create_parameter"}
 # `_C_ops` targets in namespaces a later slice ports (they raise when
-# called): vision.ops (A10d), quantization (A10f), geometric, signal and
-# text (A10g)
-C_OPS_LATER = {"paddle.vision.": ("A10d", 20), "paddle.quantization.":
-               ("A10f", 10), "paddle.geometric.": ("A10g", 7),
+# called): quantization (A10f), geometric, signal and text (A10g)
+C_OPS_LATER = {"paddle.quantization.": ("A10f", 10),
+               "paddle.geometric.": ("A10g", 7),
                "paddle.signal.": ("A10g", 3), "paddle.text.": ("A10g", 1)}
 # module of the JAX package -> the port's module of the same surface, and
 # the op table's name for it
@@ -134,6 +133,7 @@ def test_c_ops_has_the_jax_modules_names_and_signatures():
 
 
 def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
+    """302 targets resolved before vision.ops (A10d) came; 322 now."""
     from paddle_tpu_torch import _C_ops as port
 
     resolved, later = 0, {p: 0 for p in C_OPS_LATER}
@@ -148,7 +148,7 @@ def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
                            match=C_OPS_LATER[prefix][0]):
             port._t(name)
         later[prefix] += 1
-    assert resolved == 302
+    assert resolved == 322
     assert later == {p: n for p, (_, n) in C_OPS_LATER.items()}
 
 
@@ -182,19 +182,38 @@ def test_the_top_level_namespace_carries_the_six_modules():
         assert hasattr(paddle_tpu_torch, n), n
 
 
-# the training API (ROADMAP A10b): the namespaces the port exports with the
-# JAX package's names, and what waits for a later slice, by slice
+# the training API (ROADMAP A10b), vision (A10d), the models and the
+# one-card Engine (A10c): the namespaces the port exports with the JAX
+# package's names, and what waits for a later slice, by slice
 TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "optimizer.lr", "amp", "io", "metric", "hapi",
                        "hapi.callbacks", "vision", "vision.models",
-                       "vision.datasets")
+                       "vision.datasets", "vision.transforms",
+                       "vision.transforms.functional", "vision.ops",
+                       "models", "distributed.engine")
 TRAINING_LATER = {
     "amp": {"debugging": "A10f"},
-    "vision": {n: "A10d" for n in ("ops", "transforms", "get_image_backend",
-                                   "set_image_backend", "image_load")},
+    # UNet and its config are ROADMAP A10e; the mesh spec helper A9
+    "models": {n: "A10e" for n in ("UNetModel", "unet_sd_like",
+                                   "unet_tiny", "unet")},
+    # the mesh, its sharding types and the spec helper: A9
+    "distributed.engine": {n: "A9" for n in ("shard_first_free_axis",
+                                             "Mesh", "NamedSharding", "P")},
 }
-VISION_KEPT = {"vision.models": {"LeNet", "lenet"},
-               "vision.datasets": {"MNIST", "FashionMNIST", "Dataset"}}
+# what the port's namespace holds beyond the JAX package's: the functional
+# serving models and their bridges, by name
+PORT_EXTRA = {
+    "models": {"Llama", "LlamaArgs", "LLAMA2_7B", "init_params",
+               "params_from_numpy", "generate", "prefill", "decode_step",
+               "paged_decode_step", "quantize_params", "QuantizedWeight",
+               "QuantizedKVPage", "tree_from_numpy", "adamw_state_from_numpy",
+               "tree_to_numpy", "draft_from_params", "Gpt", "GPTGenArgs",
+               "gpt_generate", "init_gpt_params", "gpt_params_from_numpy",
+               "Bert", "init_bert_params", "bert_params_from_numpy",
+               "params_from_layer", "layer_from_numpy",
+               "gpt_params_from_layer", "weights"},
+    "distributed.engine": {"waits_for"},
+}
 
 
 def _names(module):
@@ -212,20 +231,42 @@ def _names(module):
 
 
 def _resolve(root, path):
+    import importlib
+
     for part in path.split("."):
+        if not hasattr(root, part):  # a submodule nothing imported yet
+            importlib.import_module(f"{root.__name__}.{part}")
         root = getattr(root, part)
     return root
 
 
 @pytest.mark.parametrize("path", TRAINING_NAMESPACES)
 def test_training_namespace_has_the_jax_packages_names(path):
+    import importlib
+
     ref, port = _resolve(paddle_tpu, path), _resolve(paddle_tpu_torch, path)
-    want, got = _names(ref), _names(port)
+    got = _names(port)
+    # a submodule shows in a namespace once anything imported it: import
+    # the JAX package's counterpart of each the port's shows
+    for n in got:
+        if inspect.ismodule(getattr(port, n)):
+            try:
+                importlib.import_module(f"{ref.__name__}.{n}")
+            except ImportError:
+                pass
+    want = _names(ref)
     later = dict(TRAINING_LATER.get(path, {}))
-    if path in VISION_KEPT:
-        later = {n: "A10d" for n in want - VISION_KEPT[path]}
+    got = got - PORT_EXTRA.get(path, set())
     assert got == want - set(later), (sorted(want - got), sorted(got - want))
     assert set(later) <= want
+
+
+def test_distributed_exports_the_engine():
+    from paddle_tpu_torch.distributed.engine import Engine
+
+    assert paddle_tpu_torch.distributed.Engine is Engine
+    assert "Engine" in paddle_tpu_torch.distributed.__all__
+    assert paddle_tpu.distributed.Engine.__name__ == Engine.__name__
 
 
 @pytest.mark.parametrize("cls", ["nn.Layer", "nn.Parameter", "ParamAttr",
