@@ -144,6 +144,30 @@ Phases, in order; any failure raises and the script exits non-zero:
                   then 3 AdamW steps at b 8 s 1024; (f) nms, roi_align,
                   roi_pool, deform_conv2d and box_coder on the card equal to
                   the CPU's.
+  2a''''. unet    BASELINE config 5 (ROADMAP A10e) through the deployment
+                  API with no set_device: `unet_sd_like()` from seed 0, its
+                  parameters cast to bf16 as bench.py does, `jit.save` with
+                  a dynamic batch (latents ["batch", 4, 64, 64] bf16,
+                  timestep ["batch"] f32) -> `inference.Config` ->
+                  `create_predictor` -> `run()` at batch 1, t = 500: the
+                  output finite, [1, 4, 64, 64], within rtol 5e-2 atol 1e-1
+                  of the eager bf16 layer and of the eager layer with the
+                  route's predicate false; B1 6 launches a call from the
+                  exported program (level 2 and the middle block; level 1's
+                  head_dim 32 is off the gate), nothing else, its kept call
+                  held by `flash_path_check`; the same Predictor at batch 2
+                  within the bar of the eager layer. Then `unet_tiny(
+                  base_channels=32, num_heads=1)` in f32 (every attention on
+                  B1's gate) saved from the card, through a card and a CPU
+                  Predictor on the same files (rel <= 1e-4), and saved from
+                  the CPU through a card Predictor (the program moved to the
+                  card; rel <= 1e-4). Recorded: latency a call (median of
+                  24 after 4 warm-up calls, each copy_from_cpu -> run ->
+                  copy_to_cpu, as bench.py times it), the HBM roofline
+                  share (bf16 parameter bytes over the latency over the
+                  card's memory rate), one profiled call's device-busy
+                  share and kernel launches, aten ops a call, export and
+                  build times, peak memory.
   2b. train       `HybridParallelEngine` on the 7B-width training leg of
                   bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
                   loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
@@ -3142,6 +3166,220 @@ def phase_configs(torch, dev, name):
     return total
 
 
+# BASELINE config 5: the UNet through jit.save and the Predictor
+UNET_LEG = dict(batch=1, size=64, t=500.0, warmup=4, iters=24)
+UNET_TINY_LEG = dict(batch=2, size=32)
+UNET_BAR = dict(rtol=5e-2, atol=1e-1)   # tests/test_subsystems.py:340-344
+UNET_B1_A_CALL = 6        # unet_sd_like at 64^2: level 2 (2 + 3), middle 1
+
+
+def _bar_ratio(torch, got, ref, rtol, atol):
+    """max |got - ref| / (atol + rtol |ref|): <= 1 is within the bar."""
+    got, ref = got.detach().float(), ref.detach().float()
+    return float(((got - ref).abs() / (atol + rtol * ref.abs())).max())
+
+
+def _unet_tiny_card_cpu(torch, dev, paddle, infer, InputSpec, tmp):
+    """unet_tiny on B1's gate (base 32, one head: head_dim 64) in f32,
+    saved from the card: a card Predictor and a CPU Predictor on the same
+    files; saved from the CPU: a card Predictor. Returns the card
+    Predictor's B1 launches a call."""
+    import numpy as np
+    from paddle_tpu_torch.models import unet_tiny
+
+    leg = UNET_TINY_LEG
+    spec = [InputSpec(["batch", 4, leg["size"], leg["size"]], "float32",
+                      "latents"), InputSpec(["batch"], "float32", "timestep")]
+    paddle.seed(0)
+    model = unet_tiny(base_channels=32, num_heads=1)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    card_prefix = os.path.join(tmp, "tiny_card")
+    paddle.jit.save(model, card_prefix, input_spec=spec)
+    with on_cpu(paddle):
+        cpu_model = unet_tiny(base_channels=32, num_heads=1)
+        cpu_model.set_state_dict(state)
+        cpu_prefix = os.path.join(tmp, "tiny_cpu")
+        paddle.jit.save(cpu_model, cpu_prefix, input_spec=spec)
+    rng = np.random.default_rng(1)
+    feeds = [rng.standard_normal((leg["batch"], 4, leg["size"],
+                                  leg["size"])).astype("float32"),
+             np.asarray([10.0, 500.0], "float32")]
+
+    def serve(prefix, card):
+        cfg = infer.Config(prefix)
+        if not card:
+            cfg.disable_gpu()
+        pred = infer.create_predictor(cfg)
+        reset_launches()
+        out = pred.run(feeds)[0]
+        torch.cuda.synchronize(dev)
+        return out, dict(launch_counts())
+
+    card, n_card = serve(card_prefix, True)
+    cpu, n_cpu = serve(card_prefix, False)
+    moved, n_moved = serve(cpu_prefix, True)
+    rel_cpu, rel_moved = _rel(torch, card, cpu), _rel(torch, moved, card)
+    log(f"[unet] unet_tiny(base_channels=32, num_heads=1) f32, b "
+        f"{leg['batch']} {leg['size']}^2: saved from the card, card "
+        f"Predictor ({card.device}) against CPU Predictor ({cpu.device}) rel "
+        f"{rel_cpu:.3e}; saved from the CPU, card Predictor ({moved.device}) "
+        f"against the card-saved one rel {rel_moved:.3e} (bar "
+        f"{CARD_CPU_RTOL}); B1 launches a call: card {n_card['flash_fwd']}, "
+        f"moved {n_moved['flash_fwd']}, CPU {n_cpu['flash_fwd']}")
+    others = {k: v for n in (n_card, n_moved) for k, v in n.items()
+              if k != "flash_fwd" and v}
+    if not (rel_cpu <= CARD_CPU_RTOL and rel_moved <= CARD_CPU_RTOL) or \
+            card.device.type != "cuda" or moved.device.type != "cuda" or \
+            cpu.device.type != "cpu" or n_card["flash_fwd"] == 0 or \
+            n_moved["flash_fwd"] != n_card["flash_fwd"] or \
+            any(n_cpu.values()) or others:
+        raise AssertionError(f"unet_tiny card/CPU: rel {rel_cpu}, "
+                             f"{rel_moved}; launches {n_card}, {n_moved}, "
+                             f"{n_cpu}")
+    return n_card["flash_fwd"]
+
+
+def phase_unet(torch, dev, name):
+    """BASELINE config 5 through `jit.save` -> `inference.Config` ->
+    `create_predictor` -> `run()` (UNET_LEG, UNET_TINY_LEG). Returns the
+    launch counts of the checked config-5 call."""
+    import tempfile
+
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference as infer
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.hapi.model import InputSpec
+    from paddle_tpu_torch.models import unet_sd_like
+
+    device_mod._current = None   # the default: the card, no set_device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    leg, bar = UNET_LEG, UNET_BAR
+    size = leg["size"]
+    paddle.seed(0)
+    model = unet_sd_like()
+    for p in model.parameters():   # deploy precision, as bench.py casts
+        p._data = p._data.to(torch.bfloat16)
+    model.eval()
+    n_params = _n_params(model)
+    param_bytes = sum(p._data.numel() * p._data.element_size()
+                      for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lat = rng.standard_normal((leg["batch"], 4, size, size)).astype("float32")
+    ts = np.full((leg["batch"],), leg["t"], "float32")
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "unet")
+        t0 = time.perf_counter()
+        paddle.jit.save(model, prefix, input_spec=[
+            InputSpec(["batch", 4, size, size], "bfloat16", "latents"),
+            InputSpec(["batch"], "float32", "timestep")])
+        t_export = time.perf_counter() - t0
+        mb = {x: os.path.getsize(prefix + x) / 2**20
+              for x in (".pdmodel", ".pdiparams")}
+        t0 = time.perf_counter()
+        config = infer.Config(prefix)
+        pred = infer.create_predictor(config)
+        t_build = time.perf_counter() - t0
+        h_lat = pred.get_input_handle("latents")
+        h_ts = pred.get_input_handle("timestep")
+        out_name = pred.get_output_names()[0]
+
+        # the checked call: B1's launches and its kept call
+        reset_launches()
+        with flash_calls() as seen:
+            h_lat.copy_from_cpu(lat)
+            h_ts.copy_from_cpu(ts)
+            out = pred.run()[0]
+            torch.cuda.synchronize(dev)
+        counts = dict(launch_counts())
+        flash_path_check(torch, seen, "unet: config 5's Predictor call")
+        seen = None
+        with paddle.no_grad():
+            x = paddle.to_tensor(lat).astype("bfloat16")
+            t = paddle.to_tensor(ts)
+            ref = model(x, t)._data
+            with plain_route():
+                plain = model(x, t)._data
+        r_eager = _bar_ratio(torch, out, ref, **bar)
+        r_plain = _bar_ratio(torch, out, plain, **bar)
+        finite = bool(torch.isfinite(out.float()).all())
+
+        # one Predictor, another batch, no re-export
+        lat2 = rng.standard_normal((2, 4, size, size)).astype("float32")
+        ts2 = np.asarray([10.0, leg["t"]], "float32")
+        reset_launches()
+        out2 = pred.run([lat2, ts2])[0]
+        torch.cuda.synchronize(dev)
+        b2_launches = launch_counts()["flash_fwd"]
+        with paddle.no_grad():
+            ref2 = model(paddle.to_tensor(lat2).astype("bfloat16"),
+                         paddle.to_tensor(ts2))._data
+        r_b2 = _bar_ratio(torch, out2, ref2, **bar)
+
+        def call():
+            h_lat.copy_from_cpu(lat)
+            h_ts.copy_from_cpu(ts)
+            pred.run()
+            return pred.get_output_handle(out_name).copy_to_cpu()
+
+        for _ in range(leg["warmup"]):
+            call()
+        times = []
+        for _ in range(leg["iters"]):
+            t0 = time.perf_counter()
+            call()
+            times.append((time.perf_counter() - t0) * 1e3)
+        lat_ms = statistics.median(times)
+        prof = _busy_share(torch, dev, call, n_steps=1, top=None)
+        _, n_ops = _ops_dispatched(torch, pred.run)
+        torch.cuda.synchronize(dev)
+        n_tiny = _unet_tiny_card_cpu(torch, dev, paddle, infer, InputSpec,
+                                     tmp)
+    bw = peaks(name)[0]
+    share = param_bytes / (lat_ms / 1e3) / bw
+    want = {k: (UNET_B1_A_CALL if k == "flash_fwd" else 0) for k in counts}
+    log(f"[unet] config 5: unet_sd_like() ({n_params / 1e6:.3f} M "
+        f"parameters, {param_bytes / 2**20:.1f} MiB in bf16) from seed 0; "
+        f"jit.save with a dynamic batch in {t_export:.2f} s (.pdmodel "
+        f"{mb['.pdmodel']:.2f} MiB, .pdiparams {mb['.pdiparams']:.1f} MiB), "
+        f"Predictor built in {t_build:.2f} s on {pred.device}")
+    log(f"[unet] b {leg['batch']} {size}^2 t {leg['t']}: output "
+        f"{list(out.shape)} {out.dtype}, finite {finite}; within (rtol "
+        f"{bar['rtol']}, atol {bar['atol']}) as a fraction of the bar: of "
+        f"the eager bf16 layer {r_eager:.4f}, of the eager layer with the "
+        f"route's predicate false {r_plain:.4f}; launches a call "
+        f"{ {k: v for k, v in counts.items() if v} } (want flash_fwd "
+        f"{UNET_B1_A_CALL} and nothing else); batch 2 from the same "
+        f"Predictor: {list(out2.shape)}, {r_b2:.4f} of the bar against the "
+        f"eager layer, B1 {b2_launches} launches")
+    busy = (f"wall {prof[0]:.3f} ms, device busy {prof[1]:.3f} ms "
+            f"({prof[1] / prof[0]:.1%}; by group "
+            f"{ {g: round(ms, 3) for g, ms in prof[2].items()} }), "
+            f"{sum(n for _, _, n in prof[3]):.0f} kernels launched, the "
+            f"top 3 by time {[(k[:48], round(ms, 3), n) for k, ms, n in prof[3][:3]]}"
+            if prof else "the profiler saw no device activity")
+    log(f"[unet] latency a call (copy_from_cpu -> run -> copy_to_cpu), "
+        f"median of {leg['iters']} after {leg['warmup']} warm-up: "
+        f"{lat_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}); "
+        f"HBM roofline share {share:.4%} ({param_bytes / 1e6:.1f} MB of "
+        f"bf16 parameters over the latency over {bw / 1e12:.2f} TB/s); one "
+        f"profiled call: {busy}; {n_ops} aten ops dispatched a run(); "
+        f"unet_tiny B1 {n_tiny} launches a call; phase "
+        f"{time.perf_counter() - t_phase:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    if not (finite and list(out.shape) == [leg["batch"], 4, size, size]
+            and r_eager <= 1.0 and r_plain <= 1.0 and r_b2 <= 1.0
+            and list(out2.shape) == [2, 4, size, size] and counts == want
+            and b2_launches == UNET_B1_A_CALL):
+        raise AssertionError(
+            f"unet: finite {finite}, shape {list(out.shape)}, bars eager "
+            f"{r_eager} plain {r_plain} batch-2 {r_b2}, launches {counts} "
+            f"(want {want}), batch-2 B1 {b2_launches}")
+    return counts
+
+
 # the functional phase: the op table's cases of the modules ported with
 # A10a part 2 and nn.functional on the card against the port's own CPU
 # results (the card test's bars, TF32 off for the whole run); F.rms_norm on
@@ -5856,7 +6094,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
-                    "functional,layers,configs,train,"
+                    "functional,layers,configs,unet,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -5916,6 +6154,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "configs" in phases:
         _add(launches, phase_configs(torch, dev, name))
+        torch.cuda.empty_cache()
+    if "unet" in phases:
+        _add(launches, phase_unet(torch, dev, name))
         torch.cuda.empty_cache()
     if "train" in phases:
         _add(launches, phase_train(torch, dev, name, "train"))
@@ -6002,8 +6243,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"eager", "configs", "train", "engine", "disagg", "router",
-                 "generate", "chunked", "spec", "engine-int8", "capacity"}
+    main_path = {"eager", "configs", "unet", "train", "engine", "disagg",
+                 "router", "generate", "chunked", "spec", "engine-int8",
+                 "capacity"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items()
                    if v == 0 and k not in OFF_PATH]

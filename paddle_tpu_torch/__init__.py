@@ -40,7 +40,10 @@ training API):
     DataLoader with worker processes), `metric`, `hapi` (`Model`),
     `vision` (the model zoo, datasets, transforms, ops), the layer-built
     Llama, GPT and BERT (`models`), and `distributed.Engine`, the
-    model-generic trainer on one card.
+    model-generic trainer on one card;
+  - deployment: the diffusion UNet (`models/unet`), `jit.save`/`jit.load`
+    (a `torch.export` program with the weights as its inputs) and the
+    `inference` Predictor that serves it.
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401
@@ -95,6 +98,7 @@ from paddle_tpu_torch.hapi.model import Model  # noqa: F401,E402
 from paddle_tpu_torch.nn.layer.layers import ParamAttr  # noqa: F401,E402
 from paddle_tpu_torch.framework.io import save, load  # noqa: F401,E402
 from paddle_tpu_torch import fft, linalg  # noqa: F401,E402
+from paddle_tpu_torch import jit, inference  # noqa: F401,E402
 
 _ops_patch._install_inplace_variants()
 

@@ -94,13 +94,19 @@ class _BF16:
             torch.bfloat16)
 
 
+def _host_array(d):
+    """A torch tensor as a file holds it: a numpy array, or for bf16 the
+    `_BF16` that pickles as one."""
+    d = d.detach()
+    if d.dtype == torch.bfloat16:
+        return _BF16(d.shape, d.contiguous().view(torch.int16).cpu().numpy()
+                     .tobytes())
+    return d.cpu().resolve_conj().numpy()
+
+
 def _to_saveable(obj):
     if isinstance(obj, Tensor):
-        d = obj._data.detach()
-        if d.dtype == torch.bfloat16:
-            return ("__tensor__", _BF16(d.shape, d.contiguous().view(
-                torch.int16).cpu().numpy().tobytes()))
-        return ("__tensor__", obj.numpy())
+        return ("__tensor__", _host_array(obj._data))
     if isinstance(obj, dict):
         return {k: _to_saveable(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):

@@ -5,7 +5,7 @@ Eager: the network's forward over port Tensors, torch's autograd, the
 optimizer's step, each batch on the creation place (the card). `fit`
 reports every step to the port's `TrainingMonitor` (wall time, samples/s,
 the loss's NaN/inf action), as the JAX `fit` does. `save(training=False)`
-exports through `jit.save`, which waits for ROADMAP A10f. Losses and
+writes the weights through `jit.save`, as the JAX package does. Losses and
 predictions come back as numpy; a bf16 one as its float32 values.
 """
 
@@ -254,9 +254,9 @@ class Model:
             if self._optimizer is not None:
                 psave(self._optimizer.state_dict(), path + ".pdopt")
         else:
-            from paddle_tpu_torch.ops._common import waits_for
+            from paddle_tpu_torch import jit
 
-            raise waits_for("Model.save(training=False)", "A10f", "jit.save")
+            jit.save(self.network, path)
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         from paddle_tpu_torch.framework.io import load as pload

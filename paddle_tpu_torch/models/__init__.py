@@ -6,7 +6,8 @@ JAX parameter and optimizer trees (and from a JAX layer's state dict,
 `layer_from_numpy`). GPT-2 (`models/gpt.py`: the cached forward, `gpt_generate`, the
 layer-built `GPTForCausalLM` and `gpt_params_from_layer`) and BERT
 (`models/bert.py`: the serving encoder and the layer-built
-`BertForPretraining`), with their bridges from the JAX trees."""
+`BertForPretraining`), with their bridges from the JAX trees. The
+diffusion UNet (`models/unet.py`), BASELINE config 5."""
 
 from paddle_tpu_torch.models.generation import (QuantizedKVPage,
                                                 QuantizedWeight, decode_step,
@@ -33,6 +34,8 @@ from paddle_tpu_torch.models.llama import (Llama, LlamaAttention,
                                            LlamaRotaryEmbedding)
 from paddle_tpu_torch.models.llama_functional import (LLAMA2_7B, LlamaArgs,
                                                       init_params)
+from paddle_tpu_torch.models import unet  # noqa: F401
+from paddle_tpu_torch.models.unet import UNetModel, unet_sd_like, unet_tiny
 from paddle_tpu_torch.models.weights import (adamw_state_from_numpy,
                                              bert_params_from_numpy,
                                              gpt_params_from_numpy,
@@ -54,4 +57,5 @@ __all__ = ["Llama", "LlamaArgs", "LLAMA2_7B", "init_params",
            "BertForPretraining",
            "BertModel", "BertPretrainingLoss", "bert_base", "bert_tiny",
            "GPTForCausalLM", "GPTModel", "GPTPretrainingLoss",
-           "gpt_pipeline_descs", "gpt_tiny", "gpt_params_from_layer"]
+           "gpt_pipeline_descs", "gpt_tiny", "gpt_params_from_layer",
+           "UNetModel", "unet_tiny", "unet_sd_like"]

@@ -43,13 +43,21 @@ def scalar(v):
     return v.item() if isinstance(v, Tensor) else v
 
 
+def _dim(s):
+    """One dimension as an int; a `torch.SymInt` (a dimension
+    `torch.export` traces symbolically, such as a dynamic batch) passes as
+    it is, since `int()` would fix it to the traced value."""
+    if isinstance(s, torch.SymInt):
+        return s
+    return int(s.item()) if isinstance(s, Tensor) else int(s)
+
+
 def int_shape(shape):
     if isinstance(shape, Tensor):
         return tuple(int(v) for v in shape.tolist())
-    if isinstance(shape, (int, np.integer)):
-        return (int(shape),)
-    return tuple(int(s.item()) if isinstance(s, Tensor) else int(s)
-                 for s in shape)
+    if isinstance(shape, (int, np.integer, torch.SymInt)):
+        return (_dim(shape),)
+    return tuple(_dim(s) for s in shape)
 
 
 def dtype_or(dtype, default="float32"):

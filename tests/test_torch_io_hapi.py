@@ -327,9 +327,21 @@ def test_pdparams_and_pdopt_load_across_packages(lenet_runs, writer,
 
 
 def test_model_save_for_inference_waits_for_its_slice(tmp_path):
+    """Model.save(training=False) writes the weights through jit.save
+    (ported with ROADMAP A10e) in the JAX package's layout: a pickle of
+    numpy arrays and a .pdmodel naming the class."""
+    import pickle
+
     model = _model(P)
-    with pytest.raises(NotImplementedError, match="A10f"):
-        model.save(str(tmp_path / "m"), training=False)
+    model.save(str(tmp_path / "m"), training=False)
+    with open(str(tmp_path / "m.pdmodel"), "rb") as f:
+        assert pickle.load(f) == {"class": "LeNet"}
+    with open(str(tmp_path / "m.pdiparams"), "rb") as f:
+        state = pickle.load(f)
+    want = model.network.state_dict()
+    assert list(state) == list(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(state[k], v.numpy())
     assert P.summary(model.network)["total_params"] == \
         sum(p.size for p in model.network.parameters()) == 61610
     assert P.flops(model.network, [1, 1, 28, 28]) == \

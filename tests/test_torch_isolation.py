@@ -78,6 +78,8 @@ def test_import_loads_no_jax_and_no_reference():
         "paddle_tpu_torch.vision.ops, paddle_tpu_torch.vision.transforms, "
         "paddle_tpu_torch.vision.transforms.functional, "
         "paddle_tpu_torch.vision.models.resnet, "
+        "paddle_tpu_torch.jit, paddle_tpu_torch.inference, "
+        "paddle_tpu_torch.models.unet, "
         "paddle_tpu_torch.vision.models.vit, "
         "paddle_tpu_torch.vision.models.densenet, "
         "paddle_tpu_torch.vision.models.googlenet, "

@@ -183,19 +183,21 @@ def test_the_top_level_namespace_carries_the_six_modules():
 
 
 # the training API (ROADMAP A10b), vision (A10d), the models and the
-# one-card Engine (A10c): the namespaces the port exports with the JAX
-# package's names, and what waits for a later slice, by slice
+# one-card Engine (A10c), jit.save/load and the Predictor (A10e): the
+# namespaces the port exports with the JAX package's names, and what waits
+# for a later slice, by slice
 TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "optimizer.lr", "amp", "io", "metric", "hapi",
                        "hapi.callbacks", "vision", "vision.models",
                        "vision.datasets", "vision.transforms",
                        "vision.transforms.functional", "vision.ops",
-                       "models", "distributed.engine")
+                       "models", "distributed.engine", "jit",
+                       "inference")
 TRAINING_LATER = {
     "amp": {"debugging": "A10f"},
-    # UNet and its config are ROADMAP A10e; the mesh spec helper A9
-    "models": {n: "A10e" for n in ("UNetModel", "unet_sd_like",
-                                   "unet_tiny", "unet")},
+    # dynamic-to-static and SOT: A10f part 2 (the names of `jit` that are
+    # functions or classes raise naming it, JIT_LATER)
+    "jit": {n: "A10f" for n in ("Dy2StaticFallback", "dy2static", "sot")},
     # the mesh, its sharding types and the spec helper: A9
     "distributed.engine": {n: "A9" for n in ("shard_first_free_axis",
                                              "Mesh", "NamedSharding", "P")},
@@ -259,6 +261,23 @@ def test_training_namespace_has_the_jax_packages_names(path):
     got = got - PORT_EXTRA.get(path, set())
     assert got == want - set(later), (sorted(want - got), sorted(got - want))
     assert set(later) <= want
+
+
+# the names of the JAX package's `jit` the port exports only to raise:
+# dynamic-to-static, SOT and their knobs wait for ROADMAP A10f part 2
+JIT_LATER = ("to_static", "functionalize", "not_to_static", "ignore_module",
+             "TracedLayer", "TranslatedLayer", "StaticFunction",
+             "fallback_count", "fallback_report", "symbolic_translate",
+             "sot_report", "set_code_level", "set_verbosity",
+             "enable_to_static")
+
+
+@pytest.mark.parametrize("name", JIT_LATER)
+def test_unported_jit_names_raise_naming_a10f(name):
+    fn = getattr(paddle_tpu_torch.jit, name)
+    assert hasattr(paddle_tpu.jit, name)
+    with pytest.raises(NotImplementedError, match="A10f part 2"):
+        fn(None)
 
 
 def test_distributed_exports_the_engine():
