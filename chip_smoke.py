@@ -168,6 +168,40 @@ Phases, in order; any failure raises and the script exits non-zero:
                   card's memory rate), one profiled call's device-busy
                   share and kernel launches, aten ops a call, export and
                   build times, peak memory.
+  2a'''''. quant  weight-only int8 through the deployment API (ROADMAP A10f
+                  part 1): the layer Llama at Llama-2-7B width (2 layers,
+                  seed 0, bf16) behind bench.py's next-token head, `jit.save`
+                  with a dynamic batch and sequence, bf16 and
+                  quantize="weight_only_int8" -> `create_predictor` -> `run()`
+                  at b 2 s 128 (B8's TMA route) and b 8 s 1 (its GEMV): B8
+                  15, B1 2 and B9 5 launches a call from the exported
+                  program and nothing else, every B8 call within its bar of
+                  the plain version run in f32, the logits within 0.05 of
+                  max |bf16 Predictor| (the JAX package's weight-only bar);
+                  latency a call and tokens/s both ways, the .pdiparams
+                  sizes, B8's share of one profiled call's device time read
+                  with `paddle_tpu_torch.profiler`. Then the CPU test's tiny
+                  quantized Llama saved on the CPU in f32, a card Predictor
+                  against a CPU Predictor (rel <= 1e-4; B8's f32 routes), and
+                  an int8_ptq Linear at K 4096 saved on the card, its card
+                  Predictor equal to a CPU Predictor bit for bit.
+      recompute   `LlamaConfig.recompute` (fleet.recompute) on the layer
+                  Llama at 7B width (2 layers, b 1 s 2048, f32, TF32 off):
+                  the loss equal and each grad leaf within 1e-6 of the run
+                  without it; a recomputed step launches B1 4, B2/B3 2, B9 9,
+                  B10 5; step ms and peak memory both ways, then the bf16 O2
+                  step both ways.
+      incubate    12 `incubate.nn.FusedTransformerEncoderLayer`s at BERT-base
+                  width, dropout 0, bf16, b 8 s 128, forward and backward:
+                  B1-B3 12 launches each, every call held against the plain
+                  versions (`flash_path_check`), the loss within 1e-2 of the
+                  route's predicate false; the step's ms.
+      debug       `amp.debugging` on the card: enable_tensor_checker aborts
+                  with FloatingPointError naming the op on an injected inf
+                  (log, matmul), at FLAGS_check_nan_inf_level 1 only logs;
+                  the eager phase's bf16 Llama step with the checker off and
+                  on, beside the eager phase's step (the hooks cost a None
+                  check an op when off).
   2b. train       `HybridParallelEngine` on the 7B-width training leg of
                   bench.py (4 layers, b4 s2048, 2 micro-batches, no remat,
                   loss_chunk 128, bf16 params, f32 moments): 2 warm-up and 8
@@ -1542,23 +1576,28 @@ def on_cpu(paddle):
 
 
 @contextlib.contextmanager
-def flash_calls():
+def flash_calls(every=False):
     """For the block, keeps a copy of the inputs and outputs of B1's first
     call (`flash_fwd`) and of B2 + B3's first (`flash_bwd`), as the main
-    path makes them: {"fwd" | "bwd": (args, outputs)}. The wrappers run as
+    path makes them: {"fwd" | "bwd": (args, outputs)}; with `every`, of
+    every call: {"fwd" | "bwd": [(args, outputs)]}. The wrappers run as
     they are, launch counts included."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    seen = {}
+    seen = {"fwd": [], "bwd": []} if every else {}
     wrapped = {"fwd": fa.flash_fwd, "bwd": fa.flash_bwd}
 
     def keeping(name):
         def call(*args):
             outs = wrapped[name](*args)
-            if name not in seen:
-                seen[name] = tuple(
+            if every or name not in seen:
+                kept = tuple(
                     tuple(x.detach().clone() if hasattr(x, "detach") else x
                           for x in xs) for xs in (args, outs))
+                if every:
+                    seen[name].append(kept)
+                else:
+                    seen[name] = kept
             return outs
         return call
 
@@ -1601,7 +1640,7 @@ def flash_f64(torch, fa, q, k, v, causal, scale, o=None, do=None, g_lse=None):
             group(p.transpose(-1, -2) @ dO))
 
 
-def flash_path_check(torch, seen, label):
+def flash_path_check(torch, seen, label, quiet=False):
     """B1's out and lse, and B2 + B3's dq, dk and dv where the path ran
     them, from the calls `flash_calls` kept, against the plain versions on
     those same inputs (`flash_row_ratio` at TOL of the dtype,
@@ -1683,16 +1722,17 @@ def flash_path_check(torch, seen, label):
         if name.endswith("_n01") and name != "mean_v_n01" and \
                 not (math.isfinite(x) and x <= 1.0):
             bad[name] = x
-    log(f"[configs] {label}: B1{'-B3' if 'bwd' in seen else ''} against "
-        f"the plain versions on the inputs the path gave them "
-        f"(q {tuple(q.shape)} {dname}, causal {causal}; the keys' mean over "
-        f"the sequence over their spread, median over (batch, head), in "
-        f"B1's kept call{' and B2/B3' if 'bwd' in seen else ''}'s: "
-        f"{commons}) and at that shape on N(0, 1) inputs, worst vector at (fraction of its bar, {tol}) "
-        f"{ {n: round(x, 4) for n, x in r.items()} }; over the bar against "
-        f"the plain version, each against the float64 value: {far}; the "
-        f"mean of v in place of B1's out must fail the bar on the N(0, 1) "
-        f"inputs")
+    if not quiet:
+        log(f"[configs] {label}: B1{'-B3' if 'bwd' in seen else ''} against "
+            f"the plain versions on the inputs the path gave them "
+            f"(q {tuple(q.shape)} {dname}, causal {causal}; the keys' mean over "
+            f"the sequence over their spread, median over (batch, head), in "
+            f"B1's kept call{' and B2/B3' if 'bwd' in seen else ''}'s: "
+            f"{commons}) and at that shape on N(0, 1) inputs, worst vector at (fraction of its bar, {tol}) "
+            f"{ {n: round(x, 4) for n, x in r.items()} }; over the bar against "
+            f"the plain version, each against the float64 value: {far}; the "
+            f"mean of v in place of B1's out must fail the bar on the N(0, 1) "
+            f"inputs")
     if bad or not r["mean_v_n01"] > 1.0:
         raise AssertionError(f"{label}: B1-B3 against their plain versions "
                              f"{r}; failing {bad}")
@@ -2211,6 +2251,7 @@ def phase_eager(torch, dev, warmup=2, steps=8):
         _, n_ops = _ops_dispatched(torch, step)
         prof = _busy_share(torch, dev, step)
         rows[label] = (ms, n_ops, prof)
+        STEP_MS[label] = ms
         busy = ("busy not measured: the profiler saw no device activity"
                 if prof is None else
                 f"profiled wall {prof[0]:.2f} ms, device busy {prof[1]:.2f} "
@@ -3378,6 +3419,661 @@ def phase_unet(torch, dev, name):
             f"{r_eager} plain {r_plain} batch-2 {r_b2}, launches {counts} "
             f"(want {want}), batch-2 B1 {b2_launches}")
     return counts
+
+
+# the quant phase: weight-only int8 from `jit.save` to the Predictor
+# (ROADMAP A10f part 1). The layer Llama at Llama-2-7B width (2 layers, seed
+# 0, bf16) behind bench.py's next-token head, saved with a dynamic batch and
+# sequence, served at bench.py's `_bench_int8` shape (b 2 s 128: 256 rows,
+# B8's TMA route) and at decode rows (b 8 s 1: B8's GEMV)
+QUANT_LEG = dict(layers=2, shapes=((2, 128), (8, 1)), warmup=3, iters=16)
+# a call: B8 for 7 Linears a layer and lm_head, B1 one a layer, B9 two a
+# layer and the final norm
+QUANT_A_CALL = {"weight_only_matmul": 15, "flash_fwd": 2, "rms_norm_fwd": 5}
+WEIGHT_ONLY_BAR = 0.05   # tests/test_subsystems.py:630
+# the CPU test's tiny quantized Llama (tests/test_torch_quantization.py),
+# saved on the CPU in f32 and served on the card: B8's f32 routes (the SIMT
+# tiles at 32 rows, the GEMV at 3) and B1 at head_dim 64
+QUANT_TINY = dict(num_hidden_layers=2, hidden_size=64, num_attention_heads=1,
+                  intermediate_size=176)
+QUANT_TINY_SHAPES = ((2, 16), (3, 1))
+# one int8_ptq Linear at K 4096: torch._int_mm at 32 rows, the f64 product
+# of the codes at 8 (fewer rows than _int_mm takes)
+PTQ_LEG = dict(k=4096, n=4096, rows=(32, 8), calib=4, calib_rows=8)
+
+
+def _next_token(paddle, cfg):
+    """bench.py's `_NextToken` (:285) over the port's layer Llama: the last
+    position's logits."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    class NextToken(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.lm = LlamaForCausalLM(cfg)
+
+        def forward(self, ids):
+            return self.lm(ids)[:, -1, :]
+
+    return NextToken()
+
+
+@contextlib.contextmanager
+def b8_calls():
+    """For the block, keeps every call of B8's wrapper as the path makes it:
+    [(x, codes, scale, out)], x and out copied (the codes and scales are the
+    caller's own). The wrapper runs as it is, launch counts included."""
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+
+    seen, wrapped = [], qm.weight_only_matmul
+
+    def keeping(x, w_q, scale, out_dtype=None):
+        out = wrapped(x, w_q, scale, out_dtype)
+        seen.append((x.detach().clone(), w_q, scale, out.detach().clone()))
+        return out
+
+    qm.weight_only_matmul = keeping
+    try:
+        yield seen
+    finally:
+        qm.weight_only_matmul = wrapped
+
+
+def _serve_ms(torch, pred, feed, warmup, iters):
+    """(median, min, max) ms of bench.py's timed call: copy_from_cpu ->
+    run -> copy_to_cpu."""
+    h = pred.get_input_handle(pred.get_input_names()[0])
+    out = pred.get_output_handle(pred.get_output_names()[0])
+
+    def call():
+        h.copy_from_cpu(feed)
+        pred.run()
+        return out.copy_to_cpu()
+
+    for _ in range(warmup):
+        call()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+# throwaway kernels that open the profiled window `_b8_share` reads
+PROFILE_PAD_KERNELS = 64
+
+
+def _b8_share(torch, dev, pred, feed, tmp):
+    """(B8's device ms, the call's device ms, B8's launches, the host ms of
+    B8's operator nodes) of one profiled Predictor call, read with
+    `paddle_tpu_torch.profiler` (the host ms from the torch.profiler trace
+    it wrote), or None when the profiler saw no device activity. After the
+    configs and unet phases a torch.profiler session can lose its first
+    device records (the call's first B8 launches among them), so
+    PROFILE_PAD_KERNELS `torch.cuda._sleep` kernels go first and their
+    time is left out. The trace must hold every B8 launch the
+    counters saw in the call, or this raises."""
+    import glob
+
+    from paddle_tpu_torch import profiler as pprof
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+
+    p = pprof.Profiler(log_dir=tmp)
+    p.start()
+    for _ in range(PROFILE_PAD_KERNELS):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize(dev)
+    before = qm.launches["weight_only_matmul"]
+    pred.run([feed])
+    torch.cuda.synchronize(dev)
+    counted = qm.launches["weight_only_matmul"] - before
+    p.stop()
+    if not p.device_total:
+        return None
+    pad = [d for k, v in p.device_events.items() if "spin_kernel" in k
+           for d in v]
+    if not pad:
+        raise AssertionError("quant: no throwaway spin_kernel in the trace")
+    pad = sum(pad)
+    b8 = [d for k, v in p.device_events.items() if "b8_" in k for d in v]
+    if len(b8) != counted:
+        raise AssertionError(f"quant: the profiled call's trace holds "
+                             f"{len(b8)} B8 kernels, the counters saw "
+                             f"{counted} launches")
+    with open(glob.glob(os.path.join(tmp, "*.pt.trace.json"))[0]) as f:
+        events = json.load(f)["traceEvents"]
+    host = sum(e.get("dur", 0.0) for e in events if e.get("ph") == "X" and
+               e.get("name") == "paddle_tpu_torch::weight_only_matmul") / 1e3
+    return sum(b8) * 1e3, (p.device_total - pad) * 1e3, len(b8), host
+
+
+def _quant_tiny_card_cpu(torch, dev, paddle, infer, InputSpec, tmp):
+    """The CPU test's tiny Llama, weight-only int8, saved on the CPU in f32:
+    a card Predictor and a CPU Predictor on the same files (rel <=
+    CARD_CPU_RTOL), B8 15, B1 2 and B9 5 launches a call on the card (every
+    kernel is an operator of the program, routed at call time), none on the
+    CPU."""
+    import numpy as np
+    from paddle_tpu_torch.models import LlamaConfig
+
+    with on_cpu(paddle):
+        paddle.seed(0)
+        cfg = LlamaConfig.tiny(**QUANT_TINY)
+        prefix = os.path.join(tmp, "tiny_cpu")
+        paddle.jit.save(_next_token(paddle, cfg), prefix, input_spec=[
+            InputSpec([None, None], "int64", "ids")],
+            quantize="weight_only_int8")
+    card = infer.create_predictor(infer.Config(prefix))
+    cpu_cfg = infer.Config(prefix)
+    cpu_cfg.disable_gpu()
+    cpu = infer.create_predictor(cpu_cfg)
+    rng = np.random.default_rng(1)
+    want = QUANT_A_CALL
+    bad, rels = {}, {}
+    for shape in QUANT_TINY_SHAPES:
+        ids = rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+        reset_launches()
+        got = card.run([ids])[0]
+        torch.cuda.synchronize(dev)
+        n_card = {k: v for k, v in launch_counts().items() if v}
+        reset_launches()
+        ref = cpu.run([ids])[0]
+        n_cpu = {k: v for k, v in launch_counts().items() if v}
+        rels[shape] = _rel(torch, got, ref)
+        if not (rels[shape] <= CARD_CPU_RTOL and n_card == want and
+                not n_cpu and got.device.type == "cuda" and
+                ref.device.type == "cpu"):
+            bad[shape] = (rels[shape], n_card, n_cpu)
+    log(f"[quant] the tiny Llama {QUANT_TINY} weight-only int8 saved on the "
+        f"CPU in f32, a card Predictor against a CPU Predictor on the same "
+        f"files: rel { {f'{b}x{s}': f'{r:.3e}' for (b, s), r in rels.items()} } "
+        f"(bar {CARD_CPU_RTOL}); launches a card call {want} at each shape "
+        f"(B8's f32 SIMT tiles at 32 rows, its f32 GEMV at 3)")
+    if bad:
+        raise AssertionError(f"quant tiny card/CPU: {bad}")
+
+
+def _quant_ptq(torch, dev, paddle, infer, InputSpec, tmp):
+    """One int8_ptq Linear at K 4096 saved on the card: its card Predictor
+    equal to a CPU Predictor on the same files, bit for bit, at 32 rows
+    (torch._int_mm) and 8 (the f64 product of the codes), and the int32
+    products of the same codes equal on both devices."""
+    import numpy as np
+    from paddle_tpu_torch.quantization import ptq_int8
+
+    leg = PTQ_LEG
+    k, n = leg["k"], leg["n"]
+    paddle.seed(0)
+    lin = paddle.nn.Linear(k, n)
+    rng = np.random.default_rng(2)
+    calib = [rng.normal(size=(leg["calib_rows"], k)).astype("float32")
+             for _ in range(leg["calib"])]
+    prefix = os.path.join(tmp, "ptq")
+    paddle.jit.save(lin, prefix, input_spec=[
+        InputSpec([None, k], "float32", "x")], quantize="int8_ptq",
+        calib_reader=calib)
+    card = infer.create_predictor(infer.Config(prefix))
+    cpu_cfg = infer.Config(prefix)
+    cpu_cfg.disable_gpu()
+    cpu = infer.create_predictor(cpu_cfg)
+    equal, acc_equal = {}, {}
+    for rows in leg["rows"]:
+        x = rng.normal(size=(rows, k)).astype("float32")
+        a = card.run([x])[0]
+        b = cpu.run([x])[0]
+        equal[rows] = bool(torch.equal(a.cpu(), b)) and a.device.type == "cuda"
+        xq = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(
+            np.int8))
+        wq = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8))
+        acc_equal[rows] = bool(torch.equal(
+            ptq_int8._int8_matmul(xq.to(dev), wq.to(dev)).cpu(),
+            ptq_int8._int8_matmul(xq, wq)))
+    log(f"[quant] int8_ptq Linear({k}, {n}) saved on the card: card "
+        f"Predictor == CPU Predictor bit for bit at rows {equal}; the int32 "
+        f"products of random codes, card == CPU: {acc_equal}")
+    if not (all(equal.values()) and all(acc_equal.values())):
+        raise AssertionError(f"quant ptq: outputs {equal}, products "
+                             f"{acc_equal}")
+
+
+def phase_quant(torch, dev, name):
+    """Weight-only int8 through `jit.save(quantize="weight_only_int8")` ->
+    `inference.Config` -> `create_predictor` -> `run()` at Llama-2-7B width
+    (QUANT_LEG), every B8 call held against its plain version, the logits
+    against the bf16 Predictor's; then the tiny Llama card against CPU and
+    a K-4096 int8_ptq Linear. Returns the launch counts of the checked
+    calls."""
+    import tempfile
+
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import inference as infer
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.hapi.model import InputSpec
+    from paddle_tpu_torch.kernels import quantized_matmul as qm
+    from paddle_tpu_torch.models import LlamaConfig
+
+    device_mod._current = None   # the default: the card, no set_device
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    leg = QUANT_LEG
+    paddle.seed(0)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=leg["layers"])
+    model = _next_token(paddle, cfg)
+    model.to(dtype="bfloat16")
+    model.eval()
+    n_params = _n_params(model)
+    spec = [InputSpec([None, None], "int64", "ids")]
+    rng = np.random.default_rng(0)
+    total = {k: 0 for k in launch_counts()}
+    rows, bad = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefixes, t_save, mb = {}, {}, {}
+        for mode, quant in (("bf16", None), ("int8", "weight_only_int8")):
+            prefixes[mode] = os.path.join(tmp, mode)
+            t0 = time.perf_counter()
+            paddle.jit.save(model, prefixes[mode], input_spec=spec,
+                            quantize=quant)
+            t_save[mode] = time.perf_counter() - t0
+            mb[mode] = os.path.getsize(prefixes[mode] + ".pdiparams") / 1e6
+        preds = {m: infer.create_predictor(infer.Config(p))
+                 for m, p in prefixes.items()}
+        for b, s in leg["shapes"]:
+            ids = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int64)
+            reset_launches()
+            with b8_calls() as seen:
+                out = preds["int8"].run([ids])[0]
+                torch.cuda.synchronize(dev)
+            counts = dict(launch_counts())
+            _add(total, counts)
+            ratios = [row_ratio(torch, o, qm.dequant_matmul_plain,
+                                (x, w, sc), "bfloat16")
+                      for x, w, sc, o in seen]
+            ms_ = sorted({x.numel() // x.shape[-1] for x, *_ in seen})
+            seen = None
+            ref = preds["bf16"].run([ids])[0]
+            torch.cuda.synchronize(dev)
+            err = float((out.float() - ref.float()).abs().max()
+                        / ref.float().abs().max())
+            finite = bool(torch.isfinite(out.float()).all())
+            ms = {m: _serve_ms(torch, p, ids, leg["warmup"], leg["iters"])
+                  for m, p in preds.items()}
+            share = {m: _b8_share(torch, dev, p, ids,
+                                  os.path.join(tmp, f"prof_{m}_{b}x{s}"))
+                     for m, p in preds.items()}
+            tma = b * s > qm.GEMV_MAX_ROWS
+            want = dict(QUANT_A_CALL)
+            if tma:
+                want["weight_only_matmul_prefill"] = 15
+            got = {k: v for k, v in counts.items() if v}
+            rows[(b, s)] = (got, ratios, ms_, err, finite, ms, share)
+            if not (got == want and len(ratios) == 15 and
+                    max(ratios) <= 1.0 and err <= WEIGHT_ONLY_BAR and
+                    finite and list(out.shape) == [b, cfg.vocab_size]):
+                bad[(b, s)] = (got, want, max(ratios, default=None), err,
+                               finite, list(out.shape))
+        preds = None
+        torch.cuda.synchronize(dev)
+        log(f"[quant] LlamaForCausalLM(LlamaConfig.llama2_7b(num_hidden_"
+            f"layers={leg['layers']})) behind bench.py's next-token head, "
+            f"{n_params / 1e9:.3f} B parameters from seed 0, bf16; jit.save "
+            f"with a dynamic batch and sequence: bf16 {t_save['bf16']:.1f} s "
+            f"(.pdiparams {mb['bf16']:.1f} MB), weight_only_int8 "
+            f"{t_save['int8']:.1f} s (.pdiparams {mb['int8']:.1f} MB, "
+            f"{mb['int8'] / mb['bf16']:.3f}x)")
+        for (b, s), (got, ratios, ms_, err, finite, ms, share) in rows.items():
+            i8, bf = ms["int8"], ms["bf16"]
+            i8p, bfp = share["int8"], share["bf16"]
+            busy = ("the profiler saw no device activity" if not (i8p and bfp)
+                    else f"B8 {i8p[0]:.3f} ms of {i8p[1]:.3f} ms of device "
+                    f"time ({i8p[0] / i8p[1]:.1%}) in {i8p[2]} launches, its "
+                    f"operator nodes {i8p[3]:.3f} ms of host time; the bf16 "
+                    f"call's device time {bfp[1]:.3f} ms")
+            log(f"[quant] b {b} s {s} (B8 at M {ms_}): launches a call {got} "
+                f"(want {QUANT_A_CALL}, B8's TMA route "
+                f"{'15' if b * s > qm.GEMV_MAX_ROWS else '0'}); every B8 "
+                f"call within its bar of the plain version in f32, worst "
+                f"vector at {max(ratios):.4f} of {TOL['bfloat16']} "
+                f"({len(ratios)} calls); logits finite {finite}, max |int8 "
+                f"- bf16 Predictor| / max |bf16| {err:.4f} (bar "
+                f"{WEIGHT_ONLY_BAR})")
+            log(f"[quant] b {b} s {s} latency a call (copy_from_cpu -> run "
+                f"-> copy_to_cpu, median of {leg['iters']} after "
+                f"{leg['warmup']} warm-up): int8 {i8[0]:.3f} ms (min "
+                f"{i8[1]:.3f}, max {i8[2]:.3f}), bf16 {bf[0]:.3f} ms (min "
+                f"{bf[1]:.3f}, max {bf[2]:.3f}); tokens/s (batch x seq / "
+                f"time) int8 {b * s / i8[0] * 1e3:.1f}, bf16 "
+                f"{b * s / bf[0] * 1e3:.1f} ({bf[0] / i8[0]:.3f}x); one "
+                f"profiled call each (paddle_tpu_torch.profiler): {busy}")
+        if bad:
+            raise AssertionError(f"quant: {bad}")
+        model = None
+        torch.cuda.empty_cache()
+        _quant_tiny_card_cpu(torch, dev, paddle, infer, InputSpec, tmp)
+        _quant_ptq(torch, dev, paddle, infer, InputSpec, tmp)
+    device_mod._current = None
+    log(f"[quant] phase {time.perf_counter() - t_phase:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    return total
+
+
+# the recompute phase: `LlamaConfig.recompute` (fleet.recompute) on the
+# layer Llama at Llama-2-7B width in f32 (TF32 off) against the same model
+# without it; then the bf16 O2 step both ways
+RECOMPUTE_LEG = dict(layers=2, batch=1, seq=2048, lr=1e-4)
+RECOMPUTE_GRAD_REL = 1e-6
+# a step with recompute: B1 and B9 run again in each layer's replay
+RECOMPUTE_A_STEP = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                    "rms_norm_fwd": 9, "rms_norm_bwd": 5}
+
+
+def phase_recompute(torch, dev):
+    """The layer Llama (RECOMPUTE_LEG, seed 0, f32) with and without
+    `recompute`: equal losses, each gradient leaf within RECOMPUTE_GRAD_REL
+    (||d|| / ||ref||), RECOMPUTE_A_STEP launches a recomputed step; step ms
+    and peak memory above the resting weights both ways, then in bf16 under
+    amp.decorate O2. Returns the launch counts of the recomputed step."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    device_mod._current = None
+    t_phase = time.perf_counter()
+    leg = RECOMPUTE_LEG
+    paddle.seed(0)
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=leg["layers"])
+    model = LlamaForCausalLM(cfg)
+    rng = np.random.default_rng(0)
+    ids, labels = (paddle.to_tensor(rng.integers(
+        0, cfg.vocab_size, (leg["batch"], leg["seq"])).astype(np.int64))
+        for _ in range(2))
+
+    def step(recompute, opt=None):
+        cfg.recompute = recompute
+        model.clear_gradients()
+        torch.cuda.synchronize(dev)
+        rest = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = model(ids, labels=labels)
+        held = (torch.cuda.memory_allocated(dev) - rest) / 2**30
+        loss.backward()
+        if opt is not None:
+            opt.step()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated(dev) - rest) / 2**30
+        return loss.item(), dict(launch_counts()), ms, peak, held
+
+    f32, ref = {}, None
+    for rc in (False, True):   # the second of two steps is read
+        step(rc)
+        f32[rc] = step(rc)
+        if not rc:
+            ref = {k: p.grad._data.clone()
+                   for k, p in model.named_parameters()}
+    worst = ("", 0.0)
+    for k, p in model.named_parameters():
+        rel = ((p.grad._data - ref[k]).norm() / ref[k].norm()).item()
+        if not math.isfinite(rel) or rel >= worst[1]:
+            worst = (k, rel)
+    ref = None
+    got = {k: v for k, v in f32[True][1].items() if v}
+    loss_eq = f32[True][0] == f32[False][0]
+    log(f"[recompute] LlamaForCausalLM(llama2_7b(num_hidden_layers="
+        f"{leg['layers']})) f32 (TF32 off), b {leg['batch']} s {leg['seq']}: "
+        f"loss with recompute {f32[True][0]:.9f}, without "
+        f"{f32[False][0]:.9f} (equal: {loss_eq}); worst grad leaf "
+        f"{worst[0]} ||d||/||ref|| {worst[1]:.3e} (bar {RECOMPUTE_GRAD_REL}; "
+        f"0 expected: the kernels are deterministic); launches a recomputed "
+        f"step {got} (want {RECOMPUTE_A_STEP}); without recompute "
+        f"{ {k: v for k, v in f32[False][1].items() if v} }")
+    def ratio(a, b):
+        return f"{a / b:.3f}x" if b else "not measured"
+
+    grad_gib = _n_params(model) * 4 / 2**30
+
+    log(f"[recompute] f32 forward + backward, second of two steps, "
+        f"without recompute: {f32[False][2]:.2f} ms, activations held after "
+        f"the forward {f32[False][4]:.3f} GiB, peak {f32[False][3]:.3f} GiB "
+        f"above the resting weights (the f32 gradients' {grad_gib:.3f} GiB "
+        f"among it); "
+        f"with: {f32[True][2]:.2f} ms ({ratio(f32[True][2], f32[False][2])}), "
+        f"held {f32[True][4]:.3f} GiB ({ratio(f32[True][4], f32[False][4])}), "
+        f"peak {f32[True][3]:.3f} GiB ({ratio(f32[True][3], f32[False][3])})")
+    if not (loss_eq and worst[1] <= RECOMPUTE_GRAD_REL and
+            got == RECOMPUTE_A_STEP):
+        raise AssertionError(f"recompute: loss {f32[True][0]} vs "
+                             f"{f32[False][0]}, worst {worst}, launches "
+                             f"{got}")
+    total = f32[True][1]
+    opt = paddle.optimizer.AdamW(leg["lr"], parameters=model.parameters(),
+                                 multi_precision=True)
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16", master_weight=True)
+    bf16 = {}
+    for rc in (False, True):
+        step(rc, opt)
+        loss, _, ms, peak, held = step(rc, opt)
+        bf16[rc] = (loss, ms, peak, held)
+    log(f"[recompute] bf16 under amp.decorate O2 (f32 masters), forward + "
+        f"backward + AdamW, second of two steps, without recompute: "
+        f"{bf16[False][1]:.2f} ms, held after the forward "
+        f"{bf16[False][3]:.3f} GiB, peak {bf16[False][2]:.3f} GiB above the "
+        f"resting state; with: {bf16[True][1]:.2f} ms "
+        f"({ratio(bf16[True][1], bf16[False][1])}), held "
+        f"{bf16[True][3]:.3f} GiB ({ratio(bf16[True][3], bf16[False][3])}), "
+        f"peak {bf16[True][2]:.3f} GiB ({ratio(bf16[True][2], bf16[False][2])}"
+        f"); the losses of AdamW steps 2 and 4 {bf16[False][0]:.6f}, "
+        f"{bf16[True][0]:.6f}; phase {time.perf_counter() - t_phase:.1f} s")
+    if not all(math.isfinite(v[0]) for v in bf16.values()):
+        raise AssertionError(f"recompute bf16: losses {bf16}")
+    cfg.recompute = False
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    return total
+
+
+# the incubate phase: 12 FusedTransformerEncoderLayers at BERT-base width
+# (incubate.nn), dropout 0, bf16, forward and backward
+INCUBATE_LEG = dict(layers=12, width=768, heads=12, ffn=3072, batch=8,
+                    seq=128, warmup=2, steps=8)
+
+
+def phase_incubate(torch, dev):
+    """INCUBATE_LEG through `incubate.nn.FusedTransformerEncoderLayer`: B1
+    12 launches forward, B2/B3 12 backward, every call held against its
+    plain version (`flash_path_check`), the loss within ROUTE_RTOL of the
+    route's predicate false; the step's ms. Returns the launch counts."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    device_mod._current = None
+    t_phase = time.perf_counter()
+    leg = INCUBATE_LEG
+    paddle.seed(0)
+    stack = paddle.nn.LayerList([
+        FusedTransformerEncoderLayer(leg["width"], leg["heads"], leg["ffn"],
+                                     dropout_rate=0.0)
+        for _ in range(leg["layers"])])
+    stack.to(dtype="bfloat16")
+    x = paddle.to_tensor(np.random.default_rng(0).normal(
+        size=(leg["batch"], leg["seq"], leg["width"])).astype(
+        "float32")).astype("bfloat16")
+    x.stop_gradient = False
+
+    def loss_of():
+        h = x
+        for layer in stack:
+            h = layer(h)
+        return (h.astype("float32") ** 2).mean()
+
+    reset_launches()
+    with flash_calls(every=True) as seen:
+        loss = loss_of()
+        torch.cuda.synchronize(dev)
+        fwd = dict(launch_counts())
+        loss.backward()
+        torch.cuda.synchronize(dev)
+    after = dict(launch_counts())
+    L = leg["layers"]
+    counts = {"flash_fwd": (fwd["flash_fwd"], after["flash_fwd"] -
+                            fwd["flash_fwd"]),
+              "flash_bwd_dq": (fwd["flash_bwd_dq"], after["flash_bwd_dq"]),
+              "flash_bwd_dkv": (fwd["flash_bwd_dkv"],
+                                after["flash_bwd_dkv"])}
+    want = {"flash_fwd": (L, 0), "flash_bwd_dq": (0, L),
+            "flash_bwd_dkv": (0, L)}
+    others = {k: v for k, v in after.items() if v and k not in want}
+    worst = {}
+    for i, (f, bw) in enumerate(zip(seen["fwd"], seen["bwd"])):
+        r = flash_path_check(torch, {"fwd": f, "bwd": bw},
+                             f"incubate: encoder layer {i}'s B1 call, "
+                             f"B2/B3 call {i} of the backward", quiet=True)
+        for k, v in r.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    n_checked = (len(seen["fwd"]), len(seen["bwd"]))
+    seen = None
+    with plain_route():
+        plain_loss = loss_of().item()
+    rel = abs(loss.item() - plain_loss) / abs(plain_loss)
+    finite = math.isfinite(loss.item())
+
+    def step():
+        x.clear_grad()
+        stack.clear_gradients()
+        loss_of().backward()
+
+    for _ in range(leg["warmup"]):
+        step()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(leg["steps"]):
+        step()
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / leg["steps"]
+    log(f"[incubate] {L} FusedTransformerEncoderLayer({leg['width']}, "
+        f"{leg['heads']}, {leg['ffn']}, dropout_rate=0.0), bf16, b "
+        f"{leg['batch']} s {leg['seq']}: launches (forward, backward) "
+        f"{counts} (want {want}; others {others}); {n_checked[0]} B1 and "
+        f"{n_checked[1]} B2/B3 calls each held against the plain versions, "
+        f"worst over the calls {({k: round(v, 4) for k, v in worst.items()})}; "
+        f"loss {loss.item():.6f} finite {finite}, the route's predicate false "
+        f"{plain_loss:.6f} (rel {rel:.3e}, bar {ROUTE_RTOL}); forward + "
+        f"backward {ms:.2f} ms a step (mean of {leg['steps']} after "
+        f"{leg['warmup']} warm-up); phase {time.perf_counter() - t_phase:.1f} s")
+    if not (counts == want and not others and finite and rel <= ROUTE_RTOL
+            and n_checked == (L, L)):
+        raise AssertionError(f"incubate: launches {counts} {others}, loss "
+                             f"{loss.item()} vs {plain_loss}, checked "
+                             f"{n_checked}")
+    return after
+
+
+# the debug phase: the nan/inf checker of amp.debugging on the card, and
+# the eager Llama step with the waist's hooks off beside the eager phase's
+DEBUG_STEPS = dict(warmup=2, steps=8)
+STEP_MS = {}   # the eager phase's bf16 eager step, for the debug phase
+
+
+def phase_debug(torch, dev):
+    """`enable_tensor_checker` aborts with FloatingPointError naming the op
+    on an injected inf (log, and a matmul over a tensor holding inf), at
+    level 1 only logs; the hooks are None when off. Then the eager Llama
+    step of the eager phase (EAGER_LEG, bf16) with the checker off and on,
+    beside the eager phase's step."""
+    import io
+
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.core import tensor as core_tensor
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import LLAMA2_7B, init_params
+
+    device_mod._current = None
+    t_phase = time.perf_counter()
+    x = paddle.to_tensor(np.array([1.0, 0.0, -1.0], "float32"))
+    a = paddle.ones([64, 64])
+    a._data[3, 5] = float("inf")
+    caught = {}
+    debugging.enable_tensor_checker()
+    try:
+        for op, fn in (("log", lambda: paddle.log(x)),
+                       ("matmul", lambda: paddle.matmul(a, a))):
+            try:
+                fn()
+                caught[op] = None
+            except FloatingPointError as e:
+                caught[op] = str(e)
+        paddle.set_flags({"FLAGS_check_nan_inf_level": 1})
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            logged = paddle.log(x)
+        logged = logged.place
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf_level": 0})
+        debugging.disable_tensor_checker()
+    off = core_tensor._sanitizer is None and core_tensor._op_tracer is None
+    log(f"[debug] enable_tensor_checker on {x.place}: {caught}; at "
+        f"FLAGS_check_nan_inf_level 1 the log op ran on {logged} and "
+        f"printed {buf.getvalue().strip()!r}; hooks None when off: {off}")
+    if not (caught["log"] and "op 'log'" in caught["log"] and
+            caught["matmul"] and "op 'matmul'" in caught["matmul"] and
+            "op 'log'" in buf.getvalue() and off and x.place == dev):
+        raise AssertionError(f"debug: checker {caught}, logged "
+                             f"{buf.getvalue()!r}, hooks off {off}")
+
+    args = LLAMA2_7B._replace(num_layers=EAGER_LEG["layers"])
+    B, T = EAGER_LEG["batch"], EAGER_LEG["seq"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = init_params(args, gen, device=dev, dtype=torch.bfloat16)
+    tree = _tree_map(lambda t: paddle.Tensor(t, stop_gradient=False), base)
+    rng = np.random.default_rng(0)
+    ids, labels = (paddle.Tensor(torch.from_numpy(rng.integers(
+        0, args.vocab_size, (B, T)).astype(np.int64)).to(dev))
+        for _ in range(2))
+
+    def eager_step():
+        for _, t in _leaves(tree):
+            t.clear_grad()
+        eager_llama_loss(paddle, tree, ids, labels, args).backward()
+
+    def timed():
+        for _ in range(DEBUG_STEPS["warmup"]):
+            eager_step()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(DEBUG_STEPS["steps"]):
+            eager_step()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / DEBUG_STEPS["steps"]
+
+    ms_off = timed()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            debugging.collect_operator_stats():
+        eager_step()
+        n_outputs = sum(c for c, _, _ in debugging._op_stats.values())
+    debugging.enable_tensor_checker()
+    try:
+        ms_on = timed()
+    finally:
+        debugging.disable_tensor_checker()
+    eager_ms = STEP_MS.get("eager")
+    log(f"[debug] the eager phase's bf16 Llama step (7B width, "
+        f"{args.num_layers} layers, b {B} s {T}), mean of "
+        f"{DEBUG_STEPS['steps']} after {DEBUG_STEPS['warmup']} warm-up: "
+        f"checker off {ms_off:.2f} ms, on {ms_on:.2f} ms "
+        f"({ms_on / ms_off:.3f}x: one host read for each of {n_outputs} op "
+        f"outputs a step); the eager phase's step in this run "
+        + (f"{eager_ms:.2f} ms (off / eager {ms_off / eager_ms:.3f}x)"
+           if eager_ms else "not measured (eager phase not run)")
+        + f"; phase {time.perf_counter() - t_phase:.1f} s")
 
 
 # the functional phase: the op table's cases of the modules ported with
@@ -6094,7 +6790,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
-                    "functional,layers,configs,unet,train,"
+                    "functional,layers,configs,unet,quant,recompute,"
+                    "incubate,debug,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -6157,6 +6854,18 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "unet" in phases:
         _add(launches, phase_unet(torch, dev, name))
+        torch.cuda.empty_cache()
+    if "quant" in phases:
+        _add(launches, phase_quant(torch, dev, name))
+        torch.cuda.empty_cache()
+    if "recompute" in phases:
+        _add(launches, phase_recompute(torch, dev))
+        torch.cuda.empty_cache()
+    if "incubate" in phases:
+        _add(launches, phase_incubate(torch, dev))
+        torch.cuda.empty_cache()
+    if "debug" in phases:
+        phase_debug(torch, dev)
         torch.cuda.empty_cache()
     if "train" in phases:
         _add(launches, phase_train(torch, dev, name, "train"))
@@ -6243,7 +6952,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"eager", "configs", "unet", "train", "engine", "disagg",
+    main_path = {"eager", "configs", "unet", "quant", "recompute",
+                 "incubate", "train", "engine", "disagg",
                  "router", "generate", "chunked", "spec", "engine-int8",
                  "capacity"}
     if main_path <= set(phases):

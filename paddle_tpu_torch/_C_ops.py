@@ -8,7 +8,7 @@ signatures (the reference yaml's argument order and names, e.g.
 the public API, renaming to its spellings and dropping kernel-only
 arguments. Only the resolver `_t` differs: it resolves `_TARGETS` against
 `paddle_tpu_torch`. The targets in namespaces the port has not ported yet
-(`quantization`, ROADMAP A10f; `geometric`, `signal`, `text`, A10g) raise NotImplementedError naming their slice when called,
+(`geometric`, `signal`, `text`, ROADMAP A10g) raise NotImplementedError naming their slice when called,
 not when this module is imported.
 """
 
@@ -19,7 +19,6 @@ _cache = {}
 
 # the namespaces of `_TARGETS` a later slice ports
 _LATER = {
-    'paddle.quantization.': 'A10f',
     'paddle.geometric.': 'A10g',
     'paddle.signal.': 'A10g',
     'paddle.text.': 'A10g',

@@ -43,7 +43,11 @@ training API):
     model-generic trainer on one card;
   - deployment: the diffusion UNet (`models/unet`), `jit.save`/`jit.load`
     (a `torch.export` program with the weights as its inputs) and the
-    `inference` Predictor that serves it.
+    `inference` Predictor that serves it; `quantization` (fake quant,
+    weight-only int8 on B8, activation-int8 PTQ) and `jit.save(quantize=)`;
+  - tooling and fused layers: `amp.debugging` (the nan/inf checker and
+    operator stats on the dispatch waist), `profiler` (over
+    `torch.profiler`), `distributed.fleet.recompute` and `incubate.nn`.
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401
@@ -99,6 +103,7 @@ from paddle_tpu_torch.nn.layer.layers import ParamAttr  # noqa: F401,E402
 from paddle_tpu_torch.framework.io import save, load  # noqa: F401,E402
 from paddle_tpu_torch import fft, linalg  # noqa: F401,E402
 from paddle_tpu_torch import jit, inference  # noqa: F401,E402
+from paddle_tpu_torch import quantization, profiler, incubate  # noqa: F401,E402
 
 _ops_patch._install_inplace_variants()
 

@@ -10,7 +10,8 @@ keep float32. `decorate` (O2) casts a model's float parameters and
 buffers. `GradScaler` does real dynamic loss scaling: it skips a step
 whose gradients hold inf or NaN and multiplies the scale by `decr_ratio`.
 
-Not ported here: `amp.debugging` and its nan/inf sanitizer (ROADMAP A10f).
+`debugging` holds the nan/inf checker and the operator stats on the same
+waist (`amp/debugging.py`).
 """
 
 import contextlib
@@ -156,3 +157,8 @@ def is_bfloat16_supported(device=None):
 
 def is_float16_supported(device=None):
     return True
+
+
+# imported with amp, so its flag watchers are registered before any script
+# sets FLAGS_check_nan_inf without touching paddle.amp.debugging
+from paddle_tpu_torch.amp import debugging  # noqa: F401,E402

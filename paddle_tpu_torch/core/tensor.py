@@ -34,6 +34,7 @@ ports its subsystem.
 from __future__ import annotations
 
 import threading
+import time
 
 import numpy as np
 import torch
@@ -453,6 +454,14 @@ def _as_torch(x, like=None):
 # AMP dtype and the white and black lists), or no `state` outside one
 amp_local = threading.local()
 
+# the two hooks of the waist (`paddle_tpu/core/tensor.py:443-503`), None
+# while off, so an op pays one None check for each: `_sanitizer(op_name,
+# outputs)` sees every op's torch outputs (the nan/inf checker and the
+# operator stats of `amp.debugging`), `_op_tracer(op_name, host_seconds)`
+# every op's host time (`profiler.Profiler`)
+_sanitizer = None
+_op_tracer = None
+
 
 def apply(fn, *tensors, _name="op"):
     """Run `fn(*torch_tensors) -> tensor | tuple(tensors)` over Tensor args
@@ -466,8 +475,17 @@ def apply(fn, *tensors, _name="op"):
     if st is not None and _name in st["white"]:
         dt = st["dtype"]
         datas = [d.to(dt) if d.dtype == torch.float32 else d for d in datas]
-    out = fn(*datas)
-    if isinstance(out, (tuple, list)):
+    tracer = _op_tracer
+    if tracer is not None:
+        t0 = time.perf_counter()
+        out = fn(*datas)
+        tracer(_name, time.perf_counter() - t0)
+    else:
+        out = fn(*datas)
+    multi = isinstance(out, (tuple, list))
+    if _sanitizer is not None:
+        _sanitizer(_name, list(out) if multi else [out])
+    if multi:
         return [Tensor(o) for o in out]
     return Tensor(out)
 

@@ -4,11 +4,13 @@ FLAGS_* environment import at bootstrap, `python/paddle/base/__init__.py`
 :167-186).
 
 Pure Python. The flags are the JAX package's set, recorded and read back so
-that reference scripts run unchanged. No flag has an effect on the port
-yet: a slice that makes one act says so here. Setting one of the flags
-whose reference effect a user would rely on (`EFFECT_PENDING`: nan/inf
-checks, determinism, per-op sync and tracing, bf16 matmul) to another value
-than its default warns that nothing changed. Once the native core
+that reference scripts run unchanged. Two act: `FLAGS_check_nan_inf` turns
+on the nan/inf checker of `amp.debugging` on the dispatch waist and
+`FLAGS_check_nan_inf_level` > 0 makes it log instead of raise (its
+`watch_flag` callbacks follow every `set_flags`). Setting one of the
+other flags whose reference effect a user would rely on
+(`EFFECT_PENDING`: determinism, per-op sync and tracing, bf16 matmul) to
+another value than its default warns that nothing changed. Once the native core
 (`core/native`) has loaded its library, every `set_flags` is mirrored into
 its C++ registry, as the JAX package's is, so native components read the
 same values; the library takes this registry's values when it loads.
@@ -75,14 +77,21 @@ _DEFAULTS = {
     "FLAGS_seed": 0,
 }
 
-# flags whose reference effect the port does not have yet (ROADMAP A10f)
+# flags whose reference effect the port does not have yet
 EFFECT_PENDING = frozenset({
-    "FLAGS_check_nan_inf", "FLAGS_check_nan_inf_level",
     "FLAGS_cudnn_deterministic", "FLAGS_embedding_deterministic",
     "FLAGS_benchmark", "FLAGS_api_tracer_enabled", "FLAGS_use_bf16_matmul",
 })
 
 _flags = dict(_DEFAULTS)
+_watchers = {}
+
+
+def watch_flag(name, callback):
+    """Call `callback(value)` whenever `name` is set: how a subsystem (the
+    nan/inf checker) follows a flag without reading the registry on every
+    op."""
+    _watchers.setdefault(name, []).append(callback)
 
 
 def set_flags(flags_dict):
@@ -91,6 +100,8 @@ def set_flags(flags_dict):
             warnings.warn(f"{k}={v!r} is recorded but has no effect in "
                           "paddle_tpu_torch yet", stacklevel=2)
         _flags[k] = v
+        for cb in _watchers.get(k, ()):
+            cb(v)
     # the one registry both languages read (reference `paddle/common/
     # flags.cc`), if the library is loaded; `native._load` seeds it
     native = sys.modules.get("paddle_tpu_torch.core.native")

@@ -8,8 +8,10 @@ The Predictor serves what `paddle_tpu_torch.jit.save` wrote: it loads the
 `.pdiparams` file, runs the load-time passes over the weights, places
 each weight once on the Config's device and keeps it there across `run()`
 calls. The program is an fx graph of aten ops and of the port's kernel
-ops (B1 as `paddle_tpu_torch::flash_fwd`), each launched as the eager op
-would launch it. A program traced on another device is moved with
+ops (B1 as `paddle_tpu_torch::flash_fwd`, B8 as
+`paddle_tpu_torch::weight_only_matmul` in a program saved with
+`quantize="weight_only_int8"`), each launched as the eager op would
+launch it. A program traced on another device is moved with
 `torch.export.passes.move_to_device_pass`.
 
 A Config runs on the card (`cuda:<device_id>`) unless `disable_gpu()`
@@ -172,9 +174,11 @@ class PassStrategy:
     ordered, editable pass list. The passes run at load over the weights;
     the built-in entries name what the program already is: functionalized
     by `torch.export` at save, with each attention on B1's gate one fused
-    kernel op. They cannot be deleted; deleting one warns."""
+    kernel op and each weight-only int8 Linear one B8 op. They cannot be
+    deleted; deleting one warns."""
 
-    _BUILTIN = ("torch_export_functionalization", "flash_attention_op")
+    _BUILTIN = ("torch_export_functionalization", "flash_attention_op",
+                "weight_only_matmul_op")
     _DEFAULT = ("weight_dedup_pass",)
     _AVAILABLE = ("weight_dedup_pass", "bf16_weights_pass")
 
@@ -245,7 +249,9 @@ def _load_program(meta, prog_file):
             f"{prog_file} has no program the port can run{held}; re-save "
             "with paddle_tpu_torch.jit.save(layer, path, input_spec=[...])")
     # the kernels' custom ops must be registered before the program loads
-    from paddle_tpu_torch.kernels import flash_attention, rms_norm  # noqa: F401
+    from paddle_tpu_torch.kernels import (  # noqa: F401
+        flash_attention, quantized_matmul, rms_norm)
+    from paddle_tpu_torch.quantization import ptq_int8  # noqa: F401
 
     return torch.export.load(io.BytesIO(meta[_PROGRAM_KEY]))
 

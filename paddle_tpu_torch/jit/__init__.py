@@ -28,10 +28,22 @@ every input that names it, as the JAX scope shares a symbol (:475-501);
 dimensions the program ties together (a batch two inputs share) must
 share a name. A dynamic dimension is traced at size 2.
 
+`quantize="weight_only_int8"` saves every quantizable Linear's weight as
+int8 codes with an f32 `<weight key>.__scale__` beside it
+(`quantization.weight_only_int8_patched`); the program computes each such
+Linear through B8's custom operator (`paddle_tpu_torch::weight_only_matmul`,
+one node), which launches B8 on the card and runs B8's plain version on
+the CPU. `quantize="int8_ptq"` with `calib_reader=` (an iterable of input
+batches) calibrates each Linear's and Conv2D's input absmax on the
+unpatched model, then saves int8 weights and a program doing int8 x int8
+-> int32 products (`quantization.ptq_int8`). Either way the codes and
+scales are program inputs like every other weight, `.pdiparams` holds
+them as int8 and f32 arrays under the JAX package's keys, and
+`.pdmodel` records `quantize` and `quantized_keys`.
+
 Without `input_spec` only the weights are saved, as in the JAX package.
-`quantize=` waits for the quantization module (ROADMAP A10f); the rest of
-the JAX package's `jit` (to_static, SOT, TracedLayer, ...) waits for A10f
-part 2 and raises naming it.
+The rest of the JAX package's `jit` (to_static, SOT, TracedLayer, ...)
+waits for A10f part 2 and raises naming it.
 """
 
 import io
@@ -155,32 +167,56 @@ def save(layer, path, input_spec=None, quantize=None, platforms=None,
     if quantize not in _QUANTIZE:
         raise ValueError(f"unsupported quantize={quantize!r} "
                          "(None | 'weight_only_int8' | 'int8_ptq')")
-    if quantize is not None:
-        raise _waits_for(f"jit.save(quantize={quantize!r})", "A10f",
-                         "the quantization module")
+    if quantize is not None and input_spec is None:
+        raise ValueError("quantize requires input_spec (the dequant is part "
+                         "of the exported program)")
+    quant_cm = None
+    if quantize == "int8_ptq":
+        if calib_reader is None:
+            raise ValueError("quantize='int8_ptq' requires calib_reader="
+                             "<iterable of input batches> for activation-"
+                             "scale calibration")
+        from paddle_tpu_torch.quantization.ptq_int8 import (calibrate_absmax,
+                                                            int8_patched)
+
+        # calibration runs now, on the eager unpatched model; the patch is
+        # entered right before tracing, so a bad input_spec cannot leave
+        # the live model int8-patched
+        quant_cm = int8_patched(layer, calibrate_absmax(layer, calib_reader))
+    elif quantize == "weight_only_int8":
+        from paddle_tpu_torch.quantization import weight_only_int8_patched
+
+        quant_cm = weight_only_int8_patched(layer)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     meta = {"class": type(layer).__name__}
     if input_spec is None:
         state = {k: _host_array(v._data)
                  for k, v in layer.state_dict().items()}
     else:
-        swapped = _Swapped(layer)
-        weights = swapped.tensors()
-        dev = weights[0].device if weights else _device.place()
         shapes, dyn = _spec_dims(input_spec)
         dts = [_dtypes.convert_dtype(getattr(s, "dtype", None) or "float32")
                for s in input_spec]
-        feeds = [torch.zeros(s, dtype=dt, device=dev)
-                 for s, dt in zip(shapes, dts)]
         was_training = getattr(layer, "training", False)
         layer.eval()
+        quant_keys = []
         try:
+            if quant_cm is not None:
+                # live from the weights' capture (int8 codes and scales are
+                # program inputs) through the trace of the patched forwards
+                quant_keys = quant_cm.__enter__()
+            swapped = _Swapped(layer)
+            weights = swapped.tensors()
+            dev = weights[0].device if weights else _device.place()
+            feeds = [torch.zeros(s, dtype=dt, device=dev)
+                     for s, dt in zip(shapes, dts)]
             ep = torch.export.export(
                 _Program(swapped), (weights, feeds),
                 dynamic_shapes=([None] * len(weights), dyn), strict=False)
         finally:
             if was_training:
                 layer.train()
+            if quant_cm is not None:
+                quant_cm.__exit__(None, None, None)
         # the example inputs are the weights themselves: they stay out of
         # the program file
         ep._example_inputs = None
@@ -196,6 +232,9 @@ def save(layer, path, input_spec=None, quantize=None, platforms=None,
             "device": str(dev),
             _PROGRAM_KEY: buf.getvalue(),
         })
+        if quantize is not None:
+            meta["quantize"] = quantize
+            meta["quantized_keys"] = sorted(quant_keys)
         state = {k: _host_array(t) for k, t in zip(swapped.keys(), weights)}
     with open(path + ".pdiparams", "wb") as f:
         pickle.dump(state, f)

@@ -98,7 +98,11 @@ def _on_card(*tensors):
 def _dense(t):
     """t as the kernels read it: contiguous and 16-byte aligned (a fresh
     copy, differentiable, when a view is not). A caller that routes a
-    strided view to a kernel hands it this."""
+    strided view to a kernel hands it this. While `torch.export` traces
+    there is no pointer to read: the program gets a `contiguous()` node,
+    and the kernel op's body checks the alignment at every call."""
+    if torch.compiler.is_compiling():
+        return t.contiguous()
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)

@@ -33,6 +33,15 @@ from the shape, the dtype and the pointers' alignment before the launch
   "simt"  M > 16, f32 x: 64x64 tiles on the CUDA cores in f32 (f32
           activations are a check of the arithmetic, not the serving path).
 
+`weight_only_matmul_op` is the same call as one custom operator,
+`paddle_tpu_torch::weight_only_matmul` (B1's pattern in
+`flash_attention.py`): `torch.export` keeps it as one node of the graph
+(`register_fake` gives its output's shape), and its body, the wrapper
+above with its route, alignment check and tile tuner, runs at every call
+of the exported program, on the device the tensors are on then. Its
+backward is plain PyTorch (x and the scale; the codes take none). The
+functional serving path calls the wrapper directly.
+
 `launches["weight_only_matmul"]` counts every launch of the kernel;
 `launches["weight_only_matmul_prefill"]` the "tma" ones and
 `launches["weight_only_matmul_offgate"]` the "mma" ones among them.
@@ -45,8 +54,9 @@ import torch
 from paddle_tpu_torch.kernels import _build, tuning
 
 __all__ = ["quantize_absmax", "dequant_matmul_plain", "weight_only_matmul",
-           "route", "tile", "tuned_tile", "TILES", "launches",
-           "reset_launches", "GEMV_MAX_ROWS", "GEMV_COLS", "gemv_split"]
+           "weight_only_matmul_op", "WEIGHT_ONLY_MATMUL_OP", "route", "tile",
+           "tuned_tile", "TILES", "launches", "reset_launches",
+           "GEMV_MAX_ROWS", "GEMV_COLS", "gemv_split"]
 
 GEMV_MAX_ROWS = 16
 # the bf16 GEMV: output columns a block covers, blocks a cluster at most
@@ -268,3 +278,46 @@ def weight_only_matmul(x, w_q, scale, out_dtype=None):
             launches["weight_only_matmul_offgate"] += 1
     out = out.reshape(*lead, n)
     return out.to(out_dtype) if out_dtype is not None else out
+
+
+# ---------------------------------------------------------------------------
+# one custom operator: a node of an exported program, launched at its call
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("paddle_tpu_torch::weight_only_matmul",
+                         mutates_args=())
+def weight_only_matmul_op(x: torch.Tensor, w_q: torch.Tensor,
+                          scale: torch.Tensor) -> torch.Tensor:
+    """`weight_only_matmul` as one operator: B8 on a CUDA tensor,
+    `dequant_matmul_plain` on a CPU one, chosen at call time; out in x's
+    dtype."""
+    return weight_only_matmul(x.contiguous(), w_q, scale)
+
+
+@weight_only_matmul_op.register_fake
+def _(x, w_q, scale):
+    return x.new_empty((*x.shape[:-1], w_q.shape[1]))
+
+
+def _setup(ctx, inputs, output):
+    x, w_q, scale = inputs
+    ctx.save_for_backward(x, w_q, scale)
+
+
+def _backward(ctx, g):
+    x, w_q, scale = ctx.saved_tensors
+    dx = ds = None
+    if ctx.needs_input_grad[0]:
+        dx = g @ (w_q.to(g.dtype) * (scale.to(g.dtype) / 127.0)).T
+    if ctx.needs_input_grad[2]:
+        k, n = w_q.shape
+        xw = x.reshape(-1, k).float() @ w_q.float()
+        ds = (g.reshape(-1, n).float() * xw).sum(0) / 127.0
+    return dx, None, ds
+
+
+weight_only_matmul_op.register_autograd(_backward, setup_context=_setup)
+
+# the operator's overload, as an exported graph names it
+WEIGHT_ONLY_MATMUL_OP = torch.ops.paddle_tpu_torch.weight_only_matmul.default

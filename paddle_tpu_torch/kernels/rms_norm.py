@@ -311,8 +311,11 @@ def rms_norm(x, w, eps):
     """RMSNorm over the last dim of x [..., H] with weight w [H]: B9 on a
     CUDA tensor (its plain version on a CPU one). Differentiable through
     the custom operator, whose backward is B10; without a gradient to
-    take, the wrapper runs alone and stores no r."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    take, the wrapper runs alone and stores no r. While `torch.export`
+    traces, the operator is the one node of the program, launched at its
+    every call."""
+    if torch.compiler.is_compiling() or (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         return _rms_norm_op(x, w, float(eps))[0]
     y, _ = rms_norm_fwd(x.reshape(-1, x.shape[-1]), w, eps, save_r=False)
     return y.reshape(x.shape)

@@ -174,8 +174,8 @@ class Llama(nn.Module):
 # `F.flash_attention(causal=True)`, kernel B1 forward and B2/B3 backward;
 # `LlamaRMSNorm` runs `F.rms_norm`, B9 forward and B10 backward (the JAX
 # layer's own composite rounds as B9 does). Not ported here: the
-# tensor-parallel branches (fleet's parallel layers, ROADMAP A9) and
-# `recompute` (fleet.recompute, A10f), which raises.
+# tensor-parallel branches (fleet's parallel layers, ROADMAP A9). With
+# `recompute`, each decoder layer's block runs under `fleet.recompute`.
 # --------------------------------------------------------------------------
 
 import paddle_tpu_torch as paddle  # noqa: E402
@@ -267,6 +267,11 @@ class LlamaRotaryEmbedding(pnn.Layer):
 
     def forward(self, seq_len, device=None):
         dev = device if device is not None else _device.place()
+        if not isinstance(seq_len, int):
+            # a symbolic length (torch.export with a dynamic sequence
+            # dimension): the tables become part of the traced program
+            cos, sin = lf.rope_tables(seq_len, self.head_dim, self.theta, dev)
+            return Tensor(cos), Tensor(sin)
         key = (seq_len, dev)
         if key not in self._cache:
             cos, sin = lf.rope_tables(seq_len, self.head_dim, self.theta, dev)
@@ -362,24 +367,26 @@ class LlamaDecoderLayer(pnn.Layer):
 
     def forward(self, hidden_states, attention_mask=None, position_ids=None,
                 past_key_value=None, use_cache=False):
-        if self.config.recompute and not use_cache:
-            from paddle_tpu_torch.ops._common import waits_for
+        def block(h):
+            residual = h
+            h = self.input_layernorm(h)
+            cache = None
+            if use_cache:
+                h, cache = self.self_attn(h, attention_mask, position_ids,
+                                          past_key_value, use_cache=True)
+            else:
+                h = self.self_attn(h, attention_mask, position_ids)
+            h = residual + h
+            residual = h
+            h = self.post_attention_layernorm(h)
+            h = residual + self.mlp(h)
+            return (h, cache) if use_cache else h
 
-            raise waits_for("LlamaConfig.recompute", "A10f",
-                            "fleet.recompute")
-        residual = hidden_states
-        h = self.input_layernorm(hidden_states)
-        cache = None
-        if use_cache:
-            h, cache = self.self_attn(h, attention_mask, position_ids,
-                                      past_key_value, use_cache=True)
-        else:
-            h = self.self_attn(h, attention_mask, position_ids)
-        h = residual + h
-        residual = h
-        h = self.post_attention_layernorm(h)
-        h = residual + self.mlp(h)
-        return (h, cache) if use_cache else h
+        if self.config.recompute and not use_cache:
+            from paddle_tpu_torch.distributed.fleet.recompute import recompute
+
+            return recompute(block, hidden_states)
+        return block(hidden_states)
 
 
 class LlamaModel(pnn.Layer):

@@ -9,9 +9,13 @@ wrapper's custom operator) for the same function. The route is decided by
 shape and dtype before the launch (`kernels.rms_norm.supports`: x and w
 of one dtype, bf16 or f32, H % 8 == 0, H <= MAX_HIDDEN); a strided view is
 given a dense copy first. Off the gate, with `weight=None`, or on CPU
-tensors the composite runs in plain PyTorch. x and weight on different
-devices raise, as the kernel wrappers do (`kernels.attention._on_card`).
-A failed build or launch raises: nothing falls back.
+tensors the composite runs in plain PyTorch. While `torch.export` traces,
+a norm on the gate is the kernel's operator whatever the device, so a
+program saved on the CPU and moved to the card runs B9 there (the
+operator picks B9 or its plain version at each call). x and weight on
+different devices raise, as the kernel wrappers do
+(`kernels.attention._on_card`). A failed build or launch raises: nothing
+falls back.
 
 The other norms are plain PyTorch, as the JAX package computes them
 outside any Pallas kernel: statistics in f32, the normalised value cast
@@ -71,7 +75,8 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     cast to x's dtype, times weight. On the card and on B9's gate, kernel
     B9 (backward B10); else the plain composite."""
     def fn(a, *w):
-        if w and _on_card(a, w[0]) and _rn.supports(a, w[0]):
+        if w and (_on_card(a, w[0]) or torch.compiler.is_compiling()) \
+                and _rn.supports(a, w[0]):
             return _rn.rms_norm(_dense(a), _dense(w[0]), epsilon)
         return _rms_plain(a, epsilon, *w)
 

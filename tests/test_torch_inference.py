@@ -357,11 +357,20 @@ def test_a_config_that_asks_for_the_card_raises_without_one(tied,
 
 
 def test_quantize_waits_for_the_quantization_module(tmp_path):
-    m = P.nn.Linear(3, 2)
-    spec = [InputSpec([1, 3], "float32")]
-    with pytest.raises(NotImplementedError, match="A10f"):
-        P.jit.save(m, str(tmp_path / "q"), input_spec=spec,
-                   quantize="weight_only_int8")
+    """The quantization module came with A10f part 1: `quantize=` saves an
+    int8 program the Predictor serves (`test_torch_quantization.py` holds
+    it to the JAX package's)."""
+    P.seed(0)
+    m = P.nn.Linear(32, 16)
+    spec = [InputSpec([1, 32], "float32")]
+    P.jit.save(m, str(tmp_path / "q"), input_spec=spec,
+               quantize="weight_only_int8")
+    with open(str(tmp_path / "q") + ".pdiparams", "rb") as f:
+        assert pickle.load(f)["weight"].dtype == np.int8
+    x = np.random.default_rng(0).normal(size=(1, 32)).astype("float32")
+    got = _cpu_predictor(str(tmp_path / "q")).run([x])[0].numpy()
+    want = m(P.to_tensor(x)).numpy()
+    assert np.abs(got - want).max() < 0.05 * np.abs(want).max()
     with pytest.raises(ValueError, match="unsupported quantize"):
         P.jit.save(m, str(tmp_path / "q"), input_spec=spec, quantize="fp4")
 

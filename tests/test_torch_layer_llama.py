@@ -164,10 +164,22 @@ def test_llama_rms_norm_matches_the_jax_one(dtype):
     assert _rel(gdw, rdw) <= tol
 
 
-def test_recompute_waits_for_its_slice():
-    m = tllama.LlamaForCausalLM(_cfg(P, recompute=True))
-    with pytest.raises(NotImplementedError, match="A10f"):
-        m(P.to_tensor(np.zeros((1, 4), np.int64)))
+def test_recompute_waits_for_its_slice(pair):
+    """`recompute` came with fleet.recompute (A10f part 1): the same loss
+    and gradients as without it (`test_torch_recompute.py` holds it to the
+    JAX model)."""
+    _, _, state, ids, labels = pair
+    grads = []
+    for rc in (True, False):
+        m = layer_from_numpy(tllama.LlamaForCausalLM(_cfg(P, recompute=rc)),
+                             state)
+        loss = m(P.to_tensor(ids), labels=P.to_tensor(labels))
+        loss.backward()
+        grads.append((float(loss.numpy()),
+                      [p.grad.numpy() for p in m.parameters()]))
+    assert grads[0][0] == grads[1][0]
+    for a, b in zip(grads[0][1], grads[1][1]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_llama2_7b_takes_a_depth_where_the_jax_package_raises():

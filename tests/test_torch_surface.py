@@ -35,9 +35,9 @@ LATER = {"enable_static": "A10f", "disable_static": "A10f"}
 # static.create_parameter (A10f)
 PART2_TENSOR_METHODS = {"stft", "istft", "create_parameter"}
 # `_C_ops` targets in namespaces a later slice ports (they raise when
-# called): quantization (A10f), geometric, signal and text (A10g)
-C_OPS_LATER = {"paddle.quantization.": ("A10f", 10),
-               "paddle.geometric.": ("A10g", 7),
+# called): geometric, signal and text (A10g); the 10 quantization targets
+# resolve since A10f part 1
+C_OPS_LATER = {"paddle.geometric.": ("A10g", 7),
                "paddle.signal.": ("A10g", 3), "paddle.text.": ("A10g", 1)}
 # module of the JAX package -> the port's module of the same surface, and
 # the op table's name for it
@@ -133,7 +133,8 @@ def test_c_ops_has_the_jax_modules_names_and_signatures():
 
 
 def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
-    """302 targets resolved before vision.ops (A10d) came; 322 now."""
+    """302 targets resolved before vision.ops (A10d) came, 322 before
+    quantization (A10f part 1); 332 now."""
     from paddle_tpu_torch import _C_ops as port
 
     resolved, later = 0, {p: 0 for p in C_OPS_LATER}
@@ -148,7 +149,7 @@ def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
                            match=C_OPS_LATER[prefix][0]):
             port._t(name)
         later[prefix] += 1
-    assert resolved == 322
+    assert resolved == 332
     assert later == {p: n for p, (_, n) in C_OPS_LATER.items()}
 
 
@@ -183,18 +184,21 @@ def test_the_top_level_namespace_carries_the_six_modules():
 
 
 # the training API (ROADMAP A10b), vision (A10d), the models and the
-# one-card Engine (A10c), jit.save/load and the Predictor (A10e): the
-# namespaces the port exports with the JAX package's names, and what waits
-# for a later slice, by slice
+# one-card Engine (A10c), jit.save/load and the Predictor (A10e),
+# quantization, the profiler, amp.debugging, fleet.recompute and
+# incubate.nn (A10f part 1): the namespaces the port exports with the JAX
+# package's names, and what waits for a later slice, by slice
 TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "optimizer.lr", "amp", "io", "metric", "hapi",
                        "hapi.callbacks", "vision", "vision.models",
                        "vision.datasets", "vision.transforms",
                        "vision.transforms.functional", "vision.ops",
                        "models", "distributed.engine", "jit",
-                       "inference")
+                       "inference", "quantization", "quantization.ptq_int8",
+                       "profiler", "profiler.profiler_statistic",
+                       "amp.debugging", "distributed.fleet.recompute",
+                       "incubate.nn", "incubate.nn.functional")
 TRAINING_LATER = {
-    "amp": {"debugging": "A10f"},
     # dynamic-to-static and SOT: A10f part 2 (the names of `jit` that are
     # functions or classes raise naming it, JIT_LATER)
     "jit": {n: "A10f" for n in ("Dy2StaticFallback", "dy2static", "sot")},
@@ -324,20 +328,34 @@ def test_flops_and_summary_walk_the_layers():
 
 
 def test_flags_keep_the_jax_packages_defaults_and_say_they_do_nothing():
+    """The flags that still do nothing warn when set; the nan/inf flags act
+    since amp.debugging (A10f part 1) and no longer warn."""
+    import warnings
+
+    from paddle_tpu_torch.amp import debugging
+    from paddle_tpu_torch.core import tensor as core_tensor
     from paddle_tpu_torch.framework import flags
 
     names = sorted(flags._DEFAULTS)
     assert paddle_tpu_torch.get_flags(names) == paddle_tpu.get_flags(names)
+    assert not {"FLAGS_check_nan_inf", "FLAGS_check_nan_inf_level"} & \
+        flags.EFFECT_PENDING
     saved = paddle_tpu_torch.get_flags(names)
     try:
         with pytest.warns(UserWarning, match="no effect"):
+            paddle_tpu_torch.set_flags({"FLAGS_benchmark": True})
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
             paddle_tpu_torch.set_flags({"FLAGS_check_nan_inf": True})
+        assert core_tensor._sanitizer is debugging._sanitize_hook
         paddle_tpu_torch.set_flags({"FLAGS_v": 3})  # recorded, no warning
         assert paddle_tpu_torch.get_flags(
             ["FLAGS_check_nan_inf", "FLAGS_v"]) == {
                 "FLAGS_check_nan_inf": True, "FLAGS_v": 3}
     finally:
+        paddle_tpu_torch.set_flags({"FLAGS_check_nan_inf": False})
         flags._flags.update(saved)
+    assert core_tensor._sanitizer is None
     assert flags._from_env("FLAGS_benchmark", "true") is True
     assert flags._from_env("FLAGS_v", "2") == 2
     assert flags._from_env("FLAGS_fraction_of_gpu_memory_to_use",
