@@ -3981,6 +3981,327 @@ DEBUG_STEPS = dict(warmup=2, steps=8)
 STEP_MS = {}   # the eager phase's bf16 eager step, for the debug phase
 
 
+# the jit phase: the layer Llama at Llama-2-7B width, 2 layers, seed 0,
+# through to_static, SOT and a static Program (jit, jit.sot, static)
+JIT_LEG = dict(layers=2, batch=1, seq=2048, warmup=2, steps=8, calls=3,
+               lr=1e-4)
+JIT_BARS = {"bf16": 2e-2, "f32": 1e-5, "loss_rel": 1e-5, "grad_rel": 1e-5,
+            "param_rel": 1e-5}
+# launches a to_static call (B1, B9), and a SOT or static training step
+JIT_A_CALL = {"flash_fwd": 2, "rms_norm_fwd": 5}
+JIT_A_STEP = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+              "rms_norm_fwd": 5, "rms_norm_bwd": 5}
+
+
+def _launched():
+    return {k: v for k, v in launch_counts().items() if v}
+
+
+def _median_ms(torch, dev, fn, warmup, steps):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(steps):
+        times.append(_sync_ms(torch, dev, fn)[1])
+    return sorted(times)[len(times) // 2]
+
+
+def _profiled(torch, dev, fn):
+    """(device ms, kernel launches) of one fn() under torch.profiler, or
+    (None, None) when it sees no device activity. The window opens with
+    PROFILE_PAD_KERNELS throwaway kernels, left out (`_b8_share`: late in
+    the run a session can lose its first device records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize(dev)
+        fn()
+        torch.cuda.synchronize(dev)
+    kern = [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+            and e.time_range.end > e.time_range.start
+            and "spin_kernel" not in e.name]
+    if not kern:
+        return None, None
+    return (sum(e.time_range.end - e.time_range.start for e in kern) / 1e3,
+            len(kern))
+
+
+def _jit_model(paddle, cfg):
+    """The leg's model, seed 0: every call gives the same weights."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    paddle.seed(0)
+    return LlamaForCausalLM(cfg)
+
+
+def _jit_to_static(torch, dev, paddle, cfg, ids, dtype, total):
+    """(a) one leg of `to_static` in eval mode: the compiled call's logits
+    against the eager layer's (||d|| / ||eager||), JIT_A_CALL launches a
+    call, the operators in the graph, no fallback; the compile seconds, the
+    ms a call compiled and eager, one profiled call."""
+    model = _jit_model(paddle, cfg)
+    if dtype == "bfloat16":
+        model = paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+    model.eval()
+    base = paddle.jit.fallback_count()
+    sf = paddle.jit.to_static(model)
+    with paddle.no_grad():
+        ref = model(ids)._data
+    reset_launches()
+    out, first_ms = _sync_ms(torch, dev, lambda: sf(ids))
+    (prog,) = sf.programs()
+    reset_launches()
+    out = sf(ids)
+    torch.cuda.synchronize(dev)
+    got = _launched()
+    _add(total, got)
+    rel = _rel(torch, out._data.float(), ref.float())
+    targets = prog.graph_targets()
+    nodes = {op: targets.count(f"paddle_tpu_torch.{op}.default")
+             for op in ("flash_fwd", "rms_norm")}
+    leg = JIT_LEG
+    ms = _median_ms(torch, dev, lambda: sf(ids), leg["warmup"], leg["steps"])
+    with paddle.no_grad():
+        eager_ms = _median_ms(torch, dev, lambda: model(ids), leg["warmup"],
+                              leg["steps"])
+    dev_ms, n_kern = _profiled(torch, dev, lambda: sf(ids))
+    bar = JIT_BARS["bf16" if dtype == "bfloat16" else "f32"]
+    log(f"[jit] (a) to_static {dtype}, eval, b {leg['batch']} s "
+        f"{leg['seq']}: logits ||d||/||eager|| {rel:.3e} (bar {bar}); "
+        f"launches a call {got} (want {JIT_A_CALL}); graph nodes {nodes}; "
+        f"fallbacks {paddle.jit.fallback_count() - base}; trace "
+        f"{prog.trace_seconds:.1f} s, first call (inductor compile "
+        f"included) {first_ms / 1e3:.1f} s; a call compiled {ms:.3f} ms, "
+        f"eager {eager_ms:.3f} ms (median of {leg['steps']} after "
+        f"{leg['warmup']}); one profiled call: device "
+        f"{'not measured' if dev_ms is None else f'{dev_ms:.3f} ms'}, "
+        f"{n_kern} kernels")
+    if not (rel <= bar and got == JIT_A_CALL and nodes == {
+            "flash_fwd": 2, "rms_norm": 5}
+            and paddle.jit.fallback_count() == base and out.stop_gradient):
+        raise AssertionError(f"jit to_static {dtype}: rel {rel}, launches "
+                             f"{got}, nodes {nodes}")
+    return first_ms / 1e3
+
+
+def _grads(model):
+    return {k: p.grad._data.clone() for k, p in model.named_parameters()}
+
+
+def _jit_sot(torch, dev, paddle, cfg, batches, total):
+    """(b) SOT training: `to_static(model, full_graph=False)` in train mode
+    (dropout 0), loss and backward for each batch against the eager layer
+    on the same ids; 1 capture, 2 hits, 0 eager calls; JIT_A_STEP launches
+    a replayed step."""
+    model = _jit_model(paddle, cfg)
+    model.train()
+    sot = paddle.jit.to_static(model, full_graph=False)
+    worst, loss_worst, per_step, secs = ("", 0.0), 0.0, [], []
+    for i, (ids, labels) in enumerate(batches):
+        model.clear_gradients()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = sot(ids, labels=labels)
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+        per_step.append(_launched())
+        got = _grads(model)
+        lval = loss.item()
+        model.clear_gradients()
+        ref = model(ids, labels=labels)
+        ref.backward()
+        loss_worst = max(loss_worst, abs(lval - ref.item()) / abs(ref.item()))
+        for k, p in model.named_parameters():
+            r = _rel(torch, got[k], p.grad._data)
+            if not math.isfinite(r) or r >= worst[1]:
+                worst = (k, r)
+        got = None
+    for counts in per_step[1:]:
+        _add(total, counts)
+    rep = sot.report()
+    log(f"[jit] (b) SOT f32 (TF32 off), train, dropout 0, "
+        f"{len(batches)} calls on different ids: captures "
+        f"{rep['captures']}, hits {rep['hits']}, eager calls "
+        f"{rep['eager_calls']}; worst loss rel {loss_worst:.3e} (bar "
+        f"{JIT_BARS['loss_rel']}); worst grad leaf {worst[0]} ||d||/||ref|| "
+        f"{worst[1]:.3e} (bar {JIT_BARS['grad_rel']}); launches a replayed "
+        f"step {per_step[1:]} (want {JIT_A_STEP}); seconds a call "
+        f"(capture, replays; the first replay compiles) "
+        f"{[round(s, 2) for s in secs]}")
+    if not ((rep["captures"], rep["hits"], rep["eager_calls"]) == (1, 2, 0)
+            and loss_worst <= JIT_BARS["loss_rel"]
+            and worst[1] <= JIT_BARS["grad_rel"]
+            and all(c == JIT_A_STEP for c in per_step[1:])):
+        raise AssertionError(f"jit SOT: {rep}, loss {loss_worst}, worst "
+                             f"{worst}, launches {per_step}")
+    return secs[1]
+
+
+def _jit_static(torch, dev, paddle, cfg, batches, total):
+    """(c) a static Program: `static.data` ids and labels, the loss of
+    `model(ids, labels=labels)`, AdamW over a StepDecay minimized,
+    len(batches) Executor runs with the scheduler stepped between them,
+    against as many eager AdamW steps of an equal copy: each loss, and
+    every parameter after the last; JIT_A_STEP launches a run."""
+    import numpy as np
+
+    leg = JIT_LEG
+    model, twin = _jit_model(paddle, cfg), _jit_model(paddle, cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sched = paddle.optimizer.lr.StepDecay(learning_rate=leg["lr"],
+                                          step_size=1, gamma=0.5)
+    paddle.enable_static()
+    try:
+        with paddle.static.program_guard(paddle.static.Program(),
+                                         paddle.static.Program()):
+            ids = paddle.static.data("ids", [leg["batch"], leg["seq"]],
+                                     "int64")
+            labels = paddle.static.data("labels",
+                                        [leg["batch"], leg["seq"]], "int64")
+            loss = model(ids, labels=labels)
+            paddle.optimizer.AdamW(learning_rate=sched).minimize(loss)
+            exe = paddle.static.Executor()
+            losses, per_run, secs, lrs = [], [], [], []
+            for a, b in batches:
+                reset_launches()
+                lrs.append(sched.get_lr())
+                t0 = time.perf_counter()
+                (lv,) = exe.run(feed={"ids": a.numpy(), "labels": b.numpy()},
+                                fetch_list=[loss])
+                torch.cuda.synchronize(dev)
+                secs.append(time.perf_counter() - t0)
+                per_run.append(_launched())
+                losses.append(float(np.asarray(lv)))
+                sched.step()
+    finally:
+        paddle.disable_static()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    for counts in per_run:
+        _add(total, counts)
+    sched2 = paddle.optimizer.lr.StepDecay(learning_rate=leg["lr"],
+                                           step_size=1, gamma=0.5)
+    opt = paddle.optimizer.AdamW(learning_rate=sched2,
+                                 parameters=twin.parameters())
+    ref = []
+    for a, b in batches:
+        lv = twin(a, labels=b)
+        lv.backward()
+        opt.step()
+        opt.clear_grad()
+        sched2.step()
+        ref.append(lv.item())
+    loss_worst = max(abs(g - r) / abs(r) for g, r in zip(losses, ref))
+    worst = ("", 0.0)
+    sd2 = twin.state_dict()
+    for k, p in model.state_dict().items():
+        r = _rel(torch, p._data, sd2[k]._data)
+        if not math.isfinite(r) or r >= worst[1]:
+            worst = (k, r)
+    log(f"[jit] (c) static Program f32 (TF32 off), AdamW over StepDecay "
+        f"(lr per run {lrs}), {len(batches)} Executor runs: losses "
+        f"{[round(v, 6) for v in losses]}, eager {[round(v, 6) for v in ref]}"
+        f" (worst rel {loss_worst:.3e}, bar {JIT_BARS['loss_rel']}); worst "
+        f"parameter after the last step {worst[0]} ||d||/||ref|| "
+        f"{worst[1]:.3e} (bar {JIT_BARS['param_rel']}); launches a run "
+        f"{per_run} (want {JIT_A_STEP}); seconds a run (the first traces "
+        f"and compiles) {[round(s, 2) for s in secs]}; peak "
+        f"{peak:.1f} GiB (the twin's weights, gradients and moments among "
+        f"it)")
+    if not (loss_worst <= JIT_BARS["loss_rel"]
+            and worst[1] <= JIT_BARS["param_rel"]
+            and all(c == JIT_A_STEP for c in per_run)):
+        raise AssertionError(f"jit static: losses {losses} vs {ref}, worst "
+                             f"{worst}, launches {per_run}")
+    PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+    return secs[0]
+
+
+def _jit_dy2static(torch, dev, paddle):
+    """(d) a function with a tensor-dependent if and while, converted and
+    compiled on CUDA tensors: torch.cond and while_loop in its graph, the
+    result equal to its eager run."""
+    import numpy as np
+
+    def f(x):
+        if x.sum() > 0:
+            y = x * 2.0
+        else:
+            y = x - 1.0
+        n = paddle.zeros([1])
+        while y.abs().sum() < 1000.0:
+            y = y * 2.0
+            n = n + 1.0
+        return y, n
+
+    sf = paddle.jit.to_static(f)
+    rng = np.random.default_rng(0)
+    outs = []
+    for sign in (1.0, -1.0):
+        x = paddle.to_tensor((sign * np.abs(rng.normal(size=(64,))))
+                             .astype(np.float32))
+        got, ref = sf(x), f(x)
+        outs.append((float((got[0] - ref[0]).abs().max()),
+                     float((got[1] - ref[1]).abs().max())))
+    targets = {t for p in sf.programs() for t in p.graph_targets()}
+    hops = sorted(t for t in targets if t.startswith("higher_order."))
+    log(f"[jit] (d) dy2static on {dev}: max |compiled - eager| {outs}; "
+        f"control flow in the graph {hops}; fallbacks "
+        f"{paddle.jit.fallback_report()}")
+    if not (all(a == 0.0 and b == 0.0 for a, b in outs)
+            and {"higher_order.cond", "higher_order.while_loop"} <=
+            set(hops) and sf.programs()[0].device_type == "cuda"):
+        raise AssertionError(f"jit dy2static: {outs}, {hops}")
+
+
+def phase_jit(torch, dev):
+    """`jit.to_static`, SOT and a static Program on the layer Llama at
+    Llama-2-7B width (JIT_LEG, seed 0): (a) to_static in bf16 (amp.decorate
+    O2) and in f32 against the eager layer, (b) SOT training, (c) a static
+    Program training with AdamW, (d) dy2static's torch.cond and while_loop
+    compiled. Returns the launch counts of the checked calls."""
+    import numpy as np
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+    from paddle_tpu_torch.models import LlamaConfig
+
+    device_mod._current = None
+    t_phase = time.perf_counter()
+    leg = JIT_LEG
+    cfg = LlamaConfig.llama2_7b(num_hidden_layers=leg["layers"])
+    rng = np.random.default_rng(0)
+
+    def draw():
+        return paddle.to_tensor(rng.integers(
+            0, cfg.vocab_size, (leg["batch"], leg["seq"])).astype(np.int64))
+
+    total = {k: 0 for k in launch_counts()}
+    compile_s = {}
+    ids = draw()
+    compile_s["to_static f32"] = _jit_to_static(torch, dev, paddle, cfg, ids,
+                                                "float32", total)
+    torch.cuda.empty_cache()
+    compile_s["to_static bf16"] = _jit_to_static(torch, dev, paddle, cfg,
+                                                 ids, "bfloat16", total)
+    torch.cuda.empty_cache()
+    batches = [(draw(), draw()) for _ in range(leg["calls"])]
+    compile_s["sot"] = _jit_sot(torch, dev, paddle, cfg, batches, total)
+    torch.cuda.empty_cache()
+    compile_s["static"] = _jit_static(torch, dev, paddle, cfg, batches,
+                                      total)
+    torch.cuda.empty_cache()
+    _jit_dy2static(torch, dev, paddle)
+    log(f"[jit] seconds of the first compiled call of each leg (trace and "
+        f"inductor compile included): "
+        f"{ {k: round(v, 1) for k, v in compile_s.items()} }; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def phase_debug(torch, dev):
     """`enable_tensor_checker` aborts with FloatingPointError naming the op
     on an injected inf (log, and a matmul over a tensor holding inf), at
@@ -5034,7 +5355,9 @@ LAUNCHES_BEFORE_B9 = {"profile": 1682, "profile-int8": 3218}
 # ... in the last run before B6/B7 were split over clusters (PERF.md), which
 # the step may not exceed, and the paged kernel each profile must see once
 # a layer a step
-LAUNCH_CEILING = {"profile": 1227, "profile-int8": 2538}
+# launches a decode step at most, every launch counted (the window opens
+# with throwaway kernels: without them it lost up to ~30 first records)
+LAUNCH_CEILING = {"profile": 1227, "profile-int8": 2539}
 PAGED_KERNEL = {"profile": "B6", "profile-int8": "B7"}
 
 
@@ -5043,7 +5366,10 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
     """Where a decode step's time goes: 8 rows at 256-token prompts, n_steps
     decode steps under torch.profiler; the device-busy share is kernel time
     over wall time. Reports "not measured" when the profiler sees no
-    device activity."""
+    device activity. The window opens with PROFILE_PAD_KERNELS throwaway
+    kernels, left out of every figure: a torch.profiler session late in
+    the run can lose its first device records (`_b8_share`; after the jit
+    phase it lost one of the 256 B6 launches here)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.serving import Request
@@ -5060,6 +5386,9 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
     before = launch_counts()["rms_norm_fwd"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD_KERNELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for _ in range(n_steps):
             eng.step()
@@ -5073,7 +5402,8 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
                              f"step, want {want} (one a norm)")
     kern = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and "spin_kernel" not in e.key]
     busy_us = sum(e.self_device_time_total for e in kern)
     if not kern:
         log(f"[{label}] device time not measured: the profiler saw no "
@@ -5097,6 +5427,12 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
             log(f"[{label}]   {kid}: {us / busy_us:.1%} of device time, "
                 f"{us / n_steps / 1e3:.3f} ms and "
                 f"{sum(e.count for e in mine) / n_steps:.0f} launches a step")
+    # the step's launches kernel by kernel, for a diff against another run
+    by_kernel = {}
+    for e in kern:
+        by_kernel[e.key[:120]] = by_kernel.get(e.key[:120], 0) + e.count
+    log(f"[{label}] launches a step by kernel: " + json.dumps(
+        {k: by_kernel[k] / n_steps for k in sorted(by_kernel)}))
     kid = PAGED_KERNEL[label]
     paged = sum(e.count for e in kern
                 if any(f in e.key for f in PROFILE_NAMES[kid])) / n_steps
@@ -6791,7 +7127,7 @@ def main(argv=None):
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
                     "functional,layers,configs,unet,quant,recompute,"
-                    "incubate,debug,train,"
+                    "incubate,jit,debug,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
                     help="comma-separated subset of the phases, in order")
@@ -6863,6 +7199,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "incubate" in phases:
         _add(launches, phase_incubate(torch, dev))
+        torch.cuda.empty_cache()
+    if "jit" in phases:
+        _add(launches, phase_jit(torch, dev))
         torch.cuda.empty_cache()
     if "debug" in phases:
         phase_debug(torch, dev)
@@ -6953,7 +7292,7 @@ def main(argv=None):
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
     main_path = {"eager", "configs", "unet", "quant", "recompute",
-                 "incubate", "train", "engine", "disagg",
+                 "incubate", "jit", "train", "engine", "disagg",
                  "router", "generate", "chunked", "spec", "engine-int8",
                  "capacity"}
     if main_path <= set(phases):

@@ -104,6 +104,17 @@ from paddle_tpu_torch.framework.io import save, load  # noqa: F401,E402
 from paddle_tpu_torch import fft, linalg  # noqa: F401,E402
 from paddle_tpu_torch import jit, inference  # noqa: F401,E402
 from paddle_tpu_torch import quantization, profiler, incubate  # noqa: F401,E402
+from paddle_tpu_torch import static  # noqa: F401,E402
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    """paddle.create_parameter: `static.create_parameter`, an eagerly made
+    Parameter."""
+    return static.create_parameter(shape, dtype, name=name, attr=attr,
+                                   is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
 
 _ops_patch._install_inplace_variants()
 

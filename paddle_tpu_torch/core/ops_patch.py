@@ -30,9 +30,44 @@ def _coerce_index(item, device):
     return item
 
 
+def _index_tensors(item):
+    """(item with each Tensor in it replaced by its slot number, the
+    Tensors): the index Tensors are inputs of the op, not closures."""
+    found = []
+
+    def walk(i):
+        if isinstance(i, tuple):
+            return tuple(walk(j) for j in i)
+        if isinstance(i, Tensor):
+            found.append(i)
+            return _Slot(len(found) - 1)
+        return i
+
+    return walk(item), found
+
+
+class _Slot:
+    __slots__ = ("n",)
+
+    def __init__(self, n):
+        self.n = n
+
+
+def _fill_index(item, idx_datas, device):
+    if isinstance(item, tuple):
+        return tuple(_fill_index(i, idx_datas, device) for i in item)
+    if isinstance(item, _Slot):
+        return idx_datas[item.n]
+    return _coerce_index(item, device)
+
+
 def _getitem(self, item):
-    idx = _coerce_index(item, self._data.device)
-    return apply(lambda a: a[idx], self, _name="getitem")
+    item, found = _index_tensors(item)
+    if not found:
+        idx = _coerce_index(item, self._data.device)
+        return apply(lambda a: a[idx], self, _name="getitem")
+    return apply(lambda a, *ix: a[_fill_index(item, ix, a.device)], self,
+                 *found, _name="getitem")
 
 
 def _setitem(self, item, value):

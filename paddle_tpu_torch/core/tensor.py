@@ -25,10 +25,14 @@ Tensors are created on the place `framework.device` gives: the device of
 
 AMP hangs on the dispatch waist as in the JAX package: inside
 `amp.auto_cast`, `apply` casts the float32 inputs of a white-list op (by
-its `_name`) to the AMP dtype before the op runs (`amp_local`). Not ported
-here: the waist's other hooks (the nan/inf sanitizer, the profiler's
-tracer, SOT capture, the static tape); each arrives with the slice that
-ports its subsystem.
+its `_name`) to the AMP dtype before the op runs (`amp_local`). The
+waist's other hooks are the JAX package's, each None while off so an op
+pays one None check for it: the nan/inf sanitizer and the profiler's
+tracer (`amp.debugging`, `profiler`), SOT's capture (`_op_capture`,
+`_concrete_hook` on `bool`/`int`/`float`/`item`, `_mutation_hook` before
+an in-place change or a read outside the waist; `jit.sot`) and the static
+tape (`_static_tape`, `static.graph`), which records an op over an
+abstract Variable instead of running it.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import time
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from paddle_tpu_torch.framework import device as _device
 from paddle_tpu_torch.framework import dtypes as _dtypes
@@ -197,6 +202,9 @@ class Tensor:
     def numpy(self):
         """A numpy copy. bfloat16 has no numpy dtype here, so a bf16
         tensor gives its raw bits as uint16, as Paddle's own does."""
+        if _mutation_hook is not None:
+            _mutation_hook(self, "numpy() materialization")
+        _check_concrete(self)
         d = self._data.detach()
         if d.dtype == torch.bfloat16:
             return d.view(torch.int16).cpu().numpy().view(np.uint16)
@@ -206,10 +214,17 @@ class Tensor:
         """numpy's `item`: no argument, one flat index or one index a dim."""
         d = self._data.detach()
         if len(args) == 1:
-            return d.reshape(-1)[args[0]].item()
-        return d[args].item() if args else d.item()
+            v = d.reshape(-1)[args[0]].item()
+        else:
+            v = d[args].item() if args else d.item()
+        if _concrete_hook is not None:
+            _concrete_hook(self, "item", v)
+        return v
 
     def tolist(self):
+        if _mutation_hook is not None:
+            _mutation_hook(self, "tolist() materialization")
+        _check_concrete(self)
         return self._data.tolist()
 
     def __array__(self, dtype=None, copy=None):
@@ -226,6 +241,10 @@ class Tensor:
         return apply(torch.clone, self, _name="clone")
 
     def detach(self):
+        if _op_capture is not None or _static_tape is not None:
+            # under SOT capture or static recording the detach must be an
+            # op of the tape, or a replay would read the captured value
+            return apply(torch.Tensor.detach, self, _name="detach")
         return Tensor(self._data.detach())
 
     def detach_(self):
@@ -294,6 +313,8 @@ class Tensor:
         """Make `new` this tensor's data, keeping the chain rule: `new`'s
         history is the op that made it. Under no_grad a leaf that needs a
         gradient stays one, with its gradient and hooks."""
+        if _mutation_hook is not None:
+            _mutation_hook(self, "in-place update")
         old = self._data
         if old.requires_grad and old.is_leaf:
             if torch.is_grad_enabled():
@@ -316,6 +337,8 @@ class Tensor:
     def _refill(self, data):
         """A fill: `data` becomes this tensor's value and its history is
         cut. It keeps its stop_gradient, and as a leaf its gradient."""
+        if _mutation_hook is not None:
+            _mutation_hook(self, "in-place refill")
         old = self._data
         new = data.detach().to(old.device)
         if old.requires_grad:
@@ -404,13 +427,22 @@ class Tensor:
                 f"place={self.place}{grad_info},\n       {body})")
 
     def __bool__(self):
-        return bool(self._data)
+        v = bool(self._data)
+        if _concrete_hook is not None:
+            _concrete_hook(self, "bool", v)
+        return v
 
     def __int__(self):
-        return int(self._data)
+        v = int(self._data)
+        if _concrete_hook is not None:
+            _concrete_hook(self, "int", v)
+        return v
 
     def __float__(self):
-        return float(self._data)
+        v = float(self._data)
+        if _concrete_hook is not None:
+            _concrete_hook(self, "float", v)
+        return v
 
     def __hash__(self):
         return id(self)
@@ -454,13 +486,47 @@ def _as_torch(x, like=None):
 # AMP dtype and the white and black lists), or no `state` outside one
 amp_local = threading.local()
 
-# the two hooks of the waist (`paddle_tpu/core/tensor.py:443-503`), None
+# the hooks of the waist (`paddle_tpu/core/tensor.py:443-503`), None
 # while off, so an op pays one None check for each: `_sanitizer(op_name,
 # outputs)` sees every op's torch outputs (the nan/inf checker and the
 # operator stats of `amp.debugging`), `_op_tracer(op_name, host_seconds)`
 # every op's host time (`profiler.Profiler`)
 _sanitizer = None
 _op_tracer = None
+# SOT's capture (`jit.sot`): `_op_capture(fn, in_tensors, cast_datas,
+# out_datas, name, grad_on)` records every op into a tape,
+# `_concrete_hook(tensor, kind, value)` every bool/int/float/item read (a
+# guard), `_mutation_hook(tensor, why)` every in-place change or read of a
+# tensor outside the waist (a break)
+_op_capture = None
+_concrete_hook = None
+_mutation_hook = None
+# every Tensor method that calls _mutation_hook (through `_rebind` or
+# `_refill` for the in-place ones); SOT's bytecode scan reads it, so its
+# diagnosis matches what a capture does
+MUTATION_METHODS = frozenset({
+    "numpy", "tolist", "copy_", "set_value", "add_", "subtract_",
+    "multiply_", "scale_", "clip_", "zero_", "fill_", "normal_",
+    "uniform_", "exponential_",
+})
+# the static recorder (`static.graph`): while set, an op with an abstract
+# Variable among its inputs is recorded into the active Program (its
+# outputs' shapes from a pass over fake tensors) instead of running
+_static_tape = None
+
+
+class TracedValueError(RuntimeError):
+    """A traced tensor's value was read: a static-graph Variable, or a
+    tensor of a `jit.to_static` trace (the counterpart of JAX's
+    TracerArrayConversionError)."""
+
+
+def _check_concrete(t):
+    if is_fake(t._data):
+        raise TracedValueError(
+            "this tensor is traced and has no value yet (a static-graph "
+            "Variable: fetch it through Executor.run(fetch_list=[...]); a "
+            "to_static trace: return it instead)")
 
 
 def apply(fn, *tensors, _name="op"):
@@ -470,6 +536,10 @@ def apply(fn, *tensors, _name="op"):
     names the op: inside an auto_cast scope, the float32 inputs of a
     white-list op are cast to the AMP dtype first (the cast is recorded,
     so gradients reach the float32 inputs)."""
+    if _static_tape is not None:
+        recorded = _static_tape.record(fn, tensors, _name)
+        if recorded is not None:
+            return recorded
     datas = [t._data for t in tensors]
     st = getattr(amp_local, "state", None)
     if st is not None and _name in st["white"]:
@@ -485,6 +555,9 @@ def apply(fn, *tensors, _name="op"):
     multi = isinstance(out, (tuple, list))
     if _sanitizer is not None:
         _sanitizer(_name, list(out) if multi else [out])
+    if _op_capture is not None:
+        _op_capture(fn, tensors, datas, list(out) if multi else [out],
+                    _name, torch.is_grad_enabled())
     if multi:
         return [Tensor(o) for o in out]
     return Tensor(out)

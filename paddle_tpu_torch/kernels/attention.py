@@ -32,6 +32,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from paddle_tpu_torch.kernels import _build
 
@@ -95,13 +96,22 @@ def _on_card(*tensors):
     return dev.type == "cuda"
 
 
+def _tracing(*tensors):
+    """True while a trace runs: `torch.compile` or `torch.export`, or any
+    of `tensors` fake (`make_fx`, a static Program's shape pass). A traced
+    tensor has no pointer to read, so a kernel's wrapper goes through its
+    custom operator, whose body reads the pointers at every call."""
+    return torch.compiler.is_compiling() or any(
+        is_fake(t) for t in tensors)
+
+
 def _dense(t):
     """t as the kernels read it: contiguous and 16-byte aligned (a fresh
     copy, differentiable, when a view is not). A caller that routes a
-    strided view to a kernel hands it this. While `torch.export` traces
-    there is no pointer to read: the program gets a `contiguous()` node,
-    and the kernel op's body checks the alignment at every call."""
-    if torch.compiler.is_compiling():
+    strided view to a kernel hands it this. While a trace runs there is no
+    pointer to read: the program gets a `contiguous()` node, and the
+    kernel op's body checks the alignment at every call."""
+    if _tracing(t):
         return t.contiguous()
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t

@@ -33,11 +33,16 @@ before Pᵀ·dO; dk and dv come back in f32, dq in q's dtype after
 through the operator `paddle_tpu_torch::flash_fwd` (a `torch.library`
 custom op with a registered backward), so a selective-checkpoint policy can
 name the forward and keep its outputs (`llama_functional` remat='lean').
+The backward is the operator `paddle_tpu_torch::flash_bwd` (B2 + B3): the
+pointer checks live in the operators' bodies, so a trace of a training
+step (`make_fx`, `torch.export`, `jit.to_static`, SOT, a static Program)
+holds one node for each, launched at its every call.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -46,7 +51,8 @@ from paddle_tpu_torch.kernels.attention import _on_card
 
 __all__ = ["flash_fwd", "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
            "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "flash_attention_fwd",
-           "flash_attention_with_lse", "FLASH_FWD_OP", "launches",
+           "flash_attention_with_lse", "FLASH_FWD_OP", "FLASH_BWD_OP",
+           "launches",
            "reset_launches", "KERNEL_HEAD_DIMS", "supports"]
 
 NEG_INF = -1e30
@@ -355,12 +361,30 @@ def _setup(ctx, inputs, output):
     ctx.set_materialize_grads(False)
 
 
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  causal: bool, sm_scale: float,
+                  g_lse: Optional[torch.Tensor]
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_bwd(q, k, v, o, lse, do, causal, sm_scale, g_lse)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal, sm_scale, g_lse):
+    return (torch.empty_like(q), k.new_empty(k.shape, dtype=torch.float32),
+            k.new_empty(k.shape, dtype=torch.float32))
+
+
 def _backward(ctx, g_out, g_lse):
+    """B2 and B3 through their operator: a traced backward holds one
+    `paddle_tpu_torch::flash_bwd` node, whose body checks the pointers and
+    launches both kernels at its every call."""
     q, k, v, out, lse = ctx.saved_tensors
     if g_out is None:
         g_out = torch.zeros_like(out)
-    dq, dk, dv = flash_bwd(q, k, v, out, lse, g_out, ctx.causal,
-                           ctx.sm_scale, g_lse)
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, lse, g_out, ctx.causal,
+                               ctx.sm_scale, g_lse)
     return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
@@ -368,6 +392,7 @@ _flash_fwd_op.register_autograd(_backward, setup_context=_setup)
 
 # the operator a checkpoint policy names to keep the forward's outputs
 FLASH_FWD_OP = torch.ops.paddle_tpu_torch.flash_fwd.default
+FLASH_BWD_OP = torch.ops.paddle_tpu_torch.flash_bwd.default
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):

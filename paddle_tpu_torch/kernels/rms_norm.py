@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.kernels import _build
-from paddle_tpu_torch.kernels.attention import _on_card, _raise_on
+from paddle_tpu_torch.kernels.attention import _on_card, _raise_on, _tracing
 
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
            "rms_norm_bwd_plain", "rms_norm", "supports", "launches",
@@ -290,18 +290,33 @@ def _setup(ctx, inputs, output):
     ctx.set_materialize_grads(False)
 
 
-def _backward(ctx, g_y, _g_r):
-    x, w, r = ctx.saved_tensors
-    if g_y is None:
-        return None, None, None
+@torch.library.custom_op("paddle_tpu_torch::rms_norm_bwd", mutates_args=())
+def _rms_norm_bwd_op(x: torch.Tensor, w: torch.Tensor, r: torch.Tensor,
+                     g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     h = x.shape[-1]
-    g2d = g_y.reshape(-1, h)
+    g2d = g.reshape(-1, h)
     # autograd may hand over an expanded or strided cotangent (the
     # gradient of a sum has stride 0): B10 reads dense, aligned rows
     if not g2d.is_contiguous() or g2d.data_ptr() % 16:
         g2d = g2d.clone(memory_format=torch.contiguous_format)
     dx, dw = rms_norm_bwd(x.reshape(-1, h), w, r, g2d)
-    return dx.reshape(x.shape), dw, None
+    return dx.reshape(x.shape), dw
+
+
+@_rms_norm_bwd_op.register_fake
+def _(x, w, r, g):
+    return x.new_empty(x.shape), w.new_empty(w.shape)
+
+
+def _backward(ctx, g_y, _g_r):
+    """B10 through its operator: a traced backward holds one
+    `paddle_tpu_torch::rms_norm_bwd` node, whose body makes the cotangent
+    dense and launches B10 at its every call."""
+    x, w, r = ctx.saved_tensors
+    if g_y is None:
+        return None, None, None
+    dx, dw = _rms_norm_bwd_op(x, w, r, g_y)
+    return dx, dw, None
 
 
 _rms_norm_op.register_autograd(_backward, setup_context=_setup)
@@ -311,10 +326,10 @@ def rms_norm(x, w, eps):
     """RMSNorm over the last dim of x [..., H] with weight w [H]: B9 on a
     CUDA tensor (its plain version on a CPU one). Differentiable through
     the custom operator, whose backward is B10; without a gradient to
-    take, the wrapper runs alone and stores no r. While `torch.export`
-    traces, the operator is the one node of the program, launched at its
-    every call."""
-    if torch.compiler.is_compiling() or (
+    take, the wrapper runs alone and stores no r. While a trace runs
+    (`_tracing`), the operator is the one node of the program, launched at
+    its every call, and its backward the one `rms_norm_bwd` node."""
+    if _tracing(x, w) or (
             torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         return _rms_norm_op(x, w, float(eps))[0]
     y, _ = rms_norm_fwd(x.reshape(-1, x.shape[-1]), w, eps, save_r=False)

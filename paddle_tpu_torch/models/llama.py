@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from paddle_tpu_torch.models import generation
 from paddle_tpu_torch.models.generation import QuantizedWeight
@@ -275,6 +276,10 @@ class LlamaRotaryEmbedding(pnn.Layer):
         key = (seq_len, dev)
         if key not in self._cache:
             cos, sin = lf.rope_tables(seq_len, self.head_dim, self.theta, dev)
+            if is_fake(cos):
+                # made under a trace (to_static, a static Program's shape
+                # pass): a node of that program, never a cached value
+                return Tensor(cos), Tensor(sin)
             self._cache[key] = (Tensor(cos), Tensor(sin))
         return self._cache[key]
 

@@ -24,7 +24,7 @@ import torch.nn.functional as TF
 from paddle_tpu_torch.core.tensor import Tensor, apply
 from paddle_tpu_torch.framework import dtypes as _dtypes
 from paddle_tpu_torch.framework import random as _rng
-from paddle_tpu_torch.ops._common import raw
+from paddle_tpu_torch.ops._common import as_input
 
 __all__ = [
     "linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
@@ -101,31 +101,30 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
 def embedding(x, weight, padding_idx=None, sparse=False, max_norm=None,
               norm_type=2.0, name=None):
     """Rows of weight at the ids x; the rows of `padding_idx` are 0 (and
-    take no gradient)."""
-    idx = raw(x)
-
-    def fn(w):
-        out = w[idx.to(w.device)]
+    take no gradient). The ids are an input of the op, not a closure."""
+    def fn(w, idx):
+        idx = idx.to(w.device)
+        out = w[idx]
         if padding_idx is not None and padding_idx >= 0:
-            out = torch.where((idx != padding_idx).to(w.device)[..., None],
-                              out, 0.0)
+            out = torch.where((idx != padding_idx)[..., None], out, 0.0)
         return out
 
-    return apply(fn, weight, _name="embedding")
+    return apply(fn, weight, as_input(x, weight._data), _name="embedding")
 
 
 def one_hot(x, num_classes, name=None):
-    idx = raw(x)
-    return Tensor(TF.one_hot(idx.long(), num_classes).to(torch.float32))
+    return apply(lambda idx: TF.one_hot(idx.long(), num_classes).to(
+        torch.float32), as_input(x), _name="one_hot")
 
 
 def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
-    def fn(lab):
-        if prior_dist is not None:
-            return (1.0 - epsilon) * lab + epsilon * raw(prior_dist, lab)
-        return (1.0 - epsilon) * lab + epsilon / lab.shape[-1]
-
-    return apply(fn, label, _name="label_smooth")
+    if prior_dist is None:
+        return apply(lambda lab: (1.0 - epsilon) * lab +
+                     epsilon / lab.shape[-1], label, _name="label_smooth")
+    return apply(lambda lab, prior: (1.0 - epsilon) * lab +
+                 epsilon * prior.to(lab.device),
+                 label, as_input(prior_dist, label._data),
+                 _name="label_smooth")
 
 
 # numpy's pad modes, which give the source index of every padded position
@@ -505,12 +504,13 @@ def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
 
 def sequence_mask(x, maxlen=None, dtype="int64", name=None):
     """mask[i.., j] = j < x[i..]; maxlen=None takes x.max()."""
-    lens = raw(x)
+    x = as_input(x)
     if maxlen is None:
-        maxlen = int(lens.max())
-    rng = torch.arange(int(maxlen), device=lens.device)
-    mask = rng < lens[..., None]
-    return Tensor(mask.to(_dtypes.convert_dtype(dtype)))
+        maxlen = int(apply(torch.amax, x, _name="max"))
+    dt = _dtypes.convert_dtype(dtype)
+    return apply(lambda lens: (torch.arange(int(maxlen), device=lens.device)
+                               < lens[..., None]).to(dt),
+                 x, _name="sequence_mask")
 
 
 def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",

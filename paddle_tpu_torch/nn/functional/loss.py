@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as TF
 
 from paddle_tpu_torch.core.tensor import apply
-from paddle_tpu_torch.ops._common import raw
+from paddle_tpu_torch.ops._common import as_input, raw
 
 __all__ = [
     "cross_entropy", "softmax_with_cross_entropy", "nll_loss", "mse_loss",
@@ -39,9 +39,7 @@ def _pick(logp, idx, axis):
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0, name=None):
-    lbl = raw(label)
-
-    def fn(logits, *w):
+    def fn(logits, lbl, *w):
         lg = logits.float()
         ax = axis % lg.ndim
         logp = torch.log_softmax(lg, dim=ax) if use_softmax else \
@@ -72,7 +70,8 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         return _reduce(loss, reduction)
 
     args = [weight] if weight is not None else []
-    return apply(fn, input, *args, _name="cross_entropy")
+    return apply(fn, input, as_input(label, input._data), *args,
+                 _name="cross_entropy")
 
 
 def softmax_with_cross_entropy(logits, label, soft_label=False,
@@ -91,9 +90,7 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
 
 def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
              name=None):
-    lbl = raw(label)
-
-    def fn(logp, *w):
+    def fn(logp, lbl, *w):
         lab = lbl.to(logp.device)
         valid = lab != ignore_index
         safe = torch.where(valid, lab, 0)
@@ -109,7 +106,8 @@ def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean",
         return _reduce(loss, reduction)
 
     args = [weight] if weight is not None else []
-    return apply(fn, input, *args, _name="nll_loss")
+    return apply(fn, input, as_input(label, input._data), *args,
+                 _name="nll_loss")
 
 
 def mse_loss(input, label, reduction="mean", name=None):

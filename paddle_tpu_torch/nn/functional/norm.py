@@ -26,7 +26,7 @@ import torch
 
 from paddle_tpu_torch.core.tensor import apply
 from paddle_tpu_torch.kernels import rms_norm as _rn
-from paddle_tpu_torch.kernels.attention import _dense, _on_card
+from paddle_tpu_torch.kernels.attention import _dense, _on_card, _tracing
 
 __all__ = [
     "layer_norm", "rms_norm", "batch_norm", "instance_norm", "group_norm",
@@ -75,7 +75,7 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     cast to x's dtype, times weight. On the card and on B9's gate, kernel
     B9 (backward B10); else the plain composite."""
     def fn(a, *w):
-        if w and (_on_card(a, w[0]) or torch.compiler.is_compiling()) \
+        if w and (_on_card(a, w[0]) or _tracing(a, w[0])) \
                 and _rn.supports(a, w[0]):
             return _rn.rms_norm(_dense(a), _dense(w[0]), epsilon)
         return _rms_plain(a, epsilon, *w)

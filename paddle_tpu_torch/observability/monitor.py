@@ -80,6 +80,11 @@ class TrainingMonitor:
         return torch.cuda.max_memory_allocated(self.device)
 
     # -- step bracketing ----------------------------------------------------
+    def record_compile(self, kind="train_step"):
+        """Count one compilation (a static Executor's traced step)."""
+        self.registry.inc("train/compiles",
+                          labels={"source": self.source, "kind": kind})
+
     def start_step(self):
         self._t0 = time.perf_counter()
 

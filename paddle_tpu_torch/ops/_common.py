@@ -3,6 +3,7 @@
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import tensor as _tc
 from paddle_tpu_torch.core.tensor import Tensor, _as_torch
 from paddle_tpu_torch.framework import device as _device
 from paddle_tpu_torch.framework import dtypes as _dtypes
@@ -30,13 +31,28 @@ def dims(axis, ndim):
 
 def raw(v, ref=None):
     """The torch tensor of a Tensor, or of Python / numpy data (on `ref`'s
-    device when given)."""
+    device when given). Reading a Tensor here, outside the dispatch waist,
+    is a closure over its value: SOT's capture marks the call
+    uncapturable (`_mutation_hook`), and a static Program refuses an
+    abstract Variable. An op that reads a Tensor passes it to `apply`
+    instead (`as_input`)."""
     if isinstance(v, Tensor):
+        if _tc._mutation_hook is not None:
+            _tc._mutation_hook(v, "read outside the dispatch waist")
+        if _tc._static_tape is not None:
+            _tc._check_concrete(v)
         return v._data
     if isinstance(v, torch.Tensor):
         return v
     return torch.as_tensor(np.asarray(v),
                            device=None if ref is None else ref.device)
+
+
+def as_input(v, ref=None):
+    """v as a Tensor an op passes to `apply` (Python or numpy data made a
+    constant on `ref`'s device), so that SOT and the static recorder see
+    every tensor the op reads."""
+    return v if isinstance(v, Tensor) else Tensor(raw(v, ref))
 
 
 def scalar(v):
@@ -68,15 +84,23 @@ def place():
     return _device.place()
 
 
+_INTS = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
+
+
 def as_tensor(v, ref):
     """`v` as a torch tensor on `ref`'s device; a Python float takes a
-    floating `ref`'s dtype, as a weak scalar does in JAX."""
+    floating `ref`'s dtype and a Python int an integer `ref`'s, as a weak
+    scalar does in JAX (int32 + 1 stays int32)."""
     if isinstance(v, Tensor):
         return v._data
     if isinstance(v, torch.Tensor):
         return v
     if isinstance(v, float) and (ref.dtype.is_floating_point
                                  or ref.dtype.is_complex):
+        return torch.tensor(v, dtype=ref.dtype, device=ref.device)
+    if isinstance(v, int) and not isinstance(v, bool) and \
+            ref.dtype in _INTS and \
+            torch.iinfo(ref.dtype).min <= v <= torch.iinfo(ref.dtype).max:
         return torch.tensor(v, dtype=ref.dtype, device=ref.device)
     return _as_torch(v, like=ref)
 

@@ -23,7 +23,7 @@ import torch
 from paddle_tpu_torch.core.tensor import Tensor, apply, apply_multi
 from paddle_tpu_torch.framework import device as _device
 from paddle_tpu_torch.framework import dtypes as _dtypes
-from paddle_tpu_torch.ops._common import raw as _raw, waits_for
+from paddle_tpu_torch.ops._common import raw as _raw
 
 __all__ = [
     "pi", "e", "inf", "nan", "newaxis", "float8_e4m3fn", "float8_e5m2",
@@ -396,15 +396,24 @@ def t_alias(x, name=None):
 
 
 def enable_static():
-    raise waits_for("enable_static", "A10f", "the static graph")
+    """Enter static-graph mode (reference `paddle.enable_static`): ops on
+    `static.data` Variables are recorded into the default Program instead
+    of running; `static.Executor` runs them (`static/graph.py`)."""
+    from paddle_tpu_torch.static.graph import enable_static_graph
+
+    enable_static_graph()
 
 
 def disable_static():
-    raise waits_for("disable_static", "A10f", "the static graph")
+    from paddle_tpu_torch.static.graph import disable_static_graph
+
+    disable_static_graph()
 
 
 def in_dynamic_mode():
-    return True
+    from paddle_tpu_torch.static.graph import in_static_graph_mode
+
+    return not in_static_graph_mode()
 
 
 def disable_signal_handler():

@@ -164,6 +164,16 @@ class Optimizer:
                 self._update_param(p, g, plr)
 
     def minimize(self, loss, startup_program=None, parameters=None, no_grad_set=None):
+        from paddle_tpu_torch.static import graph as _graph
+
+        if _graph.in_static_graph_mode() and \
+                _graph.default_main_program().is_variable(loss):
+            # static-graph mode: the update is recorded on the Program, and
+            # the Executor traces the gradients and the functional rule
+            # into the train step (the reference's minimize appends the
+            # backward and optimizer ops to the ProgramDesc)
+            _graph.default_main_program().record_minimize(self, loss)
+            return None, None
         loss.backward()
         self.step()
         self.clear_grad()

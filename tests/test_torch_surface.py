@@ -4,9 +4,10 @@ callable of the op modules, of `linalg`, `fft`, `framework/io` and of
 case in the op table; `_C_ops` has the JAX module's names with equal
 signatures; every Tensor method the JAX package installs is a method of the
 port's Tensor. What waits for a later slice is explicit here (and in
-ROADMAP): the names that raise NotImplementedError naming their slice
-(`LATER`), the Tensor methods not ported yet (`PART2_TENSOR_METHODS`) and
-the `_C_ops` targets in unported namespaces (`C_OPS_LATER`)."""
+ROADMAP): the Tensor methods not ported yet (`PART2_TENSOR_METHODS`) and
+the `_C_ops` targets in unported namespaces (`C_OPS_LATER`). The static
+mode's toggles (`STATIC_TOGGLES`) are not ops and have no case in the op
+table."""
 
 import jax  # noqa: F401  (JAX stays on the CPU: JAX_PLATFORMS=cpu)
 import importlib
@@ -28,12 +29,11 @@ torch.set_num_threads(1)
 
 MODULES = ("creation", "math", "manipulation", "logic", "search", "linalg")
 
-# the names the port exports whose JAX body reaches a subsystem a later
-# slice ports: calling one raises NotImplementedError naming its slice
-LATER = {"enable_static": "A10f", "disable_static": "A10f"}
-# the Tensor methods still to port: paddle_tpu.signal (A10g) and
-# static.create_parameter (A10f)
-PART2_TENSOR_METHODS = {"stft", "istft", "create_parameter"}
+# the static graph's mode toggles of extras (ported with A10f part 2): not
+# ops, so the op table has no case for them
+STATIC_TOGGLES = ("disable_static", "enable_static")
+# the Tensor methods still to port: paddle_tpu.signal (A10g)
+PART2_TENSOR_METHODS = {"stft", "istft"}
 # `_C_ops` targets in namespaces a later slice ports (they raise when
 # called): geometric, signal and text (A10g); the 10 quantization targets
 # resolve since A10f part 1
@@ -78,8 +78,8 @@ def test_the_six_modules_hold_315_ops():
 @pytest.mark.parametrize("ref_name", sorted(PART2))
 def test_every_part_2_callable_is_exported_and_has_a_case(ref_name):
     """extras, legacy_ps, fft and the seven nn.functional files: the same
-    public callables, each with a case in the op table (the LATER names
-    instead raise naming their slice)."""
+    public callables, each with a case in the op table (but the static
+    mode's toggles, which are not ops)."""
     ref = importlib.import_module(ref_name)
     port = importlib.import_module(ref_name.replace("paddle_tpu",
                                                     "paddle_tpu_torch", 1))
@@ -92,7 +92,7 @@ def test_every_part_2_callable_is_exported_and_has_a_case(ref_name):
     exported = {n for n in set(port.__all__) | set(names)
                 if callable(getattr(port, n))}
     assert {c.name for c in T.cases(PART2[ref_name])} == \
-        exported - set(LATER)
+        exported - set(STATIC_TOGGLES)
 
 
 def test_the_namespaces_and_io_match_the_jax_packages():
@@ -115,10 +115,22 @@ def test_the_namespaces_and_io_match_the_jax_packages():
     assert len(ref_names) == 127 + 6
 
 
-@pytest.mark.parametrize("name", sorted(LATER))
+@pytest.mark.parametrize("name", STATIC_TOGGLES)
 def test_a_name_that_waits_raises_naming_its_slice(name):
-    with pytest.raises(NotImplementedError, match=LATER[name]):
-        getattr(paddle_tpu_torch, name)()
+    """The toggles waited for A10f part 2 and raised; they are ported now:
+    each is extras' callable and switches the static recorder."""
+    from paddle_tpu_torch.static import graph
+
+    fn = getattr(paddle_tpu_torch, name)
+    assert fn is getattr(paddle_tpu_torch.ops.extras, name)
+    assert hasattr(paddle_tpu, name)
+    try:
+        fn()
+        assert graph.in_static_graph_mode() == (name == "enable_static")
+        assert paddle_tpu_torch.in_dynamic_mode() == (
+            name == "disable_static")
+    finally:
+        paddle_tpu_torch.disable_static()
 
 
 def test_c_ops_has_the_jax_modules_names_and_signatures():
@@ -174,9 +186,8 @@ def test_the_top_level_namespace_carries_the_six_modules():
                  and callable(getattr(paddle_tpu, n))}
     missing = {n for n in ref_names if not hasattr(paddle_tpu_torch, n)}
     # not ops: the dispatch waist the JAX package's star imports carry
-    # along; static's create_parameter (A10f)
-    assert missing == {"apply", "apply_multi", "builtins_slice",
-                       "create_parameter"}
+    # along (create_parameter is ported with static, A10f part 2)
+    assert missing == {"apply", "apply_multi", "builtins_slice"}
     for n in ("to_tensor", "Tensor", "grad", "no_grad", "seed",
               "set_device", "matmul", "save", "load", "block_diag",
               "batch_fc", "float8_e4m3fn"):
@@ -186,8 +197,9 @@ def test_the_top_level_namespace_carries_the_six_modules():
 # the training API (ROADMAP A10b), vision (A10d), the models and the
 # one-card Engine (A10c), jit.save/load and the Predictor (A10e),
 # quantization, the profiler, amp.debugging, fleet.recompute and
-# incubate.nn (A10f part 1): the namespaces the port exports with the JAX
-# package's names, and what waits for a later slice, by slice
+# incubate.nn (A10f part 1), to_static, dy2static, SOT and paddle.static
+# (A10f part 2): the namespaces the port exports with the JAX package's
+# names, and what waits for a later slice, by slice
 TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "optimizer.lr", "amp", "io", "metric", "hapi",
                        "hapi.callbacks", "vision", "vision.models",
@@ -197,11 +209,9 @@ TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "inference", "quantization", "quantization.ptq_int8",
                        "profiler", "profiler.profiler_statistic",
                        "amp.debugging", "distributed.fleet.recompute",
-                       "incubate.nn", "incubate.nn.functional")
+                       "incubate.nn", "incubate.nn.functional", "static",
+                       "static.nn", "jit.dy2static", "jit.sot")
 TRAINING_LATER = {
-    # dynamic-to-static and SOT: A10f part 2 (the names of `jit` that are
-    # functions or classes raise naming it, JIT_LATER)
-    "jit": {n: "A10f" for n in ("Dy2StaticFallback", "dy2static", "sot")},
     # the mesh, its sharding types and the spec helper: A9
     "distributed.engine": {n: "A9" for n in ("shard_first_free_axis",
                                              "Mesh", "NamedSharding", "P")},
@@ -267,21 +277,28 @@ def test_training_namespace_has_the_jax_packages_names(path):
     assert set(later) <= want
 
 
-# the names of the JAX package's `jit` the port exports only to raise:
-# dynamic-to-static, SOT and their knobs wait for ROADMAP A10f part 2
+# the names of the JAX package's `jit` that raised until ROADMAP A10f part
+# 2 ported dynamic-to-static, SOT and their knobs
 JIT_LATER = ("to_static", "functionalize", "not_to_static", "ignore_module",
              "TracedLayer", "TranslatedLayer", "StaticFunction",
              "fallback_count", "fallback_report", "symbolic_translate",
              "sot_report", "set_code_level", "set_verbosity",
              "enable_to_static")
+# where each one lives in the port (the rest are defined in `jit`)
+JIT_HOMES = {"symbolic_translate": "paddle_tpu_torch.jit.sot",
+             "sot_report": "paddle_tpu_torch.jit.sot"}
 
 
 @pytest.mark.parametrize("name", JIT_LATER)
 def test_unported_jit_names_raise_naming_a10f(name):
+    """Each name is the ported callable: defined in the port's `jit` (or
+    `jit.sot`), of the JAX package's kind (a class or a function)."""
     fn = getattr(paddle_tpu_torch.jit, name)
-    assert hasattr(paddle_tpu.jit, name)
-    with pytest.raises(NotImplementedError, match="A10f part 2"):
-        fn(None)
+    ref = getattr(paddle_tpu.jit, name)
+    assert callable(fn)
+    assert fn.__module__ == JIT_HOMES.get(name, "paddle_tpu_torch.jit")
+    assert inspect.isclass(fn) == inspect.isclass(ref)
+    assert "A10f" not in (fn.__doc__ or "")
 
 
 def test_distributed_exports_the_engine():
