@@ -146,7 +146,19 @@ def lib(name="attention"):
 def launch(name, fn, device, *args):
     """Call C entry point `fn` of library `name` with `args` and the current
     stream of `device`, under a guard of `device` (the tensors' device);
-    returns the entry point's CUDA error code."""
+    returns the entry point's CUDA error code.
+
+    Raises while a proxy tracer (`make_fx` in real mode) records: the
+    launch would write its output off the record, and the graph would hold
+    an empty buffer in its place. A kernel's custom operator is one node
+    of such a trace, and its body runs with the tracer off, so it reaches
+    here only when the program runs."""
+    if torch._C._get_dispatch_mode(
+            torch._C._TorchDispatchModeKey.PROXY) is not None:
+        raise RuntimeError(
+            f"{fn}: a kernel launch while a proxy tracer records real "
+            "tensors; trace with fake tensors (make_fx(tracing_mode="
+            "'fake')), where the wrappers go through their operators")
     with torch.cuda.device(device):
         return getattr(lib(name), fn)(
             *args, torch.cuda.current_stream(device).cuda_stream)

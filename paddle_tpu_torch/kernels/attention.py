@@ -18,6 +18,17 @@ back: a CUDA tensor never reaches a plain version. `launches` counts the
 kernel launches of each wrapper (a plain call counts nothing), so a run
 can show that its main path went through the kernels.
 
+While a trace runs (`_tracing`: `make_fx` over fake tensors,
+`torch.export`, `torch.compile`) each wrapper goes through its custom
+operator instead, B8's pattern: `paddle_tpu_torch::decode_attention`,
+`::window_attention`, `::paged_decode_attention` and
+`::paged_decode_attention_q8`. A traced program holds one node per call;
+the host's ints (the split count the wrapper reads off `decode_splits`,
+`window_splits` or `paged_splits`, the scale) are the node's arguments,
+fixed at trace time as the reference fixes a static argument, and the
+operator's body checks the pointers and launches the kernel at every call
+of the program (its plain version on CPU tensors).
+
 Layouts are the reference's: q [b, s, nh, hd] (s = 1 for B4/B6), the
 contiguous cache [b, nkv, len, hd], the page pool [num_pages, nkv, ps, hd]
 with block tables [b, P] (page i of row r holds its positions
@@ -43,7 +54,8 @@ __all__ = ["decode_attention", "window_attention", "paged_decode_attention",
            "row_splits", "cut_keys", "window_splits", "window_split_keys",
            "paged_route", "paged_splits", "paged_split_keys",
            "decode_splits", "decode_split_keys", "WINDOW_SPLIT_TILES",
-           "PAGED_SPLIT_TILES"]
+           "PAGED_SPLIT_TILES", "DECODE_ATTENTION_OP", "WINDOW_ATTENTION_OP",
+           "PAGED_DECODE_ATTENTION_OP", "PAGED_DECODE_ATTENTION_Q8_OP"]
 
 NEG_INF = -1e30
 # flattened query rows (s * g) a window kernel block holds; wider windows
@@ -372,8 +384,208 @@ def paged_decode_attention_plain(q, pool_k, pool_v, block_tables, pos,
 
 
 # ---------------------------------------------------------------------------
+# launches (the pointer checks and the kernel call, on CUDA tensors)
+# ---------------------------------------------------------------------------
+
+
+def _check_q_pairs(q, splits):
+    """The cluster route reads q a column pair at a time."""
+    if splits and q.data_ptr() % 4:
+        raise ValueError("q must be 4-byte aligned (read a column pair at a "
+                         "time)")
+
+
+def _decode_kernel(q, cache_k, cache_v, pos_t, splits, scale):
+    """B4 on the card: `splits` blocks a (kv head, row) cluster, 0 for the
+    shared body."""
+    b, _, nh, hd = q.shape
+    nkv, max_len = cache_k.shape[1], cache_k.shape[2]
+    _check_kernel(q, (cache_k, cache_v), nh // nkv)
+    _check_q_pairs(q, splits)
+    out = torch.empty_like(q)
+    rc = _build.launch(
+        "attention", "pt_decode_attention", q.device, q.data_ptr(),
+        cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
+        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype],
+        PAGED_SPLIT_TILES, splits, scale)
+    _raise_on(rc, "decode_attention")
+    launches["decode_attention"] += 1
+    return out
+
+
+def _window_kernel(q, cache_k, cache_v, pos_t, splits, scale):
+    """B5 on the card, its keys split over a cluster of `splits` blocks."""
+    b, s, nh, hd = q.shape
+    nkv, max_len = cache_k.shape[1], cache_k.shape[2]
+    _check_kernel(q, (cache_k, cache_v), s * (nh // nkv))
+    out = torch.empty_like(q)
+    rc = _build.launch(
+        "attention", "pt_window_attention", q.device, q.data_ptr(),
+        cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
+        out.data_ptr(), b, s, nh, nkv, max_len, hd, _DTYPES[q.dtype],
+        WINDOW_SPLIT_TILES, splits, scale)
+    _raise_on(rc, "window_attention")
+    launches["window_attention"] += 1
+    return out
+
+
+def _paged_kernel(q, pool_k, pool_v, block_tables, pos_t, splits, scale,
+                  k_scale=None, v_scale=None):
+    """B6 on the card, or B7 over an int8 pool with its scales."""
+    b, _, nh, hd = q.shape
+    nkv, ps = pool_k.shape[1], pool_k.shape[2]
+    P = block_tables.shape[1]
+    quantized = k_scale is not None
+    if quantized:
+        _check_kernel(q, (), nh // nkv)
+        for t in (pool_k, pool_v, k_scale, v_scale):
+            if not t.is_contiguous():
+                raise ValueError("kernel inputs must be contiguous")
+        for t in (pool_k, pool_v):
+            if t.data_ptr() % 16:
+                raise ValueError("kernel K/V must be 16-byte aligned")
+    else:
+        _check_kernel(q, (pool_k, pool_v), nh // nkv)
+    if block_tables.dtype != torch.int32 or not block_tables.is_contiguous():
+        raise TypeError("block tables must be contiguous int32")
+    _check_q_pairs(q, splits)
+    out = torch.empty_like(q)
+    if quantized:
+        rc = _build.launch(
+            "attention", "pt_paged_decode_attention_q8", q.device,
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
+            pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
+            _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, scale)
+        name = "paged_decode_attention_int8"
+    else:
+        rc = _build.launch(
+            "attention", "pt_paged_decode_attention", q.device, q.data_ptr(),
+            pool_k.data_ptr(), pool_v.data_ptr(), block_tables.data_ptr(),
+            pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
+            _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, scale)
+        name = "paged_decode_attention"
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# custom operators: one node of a traced program each, launched at its call
+# ---------------------------------------------------------------------------
+
+
+@torch.library.custom_op("paddle_tpu_torch::decode_attention",
+                         mutates_args=())
+def _decode_attention_op(q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor, pos: torch.Tensor,
+                         splits: int, scale: float) -> torch.Tensor:
+    """B4 on CUDA tensors (`splits` from `decode_splits`), its plain
+    version on CPU tensors."""
+    if not _on_card(q, cache_k, cache_v, pos):
+        return decode_attention_plain(q, cache_k, cache_v, pos,
+                                      scale).contiguous()
+    return _decode_kernel(q, cache_k, cache_v, pos, splits, scale)
+
+
+@_decode_attention_op.register_fake
+def _(q, cache_k, cache_v, pos, splits, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::window_attention",
+                         mutates_args=())
+def _window_attention_op(q: torch.Tensor, cache_k: torch.Tensor,
+                         cache_v: torch.Tensor, pos: torch.Tensor,
+                         splits: int, scale: float) -> torch.Tensor:
+    """B5 on CUDA tensors (`splits` from `window_splits`), its plain
+    version on CPU tensors."""
+    if not _on_card(q, cache_k, cache_v, pos):
+        return window_attention_plain(q, cache_k, cache_v, pos,
+                                      scale).contiguous()
+    return _window_kernel(q, cache_k, cache_v, pos, splits, scale)
+
+
+@_window_attention_op.register_fake
+def _(q, cache_k, cache_v, pos, splits, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::paged_decode_attention",
+                         mutates_args=())
+def _paged_decode_attention_op(q: torch.Tensor, pool_k: torch.Tensor,
+                               pool_v: torch.Tensor,
+                               block_tables: torch.Tensor, pos: torch.Tensor,
+                               splits: int, scale: float) -> torch.Tensor:
+    """B6 on CUDA tensors (`splits` from `paged_splits`), its plain
+    version on CPU tensors."""
+    if not _on_card(q, pool_k, pool_v, block_tables, pos):
+        return paged_decode_attention_plain(
+            q, pool_k, pool_v, block_tables, pos, scale).contiguous()
+    return _paged_kernel(q, pool_k, pool_v, block_tables, pos, splits, scale)
+
+
+@_paged_decode_attention_op.register_fake
+def _(q, pool_k, pool_v, block_tables, pos, splits, scale):
+    return q.new_empty(q.shape)
+
+
+@torch.library.custom_op("paddle_tpu_torch::paged_decode_attention_q8",
+                         mutates_args=())
+def _paged_decode_attention_q8_op(
+        q: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+        k_scale: torch.Tensor, v_scale: torch.Tensor,
+        block_tables: torch.Tensor, pos: torch.Tensor, splits: int,
+        scale: float) -> torch.Tensor:
+    """B7 on CUDA tensors, its plain version on CPU tensors."""
+    if not _on_card(q, pool_k, pool_v, k_scale, v_scale, block_tables, pos):
+        return paged_decode_attention_plain(
+            q, pool_k, pool_v, block_tables, pos, scale, k_scale,
+            v_scale).contiguous()
+    return _paged_kernel(q, pool_k, pool_v, block_tables, pos, splits, scale,
+                         k_scale, v_scale)
+
+
+@_paged_decode_attention_q8_op.register_fake
+def _(q, pool_k, pool_v, k_scale, v_scale, block_tables, pos, splits, scale):
+    return q.new_empty(q.shape)
+
+
+# the operators' overloads, as a traced graph names them
+DECODE_ATTENTION_OP = torch.ops.paddle_tpu_torch.decode_attention.default
+WINDOW_ATTENTION_OP = torch.ops.paddle_tpu_torch.window_attention.default
+PAGED_DECODE_ATTENTION_OP = \
+    torch.ops.paddle_tpu_torch.paged_decode_attention.default
+PAGED_DECODE_ATTENTION_Q8_OP = \
+    torch.ops.paddle_tpu_torch.paged_decode_attention_q8.default
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
+
+
+def _decode_host_splits(q, pos, max_len):
+    """B4's split count as the host knows it (0: the shared body)."""
+    if paged_route(q.dtype) != "cluster":
+        return 0
+    return decode_splits(_window_last(pos, 1, max_len))
+
+
+def _window_host_splits(q, pos, s, max_len):
+    """B5's cluster as the host knows it."""
+    if q.dtype != torch.bfloat16:
+        return 1
+    return window_splits(_window_last(pos, s, max_len))
+
+
+def _paged_host_splits(q, P, ps, max_pos):
+    """B6's and B7's split count as the host knows it (0: the shared
+    body)."""
+    if paged_route(q.dtype) != "cluster":
+        return 0
+    return paged_splits(P, ps, max_pos)
+
 
 
 def decode_attention(q, cache_k, cache_v, pos, scale=None):
@@ -394,25 +606,17 @@ def decode_attention(q, cache_k, cache_v, pos, scale=None):
                          f"{tuple(q.shape)}")
     nkv, max_len = cache_k.shape[1], cache_k.shape[2]
     _check_gqa(q, nkv, cache_k.shape[3])
-    if not _on_card(q, cache_k, cache_v):
+    card = _on_card(q, cache_k, cache_v)
+    if _tracing(q, cache_k, cache_v, pos):
+        splits = _decode_host_splits(q, pos, max_len) if card else 0
+        return _decode_attention_op(q, cache_k, cache_v,
+                                    _int32_on(pos, b, q.device), splits,
+                                    _scale(scale, hd))
+    if not card:
         return decode_attention_plain(q, cache_k, cache_v, pos, scale)
-    _check_kernel(q, (cache_k, cache_v), nh // nkv)
-    splits = 0                          # the shared body
-    if paged_route(q.dtype) == "cluster":
-        if q.data_ptr() % 4:
-            raise ValueError("q must be 4-byte aligned (read a column pair "
-                             "at a time)")
-        splits = decode_splits(_window_last(pos, 1, max_len))
-    pos_t = _int32_on(pos, b, q.device)
-    out = torch.empty_like(q)
-    rc = _build.launch(
-        "attention", "pt_decode_attention", q.device, q.data_ptr(),
-        cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
-        out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype],
-        PAGED_SPLIT_TILES, splits, _scale(scale, hd))
-    _raise_on(rc, "decode_attention")
-    launches["decode_attention"] += 1
-    return out
+    return _decode_kernel(q, cache_k, cache_v, _int32_on(pos, b, q.device),
+                          _decode_host_splits(q, pos, max_len),
+                          _scale(scale, hd))
 
 
 def window_attention(q, cache_k, cache_v, pos, scale=None):
@@ -431,21 +635,17 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
                          f"{tuple(q.shape)}")
     nkv, max_len = cache_k.shape[1], cache_k.shape[2]
     _check_gqa(q, nkv, cache_k.shape[3])
-    if not _on_card(q, cache_k, cache_v):
+    card = _on_card(q, cache_k, cache_v)
+    if _tracing(q, cache_k, cache_v, pos):
+        splits = _window_host_splits(q, pos, s, max_len) if card else 1
+        return _window_attention_op(q, cache_k, cache_v,
+                                    _int32_on(pos, b, q.device), splits,
+                                    _scale(scale, hd))
+    if not card:
         return window_attention_plain(q, cache_k, cache_v, pos, scale)
-    _check_kernel(q, (cache_k, cache_v), s * (nh // nkv))
-    splits = (window_splits(_window_last(pos, s, max_len))
-              if q.dtype == torch.bfloat16 else 1)
-    pos_t = _int32_on(pos, b, q.device)
-    out = torch.empty_like(q)
-    rc = _build.launch(
-        "attention", "pt_window_attention", q.device, q.data_ptr(),
-        cache_k.data_ptr(), cache_v.data_ptr(), pos_t.data_ptr(),
-        out.data_ptr(), b, s, nh, nkv, max_len, hd, _DTYPES[q.dtype],
-        WINDOW_SPLIT_TILES, splits, _scale(scale, hd))
-    _raise_on(rc, "window_attention")
-    launches["window_attention"] += 1
-    return out
+    return _window_kernel(q, cache_k, cache_v, _int32_on(pos, b, q.device),
+                          _window_host_splits(q, pos, s, max_len),
+                          _scale(scale, hd))
 
 
 def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
@@ -481,44 +681,20 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
         _check_scales(pool_k, pool_v, k_scale, v_scale)
     tensors = (q, pool_k, pool_v, block_tables) + (
         (k_scale, v_scale) if quantized else ())
-    if not _on_card(*tensors):
+    card = _on_card(*tensors)
+    if _tracing(*tensors, pos):
+        splits = _paged_host_splits(q, P, ps, max_pos) if card else 0
+        pos_t = _int32_on(pos, b, q.device)
+        if quantized:
+            return _paged_decode_attention_q8_op(
+                q, pool_k, pool_v, k_scale, v_scale, block_tables, pos_t,
+                splits, _scale(scale, hd))
+        return _paged_decode_attention_op(q, pool_k, pool_v, block_tables,
+                                          pos_t, splits, _scale(scale, hd))
+    if not card:
         return paged_decode_attention_plain(q, pool_k, pool_v, block_tables,
                                             pos, scale, k_scale, v_scale)
-    if quantized:
-        _check_kernel(q, (), nh // nkv)
-        for t in (pool_k, pool_v, k_scale, v_scale):
-            if not t.is_contiguous():
-                raise ValueError("kernel inputs must be contiguous")
-        for t in (pool_k, pool_v):
-            if t.data_ptr() % 16:
-                raise ValueError("kernel K/V must be 16-byte aligned")
-    else:
-        _check_kernel(q, (pool_k, pool_v), nh // nkv)
-    if block_tables.dtype != torch.int32 or not block_tables.is_contiguous():
-        raise TypeError("block tables must be contiguous int32")
-    splits = 0                          # the shared body
-    if paged_route(q.dtype) == "cluster":
-        if q.data_ptr() % 4:
-            raise ValueError("q must be 4-byte aligned (read a column pair "
-                             "at a time)")
-        splits = paged_splits(P, ps, max_pos)
-    pos_t = _int32_on(pos, b, q.device)
-    out = torch.empty_like(q)
-    if quantized:
-        rc = _build.launch(
-            "attention", "pt_paged_decode_attention_q8", q.device,
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), block_tables.data_ptr(),
-            pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, _scale(scale, hd))
-        name = "paged_decode_attention_int8"
-    else:
-        rc = _build.launch(
-            "attention", "pt_paged_decode_attention", q.device, q.data_ptr(),
-            pool_k.data_ptr(), pool_v.data_ptr(), block_tables.data_ptr(),
-            pos_t.data_ptr(), out.data_ptr(), b, nh, nkv, ps, P, hd,
-            _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, _scale(scale, hd))
-        name = "paged_decode_attention"
-    _raise_on(rc, name)
-    launches[name] += 1
-    return out
+    return _paged_kernel(q, pool_k, pool_v, block_tables,
+                         _int32_on(pos, b, q.device),
+                         _paged_host_splits(q, P, ps, max_pos),
+                         _scale(scale, hd), k_scale, v_scale)

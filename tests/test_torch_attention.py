@@ -457,3 +457,109 @@ def test_b4_bar_rejects_planted_faults():
     for fault, wrong, right in faults:
         ratio = cs.flash_row_ratio(torch, wrong, right, cs.TOL["bfloat16"])
         assert not ratio <= 1.0, fault
+
+
+# ---------------------------------------------------------------------------
+# B4-B7 as custom operators: the node a traced program holds
+# ---------------------------------------------------------------------------
+
+
+def _op_inputs(which, dtype=torch.float32):
+    """Small CPU inputs of one wrapper (GQA g = 2, ragged rows): (wrapper,
+    args, kwargs, operator)."""
+    rng = np.random.default_rng(3)
+    b, nh, nkv, hd, ps, P = 3, 4, 2, 32, 8, 4
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dtype)
+
+    pos = torch.tensor([0, 13, 31], dtype=torch.int32)
+    if which in ("decode", "window"):
+        s = 1 if which == "decode" else 3
+        q, ck, cv = t(b, s, nh, hd), t(b, nkv, 40, hd), t(b, nkv, 40, hd)
+        fn = at.decode_attention if which == "decode" else \
+            at.window_attention
+        op = at.DECODE_ATTENTION_OP if which == "decode" else \
+            at.WINDOW_ATTENTION_OP
+        return fn, (q, ck, cv, pos), {}, op
+    pages = 1 + b * P
+    bt = torch.from_numpy(rng.permutation(np.arange(1, pages))
+                          .reshape(b, P).astype(np.int32))
+    q = t(b, 1, nh, hd)
+    if which == "paged":
+        return (at.paged_decode_attention,
+                (q, t(pages, nkv, ps, hd), t(pages, nkv, ps, hd), bt, pos),
+                {"max_pos": 31}, at.PAGED_DECODE_ATTENTION_OP)
+    codes = [torch.from_numpy(rng.integers(-127, 128, (pages, nkv, ps, hd))
+                              .astype(np.int8)) for _ in range(2)]
+    scales = [torch.from_numpy(rng.uniform(0.5, 2.0, (pages, nkv))
+                               .astype(np.float32)) for _ in range(2)]
+    return (at.paged_decode_attention, (q, *codes, bt, pos),
+            {"k_scale": scales[0], "v_scale": scales[1]},
+            at.PAGED_DECODE_ATTENTION_Q8_OP)
+
+
+OP_KINDS = ["decode", "window", "paged", "paged_q8"]
+
+
+@pytest.mark.parametrize("which", OP_KINDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_operator_fake_gives_the_output_shape_and_dtype(which, dtype):
+    """Each operator's fake: q's shape and dtype, contiguous, over fake
+    tensors of every input (no pointer read)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    fn, args, kw, op = _op_inputs(which, dtype)
+    mode = FakeTensorMode()
+    fargs = [mode.from_tensor(a) for a in args]
+    fkw = {k: mode.from_tensor(v) if torch.is_tensor(v) else v
+           for k, v in kw.items()}
+    with mode:
+        out = fn(*fargs, **fkw)
+    assert out.shape == args[0].shape and out.dtype == dtype
+    assert out.is_contiguous()
+
+
+@pytest.mark.parametrize("which", OP_KINDS)
+def test_wrapper_takes_its_operator_while_a_trace_runs(which, monkeypatch):
+    """Under make_fx over fake CPU tensors the wrapper goes through its
+    operator: the graph holds one node of it, reads no pointer and counts
+    no launch, and the graph run on the CPU tensors gives the wrapper's
+    eager output bit for bit (the plain version, in the operator's
+    body)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    fn, args, kw, op = _op_inputs(which)
+    eager = fn(*args, **kw)
+    reads = []
+    real = torch.Tensor.data_ptr
+    monkeypatch.setattr(torch.Tensor, "data_ptr",
+                        lambda self: reads.append(1) or real(self))
+    at.reset_launches()
+
+    def call(*a):
+        return fn(*a[:len(args)], **dict(zip(kw, a[len(args):])))
+
+    gm = make_fx(call, tracing_mode="fake")(*args, *kw.values())
+    monkeypatch.undo()
+    assert not reads and not any(at.launches.values())
+    targets = [n.target for n in gm.graph.nodes if n.op == "call_function"]
+    assert targets.count(op) == 1
+    got = gm(*args, *kw.values())
+    assert torch.equal(got, eager)
+
+
+def test_operator_body_on_cpu_is_the_plain_version():
+    """Called directly on CPU tensors, each operator is its plain version
+    (the split count and the scale are the host's arguments)."""
+    for which in OP_KINDS:
+        fn, args, kw, op = _op_inputs(which)
+        q = args[0]
+        scale = 1.0 / np.sqrt(q.shape[-1])
+        if which == "paged_q8":
+            got = op(q, args[1], args[2], kw["k_scale"], kw["v_scale"],
+                     args[3], args[4], 0, scale)
+        else:
+            got = op(*args, 0, scale)
+        torch.testing.assert_close(got, fn(*args, **kw), rtol=0, atol=0)

@@ -670,3 +670,82 @@ def test_b10_on_two_streams_gives_solo_bits_on_card(cuda):
     """Fault C3: `chip_smoke.phase_c3` on the card: B10 calls on two
     streams at once each give the bits they give alone."""
     assert not any(cs.phase_c3(torch, cuda, calls=16).values())
+
+
+def _traced_cases(dev):
+    """B4-B7 at 7B's decode heads (32 of 128, bf16) over ragged rows:
+    (name, wrapper, args, kwargs)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, nh, hd, ps, P, length = 4, 32, 128, 16, 32, 512
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
+
+    pos = torch.tensor([511, 0, 100, 257], dtype=torch.int32, device=dev)
+    pages = 1 + b * P
+    bt = (torch.randperm(pages - 1, generator=g, device=dev) + 1).reshape(
+        b, P).to(torch.int32)
+    codes = [torch.randint(-127, 128, (pages, nh, ps, hd), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    scales = [torch.rand((pages, nh), generator=g, device=dev) + 0.5
+              for _ in range(2)]
+    return [
+        ("decode_attention", at.decode_attention,
+         (t(b, 1, nh, hd), t(b, nh, length, hd), t(b, nh, length, hd), pos),
+         {}),
+        ("window_attention", at.window_attention,
+         (t(b, 2, nh, hd), t(b, nh, length, hd), t(b, nh, length, hd),
+          pos.clamp(max=length - 2)), {}),
+        ("paged_decode_attention", at.paged_decode_attention,
+         (t(b, 1, nh, hd), t(pages, nh, ps, hd), t(pages, nh, ps, hd), bt,
+          pos), {"max_pos": 511}),
+        ("paged_decode_attention_int8", at.paged_decode_attention,
+         (t(b, 1, nh, hd), *codes, bt, pos),
+         {"k_scale": scales[0], "v_scale": scales[1], "max_pos": 511}),
+    ]
+
+
+def test_traced_decode_operators_launch_with_eager_bits_on_card(cuda):
+    """B4-B7 as operators: a make_fx trace over fake CUDA tensors holds one
+    node each and launches nothing; the graph run on the card launches the
+    kernel once, with the split count fixed at trace time, and gives the
+    eager wrapper's bits."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    for name, fn, args, kw in _traced_cases(cuda):
+        eager = fn(*args, **kw)
+        # every tensor is an input of the trace (the int8 pool's scales too)
+        scales = tuple(v for v in kw.values() if torch.is_tensor(v))
+        static = {k: v for k, v in kw.items() if not torch.is_tensor(v)}
+        n = len(args)
+
+        def call(*a, fn=fn, static=static, n=n):
+            extra = dict(zip(("k_scale", "v_scale"), a[n:]))
+            return fn(*a[:n], **extra, **static)
+
+        args = args + scales
+        at.reset_launches()
+        gm = make_fx(call, tracing_mode="fake")(*args)
+        assert not any(at.launches.values()), name
+        nodes = [n for n in gm.graph.nodes if n.op == "call_function"
+                 and str(n.target).startswith("paddle_tpu_torch.")]
+        assert len(nodes) == 1, (name, nodes)
+        got = gm(*args)
+        torch.cuda.synchronize(cuda)
+        assert at.launches[name] == 1, (name, dict(at.launches))
+        assert torch.equal(got, eager), name
+
+
+def test_real_mode_trace_raises_at_a_kernel_launch_on_card(cuda):
+    """make_fx in real mode over CUDA tensors would record an empty buffer
+    in place of a kernel's output: the launch raises instead (B4 through
+    its wrapper, B9 without a gradient to take)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    name, fn, args, kw = _traced_cases(cuda)[0]
+    with pytest.raises(RuntimeError, match="proxy tracer"):
+        make_fx(lambda q, k, v, pos: fn(q, k, v, pos))(*args)
+    x = torch.randn(64, 4096, device=cuda, dtype=torch.bfloat16)
+    w = torch.ones(4096, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="proxy tracer"):
+        make_fx(lambda x, w: rn.rms_norm(x, w, 1e-6))(x, w)

@@ -198,8 +198,9 @@ def test_the_top_level_namespace_carries_the_six_modules():
 # one-card Engine (A10c), jit.save/load and the Predictor (A10e),
 # quantization, the profiler, amp.debugging, fleet.recompute and
 # incubate.nn (A10f part 1), to_static, dy2static, SOT and paddle.static
-# (A10f part 2): the namespaces the port exports with the JAX package's
-# names, and what waits for a later slice, by slice
+# (A10f part 2), the program audits (A10f part 3) and paddle.device (A10g):
+# the namespaces the port exports with the JAX package's names, and what
+# waits for a later slice, by slice
 TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "optimizer.lr", "amp", "io", "metric", "hapi",
                        "hapi.callbacks", "vision", "vision.models",
@@ -210,7 +211,8 @@ TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "profiler", "profiler.profiler_statistic",
                        "amp.debugging", "distributed.fleet.recompute",
                        "incubate.nn", "incubate.nn.functional", "static",
-                       "static.nn", "jit.dy2static", "jit.sot")
+                       "static.nn", "jit.dy2static", "jit.sot", "analysis",
+                       "device")
 TRAINING_LATER = {
     # the mesh, its sharding types and the spec helper: A9
     "distributed.engine": {n: "A9" for n in ("shard_first_free_axis",
@@ -229,6 +231,10 @@ PORT_EXTRA = {
                "params_from_layer", "layer_from_numpy",
                "gpt_params_from_layer", "weights"},
     "distributed.engine": {"waits_for"},
+    # the walker under its own name (`jaxpr_walk` is bound to it too)
+    "analysis": {"graph_walk"},
+    # the device resolution every entry point shares
+    "device": {"resolve_device", "check_device"},
 }
 
 
