@@ -116,6 +116,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                   matmul bf16, keeps softmax f32 and hands B1 bf16 from
                   f32 q/k/v, a float16 GradScaler skips a step with a
                   planted inf and halves its scale.
+      dist        `paddle.distributed` at world size 1 on NCCL (ROADMAP A9a,
+                  A9b's base), no set_device: `init_parallel_env()` takes the
+                  card, get_backend() "NCCL"; every collective on a CUDA
+                  tensor against its definition at world size 1, bit for bit
+                  (point to point needs a peer: CPU tests only); then the
+                  layer Llama of the layers leg (7B width, 2 layers, b 1 s
+                  2048, f32, seed 0, AdamW, 3 steps) plain, through
+                  `paddle.DataParallel` and through `fleet.init` /
+                  `distributed_model` / `distributed_optimizer`, one after
+                  another: the two wrapped ways give the plain way's losses
+                  and parameters bit for bit and its launches a step (B1-B3
+                  2, B9/B10 5), the reducer saw every parameter and made its
+                  bucket count of all-reduces a step; each way's step ms.
   2a'''. configs BASELINE configs 3 and 2 on one card (ROADMAP A10c/A10d),
                   through the public API with no set_device: (a) config 3,
                   `bert_base()` (dropout 0.1) through `distributed.Engine(
@@ -2651,6 +2664,223 @@ def phase_layers(torch, dev):
     _layers_amp(torch, dev, paddle)
     torch.cuda.empty_cache()
     log(f"[layers] the phase took {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+# the dist phase: the process layer of paddle.distributed and the fleet
+# entry at world size 1 on NCCL, and the layer Llama of LAYERS_LEG trained
+# plain, through paddle.DataParallel and through fleet
+DIST_WAYS = ("plain", "DataParallel", "fleet")
+
+
+def _dist_collectives(torch, dev, dist):
+    """Each collective of `communication` on a CUDA tensor at world size 1,
+    against its definition there (the input itself, bit for bit). Point to
+    point needs a peer: it is held on the CPU only, by the 2-rank gloo
+    tests (tests/test_torch_collectives.py)."""
+    import paddle_tpu_torch as paddle
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(4, 6, device=dev, generator=g)
+    held = []
+
+    def same(name, got, want=None):
+        got = got._data if hasattr(got, "_data") else got
+        want = x if want is None else want
+        if got.device != x.device or not torch.equal(got, want):
+            raise AssertionError(f"dist: {name} on {got.device} is not its "
+                                 "definition at world size 1")
+        held.append(name)
+
+    for op in ("SUM", "MAX", "MIN", "PROD", "AVG"):
+        t = paddle.to_tensor(x)
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+        same(f"all_reduce({op})", t)
+    t = paddle.to_tensor(x)
+    task = dist.all_reduce(t, sync_op=False)
+    same("all_reduce(sync_op=False).wait()", task.wait())
+    out = []
+    dist.all_gather(out, paddle.to_tensor(x))
+    same("all_gather(list)", out[0])
+    same("all_gather(tiled)", dist.all_gather(paddle.to_tensor(x)))
+    for form, inp in (("tensor", paddle.to_tensor(x)),
+                      ("list", [paddle.to_tensor(x)])):
+        t = paddle.to_tensor(torch.zeros_like(x))
+        dist.reduce_scatter(t, inp)
+        same(f"reduce_scatter({form})", t)
+    t = paddle.to_tensor(x)
+    dist.broadcast(t, src=0)
+    same("broadcast", t)
+    t = paddle.to_tensor(torch.zeros_like(x))
+    dist.scatter(t, [paddle.to_tensor(x)], src=0)
+    same("scatter", t)
+    t = paddle.to_tensor(x)
+    dist.reduce(t, dst=0)
+    same("reduce", t)
+    out = []
+    dist.alltoall(out, [paddle.to_tensor(x)])
+    same("alltoall", out[0])
+    t = paddle.to_tensor(torch.zeros_like(x))
+    dist.alltoall_single(t, paddle.to_tensor(x))
+    same("alltoall_single", t)
+    gl = []
+    dist.gather(paddle.to_tensor(x), gl, dst=0)
+    same("gather", gl[0])
+    dist.barrier()
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0})
+    blist = ["a", 1]
+    dist.broadcast_object_list(blist, src=0)
+    sc = []
+    dist.scatter_object_list(sc, [{"to": 0}], src=0)
+    if objs != [{"rank": 0}] or blist != ["a", 1] or sc != [{"to": 0}]:
+        raise AssertionError(f"dist: object collectives {objs} {blist} {sc}")
+    held += ["barrier", "all_gather_object", "broadcast_object_list",
+             "scatter_object_list"]
+    return held
+
+
+def _dist_llama(torch, dev, paddle, way, ids, labels):
+    """LAYERS_LEG's Llama from seed 0, AdamW, leg["steps"] steps one `way`:
+    (losses, [launches a step], [ms a step], final parameters, the
+    reducer's figures or None). The model, its optimizer and its reducer
+    are freed before it returns."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+
+    leg = LAYERS_LEG
+    paddle.seed(0)
+    model = LlamaForCausalLM(LlamaConfig.llama2_7b(
+        num_hidden_layers=leg["layers"]))
+    opt = paddle.optimizer.AdamW(leg["lr"], parameters=model.parameters())
+    net = model
+    if way == "DataParallel":
+        net = paddle.DataParallel(model)
+    elif way == "fleet":
+        fleet.init(is_collective=True)
+        net = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(opt)
+        if net is not model:
+            raise AssertionError("dist: fleet.distributed_model at one rank "
+                                 "must return the model itself")
+    losses, counts, ms = [], [], []
+    for _ in range(leg["steps"]):
+        torch.cuda.synchronize(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = net(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append({k: v for k, v in launch_counts().items() if v})
+        losses.append(loss.item())
+    params = [p._data.detach().clone() for p in model.parameters()]
+    figures = None
+    if way == "DataParallel":
+        r = net._reducer
+        figures = {"buckets": len(r.buckets), "params": len(r.params),
+                   "all_reduces": r.all_reduces, "reduced": len(r.reduced)}
+    del net, model, opt
+    return losses, counts, ms, params, figures
+
+
+def phase_dist(torch, dev):
+    """`paddle.distributed` at world size 1 on NCCL (ROADMAP A9a and A9b's
+    base): `init_parallel_env()` with no set_device takes the card and
+    NCCL; every collective on a CUDA tensor against its definition; then
+    the layer Llama of LAYERS_LEG (7B width, 2 layers, b 1 s 2048, f32,
+    seed 0, AdamW, 3 steps) (a) plain, (b) through `paddle.DataParallel`,
+    (c) through `fleet.init` / `distributed_model` /
+    `distributed_optimizer`: (b) and (c) give (a)'s losses and parameters
+    bit for bit and its launches a step of B1-B3 and B9/B10, nonzero; (b)'s
+    reducer saw every parameter and made its bucket count of all-reduces a
+    step. Returns (b)'s launch counts."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import device as device_mod
+
+    device_mod._current = None   # the default: the card, no set_device
+    for k in ("PADDLE_MASTER", "PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID"):
+        os.environ.pop(k, None)
+    t0 = time.perf_counter()
+    env = dist.init_parallel_env()
+    backend = dist.get_backend()
+    log(f"[dist] init_parallel_env(): backend {backend}, rank {env.rank} "
+        f"of {env.world_size}, device {env.device_type}:{env.dev_id}")
+    if backend != "NCCL" or env.world_size != 1 or env.device_type != "gpu":
+        raise AssertionError(f"dist: init_parallel_env gave {backend}, "
+                             f"world {env.world_size}, {env.device_type}")
+    held = _dist_collectives(torch, dev, dist)
+    log(f"[dist] {len(held)} collectives on cuda:0 equal their definition at "
+        f"world size 1, bit for bit: {', '.join(held)}; send/recv, isend/"
+        "irecv and batch_isend_irecv need a peer and are held on the CPU "
+        "only (2 gloo ranks, tests/test_torch_collectives.py)")
+
+    leg = LAYERS_LEG
+    L = leg["layers"]
+    want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L,
+            "rms_norm_fwd": 2 * L + 1, "rms_norm_bwd": 2 * L + 1}
+    from paddle_tpu_torch.models import LlamaConfig
+
+    vocab = LlamaConfig.llama2_7b(num_hidden_layers=L).vocab_size
+    rng = np.random.default_rng(0)
+    ids, labels = (paddle.to_tensor(rng.integers(
+        0, vocab, (leg["batch"], leg["seq"])).astype(np.int64))
+        for _ in range(2))
+    plain, ms_of, total = None, {}, {k: 0 for k in launch_counts()}
+    for way in DIST_WAYS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, counts, ms, params, red = _dist_llama(
+            torch, dev, paddle, way, ids, labels)
+        extra = ""
+        if red is not None:
+            extra = (f"; reducer: {red['buckets']} buckets over "
+                     f"{red['params']} parameters, {red['all_reduces']} "
+                     f"all-reduces, {red['reduced']} parameters reduced")
+        log(f"[dist] ({way}) losses {losses}; step ms (forward + backward + "
+            f"AdamW, synchronised) {[round(x, 2) for x in ms]}; launches a "
+            f"step {counts[-1]}; peak "
+            f"{torch.cuda.max_memory_allocated(dev) / 2**30:.1f} GiB{extra}")
+        PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
+        ms_of[way] = ms
+        if plain is None:   # (a): the later ways are held to it
+            plain = (losses, counts, params)
+        else:
+            same_params = all(torch.equal(p, q)
+                              for p, q in zip(params, plain[2]))
+            kernels = [{k: c.get(k, 0) for k in want} for c in counts]
+            if losses != plain[0] or not same_params or \
+                    counts != plain[1] or any(k != want for k in kernels):
+                raise AssertionError(
+                    f"dist ({way}): losses {losses} vs {plain[0]}, "
+                    f"parameters bit for bit {same_params}, launches "
+                    f"{counts} vs {plain[1]} (want {want} a step)")
+        if red is not None:
+            if red["reduced"] != red["params"] or \
+                    red["params"] != len(plain[2]) or \
+                    red["all_reduces"] != leg["steps"] * red["buckets"]:
+                raise AssertionError(
+                    f"dist ({way}): reducer reduced {red['reduced']} of "
+                    f"{len(plain[2])} parameters, {red['all_reduces']} "
+                    f"all-reduces for {red['buckets']} buckets")
+            for c in counts:
+                _add(total, c)
+        params = None
+        torch.cuda.empty_cache()
+    log(f"[dist] (DataParallel) and (fleet) equal (plain) bit for bit: "
+        f"losses, {len(plain[2])} parameters, launches a step {want}; last "
+        f"step ms plain {ms_of['plain'][-1]:.2f}, DataParallel "
+        f"{ms_of['DataParallel'][-1]:.2f}, fleet {ms_of['fleet'][-1]:.2f}")
+    plain = None
+    fleet._reset_for_tests()
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    log(f"[dist] the phase took {time.perf_counter() - t0:.1f} s")
     return total
 
 
@@ -7548,7 +7778,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
-                    "functional,layers,configs,unet,quant,recompute,"
+                    "functional,layers,dist,configs,unet,quant,recompute,"
                     "incubate,jit,analysis,device,debug,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
@@ -7606,6 +7836,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "layers" in phases:
         _add(launches, phase_layers(torch, dev))
+        torch.cuda.empty_cache()
+    if "dist" in phases:
+        _add(launches, phase_dist(torch, dev))
         torch.cuda.empty_cache()
     if "configs" in phases:
         _add(launches, phase_configs(torch, dev, name))
@@ -7719,7 +7952,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"eager", "configs", "unet", "quant", "recompute",
+    main_path = {"eager", "dist", "configs", "unet", "quant", "recompute",
                  "incubate", "jit", "analysis", "device", "train", "engine",
                  "disagg",
                  "router", "generate", "chunked", "spec", "engine-int8",

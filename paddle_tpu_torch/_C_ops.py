@@ -1445,6 +1445,10 @@ def round(x, decimals=0):
 
 
 def rrelu(x, lower='1.0f/8', upper='1.0f/3', is_test=False):
+    # the signature keeps the JAX binding's C++ literals; their values are
+    # Paddle's defaults (ROADMAP §C, C5)
+    lower = 1.0 / 8 if lower == '1.0f/8' else lower
+    upper = 1.0 / 3 if upper == '1.0f/3' else upper
     return _t('rrelu')(x, lower, upper, is_test)
 
 

@@ -19,6 +19,9 @@ training API):
     generation (`generation`) and the bridge from the JAX parameter and
     optimizer trees (`weights`);
   - `distributed/`: `HybridParallelEngine` on one card and its AdamW;
+    process groups, the collectives, `DataParallel` (also
+    `paddle.DataParallel`) and the `fleet` entry over `torch.distributed`
+    (NCCL on the card, gloo on the CPU), one process per rank;
   - `core/`: nested-dict trees and stochastic rounding;
   - `kernels/`: hand-written CUDA kernels for Hopper (`csrc/`), their
     build (`_build`) and their wrappers with plain PyTorch versions
@@ -97,6 +100,7 @@ from paddle_tpu_torch import metric  # noqa: F401,E402
 from paddle_tpu_torch import amp  # noqa: F401,E402
 from paddle_tpu_torch import vision  # noqa: F401,E402
 from paddle_tpu_torch import distributed  # noqa: F401,E402
+from paddle_tpu_torch.distributed import DataParallel  # noqa: F401,E402
 from paddle_tpu_torch import hapi  # noqa: F401,E402
 from paddle_tpu_torch.hapi.model import Model  # noqa: F401,E402
 from paddle_tpu_torch.nn.layer.layers import ParamAttr  # noqa: F401,E402

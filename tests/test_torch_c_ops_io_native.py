@@ -122,6 +122,25 @@ def test_c_ops_kernel_arguments_match_the_jax_package(name):
                                atol=1e-6)
 
 
+def test_rrelu_runs_with_its_own_defaults():
+    """`_C_ops.rrelu(x)`: the C++ literals of its signature ('1.0f/8',
+    '1.0f/3') are Paddle's bounds 1/8 and 1/3 (ROADMAP §C, C5); at
+    is_test=False the binding's body hands `training=False` on, so a
+    negative input takes the mean slope (1/8 + 1/3) / 2."""
+    x = _a((3, 5), 21)
+    got = PC.rrelu(P.to_tensor(x)).numpy()
+    want = np.where(x >= 0, x, x * np.float32((1 / 8 + 1 / 3) / 2))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    explicit = PC.rrelu(P.to_tensor(x), 1 / 8, 1 / 3).numpy()
+    np.testing.assert_array_equal(got, explicit)
+
+
+def test_ref_departs_jax_rrelu_raises_on_its_defaults():
+    """The JAX binding hands the C++ literals on as strings and raises."""
+    with pytest.raises(TypeError):
+        RC.rrelu(paddle_tpu.to_tensor(_a((3, 5), 21)))
+
+
 # --------------------------------------------------------------------------
 # save / load across packages
 # --------------------------------------------------------------------------

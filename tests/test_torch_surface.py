@@ -190,8 +190,16 @@ def test_the_top_level_namespace_carries_the_six_modules():
     assert missing == {"apply", "apply_multi", "builtins_slice"}
     for n in ("to_tensor", "Tensor", "grad", "no_grad", "seed",
               "set_device", "matmul", "save", "load", "block_diag",
-              "batch_fc", "float8_e4m3fn"):
+              "batch_fc", "float8_e4m3fn", "DataParallel"):
         assert hasattr(paddle_tpu_torch, n), n
+
+
+def test_top_level_data_parallel_is_distributeds():
+    """`paddle.DataParallel` (the JAX package binds it lazily, so the
+    namespace walk above does not see it)."""
+    assert paddle_tpu_torch.DataParallel is \
+        paddle_tpu_torch.distributed.DataParallel
+    assert paddle_tpu.DataParallel.__name__ == "DataParallel"
 
 
 # the training API (ROADMAP A10b), vision (A10d), the models and the
@@ -212,12 +220,47 @@ TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "amp.debugging", "distributed.fleet.recompute",
                        "incubate.nn", "incubate.nn.functional", "static",
                        "static.nn", "jit.dy2static", "jit.sot", "analysis",
-                       "device")
+                       "device", "distributed", "distributed.fleet")
+# process groups, collectives, DataParallel and the fleet entry (A9a with
+# A9b's base) are ported; the rest of both namespaces, by its A9 part
+_A9F = ("ColWiseParallel", "RowWiseParallel", "PrepareLayerInput",
+        "PrepareLayerOutput", "SequenceParallelBegin",
+        "SequenceParallelDisable", "SequenceParallelEnable",
+        "SequenceParallelEnd", "SplitPoint", "parallelize", "DistAttr",
+        "DistModel", "LocalLayer", "ParallelMode", "ReduceType", "Strategy",
+        "ShardingStage1", "ShardingStage2", "ShardingStage3",
+        "shard_dataloader", "shard_layer", "shard_optimizer", "shard_scaler",
+        "shard_tensor", "reshard", "dtensor_from_fn", "unshard_dtensor",
+        "get_placements", "is_dist_tensor", "to_distributed", "to_static",
+        "Placement", "Shard", "Replicate", "Partial", "create_hybrid_mesh",
+        "slice_count", "CountFilterEntry", "ProbabilityEntry",
+        "ShowClickEntry", "InMemoryDataset", "QueueDataset", "api",
+        "placement", "mesh_utils", "auto_parallel", "launch", "ps", "rpc")
+_A9C = ("PipelineEngine", "transformer_mp_spec", "pipeline_engine",
+        "ring_attention", "ulysses_attention", "sharding")
 TRAINING_LATER = {
     # the mesh, its sharding types and the spec helper: A9
     "distributed.engine": {n: "A9" for n in ("shard_first_free_axis",
                                              "Mesh", "NamedSharding", "P")},
+    # the sharding API, placements, auto-parallel, PS, RPC and launch
+    # (A9f); the engines across ranks, ring attention and ZeRO (A9c);
+    # the non-finite guard (A9e); the legacy mp `split` (A9b)
+    "distributed": {**{n: "A9f" for n in _A9F}, **{n: "A9c" for n in _A9C},
+                    **{n: "A9e" for n in ("NonFiniteError", "NonFiniteGuard",
+                                          "nonfinite_guard")},
+                    "split": "A9b"},
+    # the PS data generators, fleet utils and the meta-parallel layers
+    # (A9b), elastic (A9e), fleet.auto (A9f)
+    "distributed.fleet": {"MultiSlotDataGenerator": "A9b",
+                          "MultiSlotStringDataGenerator": "A9b",
+                          "data_generator": "A9b", "utils": "A9b",
+                          "meta_parallel": "A9b", "elastic": "A9e",
+                          "auto": "A9f"},
 }
+# namespaces whose submodules show only once something imported them: the
+# test imports every one of both packages' first, so what it compares does
+# not depend on the tests that ran before it in the process
+IMPORT_SUBMODULES = ("distributed", "distributed.fleet")
 # what the port's namespace holds beyond the JAX package's: the functional
 # serving models and their bridges, by name
 PORT_EXTRA = {
@@ -231,6 +274,9 @@ PORT_EXTRA = {
                "params_from_layer", "layer_from_numpy",
                "gpt_params_from_layer", "weights"},
     "distributed.engine": {"waits_for"},
+    # the one-card Llama trainer and its AdamW
+    "distributed": {"HybridParallelEngine", "adamw_init", "adamw_update"},
+    "distributed.fleet": {"recompute_sequential"},
     # the walker under its own name (`jaxpr_walk` is bound to it too)
     "analysis": {"graph_walk"},
     # the device resolution every entry point shares
@@ -267,6 +313,12 @@ def test_training_namespace_has_the_jax_packages_names(path):
     import importlib
 
     ref, port = _resolve(paddle_tpu, path), _resolve(paddle_tpu_torch, path)
+    if path in IMPORT_SUBMODULES:
+        import pkgutil
+
+        for pkg in (ref, port):
+            for m in pkgutil.iter_modules(pkg.__path__):
+                importlib.import_module(f"{pkg.__name__}.{m.name}")
     got = _names(port)
     # a submodule shows in a namespace once anything imported it: import
     # the JAX package's counterpart of each the port's shows
