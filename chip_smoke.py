@@ -12,9 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   prefill) and the HMMA (mma.sync) instructions of B5's,
                   B4's and B6/B7's (decode_mma_kernel, by key source:
                   CacheKeys for B4, PagedKeys for B6/B7) and B8's GEMV
-                  kernels in their SASS (cuobjdump); B2's, B3's, B4-B7's,
-                  the GEMV's and B10's must compile without spills (ptxas'
-                  report).
+                  kernels in their SASS (cuobjdump); B1's (every type and
+                  head_dim), B2's, B3's, B4-B7's, the GEMV's and B10's must
+                  compile without spills (ptxas' report).
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode (also at
                   B4_CASES: a 1029-key cache, g 1-64, both head dims, rows
@@ -58,8 +58,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                   8, non-causal,
                   cross-length, ragged, rows that see no key, 129 rows over
                   127 keys and 65 over 129, head_dim 64, f32), each output
-                  vector within its own bar;
-                  then planted faults that the B1-B3 bar must reject; B9 and
+                  vector within its own bar; B1 alone in fp16 (head_dim 64
+                  and 128) and at head_dim 32 (bf16, fp16, f32)
+                  (FLASH_FWD_CASES: config 5's UNet shapes, causal and
+                  full, GQA, Sq != Sk, ragged, rows that see no key), at
+                  the bf16 bar for fp16 and 1e-5 in f32, a second call
+                  bit-identical, one launch a call;
+                  then planted faults that the B1-B3 bar must reject (at
+                  the GQA case, an fp16 case and a head_dim-32 case); B9 and
                   B10 (RMSNorm forward and backward) at the training legs'
                   micro-batches, the decode rows, a ragged row count and in
                   f32, each row of y and dx within its bar, B10 twice with
@@ -94,6 +100,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                   launched >= 2 times in its forward, B2 and B3 >= 2 in its
                   backward. The bf16 step's ms, aten ops and device-busy
                   share beside the functional path's (recorded).
+      functional  the op cases of A10a part 2 on the card (see
+                  phase_functional).
+      namespaces  signal, geometric (with incubate's graph ops), sparse and
+                  distribution (ROADMAP A10g part 1) on cuda:0, each output
+                  against the port on the CPU from the same seeded inputs,
+                  TF32 off: a graph of ogbn-arxiv's size (169,343 nodes,
+                  1,166,243 edges, 128 f32 features, made from a seed)
+                  through send_u_recv (sum, mean, max, min), send_ue_recv,
+                  send_uv, the segment ops, graph_send_recv,
+                  sample_neighbors (10) and khop_sampler ([15, 10]) from 1024
+                  seeds; stft/istft of 8 x 160,000 samples (n_fft 512, hop
+                  160, Hann), frame, overlap_add; a 16384^2 COO and CSR
+                  matrix at 0.1% density times a dense [16384, 128],
+                  masked_matmul, addmm, value-wise ops; log_prob, entropy
+                  and kl_divergence of Normal, MultivariateNormal (d 64),
+                  Categorical (32000 classes), Dirichlet, Gamma, Beta, and
+                  10^6 draws each repeating under a seed and meeting their
+                  moments. Bars: max, min, integer and host-side outputs
+                  exact; sums the card adds in another order within 1e-5 of
+                  the sum of |terms|; the rest rtol 1e-5, atol 1e-6. One
+                  timed call a namespace.
   2a''. layers    the training API (ROADMAP A10b) through the public
                   surface, with no set_device: (a) BASELINE config 1,
                   `paddle.Model(LeNet()).fit` on the synthetic MNIST (batch
@@ -158,18 +185,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                   roi_pool, deform_conv2d and box_coder on the card equal to
                   the CPU's.
   2a''''. unet    BASELINE config 5 (ROADMAP A10e) through the deployment
-                  API with no set_device: `unet_sd_like()` from seed 0, its
-                  parameters cast to bf16 as bench.py does, `jit.save` with
-                  a dynamic batch (latents ["batch", 4, 64, 64] bf16,
-                  timestep ["batch"] f32) -> `inference.Config` ->
+                  API with no set_device, in bf16 (as bench.py casts) and in
+                  fp16 (the Half Predictor's type): `unet_sd_like()` from
+                  seed 0, its parameters cast to the type, `jit.save` with
+                  a dynamic batch (latents ["batch", 4, 64, 64] in the
+                  type, timestep ["batch"] f32) -> `inference.Config` ->
                   `create_predictor` -> `run()` at batch 1, t = 500: the
                   output finite, [1, 4, 64, 64], within rtol 5e-2 atol 1e-1
-                  of the eager bf16 layer and of the eager layer with the
-                  route's predicate false; B1 6 launches a call from the
-                  exported program (level 2 and the middle block; level 1's
-                  head_dim 32 is off the gate), nothing else, its kept call
-                  held by `flash_path_check`; the same Predictor at batch 2
-                  within the bar of the eager layer. Then `unet_tiny(
+                  of the eager layer and of the eager layer with the
+                  route's predicate false; B1 once an attention block of
+                  the model (counted from its modules: 11, level 1's
+                  head_dim 32 included) a call from the exported program,
+                  nothing else, every B1 call held by `flash_path_check`;
+                  the same Predictor at batch 2 within the bar of the eager
+                  layer. In bf16 also a program exported with head_dim 32
+                  off B1's gate (as before it took it): 6 launches and its
+                  latency beside the new one. Then `unet_tiny(
                   base_channels=32, num_heads=1)` in f32 (every attention on
                   B1's gate) saved from the card, through a card and a CPU
                   Predictor on the same files (rel <= 1e-4), and saved from
@@ -180,7 +211,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                   share (bf16 parameter bytes over the latency over the
                   card's memory rate), one profiled call's device-busy
                   share and kernel launches, aten ops a call, export and
-                  build times, peak memory.
+                  build times, each dtype; peak memory.
   2a'''''. quant  weight-only int8 through the deployment API (ROADMAP A10f
                   part 1): the layer Llama at Llama-2-7B width (2 layers,
                   seed 0, bf16) behind bench.py's next-token head, `jit.save`
@@ -329,8 +360,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   1029-key stripe; B5 also at the
                   spec-verify window; B6 and B7 also at the engine's decode
                   shape, 8 rows of 257-320 keys; B8's GEMV at the four
-                  decode shapes at M 1, 8 and 16), beside the bound the
-                  card's memory rate or peak sets.
+                  decode shapes at M 1, 8 and 16; B1 in fp16 and at head_dim
+                  32 at config 5's UNet shapes, their own rows), beside the
+                  bound the card's memory rate or peak sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -362,6 +394,9 @@ FLASH_REF = "paddle_tpu/kernels/flash_attention.py"
 RMS_REF = "paddle_tpu/kernels/rms_norm.py"
 KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
     "flash_fwd": ("B1 flash_fwd", FLASH_SRC, f"{FLASH_REF}:112"),
+    "flash_fwd_f16": ("B1 flash_fwd (fp16)", FLASH_SRC, f"{FLASH_REF}:112"),
+    "flash_fwd_hd32": ("B1 flash_fwd (head_dim 32)", FLASH_SRC,
+                       f"{FLASH_REF}:112"),
     "flash_bwd_dq": ("B2 flash_bwd_dq", FLASH_SRC, f"{FLASH_REF}:215"),
     "flash_bwd_dkv": ("B3 flash_bwd_dkv", FLASH_SRC, f"{FLASH_REF}:260"),
     "decode_attention": ("B4 decode_attention", ATTN_SRC, f"{REF}:253"),
@@ -383,7 +418,7 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
 # rounds every dequantized weight and its output to bf16 where the kernel
 # sums exact codes in f32 and rounds once. They may differ by a rounding or
 # two. f32: both compute in f32 and sum in different orders.
-TOL = {"bfloat16": 2.0**-6, "float32": 1e-5}
+TOL = {"bfloat16": 2.0**-6, "float16": 2.0**-6, "float32": 1e-5}
 # launch counters that must read 0 after the main path: B8's wmma tiles
 # serve only shapes off the TMA gate, which no main-path shape is
 OFF_PATH = ("weight_only_matmul_offgate",)
@@ -401,6 +436,15 @@ def launch_counts():
     from paddle_tpu_torch.kernels import rms_norm as rn
 
     return {**fa.launches, **at.launches, **qm.launches, **rn.launches}
+
+
+def variant_counts():
+    """B1's launches in fp16 and at head_dim 32 (`flash_fwd_f16`,
+    `flash_fwd_hd32`), counted where B1 launches beside its total; the
+    rows of KERNELS under those keys read them."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    return dict(fa.variant_launches)
 
 
 def reset_launches():
@@ -536,7 +580,9 @@ TENSOR_CORE_KERNELS = {
                   "CacheKeys": "HMMA", "PagedKeys": "HMMA"}}
 # the kernels whose every instantiation must compile without spills, by
 # library
-SPILL_FREE = {"flash_attention": ("flash_bwd_dq_tma_kernel",
+SPILL_FREE = {"flash_attention": ("flash_fwd_tma_kernel",
+                                  "flash_fwd_f32_kernel",
+                                  "flash_bwd_dq_tma_kernel",
                                   "flash_bwd_dkv_tma_kernel"),
               "attention": ("window_mma_kernel", "decode_mma_kernel"),
               "quantized_matmul": ("b8_gemv_mma_kernel",),
@@ -750,7 +796,9 @@ def phase_parity(torch, dev):
     phase_b8_bar_teeth(torch, dev)
     phase_b8_bar_teeth(torch, dev, shape=(8, 1000, 4096))
     main_err.update(phase_flash_parity(torch, dev))
-    phase_flash_bar_teeth(torch, dev)
+    main_err.update(phase_flash_fwd_parity(torch, dev))
+    for case in (FLASH_CASES[1], FLASH_FWD_CASES[0], FLASH_FWD_CASES[1]):
+        phase_flash_bar_teeth(torch, dev, case)
     main_err.update(phase_rms_parity(torch, dev))
     return main_err
 
@@ -1539,6 +1587,44 @@ FLASH_CASES = (
 )
 
 
+# B1 alone in fp16 and at head_dim 32 (B2/B3 take neither: no training
+# config needs them): the UNet's shapes first (the first fp16 case and the
+# first head_dim-32 one give the JSON rows their errors), then causal and
+# full, GQA, Sq != Sk, ragged tails and rows that see no key
+FLASH_FWD_CASES = (
+    ("fp16 non-causal UNet level 2 b1 h8 s256 d64", 1, 256, 256, 8, 8, 64,
+     False, "float16"),
+    ("bf16 non-causal UNet level 1 b1 h8 s1024 d32", 1, 1024, 1024, 8, 8,
+     32, False, "bfloat16"),
+    ("fp16 non-causal UNet level 1 b1 h8 s1024 d32", 1, 1024, 1024, 8, 8,
+     32, False, "float16"),
+    ("f32 non-causal UNet level 1 b1 h8 s1024 d32", 1, 1024, 1024, 8, 8, 32,
+     False, "float32"),
+    ("fp16 causal b2 h32 s2048 d128", 2, 2048, 2048, 32, 32, 128, True,
+     "float16"),
+    ("fp16 causal GQA nh32/nkv8 s1024 d128", 1, 1024, 1024, 32, 8, 128,
+     True, "float16"),
+    ("fp16 causal hd64 ragged s777 GQA 4/2", 2, 777, 777, 4, 2, 64, True,
+     "float16"),
+    ("fp16 non-causal hd64 sq129/sk127", 1, 129, 127, 4, 4, 64, False,
+     "float16"),
+    ("fp16 causal sq1000 > sk300 d128 (fully masked rows)", 1, 1000, 300, 8,
+     8, 128, True, "float16"),
+    ("bf16 causal d32 cross-length sq384/sk1024 GQA 8/2", 2, 384, 1024, 8,
+     2, 32, True, "bfloat16"),
+    ("fp16 causal d32 ragged s777 GQA 4/2", 2, 777, 777, 4, 2, 32, True,
+     "float16"),
+    ("bf16 non-causal d32 sq129/sk127", 1, 129, 127, 4, 4, 32, False,
+     "bfloat16"),
+    ("fp16 causal d32 sq300 > sk100 GQA 4/2 (fully masked rows)", 1, 300,
+     100, 4, 2, 32, True, "float16"),
+    ("f32 causal d32 sq300/sk200 GQA 4/2", 1, 300, 200, 4, 2, 32, True,
+     "float32"),
+    ("f32 non-causal d32 sq129 > sk100", 1, 129, 100, 4, 4, 32, False,
+     "float32"),
+)
+
+
 def flash_case(torch, dev, b, sq, sk, h, hk, d, dtype, seed=5):
     """q, k, v, do ~ N(0, 1) in `dtype` on the card."""
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1812,13 +1898,14 @@ def planted_flash_faults(torch, fa, q, k, v, do, causal, tile=64):
     return faults
 
 
-def phase_flash_bar_teeth(torch, dev, case=1):
+def phase_flash_bar_teeth(torch, dev, case=FLASH_CASES[1]):
     """The B1-B3 bar rejects planted faults at a parity shape (the GQA case
-    by default), each beside the ratio the whole-tensor rule (TOL * max(1,
-    max |plain|)) would give it."""
+    by default; the parity phase adds an fp16 and a head_dim-32 case), each
+    beside the ratio the whole-tensor rule (TOL * max(1, max |plain|)) would
+    give it."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    label, b, sq, sk, h, hk, d, causal, dname = FLASH_CASES[case]
+    label, b, sq, sk, h, hk, d, causal, dname = case
     q, k, v, do = flash_case(torch, dev, b, sq, sk, h, hk, d,
                              getattr(torch, dname))
     for fault, name, wrong, right in planted_flash_faults(torch, fa, q, k, v,
@@ -1881,6 +1968,54 @@ def phase_flash_parity(torch, dev):
             main_err = {"flash_fwd": errs["out"], "flash_bwd_dq": errs["dq"],
                         "flash_bwd_dkv": max(errs["dk"], errs["dv"])}
         del q, k, v, do, out, lse, ref_out, ref_lse, dq, dk, dv, rdq, rdk, rdv
+        torch.cuda.empty_cache()
+    return main_err
+
+
+def phase_flash_fwd_parity(torch, dev):
+    """B1 in fp16 and at head_dim 32 (FLASH_FWD_CASES) against its plain
+    version on the card, each output vector within its bar
+    (`flash_row_ratio`: the bf16 bar for fp16, 1e-5 in f32), lse within
+    FLASH_LSE_TOL; a second call bit-identical and one launch a call,
+    counted under its variant too. Returns the first fp16 case's and the
+    first head_dim-32 case's max |error| under their keys of KERNELS."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    main_err = {}
+    for label, b, sq, sk, h, hk, d, causal, dname in FLASH_FWD_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v, _ = flash_case(torch, dev, b, sq, sk, h, hk, d, dtype)
+        before, vbefore = launch_counts(), variant_counts()
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        out2, lse2 = fa.flash_fwd(q, k, v, causal)
+        torch.cuda.synchronize()
+        n = launch_counts()["flash_fwd"] - before["flash_fwd"]
+        nv = {key: m - vbefore[key] for key, m in variant_counts().items()}
+        want_v = {"flash_fwd_f16": 2 * (dname == "float16"),
+                  "flash_fwd_hd32": 2 * (d == 32)}
+        same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+        ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+        masked = ref_lse <= -1e29
+        lse_ok = bool(((lse <= -1e29) == masked).all().item())
+        r_out = flash_row_ratio(torch, out, ref_out, TOL[dname])
+        r_lse = flash_lse_ratio(torch, torch.where(masked, 0.0, lse),
+                                torch.where(masked, 0.0, ref_lse))
+        err = (out.float() - ref_out.float()).abs().max().item()
+        log(f"[parity] flash B1 {label}: out max_abs_err {err:.3e}, worst "
+            f"row at {r_out:.3f} of its bar ({TOL[dname]}), lse worst entry "
+            f"at {r_lse:.3f}; second call bit-identical {same}; launches "
+            f"{n} for 2 calls, by variant {nv}")
+        if not (math.isfinite(r_out) and r_out <= 1.0 and r_lse <= 1.0
+                and lse_ok and same and n == 2 and nv == want_v):
+            raise AssertionError(
+                f"flash B1 {label}: out at {r_out}, lse at {r_lse} of the "
+                f"bar, masked rows equal {lse_ok}, repeat equal {same}, "
+                f"launches {n} {nv} (want 2, {want_v})")
+        for key, hit in (("flash_fwd_f16", dname == "float16"),
+                         ("flash_fwd_hd32", d == 32)):
+            if hit and key not in main_err:
+                main_err[key] = err
+        del q, k, v, out, lse, out2, lse2, ref_out, ref_lse
         torch.cuda.empty_cache()
     return main_err
 
@@ -3461,7 +3596,9 @@ def phase_configs(torch, dev, name):
 UNET_LEG = dict(batch=1, size=64, t=500.0, warmup=4, iters=24)
 UNET_TINY_LEG = dict(batch=2, size=32)
 UNET_BAR = dict(rtol=5e-2, atol=1e-1)   # tests/test_subsystems.py:340-344
-UNET_B1_A_CALL = 6        # unet_sd_like at 64^2: level 2 (2 + 3), middle 1
+# the deployment dtypes config 5 is served in: bf16 (bench.py's cast) and
+# fp16 (the JAX Predictor's Half, paddle_tpu/inference/__init__.py:455)
+UNET_DTYPES = ("bfloat16", "float16")
 
 
 def _bar_ratio(torch, got, ref, rtol, atol):
@@ -3530,10 +3667,143 @@ def _unet_tiny_card_cpu(torch, dev, paddle, infer, InputSpec, tmp):
     return n_card["flash_fwd"]
 
 
+@contextlib.contextmanager
+def b1_without_head_dim(d):
+    """B1's gate closed to head_dim `d` for the block (the gate before this
+    slice took head_dim 32): a program exported inside takes the plain
+    attention there."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    supports = fa.supports
+    fa.supports = lambda q, k, v=None: q.shape[-1] != d and supports(q, k, v)
+    try:
+        yield
+    finally:
+        fa.supports = supports
+
+
+def _unet_attention_blocks(model):
+    """{head_dim: blocks} of the model's attention blocks, read from its
+    modules: B1 launches once a block a call."""
+    from paddle_tpu_torch.models.unet import AttentionBlock
+
+    blocks = {}
+    for m in model.sublayers():
+        if isinstance(m, AttentionBlock):
+            hd = m.channels // m.num_heads
+            blocks[hd] = blocks.get(hd, 0) + 1
+    return blocks
+
+
+def _unet_model(torch, paddle, dname):
+    """`unet_sd_like()` from seed 0, its parameters in `dname` (the deploy
+    precision, as bench.py casts), in eval()."""
+    from paddle_tpu_torch.models import unet_sd_like
+
+    paddle.seed(0)
+    model = unet_sd_like()
+    for p in model.parameters():
+        p._data = p._data.to(getattr(torch, dname))
+    model.eval()
+    return model
+
+
+def _unet_predictor(paddle, infer, InputSpec, model, dname, size, prefix):
+    """jit.save with a dynamic batch -> create_predictor; (Predictor,
+    export s, build s, {suffix: MiB})."""
+    t0 = time.perf_counter()
+    paddle.jit.save(model, prefix, input_spec=[
+        InputSpec(["batch", 4, size, size], dname, "latents"),
+        InputSpec(["batch"], "float32", "timestep")])
+    t_export = time.perf_counter() - t0
+    mb = {x: os.path.getsize(prefix + x) / 2**20
+          for x in (".pdmodel", ".pdiparams")}
+    t0 = time.perf_counter()
+    pred = infer.create_predictor(infer.Config(prefix))
+    return pred, t_export, time.perf_counter() - t0, mb
+
+
+def _unet_call(pred, lat, ts):
+    """bench.py's timed unit: copy_from_cpu -> run -> copy_to_cpu."""
+    h_lat = pred.get_input_handle("latents")
+    h_ts = pred.get_input_handle("timestep")
+    out_name = pred.get_output_names()[0]
+
+    def call():
+        h_lat.copy_from_cpu(lat)
+        h_ts.copy_from_cpu(ts)
+        pred.run()
+        return pred.get_output_handle(out_name).copy_to_cpu()
+
+    return call
+
+
+def _unet_interleaved(calls, leg):
+    """{label: (median ms, min, max)} of each call over leg["iters"]
+    rounds after leg["warmup"] calls each, the calls taken in turns (round
+    r starts at call r mod n), so that the host's drift lands on all of
+    them alike."""
+    for call in calls.values():
+        for _ in range(leg["warmup"]):
+            call()
+    keys = list(calls)
+    times = {k: [] for k in keys}
+    for r in range(leg["iters"]):
+        for k in keys[r % len(keys):] + keys[:r % len(keys)]:
+            t0 = time.perf_counter()
+            calls[k]()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: (statistics.median(v), min(v), max(v))
+            for k, v in times.items()}
+
+
+def _busy_line(prof):
+    if not prof:
+        return "the profiler saw no device activity"
+    return (f"wall {prof[0]:.3f} ms, device busy {prof[1]:.3f} ms "
+            f"({prof[1] / prof[0]:.1%}; by group "
+            f"{ {g: round(ms, 3) for g, ms in prof[2].items()} }), "
+            f"{sum(n for _, _, n in prof[3]):.0f} kernels launched, the "
+            f"top 3 by time "
+            f"{[(k[:48], round(ms, 3), n) for k, ms, n in prof[3][:3]]}")
+
+
+def _unet_checked_call(torch, dev, paddle, pred, model, lat, ts, dname,
+                       bar):
+    """One Predictor call with every B1 call kept: the launch counts (with
+    B1's fp16 and head_dim-32 ones), each kept B1 call through
+    `flash_path_check`, the output against the eager layer and the eager
+    layer under plain_route(). Returns (out, counts, worst path ratios,
+    r_eager, r_plain, shapes of the B1 calls)."""
+    reset_launches()
+    with flash_calls(every=True) as seen:
+        out = pred.run([lat, ts])[0]
+        torch.cuda.synchronize(dev)
+    counts = {**launch_counts(), **variant_counts()}
+    worst = {}
+    for i, call in enumerate(seen["fwd"]):
+        r = flash_path_check(torch, {"fwd": call},
+                             f"unet {dname}: B1 call {i}", quiet=True)
+        for name, x in r.items():
+            if name != "mean_v_n01" and not name.startswith("mean_v"):
+                worst[name] = max(worst.get(name, 0.0), x)
+    shapes = [tuple(c[0][0].shape) for c in seen["fwd"]]
+    seen = None
+    with paddle.no_grad():
+        x = paddle.to_tensor(lat).astype(dname)
+        t = paddle.to_tensor(ts)
+        ref = model(x, t)._data
+        with plain_route():
+            plain = model(x, t)._data
+    return (out, counts, worst, _bar_ratio(torch, out, ref, **bar),
+            _bar_ratio(torch, out, plain, **bar), shapes)
+
+
 def phase_unet(torch, dev, name):
     """BASELINE config 5 through `jit.save` -> `inference.Config` ->
-    `create_predictor` -> `run()` (UNET_LEG, UNET_TINY_LEG). Returns the
-    launch counts of the checked config-5 call."""
+    `create_predictor` -> `run()` in bf16 and in fp16 (UNET_LEG,
+    UNET_DTYPES), and unet_tiny card against CPU (UNET_TINY_LEG). Returns
+    the launch counts of the checked config-5 calls, both dtypes."""
     import tempfile
 
     import numpy as np
@@ -3541,134 +3811,138 @@ def phase_unet(torch, dev, name):
     from paddle_tpu_torch import inference as infer
     from paddle_tpu_torch.framework import device as device_mod
     from paddle_tpu_torch.hapi.model import InputSpec
-    from paddle_tpu_torch.models import unet_sd_like
 
     device_mod._current = None   # the default: the card, no set_device
     torch.cuda.reset_peak_memory_stats(dev)
     t_phase = time.perf_counter()
     leg, bar = UNET_LEG, UNET_BAR
     size = leg["size"]
-    paddle.seed(0)
-    model = unet_sd_like()
-    for p in model.parameters():   # deploy precision, as bench.py casts
-        p._data = p._data.to(torch.bfloat16)
-    model.eval()
-    n_params = _n_params(model)
-    param_bytes = sum(p._data.numel() * p._data.element_size()
-                      for p in model.parameters())
     rng = np.random.default_rng(0)
     lat = rng.standard_normal((leg["batch"], 4, size, size)).astype("float32")
     ts = np.full((leg["batch"],), leg["t"], "float32")
+    lat2 = rng.standard_normal((2, 4, size, size)).astype("float32")
+    ts2 = np.asarray([10.0, leg["t"]], "float32")
+    total, calls, keep, bad = None, {}, [], []
+    before_label = "bfloat16, level 1 off B1"
     with tempfile.TemporaryDirectory() as tmp:
-        prefix = os.path.join(tmp, "unet")
-        t0 = time.perf_counter()
-        paddle.jit.save(model, prefix, input_spec=[
-            InputSpec(["batch", 4, size, size], "bfloat16", "latents"),
-            InputSpec(["batch"], "float32", "timestep")])
-        t_export = time.perf_counter() - t0
-        mb = {x: os.path.getsize(prefix + x) / 2**20
-              for x in (".pdmodel", ".pdiparams")}
-        t0 = time.perf_counter()
-        config = infer.Config(prefix)
-        pred = infer.create_predictor(config)
-        t_build = time.perf_counter() - t0
-        h_lat = pred.get_input_handle("latents")
-        h_ts = pred.get_input_handle("timestep")
-        out_name = pred.get_output_names()[0]
-
-        # the checked call: B1's launches and its kept call
-        reset_launches()
-        with flash_calls() as seen:
-            h_lat.copy_from_cpu(lat)
-            h_ts.copy_from_cpu(ts)
-            out = pred.run()[0]
+        for dname in UNET_DTYPES:
+            model = _unet_model(torch, paddle, dname)
+            blocks = _unet_attention_blocks(model)
+            want_b1 = sum(blocks.values())
+            n_params = _n_params(model)
+            param_bytes = sum(p._data.numel() * p._data.element_size()
+                              for p in model.parameters())
+            feed = lat.astype("float16") if dname == "float16" else lat
+            pred, t_export, t_build, mb = _unet_predictor(
+                paddle, infer, InputSpec, model, dname, size,
+                os.path.join(tmp, f"unet_{dname}"))
+            out, counts, worst, r_eager, r_plain, shapes = \
+                _unet_checked_call(torch, dev, paddle, pred, model, feed, ts,
+                                   dname, bar)
+            finite = bool(torch.isfinite(out.float()).all())
+            # one Predictor, another batch, no re-export
+            reset_launches()
+            out2 = pred.run([lat2, ts2])[0]
             torch.cuda.synchronize(dev)
-        counts = dict(launch_counts())
-        flash_path_check(torch, seen, "unet: config 5's Predictor call")
-        seen = None
-        with paddle.no_grad():
-            x = paddle.to_tensor(lat).astype("bfloat16")
-            t = paddle.to_tensor(ts)
-            ref = model(x, t)._data
-            with plain_route():
-                plain = model(x, t)._data
-        r_eager = _bar_ratio(torch, out, ref, **bar)
-        r_plain = _bar_ratio(torch, out, plain, **bar)
-        finite = bool(torch.isfinite(out.float()).all())
-
-        # one Predictor, another batch, no re-export
-        lat2 = rng.standard_normal((2, 4, size, size)).astype("float32")
-        ts2 = np.asarray([10.0, leg["t"]], "float32")
-        reset_launches()
-        out2 = pred.run([lat2, ts2])[0]
-        torch.cuda.synchronize(dev)
-        b2_launches = launch_counts()["flash_fwd"]
-        with paddle.no_grad():
-            ref2 = model(paddle.to_tensor(lat2).astype("bfloat16"),
-                         paddle.to_tensor(ts2))._data
-        r_b2 = _bar_ratio(torch, out2, ref2, **bar)
-
-        def call():
-            h_lat.copy_from_cpu(lat)
-            h_ts.copy_from_cpu(ts)
-            pred.run()
-            return pred.get_output_handle(out_name).copy_to_cpu()
-
-        for _ in range(leg["warmup"]):
-            call()
-        times = []
-        for _ in range(leg["iters"]):
-            t0 = time.perf_counter()
-            call()
-            times.append((time.perf_counter() - t0) * 1e3)
-        lat_ms = statistics.median(times)
-        prof = _busy_share(torch, dev, call, n_steps=1, top=None)
-        _, n_ops = _ops_dispatched(torch, pred.run)
-        torch.cuda.synchronize(dev)
+            b2_launches = launch_counts()["flash_fwd"]
+            with paddle.no_grad():
+                ref2 = model(paddle.to_tensor(lat2).astype(dname),
+                             paddle.to_tensor(ts2))._data
+            r_b2 = _bar_ratio(torch, out2, ref2, **bar)
+            _, n_ops = _ops_dispatched(torch, pred.run)
+            torch.cuda.synchronize(dev)
+            want = {k: 0 for k in counts}
+            want["flash_fwd"] = want_b1
+            want["flash_fwd_hd32"] = blocks.get(32, 0)
+            want["flash_fwd_f16"] = want_b1 if dname == "float16" else 0
+            log(f"[unet] config 5 in {dname}: unet_sd_like() "
+                f"({n_params / 1e6:.3f} M parameters, "
+                f"{param_bytes / 2**20:.1f} MiB) from seed 0, attention "
+                f"blocks by head_dim {blocks}; jit.save with a dynamic "
+                f"batch in {t_export:.2f} s (.pdmodel "
+                f"{mb['.pdmodel']:.2f} MiB, .pdiparams "
+                f"{mb['.pdiparams']:.1f} MiB), Predictor built in "
+                f"{t_build:.2f} s on {pred.device}; {n_ops} aten ops "
+                f"dispatched a run()")
+            log(f"[unet] {dname} b {leg['batch']} {size}^2 t {leg['t']}: "
+                f"output {list(out.shape)} {out.dtype}, finite {finite}; "
+                f"within (rtol {bar['rtol']}, atol {bar['atol']}) as a "
+                f"fraction of the bar: of the eager layer {r_eager:.4f}, of "
+                f"the eager layer with the route's predicate false "
+                f"{r_plain:.4f}; launches a call "
+                f"{ {k: v for k, v in counts.items() if v} } (want "
+                f"{ {k: v for k, v in want.items() if v} } and nothing "
+                f"else), B1's q shapes {sorted(set(shapes))}; every B1 "
+                f"call against the plain versions, worst vector at "
+                f"(fraction of its bar) "
+                f"{ {n: round(x, 4) for n, x in worst.items()} }; batch "
+                f"2 from the same Predictor: {list(out2.shape)}, "
+                f"{r_b2:.4f} of the bar against the eager layer, B1 "
+                f"{b2_launches} launches")
+            if not (finite and list(out.shape) == [leg["batch"], 4, size,
+                                                    size]
+                    and out.dtype == getattr(torch, dname)
+                    and r_eager <= 1.0 and r_plain <= 1.0 and r_b2 <= 1.0
+                    and list(out2.shape) == [2, 4, size, size]
+                    and counts == want and b2_launches == want_b1
+                    and blocks.get(32, 0) > 0 and len(shapes) == want_b1):
+                bad.append(f"{dname}: finite {finite}, shape "
+                           f"{list(out.shape)} {out.dtype}, bars eager "
+                           f"{r_eager} plain {r_plain} batch-2 {r_b2}, "
+                           f"launches {counts} (want {want}), batch-2 B1 "
+                           f"{b2_launches}, blocks {blocks}")
+            total = counts if total is None else {
+                k: total[k] + v for k, v in counts.items()}
+            calls[dname] = _unet_call(pred, feed, ts)
+            keep.append((pred, param_bytes))
+            if dname == "bfloat16":
+                # the same call with level 1 off B1's gate, as before this
+                # slice: a program exported with head_dim 32 closed
+                with b1_without_head_dim(32):
+                    before, *_ = _unet_predictor(
+                        paddle, infer, InputSpec, model, dname, size,
+                        os.path.join(tmp, "unet_before"))
+                reset_launches()
+                before.run([lat, ts])
+                torch.cuda.synchronize(dev)
+                n_before = launch_counts()["flash_fwd"]
+                log(f"[unet] bf16 with level 1 (head_dim 32) off B1's gate "
+                    f"as before this slice: B1 {n_before} launches a call "
+                    f"(want {want_b1 - blocks.get(32, 0)})")
+                if n_before != want_b1 - blocks.get(32, 0):
+                    bad.append(f"level 1 off the gate: B1 {n_before}")
+                calls[before_label] = _unet_call(before, lat, ts)
+                keep.append((before, param_bytes))
+            model = out = out2 = None
+            torch.cuda.empty_cache()
+        # the three calls in turns, then one profiled call each
+        lat_ms = _unet_interleaved(calls, leg)
+        bw = peaks(name)[0]
+        for label, call in calls.items():
+            ms, lo, hi = lat_ms[label]
+            prof = _busy_share(torch, dev, call, n_steps=1, top=None)
+            log(f"[unet] {label} latency a call (copy_from_cpu -> run -> "
+                f"copy_to_cpu), median of {leg['iters']} after "
+                f"{leg['warmup']} warm-up, the {len(calls)} calls in turns: "
+                f"{ms:.3f} ms (min {lo:.3f}, max {hi:.3f}); HBM roofline "
+                f"share {keep[0][1] / (ms / 1e3) / bw:.4%} "
+                f"({keep[0][1] / 1e6:.1f} MB of parameters over the latency "
+                f"over {bw / 1e12:.2f} TB/s); one profiled call: "
+                f"{_busy_line(prof)}")
+        calls = keep = None
         n_tiny = _unet_tiny_card_cpu(torch, dev, paddle, infer, InputSpec,
                                      tmp)
-    bw = peaks(name)[0]
-    share = param_bytes / (lat_ms / 1e3) / bw
-    want = {k: (UNET_B1_A_CALL if k == "flash_fwd" else 0) for k in counts}
-    log(f"[unet] config 5: unet_sd_like() ({n_params / 1e6:.3f} M "
-        f"parameters, {param_bytes / 2**20:.1f} MiB in bf16) from seed 0; "
-        f"jit.save with a dynamic batch in {t_export:.2f} s (.pdmodel "
-        f"{mb['.pdmodel']:.2f} MiB, .pdiparams {mb['.pdiparams']:.1f} MiB), "
-        f"Predictor built in {t_build:.2f} s on {pred.device}")
-    log(f"[unet] b {leg['batch']} {size}^2 t {leg['t']}: output "
-        f"{list(out.shape)} {out.dtype}, finite {finite}; within (rtol "
-        f"{bar['rtol']}, atol {bar['atol']}) as a fraction of the bar: of "
-        f"the eager bf16 layer {r_eager:.4f}, of the eager layer with the "
-        f"route's predicate false {r_plain:.4f}; launches a call "
-        f"{ {k: v for k, v in counts.items() if v} } (want flash_fwd "
-        f"{UNET_B1_A_CALL} and nothing else); batch 2 from the same "
-        f"Predictor: {list(out2.shape)}, {r_b2:.4f} of the bar against the "
-        f"eager layer, B1 {b2_launches} launches")
-    busy = (f"wall {prof[0]:.3f} ms, device busy {prof[1]:.3f} ms "
-            f"({prof[1] / prof[0]:.1%}; by group "
-            f"{ {g: round(ms, 3) for g, ms in prof[2].items()} }), "
-            f"{sum(n for _, _, n in prof[3]):.0f} kernels launched, the "
-            f"top 3 by time {[(k[:48], round(ms, 3), n) for k, ms, n in prof[3][:3]]}"
-            if prof else "the profiler saw no device activity")
-    log(f"[unet] latency a call (copy_from_cpu -> run -> copy_to_cpu), "
-        f"median of {leg['iters']} after {leg['warmup']} warm-up: "
-        f"{lat_ms:.3f} ms (min {min(times):.3f}, max {max(times):.3f}); "
-        f"HBM roofline share {share:.4%} ({param_bytes / 1e6:.1f} MB of "
-        f"bf16 parameters over the latency over {bw / 1e12:.2f} TB/s); one "
-        f"profiled call: {busy}; {n_ops} aten ops dispatched a run(); "
-        f"unet_tiny B1 {n_tiny} launches a call; phase "
+    log(f"[unet] fp16 over bf16 latency "
+        f"{lat_ms['float16'][0] / lat_ms['bfloat16'][0]:.3f}x; bf16 with "
+        f"level 1 on B1 over level 1 off it "
+        f"{lat_ms['bfloat16'][0] / lat_ms[before_label][0]:.3f}x; unet_tiny "
+        f"B1 {n_tiny} launches a call; phase "
         f"{time.perf_counter() - t_phase:.1f} s, peak "
         f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     PEAK_SEEN.append(torch.cuda.max_memory_allocated(dev))
-    if not (finite and list(out.shape) == [leg["batch"], 4, size, size]
-            and r_eager <= 1.0 and r_plain <= 1.0 and r_b2 <= 1.0
-            and list(out2.shape) == [2, 4, size, size] and counts == want
-            and b2_launches == UNET_B1_A_CALL):
-        raise AssertionError(
-            f"unet: finite {finite}, shape {list(out.shape)}, bars eager "
-            f"{r_eager} plain {r_plain} batch-2 {r_b2}, launches {counts} "
-            f"(want {want}), batch-2 B1 {b2_launches}")
-    return counts
+    if bad:
+        raise AssertionError(f"unet: {bad}")
+    return total
 
 
 # the quant phase: weight-only int8 from `jit.save` to the Predictor
@@ -5296,6 +5570,410 @@ def phase_functional(torch, dev):
     return worst
 
 
+# A10g part 1 on the card: signal, geometric (with incubate's graph ops),
+# sparse and distribution at the sizes their users run, each against the
+# port on the CPU from the same seeded numpy inputs (TF32 off, as for the
+# whole run). The graph is ogbn-arxiv's size (nodes, edges, features; made
+# here from a seed, its in-degrees skewed like a citation graph's), the
+# signal 10 s of 16 kHz audio in a batch of 8 at the usual speech STFT,
+# the sparse matrix 16384^2 at 0.1% density, the distributions at an LLM
+# vocabulary and a 64-dimensional Gaussian
+NS_GRAPH = dict(nodes=169_343, edges=1_166_243, features=128, seeds=1024,
+                sample=10, hops=(15, 10))
+NS_SIGNAL = dict(batch=8, samples=160_000, n_fft=512, hop=160)
+NS_SPARSE = dict(n=16384, density=1e-3, cols=128)
+NS_DIST = dict(draws=1_000_000, batch=4096, mvn_d=64, classes=32000)
+# the bars: max/min, integer and host-side outputs exact; a sum the card
+# adds in another order (atomics, an FFT's butterflies, a sparse product,
+# a reduction) within NS_SUM_RTOL of the sum of the absolute values of its
+# terms; everything else elementwise at f32 rtol, atol
+NS_SUM_RTOL = 1e-5
+NS_RTOL, NS_ATOL = 1e-5, 1e-6
+
+
+def _ns_sum_ratio(torch, got, ref, abs_sum):
+    """max |got - ref| / (NS_SUM_RTOL * abs_sum): <= 1 is within the bar
+    (abs_sum: the sum of |terms| of each output, computed on the CPU)."""
+    d = (got.detach().cpu().double() - ref.detach().double()).abs()
+    bar = NS_SUM_RTOL * abs_sum.detach().double().abs() + 1e-30
+    return float((d / bar).max())
+
+
+def _ns_close_ratio(torch, got, ref):
+    """max |got - ref| / (atol + rtol |ref|), complex as its magnitude."""
+    d = (got.detach().cpu() - ref.detach()).abs().double()
+    return float((d / (NS_ATOL + NS_RTOL * ref.detach().abs().double()))
+                 .max())
+
+
+def _ns_exact(torch, got, ref):
+    return bool(torch.equal(got.detach().cpu(), ref.detach()))
+
+
+def _timed_ms(torch, dev, fn, reps=3):
+    """The median wall ms of fn() ending in a synchronize, after one call."""
+    fn()
+    torch.cuda.synchronize(dev)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _ns_geometric(torch, dev, paddle, both, results, timings):
+    import numpy as np
+
+    g = NS_GRAPH
+    rng = np.random.default_rng(0)
+    n, e, f = g["nodes"], g["edges"], g["features"]
+    feat = rng.standard_normal((n, f)).astype("float32")
+    src = rng.integers(0, n, e).astype("int64")
+    dst = np.minimum((n * rng.random(e) ** 2).astype("int64"), n - 1)
+    w = (rng.random((e, 1)) + 0.5).astype("float32")
+    G = paddle.geometric
+
+    def sums(name, fn, absfn):
+        card, cpu = both(fn)
+        with on_cpu(paddle):
+            ab = absfn()
+        results[name] = ("sum", _ns_sum_ratio(torch, card._data, cpu._data,
+                                              ab._data))
+
+    def exact(name, fn):
+        card, cpu = both(fn)
+        results[name] = ("exact", _ns_exact(torch, card._data, cpu._data))
+
+    T = paddle.to_tensor
+    absx = np.abs(feat)
+    for op in ("sum", "mean"):
+        sums(f"send_u_recv {op}",
+             lambda op=op: G.send_u_recv(T(feat), T(src), T(dst), op),
+             lambda op=op: G.send_u_recv(T(absx), T(src), T(dst), op))
+    for op in ("max", "min"):
+        exact(f"send_u_recv {op}",
+              lambda op=op: G.send_u_recv(T(feat), T(src), T(dst), op))
+    sums("send_ue_recv mul sum",
+         lambda: G.send_ue_recv(T(feat), T(w), T(src), T(dst), "mul", "sum"),
+         lambda: G.send_ue_recv(T(absx), T(w), T(src), T(dst), "mul", "sum"))
+    card, cpu = both(lambda: G.send_uv(T(feat), T(feat), T(src), T(dst),
+                                       "add"))
+    results["send_uv add"] = ("close", _ns_close_ratio(torch, card._data,
+                                                       cpu._data))
+    # segment ops over messages sorted by destination
+    order = np.argsort(dst, kind="stable")
+    ids = dst[order]
+    msg = feat[src[order]]
+    absm = np.abs(msg)
+    for op in ("segment_sum", "segment_mean"):
+        sums(op, lambda op=op: getattr(G, op)(T(msg), T(ids)),
+             lambda op=op: getattr(G, op)(T(absm), T(ids)))
+    for op in ("segment_max", "segment_min"):
+        exact(op, lambda op=op: getattr(G, op)(T(msg), T(ids)))
+    exact("incubate.graph_send_recv max",
+          lambda: paddle.incubate.graph_send_recv(T(feat), T(src), T(dst),
+                                                  "max"))
+    # the samplers over the graph in CSC (neighbours of a node: the sources
+    # of its in-edges), host-side, the same seed on both
+    row = src[order]
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    seeds = rng.choice(n, g["seeds"], replace=False).astype("int64")
+
+    def sampled(fn):
+        paddle.seed(7)
+        return fn()
+
+    card, cpu = both(lambda: sampled(lambda: G.sample_neighbors(
+        T(row), T(colptr), T(seeds), sample_size=g["sample"])))
+    results["sample_neighbors"] = ("exact", all(
+        _ns_exact(torch, a._data, b._data) for a, b in zip(card, cpu))
+        and card[0].place.type == "cuda")
+    counts = card[1].numpy()
+    card, cpu = both(lambda: sampled(lambda: G.khop_sampler(
+        T(row), T(colptr), T(seeds), sample_sizes=list(g["hops"]))))
+    results["khop_sampler"] = ("exact", all(
+        _ns_exact(torch, a._data, b._data) for a, b in zip(card, cpu)))
+    x = T(feat)
+    si, di = T(src), T(dst)
+    timings["geometric send_u_recv sum (ms)"] = _timed_ms(
+        torch, dev, lambda: G.send_u_recv(x, si, di, "sum"))
+    log(f"[namespaces] geometric: {n} nodes, {e} edges, {f} f32 features "
+        f"(in-degree max {int(np.bincount(dst).max())}, seeds "
+        f"{g['seeds']}: sample_neighbors drew {int(counts.sum())} of size "
+        f"{g['sample']}, khop {list(g['hops'])} reached "
+        f"{card[2].shape[0]} nodes over {card[0].shape[0]} edges)")
+
+
+def _ns_signal(torch, dev, paddle, both, results, timings):
+    import numpy as np
+
+    from paddle_tpu_torch import signal as S
+
+    c = NS_SIGNAL
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((c["batch"], c["samples"])).astype("float32")
+    n_fft, hop = c["n_fft"], c["hop"]
+    win = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(n_fft) / n_fft)).astype(
+        "float32")
+    T = paddle.to_tensor
+    kw = dict(n_fft=n_fft, hop_length=hop)
+    spec_card, spec_cpu = both(lambda: S.stft(T(x), window=T(win), **kw))
+    # a bin is a sum over the frame: the sum of |terms| is the frame's
+    # windowed L1 norm (|e^{i theta}| = 1)
+    with on_cpu(paddle):
+        pad = n_fft // 2
+        xp = torch.nn.functional.pad(torch.from_numpy(x)[:, None],
+                                     (pad, pad), mode="reflect")[:, 0]
+        l1 = (xp.unfold(-1, n_fft, hop).abs() * torch.from_numpy(win)).sum(
+            -1)                                   # [batch, frames]
+    results["stft"] = ("sum", _ns_sum_ratio(
+        torch, spec_card._data, spec_cpu._data,
+        l1[:, None, :].expand(spec_cpu.shape)))
+    y_card, y_cpu = both(lambda: S.istft(S.stft(T(x), window=T(win), **kw),
+                                         window=T(win), length=c["samples"],
+                                         **kw))
+    # an output sample sums, over the frames covering it, window * (2 / n)
+    # * sum_k |X_k|, over the squared-window envelope
+    with on_cpu(paddle):
+        spec = spec_cpu._data
+        mag = spec.abs().sum(-2) * 2.0 / n_fft    # [batch, frames]
+        w = torch.from_numpy(win)
+        frames = mag[..., None] * w.abs()         # [batch, frames, n_fft]
+        out = S._overlap_add(frames, hop)
+        env = S._overlap_add((w * w).expand(frames.shape[-2], n_fft), hop)
+        bound = (out / env.clamp_min(1e-11))[..., pad:pad + c["samples"]]
+    results["istft"] = ("sum", _ns_sum_ratio(torch, y_card._data, y_cpu._data,
+                                             bound))
+    results["istft round trip"] = ("close", float(
+        (y_card._data.cpu() - torch.from_numpy(x)).abs().max() / 1e-5))
+    fr_card, fr_cpu = both(lambda: S.frame(T(x), n_fft, hop))
+    results["frame"] = ("exact", _ns_exact(torch, fr_card._data,
+                                           fr_cpu._data))
+    oa_card, oa_cpu = both(lambda: S.overlap_add(S.frame(T(x), n_fft, hop),
+                                                 hop))
+    with on_cpu(paddle):
+        oa_abs = S.overlap_add(S.frame(T(np.abs(x)), n_fft, hop), hop)
+    results["overlap_add"] = ("sum", _ns_sum_ratio(
+        torch, oa_card._data, oa_cpu._data, oa_abs._data))
+    xc, wc = T(x), T(win)
+    timings["signal stft (ms)"] = _timed_ms(
+        torch, dev, lambda: S.stft(xc, window=wc, **kw))
+    log(f"[namespaces] signal: stft/istft of {c['batch']} x {c['samples']} "
+        f"samples, n_fft {n_fft}, hop {hop}, Hann: spectrum "
+        f"{list(spec_card.shape)} {spec_card.dtype}")
+
+
+def _ns_sparse(torch, dev, paddle, both, results, timings):
+    import numpy as np
+
+    c = NS_SPARSE
+    rng = np.random.default_rng(2)
+    n = c["n"]
+    flat = np.unique(rng.integers(0, n * n, int(n * n * c["density"])))
+    idx = np.stack([flat // n, flat % n]).astype("int64")
+    vals = rng.standard_normal(len(flat)).astype("float32")
+    dense = rng.standard_normal((n, c["cols"])).astype("float32")
+    yt = rng.standard_normal((c["cols"], n)).astype("float32")
+    inp = rng.standard_normal((n, c["cols"])).astype("float32")
+    SP = paddle.sparse
+    T = paddle.to_tensor
+
+    def coo(v):
+        return SP.sparse_coo_tensor(idx, T(v), [n, n])
+
+    def csr(v):
+        return coo(v).to_sparse_csr()
+
+    with on_cpu(paddle):
+        prod_abs = SP.matmul(coo(np.abs(vals)), T(np.abs(dense)))
+        mm_abs = SP.masked_matmul(T(np.abs(dense)), T(np.abs(yt)),
+                                  coo(vals))
+        add_abs = SP.addmm(T(np.abs(inp)), coo(np.abs(vals)),
+                           T(np.abs(dense)), 0.5, 2.0)
+    for fmt, make in (("coo", coo), ("csr", csr)):
+        card, cpu = both(lambda make=make: SP.matmul(make(vals), T(dense)))
+        results[f"matmul {fmt}"] = ("sum", _ns_sum_ratio(
+            torch, card._data, cpu._data, prod_abs._data))
+    card, cpu = both(lambda: SP.masked_matmul(T(dense), T(yt), coo(vals)))
+    results["masked_matmul"] = ("sum", _ns_sum_ratio(
+        torch, card.values()._data, cpu.values()._data,
+        mm_abs.values()._data)) if _ns_exact(
+        torch, card.indices()._data, cpu.indices()._data) else ("exact",
+                                                               False)
+    card, cpu = both(lambda: SP.addmm(T(inp), coo(vals), T(dense), 0.5, 2.0))
+    results["addmm"] = ("sum", _ns_sum_ratio(torch, card._data, cpu._data,
+                                             add_abs._data))
+    for op in ("sin", "tanh", "square", "abs", "relu", "expm1"):
+        card, cpu = both(lambda op=op: getattr(SP, op)(coo(vals)))
+        results[f"{op} values"] = ("close", _ns_close_ratio(
+            torch, card.values()._data, cpu.values()._data))
+    card, cpu = both(lambda: SP.sqrt(SP.abs(csr(vals))))
+    results["sqrt(abs) csr values"] = ("close", _ns_close_ratio(
+        torch, card.values()._data, cpu.values()._data))
+    a, y = coo(vals), T(dense)
+    timings[f"sparse COO @ dense [{n}, {c['cols']}] (ms)"] = _timed_ms(
+        torch, dev, lambda: SP.matmul(a, y))
+    log(f"[namespaces] sparse: {n} x {n} COO/CSR, {len(flat)} nonzeros "
+        f"({len(flat) / n / n:.4%}), times a dense [{n}, {c['cols']}]")
+
+
+def _ns_distribution(torch, dev, paddle, both, results, timings):
+    import numpy as np
+
+    c = NS_DIST
+    rng = np.random.default_rng(3)
+    D = paddle.distribution
+    T = paddle.to_tensor
+    b, d, k = c["batch"], c["mvn_d"], c["classes"]
+    loc, scale = (rng.standard_normal(b).astype("float32"),
+                  (rng.random(b) + 0.5).astype("float32"))
+    loc2, scale2 = (rng.standard_normal(b).astype("float32"),
+                    (rng.random(b) + 0.5).astype("float32"))
+    v = rng.standard_normal(b).astype("float32")
+    a = rng.standard_normal((d, d)).astype("float32")
+    cov = (a @ a.T / d + np.eye(d)).astype("float32")
+    mloc = rng.standard_normal(d).astype("float32")
+    mval = rng.standard_normal(d).astype("float32")
+    logits = rng.standard_normal((4, k)).astype("float32")
+    logits2 = rng.standard_normal((4, k)).astype("float32")
+    cls = rng.integers(0, k, 4).astype("int64")
+    conc = (rng.random((16, 8)) + 0.5).astype("float32")
+    simplex = rng.random((16, 8)).astype("float32") + 0.1
+    simplex /= simplex.sum(-1, keepdims=True)
+    ga, gb = (rng.random(b) + 0.5).astype("float32"), (
+        rng.random(b) + 0.5).astype("float32")
+    pos = (rng.random(b) + 0.1).astype("float32")
+    unit = (rng.random(b) * 0.8 + 0.1).astype("float32")
+
+    def close(name, fn):
+        card, cpu = both(fn)
+        results[name] = ("close", _ns_close_ratio(torch, card._data,
+                                                  cpu._data))
+
+    close("Normal log_prob", lambda: D.Normal(T(loc), T(scale)).log_prob(
+        T(v)))
+    close("Normal entropy", lambda: D.Normal(T(loc), T(scale)).entropy())
+    close("Normal kl", lambda: D.kl_divergence(D.Normal(T(loc), T(scale)),
+                                               D.Normal(T(loc2),
+                                                        T(scale2))))
+    close(f"MultivariateNormal d{d} log_prob", lambda: D.MultivariateNormal(
+        T(mloc), covariance_matrix=T(cov)).log_prob(T(mval)))
+    close(f"MultivariateNormal d{d} entropy", lambda: D.MultivariateNormal(
+        T(mloc), covariance_matrix=T(cov)).entropy())
+    close(f"Categorical {k} log_prob", lambda: D.Categorical(
+        logits=T(logits)).log_prob(T(cls)))
+    # entropy and kl sum over the 32000 classes
+    card, cpu = both(lambda: D.Categorical(logits=T(logits)).entropy())
+    with on_cpu(paddle):
+        lp = torch.log_softmax(torch.from_numpy(logits), -1)
+        ent_abs = (lp.exp() * lp.abs()).sum(-1)
+        lq = torch.log_softmax(torch.from_numpy(logits2), -1)
+        kl_abs = (lp.exp() * (lp - lq).abs()).sum(-1)
+    results[f"Categorical {k} entropy"] = ("sum", _ns_sum_ratio(
+        torch, card._data, cpu._data, ent_abs))
+    card, cpu = both(lambda: D.kl_divergence(
+        D.Categorical(logits=T(logits)), D.Categorical(logits=T(logits2))))
+    results[f"Categorical {k} kl"] = ("sum", _ns_sum_ratio(
+        torch, card._data, cpu._data, kl_abs))
+    close("Dirichlet log_prob", lambda: D.Dirichlet(T(conc)).log_prob(
+        T(simplex)))
+    close("Gamma log_prob", lambda: D.Gamma(T(ga), T(gb)).log_prob(T(pos)))
+    close("Beta log_prob", lambda: D.Beta(T(ga), T(gb)).log_prob(T(unit)))
+    # draws on the card: a seed repeats them; their moments
+    n = c["draws"]
+
+    def draws(make):
+        paddle.seed(5)
+        x1 = make().sample([n])._data
+        paddle.seed(5)
+        x2 = make().sample([n])._data
+        return x1, bool(torch.equal(x1, x2)) and x1.device.type == "cuda"
+
+    def moment(name, make, mean, var):
+        x, same = draws(make)
+        x = x.double()
+        se = math.sqrt(var / n)
+        z = abs(float(x.mean()) - mean) / se
+        results[f"{name} draws"] = ("moments", (z, same))
+
+    moment("Normal(0.5, 2)", lambda: D.Normal(0.5, 2.0), 0.5, 4.0)
+    moment("Gamma(3, 2)", lambda: D.Gamma(3.0, 2.0), 1.5, 0.75)
+    moment("Beta(2, 3)", lambda: D.Beta(2.0, 3.0), 0.4, 0.04)
+    x, same = draws(lambda: D.Dirichlet(T(np.asarray([1.0, 2.0, 3.0],
+                                                      "float32"))))
+    mu = torch.tensor([1 / 6, 2 / 6, 3 / 6], dtype=torch.float64)
+    se = (mu * (1 - mu) / 7 / n).sqrt()
+    results["Dirichlet(1, 2, 3) draws"] = ("moments", (float(
+        ((x.double().mean(0).cpu() - mu).abs() / se).max()), same))
+    x, same = draws(lambda: D.MultivariateNormal(T(mloc),
+                                                 covariance_matrix=T(cov)))
+    se = torch.from_numpy(np.sqrt(np.diag(cov) / n)).double()
+    results[f"MultivariateNormal d{d} draws"] = ("moments", (float(
+        ((x.double().mean(0).cpu() - torch.from_numpy(mloc).double()).abs()
+         / se).max()), same))
+    p = torch.softmax(torch.from_numpy(logits[0]).double(), -1)
+    x, same = draws(lambda: D.Categorical(logits=T(logits[0])))
+    freq = torch.bincount(x.cpu(), minlength=k).double() / n
+    z = float(((freq - p).abs() / (p * (1 - p) / n).sqrt()).max())
+    # the largest of 32000 |z| of N(0, 1) draws sits near 4.2; hold it at 6
+    results[f"Categorical {k} draws"] = ("moments", (z * 5.0 / 6.0, same))
+    cat = D.Categorical(logits=T(logits[0]))
+    timings[f"distribution Categorical({k}) {n} draws (ms)"] = _timed_ms(
+        torch, dev, lambda: cat.sample([n]))
+    log(f"[namespaces] distribution: batch {b}, MultivariateNormal d {d}, "
+        f"Categorical over {k} classes, {n} draws each")
+
+
+def phase_namespaces(torch, dev):
+    """signal, geometric (with incubate's graph ops), sparse and
+    distribution (ROADMAP A10g part 1) on cuda:0 at the NS_* sizes, each
+    output against the port on the CPU from the same inputs at the NS_*
+    bars; the draws repeat under a seed and meet their moments within 5
+    standard errors; one timed call a namespace."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as device_mod
+
+    device_mod._current = None   # the default: the card
+    t_phase = time.perf_counter()
+
+    def both(fn):
+        """fn() on the card (the default place), then on the CPU."""
+        card = fn()
+        torch.cuda.synchronize(dev)
+        with on_cpu(paddle):
+            cpu = fn()
+        return card, cpu
+
+    results, timings, spent = {}, {}, {}
+    for label, part in (("geometric", _ns_geometric),
+                        ("signal", _ns_signal), ("sparse", _ns_sparse),
+                        ("distribution", _ns_distribution)):
+        t0 = time.perf_counter()
+        part(torch, dev, paddle, both, results, timings)
+        spent[label] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    bad = {}
+    for name, (kind, r) in results.items():
+        ok = (r if kind == "exact" else
+              (r[0] <= 5.0 and r[1]) if kind == "moments" else
+              (math.isfinite(r) and r <= 1.0))
+        if not ok:
+            bad[name] = (kind, r)
+    log(f"[namespaces] card against the port on the CPU (exact: equal; sum: "
+        f"fraction of {NS_SUM_RTOL} x the sum of |terms|; close: fraction of "
+        f"{NS_ATOL} + {NS_RTOL} |ref|; moments: (|z| of the draws' mean, "
+        f"in standard errors, bar 5; a seed repeats the draw)): "
+        f"{ {n: (k, r if isinstance(r, bool) else tuple(round(x, 3) if isinstance(x, float) else x for x in r) if isinstance(r, tuple) else round(r, 4)) for n, (k, r) in results.items()} }")
+    log(f"[namespaces] one timed call each: "
+        f"{ {n: round(ms, 3) for n, ms in timings.items()} }; seconds by "
+        f"namespace {spent}; phase {time.perf_counter() - t_phase:.1f} s")
+    device_mod._current = None
+    if bad:
+        raise AssertionError(f"namespaces: {bad}")
+
+
 MATMUL_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 NORMS = ("rms_norm_fwd", "rms_norm_bwd")
 TRAIN_RANGES = ("fused_ce", "adamw_update")
@@ -5625,6 +6303,25 @@ def phase_timing(torch, dev, name, main_err, launches):
                f"B3 {label}", row=main)
         del q, k, v, do, out, lse, delta, qt, kt, vt, dot, lq, lk, lv, lout
         torch.cuda.empty_cache()
+
+    # B1 in fp16 and at head_dim 32 at config 5's shapes (unet_sd_like at
+    # 64^2 latents, full attention, 8 heads): level 2 and the middle block
+    # in fp16 (the fp16 row), level 1 in bf16 (the head_dim-32 row), then
+    # level 1 in fp16 (a log line). The library call is SDPA in the same
+    # dtype; the bound counts both products and each input read once
+    for key, (b, s, h, d, dt), row in (
+            ("flash_fwd_f16", (1, 256, 8, 64, torch.float16), True),
+            ("flash_fwd_hd32", (1, 1024, 8, 32, torch.bfloat16), True),
+            ("flash_fwd_hd32", (1, 1024, 8, 32, torch.float16), False)):
+        q, k, v, _ = flash_case(torch, dev, b, s, s, h, h, d, dt)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        record(key, lambda: fa.flash_fwd(q, k, v, False),
+               lambda: fa.flash_fwd_plain(q, k, v, False),
+               lambda: F.scaled_dot_product_attention(qt, kt, vt),
+               4 * b * s * h * d * 2 + b * h * s * 4, 4 * b * h * s * s * d,
+               f"B1 b{b} h{h} s{s} d{d} non-causal "
+               f"{str(dt).split('.')[-1]} (config 5's UNet)", row=row)
+        del q, k, v, qt, kt, vt
 
     # B6 and B4 at the engine's decode shape: 8 rows, ragged up to 2048
     q, pk, pv, bt, pos = paged_case(torch, dev, torch.bfloat16)
@@ -7778,7 +8475,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="build,parity,c2,c3,tune,train-check,eager,"
-                    "functional,layers,dist,configs,unet,quant,recompute,"
+                    "functional,namespaces,layers,dist,configs,unet,quant,"
+                    "recompute,"
                     "incubate,jit,analysis,device,debug,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
                     "chunked,spec,engine-int8,logits-int8,capacity,timing",
@@ -7813,7 +8511,8 @@ def main(argv=None):
     from paddle_tpu_torch.models import (LLAMA2_7B, Llama, init_params,
                                          quantize_params)
 
-    main_err, launches = {}, {k: 0 for k in launch_counts()}
+    main_err = {}
+    launches = {k: 0 for k in {**launch_counts(), **variant_counts()}}
     if "build" in phases:
         phase_build()
     if "parity" in phases:
@@ -7833,6 +8532,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     if "functional" in phases:
         phase_functional(torch, dev)
+        torch.cuda.empty_cache()
+    if "namespaces" in phases:
+        phase_namespaces(torch, dev)
         torch.cuda.empty_cache()
     if "layers" in phases:
         _add(launches, phase_layers(torch, dev))

@@ -7,8 +7,8 @@ signatures (the reference yaml's argument order and names, e.g.
 `_C_ops.matmul(x, y, False, False)`) and the same bodies, which forward to
 the public API, renaming to its spellings and dropping kernel-only
 arguments. Only the resolver `_t` differs: it resolves `_TARGETS` against
-`paddle_tpu_torch`. The targets in namespaces the port has not ported yet
-(`geometric`, `signal`, `text`, ROADMAP A10g) raise NotImplementedError naming their slice when called,
+`paddle_tpu_torch`. The targets in the namespace the port has not ported yet
+(`text`, ROADMAP A10g part 2) raise NotImplementedError naming their slice when called,
 not when this module is imported.
 """
 
@@ -19,9 +19,7 @@ _cache = {}
 
 # the namespaces of `_TARGETS` a later slice ports
 _LATER = {
-    'paddle.geometric.': 'A10g',
-    'paddle.signal.': 'A10g',
-    'paddle.text.': 'A10g',
+    'paddle.text.': 'A10g part 2',
 }
 
 

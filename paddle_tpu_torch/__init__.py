@@ -50,7 +50,11 @@ training API):
     weight-only int8 on B8, activation-int8 PTQ) and `jit.save(quantize=)`;
   - tooling and fused layers: `amp.debugging` (the nan/inf checker and
     operator stats on the dispatch waist), `profiler` (over
-    `torch.profiler`), `distributed.fleet.recompute` and `incubate.nn`.
+    `torch.profiler`), `distributed.fleet.recompute` and `incubate.nn`;
+  - `signal` (frame, overlap_add, stft/istft over `torch.fft`),
+    `geometric` (segment reductions, message passing, the host-side
+    samplers) with incubate's graph ops, `sparse` (COO/CSR over torch's
+    sparse layouts) and `distribution` (the 27 names of the JAX module).
 """
 
 from paddle_tpu_torch.device import resolve_device  # noqa: F401
@@ -109,6 +113,8 @@ from paddle_tpu_torch import fft, linalg  # noqa: F401,E402
 from paddle_tpu_torch import jit, inference  # noqa: F401,E402
 from paddle_tpu_torch import quantization, profiler, incubate  # noqa: F401,E402
 from paddle_tpu_torch import static  # noqa: F401,E402
+from paddle_tpu_torch import signal, geometric  # noqa: F401,E402
+from paddle_tpu_torch import sparse, distribution  # noqa: F401,E402
 
 
 def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,

@@ -93,6 +93,13 @@ def install_tensor_methods():
         if callable(fn):
             setattr(Tensor, nm, fn)
             bound += 1
+
+    from paddle_tpu_torch import signal as _signal
+
+    if not hasattr(Tensor, "stft"):
+        Tensor.stft = _signal.stft
+        Tensor.istft = _signal.istft
+
     for nm, fn in {**_EXTRA, **_make_inplace_trig()}.items():
         if not hasattr(Tensor, nm):
             setattr(Tensor, nm, fn)

@@ -26,6 +26,8 @@ from paddle_tpu_torch.core import tensor as _tmod
 from paddle_tpu_torch.core.backward import run_backward
 from paddle_tpu_torch.core.tensor import Tensor
 from paddle_tpu_torch.framework import random as _random
+from paddle_tpu_torch.nn.functional.flash_attention import \
+    routes_for_backward as _routes_for_backward
 
 __all__ = ["recompute", "RecomputeFunction", "recompute_sequential"]
 
@@ -54,7 +56,9 @@ class RecomputeFunction(PyLayer):
             ctx.device = _rng_device(ctx.inputs)
             ctx.fw_rng_state = _random.get_rng_state(ctx.device)
             ctx.fw_tracker_states = get_rng_state_tracker().get_states_tracker()
-        return run_function(*ctx.inputs)
+        # attention routes as in the replay, which runs with grad
+        with _routes_for_backward():
+            return run_function(*ctx.inputs)
 
     @staticmethod
     def backward(ctx, *grads):

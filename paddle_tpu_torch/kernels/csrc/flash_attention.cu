@@ -3,8 +3,8 @@
 // Each replaces one Pallas kernel of paddle_tpu/kernels/flash_attention.py:
 //
 //   flash_fwd_tma_kernel  <- _fwd_kernel     (B1, :112): out and the f32 lse of
-//       causal or full online-softmax attention (bf16; flash_fwd_f32_kernel
-//       in f32).
+//       causal or full online-softmax attention (bf16 and fp16 at head_dim
+//       32, 64, 128; flash_fwd_f32_kernel in f32).
 //   flash_bwd_dq_tma_kernel  <- _bwd_dq_kernel  (B2, :215): dq = scale *
 //       sum_j p * (dp - delta) * k, P rebuilt from lse (bf16;
 //       flash_bwd_dq_f32_kernel in f32).
@@ -22,18 +22,24 @@
 // writes out 0 and lse -1e30 (:159-166). Rows and keys past Sq / Sk are
 // zero-filled in shared memory and masked.
 //
-// B1, bf16 (flash_fwd_tma_kernel): what bounds it is operations (68.7 GFLOP
-// at the 7B leg's shape, 0.07 ms at 989 TFLOP/s), and only wgmma reaches
-// that rate. One block of three warpgroups per (128-row Q tile, head, batch),
-// long rows first. Warpgroup 2 gives up its registers (setmaxnreg) and one
-// of its threads issues every copy by TMA over 4-D tensor maps of the public
+// B1, bf16 and fp16 (flash_fwd_tma_kernel<T, D>): what bounds it is
+// operations (68.7 GFLOP at the 7B leg's shape, 0.07 ms at 989 TFLOP/s),
+// and only wgmma reaches that rate. fp16 is the same body with the
+// instructions' .f16 type, an FLOAT16 tensor map and P packed to fp16 (the
+// Pallas kernel rounds P to v's dtype). At head_dim 32 a row is 64 bytes:
+// one 32-column box in the 64-byte swizzle, its descriptors (sw64_desc)
+// and a 64 x 32 P.V product; the rest is the D = 64 code. B2 and B3 take
+// neither (no training config needs them). One block of three warpgroups
+// per (128-row Q tile, head, batch), long rows first. Warpgroup 2 gives
+// up its registers (setmaxnreg) and one of its threads issues every copy
+// by TMA over 4-D tensor maps of the public
 // [B, S, H, D] layout, boxes of 1 x 128 rows x 1 x 64 columns in the 128-byte
 // swizzle (D = 128 takes two): Q once, then K and V tiles of 128 keys through
 // a 2-stage ring, each tile on its own mbarrier so that Q.K^T starts before V
 // lands; rows past Sq and Sk arrive as zeros. Each consumer warpgroup owns 64
 // rows: S = Q.K^T by wgmma SS (K the K-major B operand), the online softmax on
 // the f32 scores in registers (scale * log2 e folded into one FMA before
-// exp2), P rounded to bf16 in registers as the A operand of wgmma RS for
+// exp2), P rounded to v's type in registers as the A operand of wgmma RS for
 // P.V, V the MN-major B operand: P never touches shared memory. Only the key
 // tiles that the offset diagonal or the Sk tail crosses run the mask (the
 // first ones of the loop, which walks the key tiles backwards); the other
@@ -86,6 +92,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -105,6 +112,50 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// B1's 16-bit input types: bf16 and fp16 share the wgmma layouts and the
+// swizzled tiles (2 bytes a value); they differ in the instruction's type
+// suffix, the tensor map's type and the rounding of P and of the output
+template <typename T>
+struct Elem;
+template <>
+struct Elem<bf16> {
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_bf16(lo, hi);
+  }
+  static __device__ __forceinline__ void store2(bf16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    return pack_f16(lo, hi);
+  }
+  static __device__ __forceinline__ void store2(__half* p, float a, float b) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  }
+};
+
+// a descriptor of a tile whose rows are RowB bytes: the 128-byte swizzle
+// (64 columns of 16-bit values) or, at head_dim 32, the 64-byte one
+template <int RowB>
+__device__ __forceinline__ uint64_t sw_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(RowB == 128 || RowB == 64, "128- or 64-byte rows");
+  if constexpr (RowB == 128)
+    return hopper::sw128_desc(addr, lbo, sbo);
+  else
+    return hopper::sw64_desc(addr, lbo, sbo);
+}
 
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
@@ -121,7 +172,7 @@ __device__ __forceinline__ bool visible(int row, int col, int Sq, int Sk,
 }
 
 // ---------------------------------------------------------------------------
-// B1: forward, bf16 (TMA + wgmma)
+// B1: forward, bf16 and fp16 (TMA + wgmma)
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdRows = 128;     // query rows a block: 64 a warpgroup
@@ -137,28 +188,37 @@ constexpr size_t fwd_smem() {
 }
 
 // the A operand of k16 step kk of P.V from the score accumulator (columns
-// 16 kk .. 16 kk + 15), rounded to bf16 (p.astype(v.dtype))
+// 16 kk .. 16 kk + 15), rounded to v's type T (p.astype(v.dtype)); B2 and
+// B3 round dS and P to bf16 the same way
+template <typename T = bf16>
 __device__ __forceinline__ void acc_to_a16(uint32_t* a, const float* p,
                                            int kk) {
-  a[0] = pack_bf16(p[8 * kk + 0], p[8 * kk + 1]);
-  a[1] = pack_bf16(p[8 * kk + 2], p[8 * kk + 3]);
-  a[2] = pack_bf16(p[8 * kk + 4], p[8 * kk + 5]);
-  a[3] = pack_bf16(p[8 * kk + 6], p[8 * kk + 7]);
+  a[0] = Elem<T>::pack(p[8 * kk + 0], p[8 * kk + 1]);
+  a[1] = Elem<T>::pack(p[8 * kk + 2], p[8 * kk + 3]);
+  a[2] = Elem<T>::pack(p[8 * kk + 4], p[8 * kk + 5]);
+  a[3] = Elem<T>::pack(p[8 * kk + 6], p[8 * kk + 7]);
 }
 
 // one block per (128-row Q tile, head, batch); key tiles of 128 walked from
-// the last (the ones the causal diagonal or the Sk tail cross) to the first
-template <int D>
+// the last (the ones the causal diagonal or the Sk tail cross) to the first.
+// T: bf16 or __half; D: 32, 64 or 128. At D >= 64 the tiles are 64-column
+// blocks in the 128-byte swizzle (D = 128 takes two); at D = 32 one 32-column
+// block in the 64-byte swizzle, the same code over narrower rows
+template <typename T, int D>
 __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
     const __grid_constant__ CUtensorMap tmap_q,
     const __grid_constant__ CUtensorMap tmap_k,
-    const __grid_constant__ CUtensorMap tmap_v, bf16* __restrict__ out,
+    const __grid_constant__ CUtensorMap tmap_v, T* __restrict__ out,
     float* __restrict__ lse, int Sq, int Sk, int H, int Hk, int causal,
     float scale) {
   using namespace hopper;
-  constexpr int kAtoms = D / 64;                    // 64-wide column blocks
-  constexpr int kQAtom = kFwdRows * 128;            // bytes of one block
-  constexpr int kKVAtom = kFwdKeys * 128;
+  constexpr bool kF16 = Elem<T>::kF16;
+  constexpr int kCols = D < 64 ? D : 64;            // columns a block row
+  constexpr int kRowB = kCols * 2;                  // its bytes: 128 or 64
+  constexpr int kSteps = kRowB / 32;                // k16 steps a block row
+  constexpr int kAtoms = D / kCols;                 // column blocks
+  constexpr int kQAtom = kFwdRows * kRowB;          // bytes of one block
+  constexpr int kKVAtom = kFwdKeys * kRowB;
   constexpr int kKVBytes = kAtoms * kKVAtom;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* Qs = align1024(smem_raw);
@@ -199,7 +259,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
       mbar_expect_tx(qbar, kAtoms * kQAtom);
 #pragma unroll
       for (int a = 0; a < kAtoms; ++a)
-        tma_load_4d(Qs + a * kQAtom, &tmap_q, qbar, a * 64, h, i0, b);
+        tma_load_4d(Qs + a * kQAtom, &tmap_q, qbar, a * kCols, h, i0, b);
       for (int it = 0; it < n_kt; ++it) {
         const int s = it % kFwdStages, j0 = (n_kt - 1 - it) * kFwdKeys;
         if (it >= kFwdStages) mbar_wait(&empty[s], (it / kFwdStages - 1) & 1);
@@ -207,12 +267,12 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
 #pragma unroll
         for (int a = 0; a < kAtoms; ++a)
           tma_load_4d(Ks + s * kKVBytes + a * kKVAtom, &tmap_k, &kfull[s],
-                      a * 64, hk, j0, b);
+                      a * kCols, hk, j0, b);
         mbar_expect_tx(&vfull[s], kKVBytes);
 #pragma unroll
         for (int a = 0; a < kAtoms; ++a)
           tma_load_4d(Vs + s * kKVBytes + a * kKVAtom, &tmap_v, &vfull[s],
-                      a * 64, hk, j0, b);
+                      a * kCols, hk, j0, b);
       }
     }
   } else {
@@ -225,7 +285,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     // running max of the raw scores, per-thread partial row sums
     float mA = -INFINITY, mB = -INFINITY, lA = 0.f, lB = 0.f;
-    const uint32_t q_addr = smem_u32(Qs) + wg * 64 * 128;
+    const uint32_t q_addr = smem_u32(Qs) + wg * 64 * kRowB;
     mbar_wait(qbar, 0);
 
     for (int it = 0; it < n_kt; ++it) {
@@ -238,10 +298,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        const int a = kk / 4, c = (kk % 4) * 32;
-        wgmma_ss_n128<0>(sc, sw128_desc(q_addr + a * kQAtom + c, 16, 1024),
-                         sw128_desc(k_addr + a * kKVAtom + c, 16, 1024),
-                         kk > 0);
+        const int a = kk / kSteps, c = (kk % kSteps) * 32;
+        wgmma_ss_n128<0, kF16>(
+            sc, sw_desc<kRowB>(q_addr + a * kQAtom + c, 16, 8 * kRowB),
+            sw_desc<kRowB>(k_addr + a * kKVAtom + c, 16, 8 * kRowB), kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -290,21 +350,25 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= ((i / 2) % 2) ? alphaB : alphaA;
 
-      // O += P V: P from registers (bf16), V as the MN-major B operand
+      // O += P V: P from registers (in v's type), V as the MN-major B
+      // operand
       uint32_t pa[kFwdKeys / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kFwdKeys / 16; ++kk) acc_to_a16(pa[kk], sc, kk);
+      for (int kk = 0; kk < kFwdKeys / 16; ++kk) acc_to_a16<T>(pa[kk], sc, kk);
       mbar_wait(&vfull[s], par);
       const uint32_t v_addr = smem_u32(Vs + s * kKVBytes);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kFwdKeys / 16; ++kk) {
-        const uint64_t dv = sw128_desc(v_addr + kk * 2048, kKVAtom, 1024);
+        const uint64_t dv =
+            sw_desc<kRowB>(v_addr + kk * 16 * kRowB, kKVAtom, 8 * kRowB);
         if constexpr (D == 128)
-          wgmma_rs_n128<1>(o, pa[kk], dv, 1);
+          wgmma_rs_n128<1, kF16>(o, pa[kk], dv, 1);
+        else if constexpr (D == 64)
+          wgmma_rs_n64<1, kF16>(o, pa[kk], dv, 1);
         else
-          wgmma_rs_n64<1>(o, pa[kk], dv, 1);
+          wgmma_rs_n32<1, kF16>(o, pa[kk], dv, 1);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -328,9 +392,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1) flash_fwd_tma_kernel(
       const int row = upper ? rB : rA;
       const float inv = upper ? invB : invA;
       if (row < Sq)
-        *reinterpret_cast<__nv_bfloat162*>(
-            out + (((int64_t)b * Sq + row) * H + h) * D + col) =
-            __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+        Elem<T>::store2(out + (((int64_t)b * Sq + row) * H + h) * D + col,
+                        o[i] * inv, o[i + 1] * inv);
     }
   }
 }
@@ -1070,8 +1133,9 @@ __global__ void __launch_bounds__(kFThreads) flash_bwd_dkv_f32_kernel(
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory: above 48 KB a kernel must be allowed it first. Set
-// before every launch (a host call of microseconds): the D = 64 and D = 128
-// instantiations share a function type, so a per-type flag would skip one.
+// before every launch (a host call of microseconds): the instantiations of
+// one kernel at its head dims (B1: 32, 64, 128; B2, B3: 64, 128) share a
+// function type, so a per-type flag would skip one.
 template <typename K>
 void allow_smem(K kernel, size_t bytes) {
   cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1096,52 +1160,62 @@ struct Dims {
   float scale;
 };
 
-// a 4-D map over x [B, S, heads, D] (innermost first): boxes of one (batch,
-// head) x `rows` rows x 64 columns in the 128-byte swizzle; rows past S
-// read as zeros
+// a 4-D map over x [B, S, heads, D] of 16-bit values `type` (innermost
+// first): boxes of one (batch, head) x `rows` rows x 64 columns in the
+// 128-byte swizzle, or at D = 32 x 32 columns in the 64-byte swizzle; rows
+// past S read as zeros
 template <int D>
 bool bshd_map(CUtensorMap* map, const void* x, int B, int S, int heads,
-              int rows) {
+              int rows,
+              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const cuuint64_t dims[4] = {D, (cuuint64_t)heads, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {D * 2, (cuuint64_t)heads * D * 2,
                                  (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims,
-                          strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  const cuuint32_t box[4] = {D < 64 ? D : 64, 1, (cuuint32_t)rows, 1};
+  return hopper::make_map(
+      map, type, 4, x, dims, strides, box,
+      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // the maps of q and do (boxes of q_rows) and of k and v (boxes of k_rows)
 template <int D>
 bool qkv_maps(CUtensorMap* maps, const void* q, const void* k, const void* v,
-              const void* dout, Dims m, int q_rows, int k_rows) {
-  return bshd_map<D>(&maps[0], q, m.B, m.Sq, m.H, q_rows) &&
-         bshd_map<D>(&maps[1], k, m.B, m.Sk, m.Hk, k_rows) &&
-         bshd_map<D>(&maps[2], v, m.B, m.Sk, m.Hk, k_rows) &&
+              const void* dout, Dims m, int q_rows, int k_rows,
+              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  return bshd_map<D>(&maps[0], q, m.B, m.Sq, m.H, q_rows, type) &&
+         bshd_map<D>(&maps[1], k, m.B, m.Sk, m.Hk, k_rows, type) &&
+         bshd_map<D>(&maps[2], v, m.B, m.Sk, m.Hk, k_rows, type) &&
          (dout == nullptr ||
-          bshd_map<D>(&maps[3], dout, m.B, m.Sq, m.H, q_rows));
+          bshd_map<D>(&maps[3], dout, m.B, m.Sq, m.H, q_rows, type));
+}
+
+// B1 in a 16-bit type T (bf16 or __half)
+template <typename T, int D>
+int launch_fwd_tma(const void* q, const void* k, const void* v, void* out,
+                   void* lse, Dims m, cudaStream_t st) {
+  CUtensorMap t[3];
+  if (!qkv_maps<D>(t, q, k, v, nullptr, m, kFwdRows, kFwdKeys,
+                   Elem<T>::kMap))
+    return (int)cudaErrorInvalidValue;
+  auto kern = flash_fwd_tma_kernel<T, D>;
+  allow_smem(kern, fwd_smem<D>());
+  kern<<<dim3((m.Sq + kFwdRows - 1) / kFwdRows, m.H, m.B), kFwdThreads,
+         fwd_smem<D>(), st>>>(t[0], t[1], t[2], (T*)out, (float*)lse, m.Sq,
+                              m.Sk, m.H, m.Hk, m.causal, m.scale);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, Dims m, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    CUtensorMap t[3];
-    if (!qkv_maps<D>(t, q, k, v, nullptr, m, kFwdRows, kFwdKeys))
-      return (int)cudaErrorInvalidValue;
-    auto kern = flash_fwd_tma_kernel<D>;
-    allow_smem(kern, fwd_smem<D>());
-    kern<<<dim3((m.Sq + kFwdRows - 1) / kFwdRows, m.H, m.B), kFwdThreads,
-           fwd_smem<D>(), st>>>(t[0], t[1], t[2], (bf16*)out, (float*)lse,
-                                m.Sq, m.Sk, m.H, m.Hk, m.causal, m.scale);
-  } else {
-    auto kern = flash_fwd_f32_kernel<D>;
-    allow_smem(kern, fwd_f32_smem<D>());
-    kern<<<dim3((m.Sq + kF - 1) / kF, m.H, m.B), kFThreads, fwd_f32_smem<D>(),
-           st>>>((const float*)q, (const float*)k, (const float*)v,
-                 (float*)out, (float*)lse, m.Sq, m.Sk, m.H, m.Hk, m.causal,
-                 m.scale);
-  }
+  if (dtype == 1) return launch_fwd_tma<bf16, D>(q, k, v, out, lse, m, st);
+  if (dtype == 2) return launch_fwd_tma<__half, D>(q, k, v, out, lse, m, st);
+  auto kern = flash_fwd_f32_kernel<D>;
+  allow_smem(kern, fwd_f32_smem<D>());
+  kern<<<dim3((m.Sq + kF - 1) / kF, m.H, m.B), kFThreads, fwd_f32_smem<D>(),
+         st>>>((const float*)q, (const float*)k, (const float*)v, (float*)out,
+               (float*)lse, m.Sq, m.Sk, m.H, m.Hk, m.causal, m.scale);
   return (int)cudaGetLastError();
 }
 
@@ -1196,16 +1270,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-bool dims_ok(int B, int Sq, int Sk, int H, int Hk, int D, int dtype) {
+bool dims_ok(int B, int Sq, int Sk, int H, int Hk) {
   return B >= 1 && Sq >= 1 && Sk >= 1 && Hk >= 1 && H % Hk == 0 &&
-         (D == 64 || D == 128) && (dtype == 0 || dtype == 1) &&
          B <= 65535 && H <= 65535;
+}
+// B1: f32, bf16 or fp16 at head_dim 32, 64 or 128
+bool fwd_ok(int D, int dtype) {
+  return (D == 32 || D == 64 || D == 128) && dtype >= 0 && dtype <= 2;
+}
+// B2, B3: f32 or bf16 at head_dim 64 or 128
+bool bwd_ok(int D, int dtype) {
+  return (D == 64 || D == 128) && (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16
-// (q, k, v, do, out, dq); lse, delta, dk, dv are float32. Each returns
+// Plain C entry points, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16,
+// 2 = float16 (q, k, v, do, out, dq; float16 in B1 only); lse, delta, dk, dv
+// are float32. Each returns
 // cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape the
 // kernels do not take); the Python wrapper raises when it is not 0.
 
@@ -1213,13 +1295,13 @@ extern "C" int pt_flash_fwd(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int Sq, int Sk,
                             int H, int Hk, int D, int dtype, int causal,
                             float scale, void* stream) {
-  if (!dims_ok(B, Sq, Sk, H, Hk, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(B, Sq, Sk, H, Hk) || !fwd_ok(D, dtype))
+    return (int)cudaErrorInvalidValue;
   const Dims m{B, Sq, Sk, H, Hk, causal, scale};
-  return D == 128
-             ? launch_fwd<128>(q, k, v, out, lse, m, dtype,
-                               (cudaStream_t)stream)
-             : launch_fwd<64>(q, k, v, out, lse, m, dtype,
-                              (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128) return launch_fwd<128>(q, k, v, out, lse, m, dtype, st);
+  if (D == 64) return launch_fwd<64>(q, k, v, out, lse, m, dtype, st);
+  return launch_fwd<32>(q, k, v, out, lse, m, dtype, st);
 }
 
 extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -1227,7 +1309,8 @@ extern "C" int pt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* delta, void* dq, int B, int Sq,
                                int Sk, int H, int Hk, int D, int dtype,
                                int causal, float scale, void* stream) {
-  if (!dims_ok(B, Sq, Sk, H, Hk, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(B, Sq, Sk, H, Hk) || !bwd_ok(D, dtype))
+    return (int)cudaErrorInvalidValue;
   const Dims m{B, Sq, Sk, H, Hk, causal, scale};
   return D == 128
              ? launch_dq<128>(q, k, v, dout, lse, delta, dq, m, dtype,
@@ -1242,7 +1325,8 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 int Sq, int Sk, int H, int Hk, int D,
                                 int dtype, int causal, float scale,
                                 void* stream) {
-  if (!dims_ok(B, Sq, Sk, H, Hk, D, dtype)) return (int)cudaErrorInvalidValue;
+  if (!dims_ok(B, Sq, Sk, H, Hk) || !bwd_ok(D, dtype))
+    return (int)cudaErrorInvalidValue;
   const Dims m{B, Sq, Sk, H, Hk, causal, scale};
   return D == 128
              ? launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, m, dtype,

@@ -134,6 +134,19 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
 }
+// the same for the 64-byte swizzle (layout type 2): rows of 64 bytes (32
+// 16-bit values), 8-row groups of 512 bytes, the 16-byte chunk c of row r
+// at chunk c ^ ((r / 2) % 4), every group 512-byte aligned (what a TMA copy
+// with CU_TENSOR_MAP_SWIZZLE_64B writes). K-major: a k16 step advances the
+// start by 32 bytes inside the row, SBO = 512. MN-major: a row is one
+// K-value, 32 N-values wide, so a k16 step advances the start by 1024
+// bytes, SBO = 512 (B1 at head_dim 32)
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (2ull << 62);
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -154,123 +167,178 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, f32 sums. SS: A and B from
-// shared memory through descriptors; RS: A from registers. TB: B is
-// MN-major (1) or K-major (0); A is K-major. scale_d 0 overwrites d.
+// d[64 x N] (+)= A[64 x 16] B[16 x N], 16-bit floats in (bf16, or fp16
+// with F16), f32 sums. SS: A and B from shared memory through descriptors;
+// RS: A from registers. TB: B is MN-major (1) or K-major (0); A is K-major.
+// scale_d 0 overwrites d. The two input types share every layout, so only
+// the instruction's type suffix differs.
 
-template <int TB>
+#define HOPPER_WGMMA_RS_N32(TY)                                               \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %21, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " "             \
+      "{"                                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                                  \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),\
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),                  \
+        "r"(scale_d), "n"(TB))
+
+template <int TB, bool F16 = false>
+__device__ __forceinline__ void wgmma_rs_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t db, int scale_d) {
+  if constexpr (F16)
+    HOPPER_WGMMA_RS_N32("f16");
+  else
+    HOPPER_WGMMA_RS_N32("bf16");
+}
+#undef HOPPER_WGMMA_RS_N32
+
+#define HOPPER_WGMMA_SS_N64(TY)                                               \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %34, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{"                                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                \
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),\
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+        "+f"(d[31])                                                           \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n64(
     float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+  if constexpr (F16)
+    HOPPER_WGMMA_SS_N64("f16");
+  else
+    HOPPER_WGMMA_SS_N64("bf16");
 }
+#undef HOPPER_WGMMA_SS_N64
 
-template <int TB>
-__device__ __forceinline__ void wgmma_ss_n128(
-    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
-}
+#define HOPPER_WGMMA_RS_N64(TY)                                               \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %37, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "             \
+      "{"                                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                                \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),\
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+        "+f"(d[31])                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),                  \
+        "r"(scale_d), "n"(TB))
 
-template <int TB>
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n64(
     float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (F16)
+    HOPPER_WGMMA_RS_N64("f16");
+  else
+    HOPPER_WGMMA_RS_N64("bf16");
 }
+#undef HOPPER_WGMMA_RS_N64
 
-template <int TB>
+#define HOPPER_WGMMA_SS_N128(TY)                                              \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %66, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{"                                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                               \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                \
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),\
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                 \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB))
+
+template <int TB, bool F16 = false>
+__device__ __forceinline__ void wgmma_ss_n128(
+    float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (F16)
+    HOPPER_WGMMA_SS_N128("f16");
+  else
+    HOPPER_WGMMA_SS_N128("bf16");
+}
+#undef HOPPER_WGMMA_SS_N128
+
+#define HOPPER_WGMMA_RS_N128(TY)                                              \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\n"                                                    \
+      "setp.ne.b32 p, %69, 0;\n"                                              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "            \
+      "{"                                                                     \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                               \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                               \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                               \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                               \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                               \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                                \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),\
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),                  \
+        "r"(scale_d), "n"(TB))
+
+template <int TB, bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n128(
     float (&d)[64], const uint32_t (&a)[4], uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
-        "n"(TB));
+  if constexpr (F16)
+    HOPPER_WGMMA_RS_N128("f16");
+  else
+    HOPPER_WGMMA_RS_N128("bf16");
 }
+#undef HOPPER_WGMMA_RS_N128
 
 // ---- mma.sync, ldmatrix, cp.async, streamed loads (B5, B8's GEMV) ---------
 

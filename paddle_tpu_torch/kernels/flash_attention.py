@@ -17,9 +17,14 @@ and lse -1e30, and no gradient.
 
 Routing is by the tensors' device, as the other wrappers route: a CPU
 tensor goes to the plain version beside the kernel, a CUDA tensor to the
-hand-written kernel in `csrc/flash_attention.cu`, checked first (B1's
-gate `supports`: bf16 or f32, head_dim 64 or 128, H a multiple of Hk, any
-Sq and Sk; then contiguous and 16-byte aligned). Nothing falls back.
+hand-written kernel in `csrc/flash_attention.cu`, checked first, then
+contiguous and 16-byte aligned. The gates, by shape and dtype only, with
+H a multiple of Hk and any Sq and Sk:
+  B1      (`supports`)           bf16, fp16 or f32 at head_dim 32, 64, 128;
+  B2, B3  (`supports_backward`)  bf16 or f32 at head_dim 64 or 128.
+A call that will need a gradient routes on the second
+(`nn.functional.flash_attention._use_kernel`), so B1's wider gate never
+leads to a backward the kernels do not take. Nothing falls back.
 `launches` counts kernel launches only (`flash_fwd`, `flash_bwd_dq`,
 `flash_bwd_dkv`).
 
@@ -52,19 +57,26 @@ from paddle_tpu_torch.kernels.attention import _on_card
 __all__ = ["flash_fwd", "flash_bwd", "flash_fwd_plain", "flash_bwd_plain",
            "flash_bwd_dq_plain", "flash_bwd_dkv_plain", "flash_attention_fwd",
            "flash_attention_with_lse", "FLASH_FWD_OP", "FLASH_BWD_OP",
-           "launches",
-           "reset_launches", "KERNEL_HEAD_DIMS", "supports"]
+           "launches", "variant_launches",
+           "reset_launches", "KERNEL_HEAD_DIMS", "BWD_HEAD_DIMS", "supports",
+           "supports_backward"]
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIMS = (32, 64, 128)      # B1
+BWD_HEAD_DIMS = (64, 128)             # B2, B3
+# the dtype codes of the C entry points; B2/B3 take the first two
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_BWD_DTYPES = (torch.float32, torch.bfloat16)
 
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# B1's launches in fp16 and at head_dim 32, counted beside its total
+variant_launches = {"flash_fwd_f16": 0, "flash_fwd_hd32": 0}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -95,21 +107,26 @@ def _shapes(q, k, v):
     return B, Sq, k.shape[1], H, k.shape[2], D
 
 
-def _off_gate(q, k, v):
-    """Why B1-B3 do not take q/k/v, by shape and dtype only, as the error
-    to raise, or None: the shapes of `_shape_error`, one dtype of bf16/f32,
-    head_dim 64 or 128."""
+def _off_gate(q, k, v, backward=False):
+    """Why B1 (or with `backward`, B2 and B3) do not take q/k/v, by shape
+    and dtype only, as the error to raise, or None: the shapes of
+    `_shape_error`, one dtype of bf16/fp16/f32 (B2, B3: bf16/f32), head_dim
+    in KERNEL_HEAD_DIMS (B2, B3: BWD_HEAD_DIMS)."""
     err = _shape_error(q, k, v)
     if err is not None:
         return ValueError(err)
-    if q.dtype not in _DTYPES:
-        return TypeError(f"kernel takes bfloat16 or float32, got {q.dtype}")
+    who, dtypes, dims = (("B2/B3", _BWD_DTYPES, BWD_HEAD_DIMS) if backward
+                         else ("B1", tuple(_DTYPES), KERNEL_HEAD_DIMS))
+    if q.dtype not in dtypes:
+        names = sorted(str(d).split(".")[-1] for d in dtypes)
+        return TypeError(f"{who} takes {', '.join(names[:-1])} or "
+                         f"{names[-1]}, got {q.dtype}")
     for t in (k, v):
         if t.dtype != q.dtype:
             return TypeError(f"dtype mismatch: {t.dtype} vs {q.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        return ValueError(f"kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
-                          f"got {q.shape[-1]}")
+    if q.shape[-1] not in dims:
+        return ValueError(f"{who} takes head_dim in {dims}, got "
+                          f"{q.shape[-1]}")
     return None
 
 
@@ -121,10 +138,17 @@ def supports(q, k, v=None):
     return _off_gate(q, k, k if v is None else v) is None
 
 
-def _check_kernel(q, k, v, others=(), floats=()):
-    """What the kernels take: B1's gate (`_off_gate`), `others` (do) in q's
-    dtype, f32 lse/delta, and every input contiguous and 16-byte aligned."""
-    err = _off_gate(q, k, v)
+def supports_backward(q, k, v=None):
+    """B2 and B3's gate (bf16/f32, head_dim 64/128): what a call that will
+    need a gradient routes on, before B1 launches."""
+    return _off_gate(q, k, k if v is None else v, backward=True) is None
+
+
+def _check_kernel(q, k, v, others=(), floats=(), backward=False):
+    """What the kernels take: B1's gate, or B2/B3's with `backward`
+    (`_off_gate`), `others` (do) in q's dtype, f32 lse/delta, and every
+    input contiguous and 16-byte aligned."""
+    err = _off_gate(q, k, v, backward)
     if err is not None:
         raise err
     for t in others:
@@ -285,6 +309,8 @@ def flash_fwd(q, k, v, causal=False, sm_scale=None):
         *_dims(q, k, causal, sm_scale))
     _raise_on(rc, "flash_fwd")
     launches["flash_fwd"] += 1
+    variant_launches["flash_fwd_f16"] += q.dtype == torch.float16
+    variant_launches["flash_fwd_hd32"] += D == 32
     return out, lse
 
 
@@ -329,7 +355,7 @@ def flash_bwd(q, k, v, o, lse, do, causal=False, sm_scale=None, g_lse=None):
         return flash_bwd_plain(q, k, v, o, lse, do, causal, sm_scale, g_lse)
     do = do.contiguous()
     delta = _delta(o, do, g_lse)
-    _check_kernel(q, k, v, (do,), (lse, delta))
+    _check_kernel(q, k, v, (do,), (lse, delta), backward=True)
     dq = _launch_dq(q, k, v, do, lse, delta, causal, sm_scale)
     dk, dv = _launch_dkv(q, k, v, do, lse, delta, causal, sm_scale)
     return dq, dk, dv
@@ -395,13 +421,33 @@ FLASH_FWD_OP = torch.ops.paddle_tpu_torch.flash_fwd.default
 FLASH_BWD_OP = torch.ops.paddle_tpu_torch.flash_bwd.default
 
 
+def needs_grad(q, k, v):
+    """Whether a call on q/k/v will need a gradient: grad enabled and an
+    input that requires one."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+
+
+def _grad_gate(q, k, v):
+    """A call on the card that will need a gradient raises here, before B1
+    launches, when B2/B3 do not take its tensors (`supports_backward`):
+    B1's gate is the wider, and a backward it cannot run is refused up
+    front, not after the forward."""
+    if needs_grad(q, k, v) and _on_card(q, k, v):
+        err = _off_gate(q, k, v, backward=True)
+        if err is not None:
+            raise err
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """q [B, S, H, D]; k/v may carry fewer (kv) heads (GQA). Differentiable:
     backward runs B2 and B3 (the plain versions on the CPU)."""
+    _grad_gate(q, k, v)
     return _flash_fwd_op(q, k, v, bool(causal), _scale(scale, q.shape[-1]))[0]
 
 
 def flash_attention_with_lse(q, k, v, causal=False, scale=None):
     """Differentiable (out, lse [B, H, Sq] f32); the lse cotangent folds
     into delta (the building block ring attention merges)."""
+    _grad_gate(q, k, v)
     return _flash_fwd_op(q, k, v, bool(causal), _scale(scale, q.shape[-1]))

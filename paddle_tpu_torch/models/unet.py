@@ -8,10 +8,12 @@ and state-dict keys, so `models.weights.layer_from_numpy` carries a JAX
 UNet's state across unchanged (Conv2D weights [out, in, kh, kw], Linear
 weights [in, out] in both packages). The spatial attention goes through
 `nn.functional.flash_attention.scaled_dot_product_attention`, which routes
-by B1's gate: head_dim 64 or 128 in bf16 or f32 launches B1, anything else
-takes the plain attention. At `unet_sd_like`'s 64x64 latents that is level
-2 and the middle block (256 tokens, head_dim 64); level 1 (1024 tokens,
-head_dim 32) is off the gate.
+an inference call by B1's gate: head_dim 32, 64 or 128 in bf16, fp16 or
+f32 launches B1, anything else takes the plain attention (a call that
+needs a gradient routes by B2/B3's gate, head_dim 64 or 128 in bf16 or
+f32). At `unet_sd_like`'s 64x64 latents every attention block launches B1
+in bf16 and in fp16: level 1 (1024 tokens, head_dim 32), level 2 and the
+middle block (256 tokens, head_dim 64).
 
 Every shape the forward computes from the input's keeps the batch as it
 comes (a `torch.SymInt` under `torch.export`), so `jit.save` with a

@@ -5,13 +5,19 @@ flash_attention.py`; reference dispatch
 Layout is Paddle's [batch, seqlen, nheads, headdim]. A call routes by
 shape before it launches anything, as the JAX package's `_use_pallas`
 (:56) does:
-  - no mask, no dropout in training, and B1's gate
-    (`kernels.flash_attention.supports`: head_dim 64/128, H % Hk == 0, one
-    dtype of bf16/f32) -> kernel B1 through the differentiable
-    `flash_attention_fwd`, on q/k/v made dense first (a strided view, such
-    as q/k/v split off a fused projection, is copied, not sent elsewhere);
-    backward runs B2 and B3. On a CPU tensor the wrappers run their plain
-    versions;
+  - no mask, no dropout in training, and the kernels' gate -> kernel B1
+    through the differentiable `flash_attention_fwd`, on q/k/v made dense
+    first (a strided view, such as q/k/v split off a fused projection, is
+    copied, not sent elsewhere); backward runs B2 and B3. The gate is B1's
+    (`kernels.flash_attention.supports`: head_dim 32/64/128, one dtype of
+    bf16/fp16/f32) for a call that will need no gradient, and B2/B3's
+    (`supports_backward`: head_dim 64/128, bf16/f32) for one that will
+    (grad enabled and an input requiring it), so an fp16 or head_dim-32
+    call with a gradient takes the plain attention by the gate and never
+    reaches a backward the kernels do not take. A forward that a backward
+    replays (`fleet.recompute`'s first pass, under no_grad) routes as the
+    replay will, inside `routes_for_backward()`. H % Hk == 0 either way.
+    On a CPU tensor the wrappers run their plain versions;
   - anything else -> a plain PyTorch softmax(QKᵀ)V (`_sdpa_reference`),
     with attention dropout drawn from the framework generator.
 A failed build or launch raises: nothing falls back to the plain path, and
@@ -24,6 +30,7 @@ as the JAX package does (:108); `sdp_kernel` is a null context.
 
 import contextlib
 import math
+import threading
 
 import torch
 
@@ -45,16 +52,19 @@ def _sdpa_reference(q, k, v, causal=False, dropout=0.0, scale=None,
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
     s = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     logits = torch.matmul(qh, kh.transpose(-1, -2)) * s
+    # -1e30 in the logits' dtype (-inf in fp16, as jnp.where rounds its
+    # -1e30): CUDA's where refuses a scalar its dtype cannot hold
+    neg = torch.tensor(-1e30, device=logits.device).to(logits.dtype)
     if mask is not None:
         if mask.dtype == torch.bool:
-            logits = torch.where(mask, logits, -1e30)
+            logits = torch.where(mask, logits, neg)
         else:
             logits = logits + mask.to(logits.dtype)
     if causal:
         ql, kl = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(ql, kl, dtype=torch.bool,
                           device=logits.device).tril(kl - ql)
-        logits = torch.where(keep, logits, -1e30)
+        logits = torch.where(keep, logits, neg)
     probs = torch.softmax(logits.float(), dim=-1)
     if dropout > 0.0 and generator is not None:
         keep = torch.rand(probs.shape, device=probs.device,
@@ -64,12 +74,31 @@ def _sdpa_reference(q, k, v, causal=False, dropout=0.0, scale=None,
     return out.transpose(1, 2)
 
 
+_replayed = threading.local()
+
+
+@contextlib.contextmanager
+def routes_for_backward():
+    """Route every attention call of the block as one that needs a
+    gradient (B2/B3's gate), whatever the grad mode: a forward run under
+    no_grad that a backward will replay with grad (`fleet.recompute`) must
+    take the route its replay takes, or the two compute other values."""
+    prev = getattr(_replayed, "on", False)
+    _replayed.on = True
+    try:
+        yield
+    finally:
+        _replayed.on = prev
+
+
 def _use_kernel(q, k, v, dropout=0.0, training=True, mask=None):
     if mask is not None:
         return False
     if dropout > 0.0 and training:
         # B1-B3 are deterministic; attention dropout takes the plain path
         return False
+    if getattr(_replayed, "on", False) or _fa.needs_grad(q, k, v):
+        return _fa.supports_backward(q, k, v)
     return _fa.supports(q, k, v)
 
 

@@ -463,10 +463,75 @@ def test_flash_autograd_round_trip_on_card(cuda):
                             torch.bfloat16) <= 1.0
 
 
+@pytest.mark.parametrize("case", cs.FLASH_FWD_CASES, ids=lambda c: c[0])
+def test_flash_fwd_fp16_and_head_dim_32_match_plain_on_card(cuda, case):
+    """B1 alone in fp16 and at head_dim 32 (chip_smoke.FLASH_FWD_CASES):
+    each vector within B1's bar of the plain version, lse within its bar,
+    a second call bit-identical, one launch a call, counted under its
+    variant too."""
+    _, b, sq, sk, h, hk, d, causal, dname = case
+    q, k, v, _ = _flash_inputs(cuda, b, sq, sk, h, hk, d,
+                               getattr(torch, dname))
+    before, vbefore = dict(fa.launches), dict(fa.variant_launches)
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    again = fa.flash_fwd(q, k, v, causal)
+    ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 2, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert {n: fa.variant_launches[n] - vbefore[n] for n in vbefore} == {
+        "flash_fwd_f16": 2 * (dname == "float16"),
+        "flash_fwd_hd32": 2 * (d == 32)}
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    masked = ref_lse <= -1e29
+    assert torch.equal(lse <= -1e29, masked)
+    lse, ref_lse = (torch.where(masked, 0.0, t) for t in (lse, ref_lse))
+    assert cs.flash_lse_ratio(torch, lse, ref_lse) <= 1.0
+    assert _flash_ratio(out, ref_out, out.dtype) <= 1.0
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64),
+                                     (torch.bfloat16, 32),
+                                     (torch.float32, 32)])
+def test_grad_calls_off_b2_b3_take_the_plain_attention_on_card(cuda, dtype,
+                                                               d):
+    """An fp16 or head_dim-32 call that will need a gradient routes on
+    B2/B3's gate before any launch: `nn.functional.flash_attention` takes
+    the plain attention (no launch, a backward that runs), the
+    differentiable entry point raises before B1 launches, and without a
+    gradient the same call launches B1 once."""
+    import paddle_tpu_torch as paddle
+
+    q, k, v, _ = _flash_inputs(cuda, 1, 256, 256, 4, 2, d, dtype)
+    leaves = [paddle.to_tensor(t, stop_gradient=False) for t in (q, k, v)]
+    before = dict(fa.launches)
+    out, _ = paddle.nn.functional.flash_attention(*leaves, causal=True)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert fa.launches == before
+    assert all(torch.isfinite(t.grad._data).all() for t in leaves)
+    with pytest.raises((TypeError, ValueError), match="B2/B3 takes"):
+        fa.flash_attention_fwd(*(t.clone().requires_grad_()
+                                 for t in (q, k, v)), causal=True)
+    assert fa.launches == before
+    with paddle.no_grad():
+        paddle.nn.functional.flash_attention(*leaves, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before["flash_fwd"] + 1
+
+
 def test_flash_kernel_checks_on_card(cuda):
     q = torch.randn(1, 64, 4, 128, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        fa.flash_fwd(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        fa.flash_fwd(q.double(), q.double(), q.double())
+    h = q.half()
+    out, lse = fa.flash_fwd(h, h, h)
+    with pytest.raises(TypeError, match="B2/B3 takes bfloat16 or float32"):
+        fa.flash_bwd(h, h, h, out, lse, h)
+    x = torch.randn(1, 64, 4, 32, device=cuda)
+    out, lse = fa.flash_fwd(x, x, x)
+    with pytest.raises(ValueError, match="B2/B3 takes head_dim"):
+        fa.flash_bwd(x, x, x, out, lse, x)
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.randn(1, 64, 4, 96, device=cuda)
         fa.flash_fwd(x, x, x)

@@ -32,13 +32,13 @@ MODULES = ("creation", "math", "manipulation", "logic", "search", "linalg")
 # the static graph's mode toggles of extras (ported with A10f part 2): not
 # ops, so the op table has no case for them
 STATIC_TOGGLES = ("disable_static", "enable_static")
-# the Tensor methods still to port: paddle_tpu.signal (A10g)
-PART2_TENSOR_METHODS = {"stft", "istft"}
+# the Tensor methods still to port: none since signal (A10g part 1) bound
+# stft and istft
+PART2_TENSOR_METHODS = set()
 # `_C_ops` targets in namespaces a later slice ports (they raise when
-# called): geometric, signal and text (A10g); the 10 quantization targets
-# resolve since A10f part 1
-C_OPS_LATER = {"paddle.geometric.": ("A10g", 7),
-               "paddle.signal.": ("A10g", 3), "paddle.text.": ("A10g", 1)}
+# called): text (A10g part 2); the 10 quantization targets resolve since
+# A10f part 1, the 7 geometric and 3 signal targets since A10g part 1
+C_OPS_LATER = {"paddle.text.": ("A10g part 2", 1)}
 # module of the JAX package -> the port's module of the same surface, and
 # the op table's name for it
 PART2 = {"paddle_tpu.ops.extras": "extras",
@@ -146,7 +146,8 @@ def test_c_ops_has_the_jax_modules_names_and_signatures():
 
 def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
     """302 targets resolved before vision.ops (A10d) came, 322 before
-    quantization (A10f part 1); 332 now."""
+    quantization (A10f part 1), 332 before geometric and signal (A10g part
+    1); 342 now."""
     from paddle_tpu_torch import _C_ops as port
 
     resolved, later = 0, {p: 0 for p in C_OPS_LATER}
@@ -161,7 +162,7 @@ def test_302_c_ops_targets_resolve_and_the_rest_name_their_slice():
                            match=C_OPS_LATER[prefix][0]):
             port._t(name)
         later[prefix] += 1
-    assert resolved == 332
+    assert resolved == 342
     assert later == {p: n for p, (_, n) in C_OPS_LATER.items()}
 
 
@@ -206,9 +207,10 @@ def test_top_level_data_parallel_is_distributeds():
 # one-card Engine (A10c), jit.save/load and the Predictor (A10e),
 # quantization, the profiler, amp.debugging, fleet.recompute and
 # incubate.nn (A10f part 1), to_static, dy2static, SOT and paddle.static
-# (A10f part 2), the program audits (A10f part 3) and paddle.device (A10g):
-# the namespaces the port exports with the JAX package's names, and what
-# waits for a later slice, by slice
+# (A10f part 2), the program audits (A10f part 3), paddle.device (A10g) and
+# signal, geometric, sparse and distribution (A10g part 1): the namespaces
+# the port exports with the JAX package's names, and what waits for a later
+# slice, by slice
 TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "optimizer.lr", "amp", "io", "metric", "hapi",
                        "hapi.callbacks", "vision", "vision.models",
@@ -220,7 +222,8 @@ TRAINING_NAMESPACES = ("nn", "nn.initializer", "nn.utils", "optimizer",
                        "amp.debugging", "distributed.fleet.recompute",
                        "incubate.nn", "incubate.nn.functional", "static",
                        "static.nn", "jit.dy2static", "jit.sot", "analysis",
-                       "device", "distributed", "distributed.fleet")
+                       "device", "distributed", "distributed.fleet",
+                       "signal", "geometric", "sparse", "distribution")
 # process groups, collectives, DataParallel and the fleet entry (A9a with
 # A9b's base) are ported; the rest of both namespaces, by its A9 part
 _A9F = ("ColWiseParallel", "RowWiseParallel", "PrepareLayerInput",
