@@ -12,9 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   prefill) and the HMMA (mma.sync) instructions of B5's,
                   B4's and B6/B7's (decode_mma_kernel, by key source:
                   CacheKeys for B4, PagedKeys for B6/B7) and B8's GEMV
-                  kernels in their SASS (cuobjdump); B1's (every type and
-                  head_dim), B2's, B3's, B4-B7's, the GEMV's and B10's must
-                  compile without spills (ptxas' report).
+                  kernels in their SASS (cuobjdump), B4-B7's in bf16 and
+                  fp16; B1's (every type and head_dim), B2's, B3's,
+                  B4-B7's, the GEMV's and B10's must compile without spills
+                  (ptxas' report).
   2. parity       each kernel against its plain PyTorch version on the same
                   inputs, each error beside its bar: B4 decode (also at
                   B4_CASES: a 1029-key cache, g 1-64, both head dims, rows
@@ -28,7 +29,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   key past a row's end, V past pos left in P V), B5 window, B6
                   paged decode, B7 paged decode over int8 pages (ps 16 and 64,
                   GQA), B8 weight-only int8 matmul (the four decode shapes,
-                  prefill M 512 and 2048, ragged M/K/N), in bf16 and f32;
+                  prefill M 512 and 2048, ragged M/K/N), in bf16 and f32,
+                  B4-B7 also in fp16 at bf16's bars (B4_CASES, B5_CASES and
+                  PAGED_CASES too, and the planted faults of their bars);
                   B5 at the edges of its key split and row tiles
                   (B5_CASES) and B8's GEMV at M 1-16 with the four decode
                   (K, N), a K tail, N off the vector gate and a weight off
@@ -67,15 +70,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                   then planted faults that the B1-B3 bar must reject (at
                   the GQA case, an fp16 case and a head_dim-32 case); B9 and
                   B10 (RMSNorm forward and backward) at the training legs'
-                  micro-batches, the decode rows, a ragged row count and in
-                  f32, each row of y and dx within its bar, B10 twice with
-                  the same bits and one launch a call, then planted faults
-                  their bars must reject (B10's dw: a row group left out, a
-                  cluster's partial counted twice or left out).
-  2'. c2          fault C2: one row through B4, B5, B6 and B7 in bf16 alone,
-                  among 7 rows with the batch's max_pos and among 3 with pos
-                  on the card (7B's and GPT-2's decode shapes), bit-identical
-                  outputs; one x row through B8's GEMV at M 1, 8, 9 and 16.
+                  micro-batches, the decode rows, a ragged row count, in
+                  f32 and in fp16, each row of y and dx within its bar,
+                  B10 twice with the same bits and one launch a call, then
+                  planted faults their bars must reject (B10's dw: a row
+                  group left out, a cluster's partial counted twice or left
+                  out).
+  2'. c2          fault C2: one row through B4, B5, B6 and B7 in bf16 and in
+                  fp16 alone, among 7 rows with the batch's max_pos and
+                  among 3 with pos on the card (7B's and GPT-2's decode
+                  shapes), bit-identical outputs; one x row through B8's
+                  GEMV at M 1, 8, 9 and 16.
       c3          fault C3: B10 on two streams at once, each call its solo
                   bits.
       tune        the block tuner on B8's tile (M 2048 and 8192, K 4096, N
@@ -141,8 +146,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                   launch each, the attention output within B1's bar of
                   `flash_fwd_plain` on the layer's q/k/v; (d) auto_cast makes
                   matmul bf16, keeps softmax f32 and hands B1 bf16 from
-                  f32 q/k/v, a float16 GradScaler skips a step with a
-                  planted inf and halves its scale.
+                  f32 q/k/v, a float16 GradScaler over an fp16 Linear and
+                  RMSNorm (B9 and B10 in fp16, once each) skips a step with
+                  a planted inf and halves its scale.
       dist        `paddle.distributed` at world size 1 on NCCL (ROADMAP A9a,
                   A9b's base), no set_device: `init_parallel_env()` takes the
                   card, get_backend() "NCCL"; every collective on a CUDA
@@ -346,6 +352,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                   `_bench_int8_kv_pool`, TPU settings) at 7B width: a 48-page
                   bf16 pool against the int8 pool of the same bytes on one
                   48-request trace; sustained slots must reach >= 1.8x.
+  8'. serve-fp16  the bf16 model freed, Llama-2-7B width in fp16 (32 layers,
+                  seed 0): the engine traffic through `PagedEngine` over an
+                  fp16 pool (B5, B6, B9 in fp16) and its profiled decode
+                  window, then over an int8 pool (B7 with an fp16 query);
+                  `generate` (B4); `phase_spec`'s 7B leg (B5 through the
+                  verify window); one request's fp16 pages handed off
+                  through `KVHandoff` bytes, its tokens equal to the
+                  monolithic engine's; the paged logits against the f32
+                  forward of the same weights (LOGIT_BARS["float16"]) and,
+                  over the int8 pool, against that forward over the pool's
+                  rounding. Every launch of those kernels in each leg is an
+                  fp16 one; tokens/s, decode step ms and busy share logged.
   9. timing       CUDA-event medians of each kernel, its plain version and one
                   PyTorch library call (`timing.METHOD`: the L2 flushed
                   before each call by reading 256 MB, the card held busy
@@ -361,8 +379,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                   spec-verify window; B6 and B7 also at the engine's decode
                   shape, 8 rows of 257-320 keys; B8's GEMV at the four
                   decode shapes at M 1, 8 and 16; B1 in fp16 and at head_dim
-                  32 at config 5's UNet shapes, their own rows), beside the
-                  bound the card's memory rate or peak sets.
+                  32 at config 5's UNet shapes, their own rows; B4-B7, B9
+                  and B10 in fp16 at their bf16 rows' shapes, their own
+                  rows), beside the bound the card's memory rate or peak
+                  sets.
 
 The line before the card line is {"kernels": [...]}; then the card's name and
 power limit from nvidia-smi; the last line is the device JSON. Without a CUDA
@@ -400,16 +420,28 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
     "flash_bwd_dq": ("B2 flash_bwd_dq", FLASH_SRC, f"{FLASH_REF}:215"),
     "flash_bwd_dkv": ("B3 flash_bwd_dkv", FLASH_SRC, f"{FLASH_REF}:260"),
     "decode_attention": ("B4 decode_attention", ATTN_SRC, f"{REF}:253"),
+    "decode_attention_f16": ("B4 decode_attention (fp16)", ATTN_SRC,
+                             f"{REF}:253"),
     "window_attention": ("B5 window_attention", ATTN_SRC, f"{REF}:363"),
+    "window_attention_f16": ("B5 window_attention (fp16)", ATTN_SRC,
+                             f"{REF}:363"),
     "paged_decode_attention": ("B6 paged_decode_attention", ATTN_SRC,
                                f"{REF}:529"),
+    "paged_decode_attention_f16": ("B6 paged_decode_attention (fp16)",
+                                   ATTN_SRC, f"{REF}:529"),
     "paged_decode_attention_int8": ("B7 paged_decode_attention (int8 pool)",
                                     ATTN_SRC, f"{REF}:595"),
+    "paged_decode_attention_int8_f16": (
+        "B7 paged_decode_attention (int8 pool, fp16 query)", ATTN_SRC,
+        f"{REF}:595"),
     "weight_only_matmul": ("B8 weight_only_matmul", QMM_SRC, f"{REF}:101"),
     "weight_only_matmul_prefill": ("B8 weight_only_matmul (prefill M=2048)",
                                    QMM_SRC, f"{REF}:101"),
     "rms_norm_fwd": ("B9 rms_norm_fwd", RMS_SRC, f"{RMS_REF}:34"),
+    "rms_norm_fwd_f16": ("B9 rms_norm_fwd (fp16)", RMS_SRC, f"{RMS_REF}:34"),
     "rms_norm_bwd": ("B10 rms_norm_bwd", RMS_SRC, f"{RMS_REF}:42"),
+    "rms_norm_bwd_f16": ("B10 rms_norm_bwd (fp16)", RMS_SRC,
+                         f"{RMS_REF}:42"),
 }
 # kernel vs plain version: max |difference| <= TOL * max(1, max |plain|)
 # (B1-B3: per vector, `flash_row_ratio`). bf16: two units in the last place at the largest output (2 * 2^-7); the
@@ -419,6 +451,9 @@ KERNELS = {   # launch-count key -> (JSON name, source, the Pallas kernel)
 # sums exact codes in f32 and rounds once. They may differ by a rounding or
 # two. f32: both compute in f32 and sum in different orders.
 TOL = {"bfloat16": 2.0**-6, "float16": 2.0**-6, "float32": 1e-5}
+# the dtypes B4-B7 are held in: bf16 and fp16 (the cluster kernels), f32
+# (the shared body)
+ATTN_DTYPES = ("bfloat16", "float16", "float32")
 # launch counters that must read 0 after the main path: B8's wmma tiles
 # serve only shapes off the TMA gate, which no main-path shape is
 OFF_PATH = ("weight_only_matmul_offgate",)
@@ -426,6 +461,12 @@ OFF_PATH = ("weight_only_matmul_offgate",)
 
 def log(msg):
     print(msg, flush=True)
+
+
+def f16_key(key, dtype):
+    """`key` of KERNELS, or its fp16 row's (`key_f16`) for an fp16 call."""
+    return f"{key}_f16" if str(dtype).endswith("float16") and \
+        not str(dtype).endswith("bfloat16") else key
 
 
 def launch_counts():
@@ -440,11 +481,20 @@ def launch_counts():
 
 def variant_counts():
     """B1's launches in fp16 and at head_dim 32 (`flash_fwd_f16`,
-    `flash_fwd_hd32`), counted where B1 launches beside its total; the
-    rows of KERNELS under those keys read them."""
+    `flash_fwd_hd32`), and B4-B7's, B9's and B10's in fp16 (`*_f16`),
+    counted where each kernel launches beside its total; the rows of
+    KERNELS under those keys read them."""
+    from paddle_tpu_torch.kernels import attention as at
     from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import rms_norm as rn
 
-    return dict(fa.variant_launches)
+    return {**fa.variant_launches, **at.variant_launches,
+            **rn.variant_launches}
+
+
+def all_counts():
+    """`launch_counts` and `variant_counts` together."""
+    return {**launch_counts(), **variant_counts()}
 
 
 def reset_launches():
@@ -688,25 +738,28 @@ def phase_parity(torch, dev):
         if main:
             main_err[name] = err
 
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).replace("torch.", "")
-        main = dtype == torch.bfloat16
+    for dname in ATTN_DTYPES:
+        dtype = getattr(torch, dname)
+        # the cluster kernels (bf16, fp16): the JSON rows (fp16's under the
+        # `_f16` keys) and the per-row bar
+        main = dtype != torch.float32
         for nkv in (32, 8):
             q, pk, pv, bt, pos = paged_case(torch, dev, dtype, nkv=nkv)
             check(f"B6 {dname} b=8 nh=32 nkv={nkv} ps=16 P=128",
-                  "paged_decode_attention",
+                  f16_key("paged_decode_attention", dtype),
                   at.paged_decode_attention, at.paged_decode_attention_plain,
                   (q, pk, pv, bt, pos), main and nkv == 32, rows=main)
             ck = at.paged_gather(pk, bt)
             cv = at.paged_gather(pv, bt)
             check(f"B4 {dname} b=8 nh=32 nkv={nkv} len=2048",
-                  "decode_attention",
+                  f16_key("decode_attention", dtype),
                   at.decode_attention, at.decode_attention_plain,
                   (q, ck, cv, pos), main and nkv == 32, rows=main)
         for s, nkv in ((16, 32), (64, 32), (16, 8)):
             q, ck, cv, pos = window_case(torch, dev, dtype, s, nkv=nkv)
             check(f"B5 {dname} s={s} nkv={nkv} len={ck.shape[2]} "
-                  f"pos={pos.tolist()} (row 0 overhangs)", "window_attention",
+                  f"pos={pos.tolist()} (row 0 overhangs)",
+                  f16_key("window_attention", dtype),
                   at.window_attention, at.window_attention_plain,
                   (q, ck, cv, pos), main and s == 16 and nkv == 32, rows=True)
         for label, *shape in B5_CASES:
@@ -716,17 +769,18 @@ def phase_parity(torch, dev):
             check(f"B5 {dname} {label}: b={shape[0]} s={shape[1]} "
                   f"nh={shape[2]} nkv={shape[3]} hd={shape[4]} "
                   f"len={shape[5]} pos={shape[6]}, "
-                  f"{splits if dtype == torch.bfloat16 else 1} split(s)",
+                  f"{splits if main else 1} split(s)",
                   "window_attention", at.window_attention,
                   at.window_attention_plain, (q, ck, cv, pos), rows=True)
             del q, ck, cv
     # head_dim 64, the kernels' other instantiation
-    q, pk, pv, bt, pos = paged_case(torch, dev, torch.bfloat16, nh=8, nkv=4,
-                                    hd=64, P=16,
-                                    pos=(255, 100, 3, 0, 9, 77, 31, 16))
-    check("B6 bfloat16 hd=64 nkv=4", "paged_decode_attention",
-          at.paged_decode_attention, at.paged_decode_attention_plain,
-          (q, pk, pv, bt, pos))
+    for dtype in (torch.bfloat16, torch.float16):
+        q, pk, pv, bt, pos = paged_case(torch, dev, dtype, nh=8, nkv=4,
+                                        hd=64, P=16,
+                                        pos=(255, 100, 3, 0, 9, 77, 31, 16))
+        check(f"B6 {str(dtype).replace('torch.', '')} hd=64 nkv=4",
+              "paged_decode_attention", at.paged_decode_attention,
+              at.paged_decode_attention_plain, (q, pk, pv, bt, pos))
 
     def q8(q, kq, vq, ks, vs, bt, pos):
         return at.paged_decode_attention(q, kq, vq, bt, pos, k_scale=ks,
@@ -736,18 +790,19 @@ def phase_parity(torch, dev):
         return at.paged_decode_attention_plain(q, kq, vq, bt, pos,
                                                k_scale=ks, v_scale=vs)
 
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).replace("torch.", "")
-        main = dtype == torch.bfloat16
+    for dname in ATTN_DTYPES:
+        dtype = getattr(torch, dname)
+        main = dtype != torch.float32
         # B7 at the engine's pages (16), the capacity leg's (64), and GQA
         for nkv, ps in ((32, 16), (32, 64), (8, 16)):
             check(f"B7 {dname} b=8 nh=32 nkv={nkv} ps={ps} P={2048 // ps} "
-                  f"(a page at scale 0)", "paged_decode_attention_int8", q8,
+                  f"(a page at scale 0)",
+                  f16_key("paged_decode_attention_int8", dtype), q8,
                   q8_plain, paged_q8_case(torch, dev, dtype, ps=ps, nkv=nkv),
                   main and nkv == 32 and ps == 16, rows=main)
-        # B6 and B7 at the edges of paged_mma_kernel's design: in bf16 each
-        # output vector also against the plain version run in f32 and a
-        # second call bit-identical; f32 runs the shared body
+        # B6 and B7 at the edges of paged_mma_kernel's design: in bf16 and
+        # fp16 each output vector also against the plain version run in
+        # f32 and a second call bit-identical; f32 runs the shared body
         for label, *shape in PAGED_CASES:
             b, nh, nkv, hd, ps, P, pos = shape
             splits = at.paged_splits(P, ps) if main else 0
@@ -755,12 +810,15 @@ def phase_parity(torch, dev):
                 args, kw = paged_cases(torch, dev, dtype, *shape, q8=quant)
                 check(f"{'B7' if quant else 'B6'} {dname} {label}: b={b} "
                       f"nh={nh} nkv={nkv} hd={hd} ps={ps} P={P} pos={pos}, "
-                      + (f"{splits} split(s)" if main else "the shared body"),
+                      + (f"{splits} split(s)" if main
+                         else "the shared body"),
                       "paged_decode_attention" + ("_int8" if quant else ""),
                       lambda *a, kw=kw: at.paged_decode_attention(*a, **kw),
                       lambda *a, kw=kw: at.paged_decode_attention_plain(
                           *a, **kw), args, rows=main)
                 del args, kw
+        if dtype == torch.float16:
+            continue   # B8 takes bf16 or f32 x (ROADMAP §B: B8 in fp16)
         # B8: the decode step's four shapes at M = 8, two prefill M, ragged
         for m, k, n in [(8, k, n) for k, n, _ in DECODE_MATMULS] + [
                 (512, 4096, 4096), (2048, 4096, 11008), (13, 1000, 999),
@@ -789,9 +847,10 @@ def phase_parity(torch, dev):
                       qm.dequant_matmul_plain, (x, w, sc), rows=True)
                 del x, w, sc
     phase_b4_parity(torch, dev)
-    phase_b5_bar_teeth(torch, dev)
-    phase_paged_bar_teeth(torch, dev)
-    phase_b4_bar_teeth(torch, dev)
+    for dtype in (torch.bfloat16, torch.float16):
+        phase_b5_bar_teeth(torch, dev, dtype)
+        phase_paged_bar_teeth(torch, dev, dtype)
+        phase_b4_bar_teeth(torch, dev, dtype)
     main_err.update(phase_b8_routes(torch, dev, check))
     phase_b8_bar_teeth(torch, dev)
     phase_b8_bar_teeth(torch, dev, shape=(8, 1000, 4096))
@@ -1029,26 +1088,29 @@ B5_FAULTS = {"one key split dropped": "drop",
              "the last partial tile unmasked": "unmasked tail"}
 
 
-def phase_b5_bar_teeth(torch, dev, case=5, splits=3):
-    """The per-row B5 bar rejects planted faults at the parity case whose
-    rows end before a split begins (3 splits of its 3 tiles), each beside
-    the whole-tensor rule's ratio; the unplanted split model passes."""
+def phase_b5_bar_teeth(torch, dev, dtype, case=5, splits=3):
+    """The per-row B5 bar (bf16's, in bf16 and fp16) rejects planted faults
+    at the parity case whose rows end before a split begins (3 splits of
+    its 3 tiles), each beside the whole-tensor rule's ratio; the unplanted
+    split model passes."""
     from paddle_tpu_torch.kernels import attention as at
 
+    dname = str(dtype).replace("torch.", "")
     label, *shape = B5_CASES[case]
-    q, ck, cv, pos = b5_case(torch, dev, torch.bfloat16, *shape)
+    label = f"{label} ({dname})"
+    q, ck, cv, pos = b5_case(torch, dev, dtype, *shape)
     model = window_split_plain(torch, at, q, ck, cv, pos, splits)
     right = at.window_attention_plain(q, ck, cv, pos)
-    ok = flash_row_ratio(torch, model, right, TOL["bfloat16"])
+    ok = flash_row_ratio(torch, model, right, TOL[dname])
     log(f"[parity] B5 bar at {label}: the split model without a fault is at "
         f"{ok:.3f} of the bar")
     if not ok <= 1.0:
         raise AssertionError(f"B5's split model fails its bar: {ok}")
     for fault, wrong, right in planted_b5_faults(torch, at, q, ck, cv, pos,
                                                  splits):
-        ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+        ratio = flash_row_ratio(torch, wrong, right, TOL[dname])
         whole = ((wrong.float() - right.float()).abs().max()
-                 / (TOL["bfloat16"]
+                 / (TOL[dname]
                     * right.float().abs().max().clamp_min(1.0))).item()
         log(f"[parity] B5 bar, planted fault at {label}: {fault} is at "
             f"{ratio:.2f} of the bar (the whole-tensor rule: {whole:.2f})")
@@ -1179,31 +1241,33 @@ def planted_paged_faults(torch, at, args, kw, splits):
             if kw or fault != "scale page"]
 
 
-def phase_paged_bar_teeth(torch, dev, case=0, splits=8):
-    """The per-row B6/B7 bar rejects planted faults at a ragged case (rows
-    at 0 and mid-page, 8 splits: the short rows leave some empty), each
-    beside the whole-tensor rule's ratio; the unplanted split model
-    passes against the plain version in f32."""
+def phase_paged_bar_teeth(torch, dev, dtype, case=0, splits=8):
+    """The per-row B6/B7 bar (bf16's, in bf16 and fp16) rejects planted
+    faults at a ragged case (rows at 0 and mid-page, 8 splits: the short
+    rows leave some empty), each beside the whole-tensor rule's ratio; the
+    unplanted split model passes against the plain version in f32."""
     from paddle_tpu_torch.kernels import attention as at
 
+    dname = str(dtype).replace("torch.", "")
     label, *shape = PAGED_CASES[case]
+    label = f"{label} ({dname})"
     for q8 in (False, True):
         kid = "B7" if q8 else "B6"
-        args, kw = paged_cases(torch, dev, torch.bfloat16, *shape, q8=q8)
+        args, kw = paged_cases(torch, dev, dtype, *shape, q8=q8)
         model = paged_split_plain(torch, at, *args, splits, **kw)
         exact = at.paged_decode_attention_plain(
             args[0].float(), *[a.float() if a.is_floating_point() else a
                                for a in args[1:]], **kw)
-        ok = flash_row_ratio(torch, model, exact, TOL["bfloat16"])
+        ok = flash_row_ratio(torch, model, exact, TOL[dname])
         log(f"[parity] {kid} bar at {label}: the split model without a "
             f"fault is at {ok:.3f} of the bar")
         if not ok <= 1.0:
             raise AssertionError(f"{kid}'s split model fails its bar: {ok}")
         for fault, wrong, right in planted_paged_faults(torch, at, args, kw,
                                                         splits):
-            ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+            ratio = flash_row_ratio(torch, wrong, right, TOL[dname])
             whole = ((wrong.float() - right.float()).abs().max()
-                     / (TOL["bfloat16"]
+                     / (TOL[dname]
                         * right.float().abs().max().clamp_min(1.0))).item()
             log(f"[parity] {kid} bar, planted fault at {label}: {fault} is "
                 f"at {ratio:.2f} of the bar (the whole-tensor rule: "
@@ -1252,14 +1316,15 @@ def b4_case(torch, dev, dtype, b, nh, nkv, hd, length, pos, seed=9):
 
 
 def phase_b4_parity(torch, dev):
-    """B4 at B4_CASES, bf16 and f32: each output vector within its bar of
+    """B4 at B4_CASES, bf16, fp16 and f32: each output vector within its
+    bar of
     the plain version run in f32, the whole tensor within TOL of the plain
     version, a second call bit-identical; over the cache with NaN past pos
     the same bits; one launch a call."""
     from paddle_tpu_torch.kernels import attention as at
 
-    for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).replace("torch.", "")
+    for dname in ATTN_DTYPES:
+        dtype = getattr(torch, dname)
         for label, *shape in B4_CASES:
             b, nh, nkv, hd, length, pos = shape
             q, ck, cv, ckn, cvn, pos_t = b4_case(torch, dev, dtype, *shape)
@@ -1343,27 +1408,29 @@ def planted_b4_faults(torch, at, q, ck, cv, ckn, cvn, pos, splits):
     return out
 
 
-def phase_b4_bar_teeth(torch, dev, case=0, splits=8):
-    """The per-row B4 bar rejects planted faults at the draft's stripe (8
-    splits of the 1029-key rows: the short rows leave some empty), each
-    beside the whole-tensor rule's ratio; the unplanted split model passes
-    against the plain version in f32, over the random cache and over NaN
-    past pos."""
+def phase_b4_bar_teeth(torch, dev, dtype, case=0, splits=8):
+    """The per-row B4 bar (bf16's, in bf16 and fp16) rejects planted faults
+    at the draft's stripe (8 splits of the 1029-key rows: the short rows
+    leave some empty), each beside the whole-tensor rule's ratio; the
+    unplanted split model passes against the plain version in f32, over
+    the random cache and over NaN past pos."""
     from paddle_tpu_torch.kernels import attention as at
 
+    dname = str(dtype).replace("torch.", "")
     label, *shape = B4_CASES[case]
-    q, ck, cv, ckn, cvn, pos = b4_case(torch, dev, torch.bfloat16, *shape)
+    label = f"{label} ({dname})"
+    q, ck, cv, ckn, cvn, pos = b4_case(torch, dev, dtype, *shape)
     exact = at.decode_attention_plain(q.float(), ck.float(), cv.float(), pos)
     for cache, (k, v) in (("random values", (ck, cv)), ("NaN", (ckn, cvn))):
         model = decode_split_plain(torch, at, q, k, v, pos, splits)
-        ok = flash_row_ratio(torch, model, exact, TOL["bfloat16"])
+        ok = flash_row_ratio(torch, model, exact, TOL[dname])
         log(f"[parity] B4 bar at {label}: the split model without a fault, "
             f"{cache} past pos, is at {ok:.3f} of the bar")
         if not ok <= 1.0:
             raise AssertionError(f"B4's split model fails its bar: {ok}")
     for fault, wrong, right in planted_b4_faults(torch, at, q, ck, cv, ckn,
                                                  cvn, pos, splits):
-        ratio = flash_row_ratio(torch, wrong, right, TOL["bfloat16"])
+        ratio = flash_row_ratio(torch, wrong, right, TOL[dname])
         log(f"[parity] B4 bar, planted fault at {label}: {fault} is at "
             f"{ratio:.2f} of the bar")
         if ratio <= 1.0:
@@ -1379,7 +1446,10 @@ RMS_CASES = (("7B micro-batch", 4096, 4096, "bfloat16"),
              ("decode", 8, 4096, "bfloat16"),
              ("ragged rows", 4097, 4096, "bfloat16"),
              ("f32", 4096, 4096, "float32"),
-             ("f32 ragged", 1001, 2048, "float32"))
+             ("f32 ragged", 1001, 2048, "float32"),
+             ("7B micro-batch fp16", 4096, 4096, "float16"),
+             ("decode fp16", 8, 4096, "float16"),
+             ("ragged rows fp16", 4097, 4096, "float16"))
 # B9/B10 against their plain versions, set before the first run on the
 # card. y and dx, row by row, within RMS_ROW_TOL of the row's max |plain|:
 # bf16 two units in the last place of the row's largest entry (2^-6). y
@@ -1392,10 +1462,11 @@ RMS_CASES = (("7B micro-batch", 4096, 4096, "bfloat16"),
 # squares, ~sqrt(H) f32 roundings (~1e-6 at 4096). dw, summed over the
 # rows in f32 in another order and then rounded to w's dtype: max |d| <=
 # RMS_DW_TOL of max |plain dw| (bf16: one unit in the last place at the
-# largest entry; f32: 1e-5).
-RMS_ROW_TOL = {"bfloat16": 2.0**-6, "float32": 1e-5}
+# largest entry; f32: 1e-5). fp16 is held to bf16's bars (its unit in the
+# last place is 8 times smaller).
+RMS_ROW_TOL = {"bfloat16": 2.0**-6, "float16": 2.0**-6, "float32": 1e-5}
 RMS_R_TOL = 1e-5
-RMS_DW_TOL = {"bfloat16": 2.0**-7, "float32": 1e-5}
+RMS_DW_TOL = {"bfloat16": 2.0**-7, "float16": 2.0**-7, "float32": 1e-5}
 RMS_EPS = 1e-6
 
 
@@ -1487,8 +1558,9 @@ def planted_rms_faults(torch, rn, x, w, g, sms):
 def phase_rms_parity(torch, dev):
     """B9 and B10 against their plain versions on the card, each output
     within its bar (`rms_ratios`); then planted faults the bars must
-    reject, at the 7B case and the f32 case. Returns the first case's max
-    |error| by launch key (y for B9, dx and dw for B10)."""
+    reject, at the 7B case (bf16 and fp16) and the f32 case. Returns the
+    7B case's max |error| by launch key (y for B9, dx and dw for B10), in
+    bf16 and under the `_f16` keys in fp16."""
     from paddle_tpu_torch.kernels import quantized_matmul as qm
     from paddle_tpu_torch.kernels import rms_norm as rn
 
@@ -1523,10 +1595,13 @@ def phase_rms_parity(torch, dev):
                                  f"its plain version: {ratios}, or B10 is "
                                  f"not reproducible ({same}) or launched "
                                  f"{calls} times for 2 calls")
-        if i == 0:
-            main_err = {"rms_norm_fwd": errs["y"],
-                        "rms_norm_bwd": max(errs["dx"], errs["dw"])}
-        if label in ("7B micro-batch", "f32"):
+        if label in ("7B micro-batch", "7B micro-batch fp16"):
+            x_dtype = getattr(torch, dname)
+            main_err.update({
+                f16_key("rms_norm_fwd", x_dtype): errs["y"],
+                f16_key("rms_norm_bwd", x_dtype): max(errs["dx"],
+                                                      errs["dw"])})
+        if label in ("7B micro-batch", "f32", "7B micro-batch fp16"):
             sms = qm._sms(dev)
             split = rms_dw_split(torch, rn, x, rr, g, sms).to(w.dtype)
             ok = rms_ratios(torch, {"dw": split}, {"dw": rdw}, dname)["dw"]
@@ -1990,9 +2065,9 @@ def phase_flash_fwd_parity(torch, dev):
         out2, lse2 = fa.flash_fwd(q, k, v, causal)
         torch.cuda.synchronize()
         n = launch_counts()["flash_fwd"] - before["flash_fwd"]
-        nv = {key: m - vbefore[key] for key, m in variant_counts().items()}
         want_v = {"flash_fwd_f16": 2 * (dname == "float16"),
                   "flash_fwd_hd32": 2 * (d == 32)}
+        nv = {key: variant_counts()[key] - vbefore[key] for key in want_v}
         same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
         ref_out, ref_lse = fa.flash_fwd_plain(q, k, v, causal)
         masked = ref_lse <= -1e29
@@ -2741,8 +2816,10 @@ def _layers_mha(torch, dev, paddle):
 
 def _layers_amp(torch, dev, paddle):
     """(d): auto_cast makes `paddle.matmul` bf16, keeps `F.softmax` f32
-    and hands B1 bf16 from f32 q/k/v; a float16 GradScaler skips a step
-    with a planted inf and halves its scale."""
+    and hands B1 bf16 from f32 q/k/v; a float16 GradScaler over an fp16
+    Linear and `nn.RMSNorm` (B9 and B10 once each, in fp16) skips a step
+    with a planted inf and halves its scale. Returns the fp16 step's
+    launch counts."""
     import numpy as np
 
     a = paddle.randn([64, 64])
@@ -2754,10 +2831,14 @@ def _layers_amp(torch, dev, paddle):
         fl = paddle.nn.functional.flash_attention(q, q, q, causal=True)[0]
     b1 = launch_counts()["flash_fwd"]
     lin = paddle.nn.Linear(64, 64).to(dtype="float16")
+    norm = paddle.nn.RMSNorm(64).to(dtype="float16")
     opt = paddle.optimizer.SGD(0.1, parameters=lin.parameters())
     scaler = paddle.amp.GradScaler(init_loss_scaling=1024.0)
     x = paddle.randn([8, 64]).astype("float16")
-    scaler.scale(lin(x).astype("float32").mean()).backward()
+    reset_launches()
+    scaler.scale(norm(lin(x)).astype("float32").mean()).backward()
+    counts = all_counts()
+    norms = (counts["rms_norm_fwd_f16"], counts["rms_norm_bwd_f16"])
     g = lin.weight.grad.numpy().copy()
     g[0, 0] = np.inf
     lin.weight.grad = paddle.to_tensor(g)
@@ -2766,20 +2847,24 @@ def _layers_amp(torch, dev, paddle):
     skipped = np.array_equal(lin.weight.numpy(), w0)
     log(f"[layers] (d) under auto_cast paddle.matmul gives {mm}, F.softmax "
         f"{sm}, F.flash_attention on f32 q/k/v {fl.dtype} with {b1} B1 "
-        f"launch; GradScaler(float16, 1024) with an inf planted: step "
+        f"launch; GradScaler(float16, 1024) over an fp16 Linear and "
+        f"RMSNorm (B9, B10 in fp16: {norms}) with an inf planted: step "
         f"skipped {skipped}, scale -> {scaler._scale}")
     if mm != paddle.bfloat16 or sm != paddle.float32 or not skipped or \
             fl.dtype != paddle.bfloat16 or b1 != 1 or \
-            scaler._scale != 512.0:
+            scaler._scale != 512.0 or norms != (1, 1) or \
+            not np.isfinite(norm.weight.grad.numpy()).all():
         raise AssertionError(f"layers (d): {mm}, {sm}, {fl.dtype}, B1 {b1}, "
-                             f"skipped {skipped}, scale {scaler._scale}")
+                             f"skipped {skipped}, scale {scaler._scale}, "
+                             f"fp16 B9/B10 {norms}")
+    return counts
 
 
 def phase_layers(torch, dev):
     """The training API on the card (see LENET_LEG, LAYERS_LEG, MHA_LEG):
     (a) LeNet `Model.fit`, (b) the layer-built Llama at 7B width, (c)
     `nn.MultiHeadAttention`, (d) AMP. Returns the launch counts of (b)'s
-    checked run and (c)'s."""
+    checked run, (c)'s and (d)'s fp16 step."""
     import shutil
     import tempfile
 
@@ -2796,7 +2881,7 @@ def phase_layers(torch, dev):
     total = _layers_llama(torch, dev, paddle)
     torch.cuda.empty_cache()
     _add(total, _layers_mha(torch, dev, paddle))
-    _layers_amp(torch, dev, paddle)
+    _add(total, _layers_amp(torch, dev, paddle))
     torch.cuda.empty_cache()
     log(f"[layers] the phase took {time.perf_counter() - t0:.1f} s")
     return total
@@ -3779,7 +3864,7 @@ def _unet_checked_call(torch, dev, paddle, pred, model, lat, ts, dname,
     with flash_calls(every=True) as seen:
         out = pred.run([lat, ts])[0]
         torch.cuda.synchronize(dev)
-    counts = {**launch_counts(), **variant_counts()}
+    counts = all_counts()
     worst = {}
     for i, call in enumerate(seen["fwd"]):
         r = flash_path_check(torch, {"fwd": call},
@@ -6436,6 +6521,69 @@ def phase_timing(torch, dev, name, main_err, launches):
            "B7 b=8 nh=nkv=32 hd=128 ps=16 P=128 int8 pool", methods=True)
     del ck, cv
 
+    # B4-B7 in fp16 at their bf16 rows' shapes (the fp16 rows of the JSON
+    # line); the library call is SDPA in fp16 over the same keys
+    q, pk, pv, bt, pos = paged_case(torch, dev, torch.float16)
+    keys = [int(p) + 1 for p in pos.tolist()]
+    kv_bytes = sum(keys) * nkv * hd * 2 * 2
+    ck, cv = at.paged_gather(pk, bt), at.paged_gather(pv, bt)
+    mask = (torch.arange(ck.shape[2], device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    qt = q.transpose(1, 2)
+    record("paged_decode_attention",
+           lambda: at.paged_decode_attention(q, pk, pv, bt, pos),
+           lambda: at.paged_decode_attention_plain(q, pk, pv, bt, pos),
+           lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
+           kv_bytes + qo_bytes + bt_bytes, 4 * nh * hd * sum(keys),
+           "B6 fp16 b=8 nh=nkv=32 hd=128 ps=16 P=128",
+           row="paged_decode_attention_f16")
+    record("decode_attention",
+           lambda: at.decode_attention(q, ck, cv, pos),
+           lambda: at.decode_attention_plain(q, ck, cv, pos),
+           lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
+           kv_bytes + qo_bytes + b * 4, 4 * nh * hd * sum(keys),
+           "B4 fp16 b=8 nh=nkv=32 hd=128 len=2048",
+           row="decode_attention_f16")
+    del q, pk, pv, ck, cv
+    q, ck, cv, pos = window_case(torch, dev, torch.float16, 16, b=1,
+                                 length=2048 + 16, pos=[512])
+    L = ck.shape[2]
+    keys = sum(min(512 + i, L - 1) + 1 for i in range(16))
+    qpos = pos[:, None, None, None].long() + torch.arange(
+        16, device=dev)[None, None, :, None]
+    mask = (torch.arange(L, device=dev)[None, None, None, :] <= qpos)[
+        ..., :512 + 16]
+    ckr, cvr, qt = ck[:, :, :512 + 16], cv[:, :, :512 + 16], q.transpose(1, 2)
+    record("window_attention",
+           lambda: at.window_attention(q, ck, cv, pos),
+           lambda: at.window_attention_plain(q, ck, cv, pos),
+           lambda: F.scaled_dot_product_attention(qt, ckr, cvr,
+                                                  attn_mask=mask),
+           (512 + 16) * nkv * hd * 2 * 2 + 2 * 16 * nh * hd * 2 + 4,
+           4 * hd * keys * nh, "B5 fp16 b=1 s=16 nh=nkv=32 hd=128 "
+           f"len={L} pos=[512]", row="window_attention_f16")
+    del q, ck, cv, ckr, cvr
+    q, kq, vq, ks, vs, bt, pos = paged_q8_case(torch, dev, torch.float16)
+    keys = [int(p) + 1 for p in pos.tolist()]
+    pages = sum((k - 1) // ps + 1 for k in keys)
+    ck = at.paged_gather(kq, bt, ks, torch.float16)
+    cv = at.paged_gather(vq, bt, vs, torch.float16)
+    mask = (torch.arange(ck.shape[2], device=dev)[None, :]
+            <= pos[:, None].long())[:, None, None, :]
+    qt = q.transpose(1, 2)
+    record("paged_decode_attention_int8",
+           lambda: at.paged_decode_attention(q, kq, vq, bt, pos, k_scale=ks,
+                                             v_scale=vs),
+           lambda: at.paged_decode_attention_plain(q, kq, vq, bt, pos,
+                                                   k_scale=ks, v_scale=vs),
+           lambda: F.scaled_dot_product_attention(qt, ck, cv, attn_mask=mask),
+           sum(keys) * nkv * hd * 2 + pages * nkv * 4 * 2
+           + 2 * b * nh * hd * 2 + pages * 4 + b * 4,
+           4 * nh * hd * sum(keys),
+           "B7 fp16 query, b=8 nh=nkv=32 hd=128 ps=16 P=128 int8 pool",
+           row="paged_decode_attention_int8_f16")
+    del q, kq, vq, ks, vs, ck, cv
+
     # B6 and B7 at the engine's own decode shape (phase_profile's 8 rows
     # after 256-token prompts: 256-319 keys over tables of 128 pages of
     # 16), log lines, with the bound on pos the engine's scheduler passes
@@ -6513,13 +6661,16 @@ def phase_timing(torch, dev, name, main_err, launches):
     log(f"[timing] B8 over one decode step at M=8 ({n_calls} calls): "
         f"{step_ms:.3f} ms of kernel time, bound {step_bound:.3f} ms")
 
-    # B9 and B10 at the 7B training leg's micro-batch (the JSON rows) and
-    # at the decode step's 8 rows, bf16; the library calls are
-    # F.rms_norm's forward and its autograd backward
+    # B9 and B10 at the 7B training leg's micro-batch (the JSON rows, bf16
+    # and fp16) and at the decode step's 8 rows, bf16; the library calls
+    # are F.rms_norm's forward and its autograd backward
     from paddle_tpu_torch.kernels import rms_norm as rn
 
-    for n, h in ((4096, 4096), (4096, 2048), (8, 4096)):
-        x, w, g = rms_case(torch, dev, n, h, torch.bfloat16)
+    bf, hf = torch.bfloat16, torch.float16
+    for n, h, dt in ((4096, 4096, bf), (4096, 2048, bf), (8, 4096, bf),
+                     (4096, 4096, hf)):
+        dname = "bf16" if dt == torch.bfloat16 else "fp16"
+        x, w, g = rms_case(torch, dev, n, h, dt)
         _, r = rn.rms_norm_fwd(x, w, RMS_EPS)
         xl, wl = x.clone().requires_grad_(), w.clone().requires_grad_()
         yl = F.rms_norm(xl, (h,), wl, RMS_EPS)
@@ -6533,13 +6684,15 @@ def phase_timing(torch, dev, name, main_err, launches):
                lambda: rn.rms_norm_fwd_plain(x, w, RMS_EPS),
                lambda: F.rms_norm(x, (h,), w, RMS_EPS),
                2 * t16 + h * 2 + n * 4, 4 * n * h,
-               f"B9 [{n}, {h}] bf16", row=main)
+               f"B9 [{n}, {h}] {dname}",
+               row=main and f16_key("rms_norm_fwd", dt))
         record("rms_norm_bwd", lambda: rn.rms_norm_bwd(x, w, r, g),
                lambda: rn.rms_norm_bwd_plain(x, w, r, g), lib_backward,
                3 * t16 + 2 * h * 2 + n * 4, 9 * n * h,
-               f"B10 [{n}, {h}] bf16, (blocks, cluster) "
-               f"{rn.bwd_grid(n, h, 2, qm._sms(dev))}", row=main,
-               methods=True)
+               f"B10 [{n}, {h}] {dname}, (blocks, cluster) "
+               f"{rn.bwd_grid(n, h, 2, qm._sms(dev))}",
+               row=main and f16_key("rms_norm_bwd", dt),
+               methods=dt == torch.bfloat16)
 
         def lib_both():
             xg = x.detach().requires_grad_()
@@ -6549,7 +6702,7 @@ def phase_timing(torch, dev, name, main_err, launches):
 
         # device time alone, from CUDA graphs: at 8 rows the host launches
         # a call slower than the card runs it
-        log(f"[timing] B9/B10 [{n}, {h}] bf16 from CUDA graphs (device "
+        log(f"[timing] B9/B10 [{n}, {h}] {dname} from CUDA graphs (device "
             f"time, no host launch work): B9 "
             f"{graph_ms(torch, lambda: rn.rms_norm_fwd(x, w, RMS_EPS)):.4f}"
             f" ms, F.rms_norm "
@@ -6688,7 +6841,7 @@ PROFILE_NAMES = {"B1": ("flash_fwd",), "B2": ("flash_bwd_dq",),
                  "B3": ("flash_bwd_dkv",),
                  "B5": ("window_mma_kernel", "window_attention_kernel"),
                  "B4": ("CacheKeys", "::decode_attention_kernel<"),
-                 "B6": ("PagedKeys<__nv_bfloat16",
+                 "B6": ("PagedKeys<__nv_bfloat16", "PagedKeys<__half",
                         "paged_decode_attention_kernel"),
                  "B7": ("PagedKeys<signed char", "PagedKeys<char",
                         "paged_decode_attention_q8_kernel"),
@@ -6706,8 +6859,9 @@ LAUNCHES_BEFORE_B9 = {"profile": 1682, "profile-int8": 3218}
 # a layer a step
 # launches a decode step at most, every launch counted (the window opens
 # with throwaway kernels: without them it lost up to ~30 first records)
-LAUNCH_CEILING = {"profile": 1227, "profile-int8": 2539}
-PAGED_KERNEL = {"profile": "B6", "profile-int8": "B7"}
+LAUNCH_CEILING = {"profile": 1227, "profile-int8": 2539,
+                  "profile-fp16": 1227}
+PAGED_KERNEL = {"profile": "B6", "profile-int8": "B7", "profile-fp16": "B6"}
 
 
 def phase_profile(torch, dev, eng, label="profile", n_steps=8,
@@ -6760,12 +6914,13 @@ def phase_profile(torch, dev, eng, label="profile", n_steps=8,
         return None
     n_launch = sum(e.count for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    before_b9 = (f" ({LAUNCHES_BEFORE_B9[label]} in another run before the "
+                 f"norms were fused)" if label in LAUNCHES_BEFORE_B9 else "")
     log(f"[{label}] {n_steps} decode steps at {eng.max_slots} rows, "
         f"{prompt_len}-token prompts: wall {wall_us / n_steps / 1e3:.2f} ms "
         f"a step, device busy {busy_us / n_steps / 1e3:.2f} ms a step "
         f"({busy_us / wall_us:.1%}), {n_launch / n_steps:.0f} kernel "
-        f"launches a step ({LAUNCHES_BEFORE_B9[label]} in another run "
-        f"before the norms were fused), B9 {norms:.0f} a step")
+        f"launches a step{before_b9}, B9 {norms:.0f} a step")
     for e in top:
         log(f"[{label}]   {e.self_device_time_total / busy_us:6.1%} "
             f"{e.count / n_steps:5.0f}/step  {e.key[:90]}")
@@ -6929,6 +7084,11 @@ def reference_logits(torch, model, ids, attend=None, dtype=None):
 #     below what the pool's rounding itself moves (~0.09), which is less
 #     than what a wrong page scale or a dropped rescale moves. The f64
 #     reference measures the floor that flips alone give.
+#   fp16 (set before its first run, PERF.md section 6): the paged path
+#     rounds where the bf16 one does, to 3 more mantissa bits, so its
+#     errors should be about an eighth of bf16's (rel_err 0.066 on these
+#     weights); the bars are half of bf16's, top-1 bf16's. The int8 pool
+#     under fp16 weights is held to the int8 pool's bars.
 #   int8 pool in bf16 (set before its first run): rounding every K/V
 #     value to 1/254 of its page's absmax lands on another code wherever
 #     the bf16 path's K/V have drifted from the f32 ones by a fraction of a
@@ -6941,7 +7101,9 @@ LOGIT_BARS = {"bfloat16": {"rel_err": 0.10, "max_abs_over_max": 0.15,
               "int8 pool": {"rel_err": 0.20, "max_abs_over_max": 0.25,
                             "top1": None},
               "int8 pool, f32": {"rel_err": 5e-3, "max_abs_over_max": 1e-2,
-                                 "top1": 0.98}}
+                                 "top1": 0.98},
+              "float16": {"rel_err": 0.05, "max_abs_over_max": 0.075,
+                          "top1": 0.80}}
 
 
 def as_f32(model):
@@ -7300,9 +7462,7 @@ def phase_spec(torch, dev, model):
     round (a random 7B draft is rejected in most rounds, so this holds the
     all-rejected rollback at full width).
     Returns the launch counts of (b)'s speculative run."""
-    import numpy as np
-    from paddle_tpu_torch.models import draft_from_params
-    from paddle_tpu_torch.serving import PagedEngine, Request, make_trace
+    from paddle_tpu_torch.serving import make_trace
 
     trace = make_trace(seed=0, n_requests=24, mean_interarrival_steps=0.5,
                        prompt_len_choices=(24, 40, 57, 96),
@@ -7345,8 +7505,23 @@ def phase_spec(torch, dev, model):
         spec_launches = launches
         del target, draft, greedy, spec
         torch.cuda.empty_cache()
+    spec_7b_leg(torch, dev, model)
+    return spec_launches
 
-    # (c) Llama-2-7B width
+
+def spec_7b_leg(torch, dev, model, label="spec"):
+    """`phase_spec`'s leg (c): the model at Llama-2-7B width with its
+    4-layer draft, 4 greedy requests x 32 tokens one at a time beside a
+    plain engine; block tables, refcounts and reservations held equal
+    after every round. Returns the leg's launch counts (B5 through the
+    verify window)."""
+    import numpy as np
+    from paddle_tpu_torch.models import draft_from_params
+    from paddle_tpu_torch.serving import PagedEngine, Request
+
+    dname = str(model.dtype).replace("torch.", "")
+    torch.cuda.synchronize(dev)
+    reset_launches()
     draft = draft_from_params(model, 4)
     rng = np.random.default_rng(13)
     prompts = [rng.integers(1, model.args.vocab_size, size=n).astype(np.int32)
@@ -7390,19 +7565,158 @@ def phase_spec(torch, dev, model):
     c = spec.metrics.summary()["counters"]
     acc = c.get("draft_tokens_accepted", 0) / max(
         c.get("draft_tokens_proposed", 1), 1)
-    log(f"[spec] (c) Llama-2-7B width, 4-layer draft, 4 requests x 32 "
-        f"tokens, one at a time, in {secs:.2f} s beside the plain engine: "
-        f"{rounds} rounds, {rejected} of them rejecting every draft, "
-        f"acceptance rate {acc:.3f}, "
+    torch.cuda.synchronize(dev)
+    launches = all_counts()
+    log(f"[{label}] (c) Llama-2-7B width, {dname}, 4-layer draft, 4 "
+        f"requests x 32 tokens, one at a time, in {secs:.2f} s beside the "
+        f"plain engine: {rounds} rounds, {rejected} of them rejecting every "
+        f"draft, acceptance rate {acc:.3f}, "
         f"{c.get('spec_pages_rewound', 0)} pages rewound; block tables, "
         f"refcounts and reservations equal to the plain engine's after "
         f"every round; token agreement with plain greedy "
-        f"{[round(a, 3) for a in agree]} (bf16: recorded)")
+        f"{[round(a, 3) for a in agree]} ({dname}: recorded); B5 "
+        f"{launches['window_attention']} launches")
     if not (rejected > 0 and spec._alloc.pages_in_use == 0
-            and c.get("spec_pages_rewound", 0) > 0):
-        raise AssertionError("spec 7B: no all-rejected round, no page "
-                             "rewound, or pages still held")
-    return spec_launches
+            and c.get("spec_pages_rewound", 0) > 0
+            and launches["window_attention"] > 0):
+        raise AssertionError(f"{label} 7B: no all-rejected round, no page "
+                             "rewound, pages still held or no B5 launch")
+    return launches
+
+
+# the kernels each leg of the serve-fp16 phase must launch in fp16. The
+# engine's prefill runs `generation._cached_attention` as the reference's
+# does: B5 for windows of at most 64 query rows a kv head, the plain masked
+# attention above that; B1 is not on the serving path in any dtype
+SERVE_FP16_LAUNCHES = {
+    "fp16 pool": ("paged_decode_attention_f16", "window_attention_f16",
+                  "rms_norm_fwd_f16"),
+    "int8 pool": ("paged_decode_attention_int8_f16", "rms_norm_fwd_f16"),
+    "generate": ("decode_attention_f16", "window_attention_f16"),
+    "spec": ("window_attention_f16",)}
+# each fp16 variant beside its total: on the card every call of the kernel
+# in an fp16 leg is an fp16 launch (none took another route, none raised)
+F16_OF = {f"{k}_f16": k for k in ("decode_attention", "window_attention",
+                                  "paged_decode_attention",
+                                  "paged_decode_attention_int8",
+                                  "rms_norm_fwd")}
+
+
+def handoff_fp16(torch, dev, model, new_tokens=32):
+    """One fp16 request (the engine traffic's 712-token prompt) through
+    `DisaggServer`: its pages packed by `KVHandoff.to_bytes` (dtype
+    "float16" in the header), read back by `from_bytes` and scattered into
+    the decode worker's fp16 pool, each shipped page bit-identical there
+    (`_watch_admissions`); its tokens must equal the monolithic
+    `PagedEngine`'s, served alone the same way."""
+    from paddle_tpu_torch.serving import DisaggServer, PagedEngine, Request
+
+    kw = dict(max_slots=8, max_len=2048, page_size=16, min_bucket=16,
+              device=dev)
+    prompt = engine_traffic(model.args.vocab_size)[7]["prompt"]
+    mono = Request(prompt, new_tokens, request_id=0)
+    PagedEngine(model, **kw).serve([mono])
+    srv = DisaggServer(model, **kw)
+    seen = _watch_admissions(torch, srv.decode)
+    moved = Request(prompt, new_tokens, request_id=0)
+    srv.serve([moved])
+    torch.cuda.synchronize(dev)
+    pm = srv.prefill.metrics
+    equal = moved.token_ids == mono.token_ids
+    log(f"[serve-fp16] hand-off: a {prompt.size}-token request, "
+        f"{sum(seen['pages'])} fp16 pages "
+        f"({pm.counter('handoff_bytes') / 1e6:.1f} MB) through to_bytes / "
+        f"from_bytes into the decode pool ({srv.decode._pk.dtype}), each "
+        f"page bit-identical there; latency {_ms(seen['latency_s'])}; its "
+        f"{len(moved.token_ids)} tokens equal to the monolithic engine's: "
+        f"{equal}")
+    _drained("serve-fp16 hand-off", srv.prefill, srv.decode)
+    if not (equal and len(seen["pages"]) == 1
+            and srv.decode._pk.dtype == torch.float16
+            and len(moved.token_ids) == new_tokens):
+        raise AssertionError(f"serve-fp16 hand-off: tokens {moved.token_ids}"
+                             f" vs {mono.token_ids}")
+
+
+def phase_serve_fp16(torch, dev, bf16=None):
+    """Serving in fp16: `Llama(LLAMA2_7B, init_params(..., float16))`, all
+    32 layers, from the engine phase's seed. (a) `phase_engine` on the
+    engine traffic over an fp16 pool, then its profiled decode window; (b)
+    the same traffic over an int8 pool; (c) `generate`; (d) `phase_spec`'s
+    Llama-2-7B leg (B5 through the verify window); (e) one request's fp16
+    pages handed off (`handoff_fp16`); (f) the fp16 paged logits against
+    the f32 forward of the same weights (LOGIT_BARS["float16"]), and over
+    the int8 pool against that forward over the pool's rounding. Each leg
+    must launch its kernels in fp16 (SERVE_FP16_LAUNCHES), and every
+    launch of those kernels in a leg must be an fp16 one. `bf16`: the
+    engine phase's stats and profile, logged beside. Returns the phase's
+    launch counts."""
+    from paddle_tpu_torch.models import LLAMA2_7B, Llama, init_params
+
+    t0 = time.perf_counter()
+    gen_ = torch.Generator(device=dev).manual_seed(0)
+    model = Llama(LLAMA2_7B, init_params(LLAMA2_7B, gen_, device=dev,
+                                         dtype=torch.float16))
+    log(f"[serve-fp16] Llama-2-7B width, {LLAMA2_7B.num_layers} layers, "
+        f"fp16, drawn in {time.perf_counter() - t0:.1f} s")
+    total, legs = {}, {}
+    reqs, _, stats, eng = phase_engine(torch, dev, model, label="serve-fp16")
+    legs["fp16 pool"] = all_counts()
+    prof = phase_profile(torch, dev, eng, label="profile-fp16")
+    eng = None
+    _, _, qstats, eng = phase_engine(torch, dev, model, kv_dtype="int8",
+                                     label="serve-fp16-int8")
+    legs["int8 pool"] = all_counts()
+    eng = None
+    torch.cuda.empty_cache()
+    phase_generate(torch, dev, model, label="generate-fp16")
+    legs["generate"] = all_counts()
+    legs["spec"] = spec_7b_leg(torch, dev, model, label="serve-fp16 spec")
+    torch.cuda.empty_cache()
+    handoff_fp16(torch, dev, model)
+    torch.cuda.empty_cache()
+
+    req = reqs[3]
+    n = req.prompt_ids.size
+    ids = forward_ids(torch, dev, req)[:-1]
+    ref = reference_logits(torch, model, ids)[n - 1:]
+    compare(torch, "serve-fp16", f"fp16 weights and pool vs the f32 forward, "
+            f"after a {n}-token prompt", paged_logits(torch, dev, model, req),
+            ref, LOGIT_BARS["float16"])
+    ref8 = reference_logits(torch, model, ids, int8_pool_attention(
+        torch, n, 16))[n - 1:]
+    compare(torch, "serve-fp16", "fp16 weights, int8 pool vs the f32 forward "
+            "over the int8 pool's rounding",
+            paged_logits(torch, dev, model, req, kv_dtype="int8"), ref8,
+            LOGIT_BARS["int8 pool"])
+    del ref, ref8
+
+    for leg, counts in legs.items():
+        _add(total, counts)
+        zero = [k for k in SERVE_FP16_LAUNCHES[leg] if counts[k] == 0]
+        other = {k: (counts[k], counts[base]) for k, base in F16_OF.items()
+                 if counts[k] != counts[base]}
+        log(f"[serve-fp16] {leg}: fp16 launches "
+            + ", ".join(f"{k} {counts[k]}" for k in F16_OF))
+        if zero or other:
+            raise AssertionError(f"serve-fp16 {leg}: not launched in fp16 "
+                                 f"{zero}; launches not in fp16 {other}")
+    busy = (f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+            f"({prof['busy_ms'] / prof['wall_ms']:.1%})" if prof
+            else "not measured")
+    line = (f"[serve-fp16] fp16: {stats['tokens_per_s']:.1f} tokens/s, decode "
+            f"step p50 {stats['decode_step_p50_s'] * 1e3:.2f} ms, a profiled "
+            f"decode step's device busy {busy}; int8 pool "
+            f"{qstats['tokens_per_s']:.1f} tokens/s")
+    if bf16 is not None:
+        st, bp = bf16
+        line += (f"; bf16 (the engine phase): {st['tokens_per_s']:.1f} "
+                 f"tokens/s, decode step p50 "
+                 f"{st['decode_step_p50_s'] * 1e3:.2f} ms"
+                 + (f", busy {bp['busy_ms']:.2f} of {bp['wall_ms']:.2f} ms"
+                    if bp else ""))
+    log(line + f"; the phase took {time.perf_counter() - t0:.1f} s")
+    return total
 
 
 def phase_capacity(torch, dev, model, seed=0):
@@ -8026,18 +8340,19 @@ C2_WINDOW = 16        # B5's window: a paged-prefill suffix
 C2_GEMV_AT = {1: 0, 8: 3, 9: 8, 16: 15}
 
 
-def _c2_rows(torch, dev, nh, nkv, hd, length, n, seed):
-    """n rows' bf16 q [n, 1, nh, hd], window q [n, C2_WINDOW, nh, hd],
-    caches [n, nkv, length, hd] and int8 pages (codes, scales): each row
-    its own seed, so a row holds the same values in any batch."""
+def _c2_rows(torch, dev, nh, nkv, hd, length, n, seed, dtype):
+    """n rows' q [n, 1, nh, hd], window q [n, C2_WINDOW, nh, hd] and caches
+    [n, nkv, length, hd] in `dtype` (bf16 or fp16), and int8 pages (codes,
+    scales): each row its own seed, so a row holds the same values in any
+    batch."""
     rows = []
     for i in range(n):
         g = torch.Generator(device=dev).manual_seed(seed + 1000 * i)
-        k = torch.randn(nkv, length, hd, generator=g, device=dev).bfloat16()
-        v = torch.randn(nkv, length, hd, generator=g, device=dev).bfloat16()
-        q = torch.randn(1, nh, hd, generator=g, device=dev).bfloat16()
+        k = torch.randn(nkv, length, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(nkv, length, hd, generator=g, device=dev).to(dtype)
+        q = torch.randn(1, nh, hd, generator=g, device=dev).to(dtype)
         qw = torch.randn(C2_WINDOW, nh, hd, generator=g,
-                         device=dev).bfloat16()
+                         device=dev).to(dtype)
         pages = length // C2_PS
         codes = [torch.randint(-127, 128, (pages, nkv, C2_PS, hd),
                                generator=g, device=dev, dtype=torch.int8)
@@ -8080,7 +8395,8 @@ def _c2_batch(torch, dev, rows, pos, nkv, hd, length):
 
 
 def _c2_outputs(torch, at, d, bound, max_pos):
-    """Each of B4-B7's bf16 output for batch `d`. bound: the host knows
+    """Each of B4-B7's output for batch `d` (bf16 or fp16). bound: the
+    host knows
     every row's pos (a CPU tensor, and max_pos for B6/B7) or only that
     they are on the card (max_pos None)."""
     pos = d["pos"] if bound else d["pos"].to(d["q"].device)
@@ -8095,21 +8411,25 @@ def _c2_outputs(torch, at, d, bound, max_pos):
 
 
 def phase_c2(torch, dev, check=True):
-    """Fault C2: one row through each bf16 kernel in three batches, alone
-    (b = 1, its own pos as the bound), among 7 rows shorter and longer
-    (the batch's largest pos as max_pos, pos known to the host) and among 3
-    rows with max_pos=None (pos on the card): B4, B5, B6 and B7 must give
-    the row bit-identical outputs. B8's GEMV: one x row at M = 1, 8, 9 and
-    16 at the four decode shapes, bit-identical. With check=False (a
+    """Fault C2: one row through each bf16 and fp16 kernel in three
+    batches, alone (b = 1, its own pos as the bound), among 7 rows shorter
+    and longer (the batch's largest pos as max_pos, pos known to the host)
+    and among 3 rows with max_pos=None (pos on the card): B4, B5, B6 and B7
+    must give the row bit-identical outputs in either dtype. B8's GEMV:
+    one x row at M = 1, 8, 9 and 16 at the four decode shapes,
+    bit-identical. With check=False (a
     record of a tree before the repair) it only prints which differ. The
     disagg phase prints the agreement of whole requests."""
     from paddle_tpu_torch.kernels import attention as at
     from paddle_tpu_torch.kernels import quantized_matmul as qm
 
     differ = []
-    for label, nh, nkv, hd, length, pos0, others in C2_SHAPES:
+    for (label, nh, nkv, hd, length, pos0, others), dtype in [
+            (shape, dt) for dt in (torch.bfloat16, torch.float16)
+            for shape in C2_SHAPES]:
+        dname = "bf16" if dtype == torch.bfloat16 else "fp16"
         rows = _c2_rows(torch, dev, nh, nkv, hd, length, 1 + len(others),
-                        seed=11)
+                        seed=11, dtype=dtype)
         target, rest = rows[0], rows[1:]
         alone = _c2_outputs(torch, at, _c2_batch(
             torch, dev, [target], [pos0], nkv, hd, length), True, pos0)
@@ -8125,13 +8445,13 @@ def phase_c2(torch, dev, check=True):
                 results[k].append(torch.equal(out[at_i], alone[k][0]))
         torch.cuda.synchronize()
         for k, same in results.items():
-            log(f"[c2] {k} bf16 {label} (nh={nh} nkv={nkv} hd={hd} "
+            log(f"[c2] {k} {dname} {label} (nh={nh} nkv={nkv} hd={hd} "
                 f"len={length}), a row at pos {pos0}: among 7 rows with "
                 f"max_pos {'the same bits' if same[0] else 'DIFFERENT'}, "
                 f"among 3 rows with pos on the card "
                 f"{'the same bits' if same[1] else 'DIFFERENT'} as alone")
             if not all(same):
-                differ.append(f"{k} {label}")
+                differ.append(f"{k} {dname} {label}")
         del rows, target, rest, alone
     for k, n, _ in DECODE_MATMULS:
         x0, w, s = matmul_case(torch, dev, torch.bfloat16, 1, k, n, seed=21)
@@ -8148,7 +8468,7 @@ def phase_c2(torch, dev, check=True):
                         for m, v in same.items()))
         if not all(same.values()):
             differ.append(f"B8 GEMV K={k} N={n}")
-    log(f"[c2] rows whose bf16 output depends on their batch: "
+    log(f"[c2] rows whose bf16 or fp16 output depends on their batch: "
         f"{differ or 'none'}")
     if check and differ:
         raise AssertionError(f"fault C2: a row's output depends on its "
@@ -8468,7 +8788,7 @@ def phase_ckpt(torch, dev):
 
 def _add(total, launches):
     for k, v in launches.items():
-        total[k] += v
+        total[k] = total.get(k, 0) + v
 
 
 def main(argv=None):
@@ -8479,7 +8799,8 @@ def main(argv=None):
                     "recompute,"
                     "incubate,jit,analysis,device,debug,train,"
                     "train-h2048,ckpt,engine,disagg,router,logits,generate,"
-                    "chunked,spec,engine-int8,logits-int8,capacity,timing",
+                    "chunked,spec,engine-int8,logits-int8,capacity,"
+                    "serve-fp16,timing",
                     help="comma-separated subset of the phases, in order")
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
@@ -8512,7 +8833,7 @@ def main(argv=None):
                                          quantize_params)
 
     main_err = {}
-    launches = {k: 0 for k in {**launch_counts(), **variant_counts()}}
+    launches = {k: 0 for k in all_counts()}
     if "build" in phases:
         phase_build()
     if "parity" in phases:
@@ -8586,11 +8907,11 @@ def main(argv=None):
         log(f"[model] Llama-2-7B width, {LLAMA2_7B.num_layers} layers, bf16, "
             f"{sum(t.numel() for t in model.parameters()) / 1e9:.2f} B "
             f"parameters drawn in {time.perf_counter() - t0:.1f} s")
-    reqs = eng_stats = None
+    reqs = eng_stats = eng_prof = None
     if "engine" in phases:
         reqs, eng_launches, eng_stats, eng = phase_engine(torch, dev, model)
         _add(launches, eng_launches)
-        phase_profile(torch, dev, eng)
+        eng_prof = phase_profile(torch, dev, eng)
         eng = None
     if "disagg" in phases:
         _add(launches, phase_disagg(torch, dev, model, reqs))
@@ -8654,11 +8975,16 @@ def main(argv=None):
     torch.cuda.empty_cache()
     if "capacity" in phases:
         _add(launches, phase_capacity(torch, dev, model))
-    main_path = {"eager", "dist", "configs", "unet", "quant", "recompute",
-                 "incubate", "jit", "analysis", "device", "train", "engine",
-                 "disagg",
-                 "router", "generate", "chunked", "spec", "engine-int8",
-                 "capacity"}
+    if "serve-fp16" in phases:
+        model = None      # the bf16 model's 13.5 GB, before the fp16 one's
+        torch.cuda.empty_cache()
+        _add(launches, phase_serve_fp16(
+            torch, dev, None if eng_stats is None else (eng_stats, eng_prof)))
+        torch.cuda.empty_cache()
+    main_path = {"eager", "layers", "dist", "configs", "unet", "quant",
+                 "recompute", "incubate", "jit", "analysis", "device",
+                 "train", "engine", "disagg", "router", "generate", "chunked",
+                 "spec", "engine-int8", "capacity", "serve-fp16"}
     if main_path <= set(phases):
         missing = [k for k, v in launches.items()
                    if v == 0 and k not in OFF_PATH]

@@ -16,7 +16,8 @@ goes to the plain version beside it (`*_plain`, mirroring the reference's
 contiguity for and raises on what the kernel does not take. Nothing falls
 back: a CUDA tensor never reaches a plain version. `launches` counts the
 kernel launches of each wrapper (a plain call counts nothing), so a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels; `variant_launches`
+counts, beside it, the launches in fp16.
 
 While a trace runs (`_tracing`: `make_fx` over fake tensors,
 `torch.export`, `torch.compile`) each wrapper goes through its custom
@@ -36,6 +37,7 @@ with block tables [b, P] (page i of row r holds its positions
 positions `pos` int32 [b] (or one int for every row). GQA is native: query
 head h reads kv head h // (nh // nkv). An int8 pool carries per-(page, kv
 head) absmax scales [num_pages, nkv] f32: dequant = code * scale / 127.
+The kernels take q (and a float pool) in bf16, fp16 or f32.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ __all__ = ["decode_attention", "window_attention", "paged_decode_attention",
            "row_splits", "cut_keys", "window_splits", "window_split_keys",
            "paged_route", "paged_splits", "paged_split_keys",
            "decode_splits", "decode_split_keys", "WINDOW_SPLIT_TILES",
+           "variant_launches", "neg_inf",
            "PAGED_SPLIT_TILES", "DECODE_ATTENTION_OP", "WINDOW_ATTENTION_OP",
            "PAGED_DECODE_ATTENTION_OP", "PAGED_DECODE_ATTENTION_Q8_OP"]
 
@@ -62,18 +65,18 @@ NEG_INF = -1e30
 # are the caller's plain masked attention (generation._cached_attention)
 WINDOW_MAX_ROWS = 64
 KERNEL_HEAD_DIMS = (64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# B4-B7 in bf16 walk the keys in tiles of WINDOW_TILE, split over at most
-# WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row).
-# A row takes one split for every WINDOW_SPLIT_TILES (B5) or
-# PAGED_SPLIT_TILES (B4, B6, B7) tiles of its own keys (`row_splits`):
-# a count of the row alone, so that its bf16 result does not depend on the
-# other rows of its batch. Both thresholds come from kernels/sweep_decode.py
-# on an H100. B5: 8 of 2-32, the smallest worst loss (7.7%) against each
-# shape's fastest at b=1, s=16 after 192-2000 keys and on the ragged
-# verify window. B4/B6/B7: 8, between the
-# regimes a batch-blind rule must serve: a row decoding alone wants more
-# splits (600 keys: 1 split 0.0233 ms, 2 splits 0.0169), 8 ragged rows
+# the dtype codes of the C entry points
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# B4-B7 in bf16 and fp16 walk the keys in tiles of WINDOW_TILE, split over at
+# most WINDOW_MAX_SPLITS blocks (one thread-block cluster) per (kv head, row).
+# A row takes one split for every WINDOW_SPLIT_TILES (B5) or PAGED_SPLIT_TILES
+# (B4, B6, B7) tiles of its own keys (`row_splits`): a count of the row alone,
+# so that its bf16 or fp16 result does not depend on the other rows of its
+# batch. Both thresholds come from kernels/sweep_decode.py on an H100. B5: 8 of
+# 2-32, the smallest worst loss (7.7%) against each shape's fastest at b=1,
+# s=16 after 192-2000 keys and on the ragged verify window. B4/B6/B7: 8,
+# between the regimes a batch-blind rule must serve: a row decoding alone wants
+# more splits (600 keys: 1 split 0.0233 ms, 2 splits 0.0169), 8 ragged rows
 # fewer (to 2047 keys: 12 tiles a split 0.0397 ms, 8 tiles 0.0454); the
 # engine's 8 rows of 257-320 keys take 1 split under either
 WINDOW_TILE = 64
@@ -83,11 +86,19 @@ PAGED_SPLIT_TILES = 8
 
 launches = {"decode_attention": 0, "window_attention": 0,
             "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+# each wrapper's launches with an fp16 query, counted beside its total
+variant_launches = {f"{k}_f16": 0 for k in launches}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name, dtype):
+    launches[name] += 1
+    variant_launches[f"{name}_f16"] += dtype == torch.float16
 
 
 # ---------------------------------------------------------------------------
@@ -139,11 +150,12 @@ def _check_gqa(q, nkv, hd):
 
 
 def _check_kernel(q, others, rows):
-    """What the CUDA kernels take: bf16 or f32, one dtype, contiguous,
+    """What the CUDA kernels take: bf16, fp16 or f32, one dtype, contiguous,
     16-byte aligned K/V (read 16 bytes a thread), head_dim 64 or 128, at
     most WINDOW_MAX_ROWS query rows per kv head."""
     if q.dtype not in _DTYPES:
-        raise TypeError(f"kernel takes bfloat16 or float32, got {q.dtype}")
+        raise TypeError(f"kernel takes bfloat16, float16 or float32, got "
+                        f"{q.dtype}")
     for t in (q, *others):
         if t.dtype != q.dtype:
             raise TypeError(f"dtype mismatch: {t.dtype} vs q {q.dtype}")
@@ -197,8 +209,8 @@ def _scale(scale, hd):
 
 
 # ---------------------------------------------------------------------------
-# the split of a row's keys (bf16), mirrored by window_mma_kernel (B5) and
-# decode_mma_kernel (B4, B6, B7)
+# the split of a row's keys (bf16, fp16), mirrored by window_mma_kernel (B5)
+# and decode_mma_kernel (B4, B6, B7)
 # ---------------------------------------------------------------------------
 
 
@@ -235,10 +247,10 @@ def _row_cut(last, cluster, split_tiles):
 
 
 def window_splits(last):
-    """The cluster of B5 in bf16: `row_splits` of the widest watermark the
-    host knows of, keys [0, last] (`_window_last`), WINDOW_SPLIT_TILES
-    tiles a split. Each row cuts its own keys over its own count of these
-    blocks (`window_split_keys`)."""
+    """The cluster of B5 in bf16 and fp16: `row_splits` of the widest
+    watermark the host knows of, keys [0, last] (`_window_last`),
+    WINDOW_SPLIT_TILES tiles a split. Each row cuts its own keys over its
+    own count of these blocks (`window_split_keys`)."""
     return row_splits(last, WINDOW_SPLIT_TILES)
 
 
@@ -271,15 +283,18 @@ def _window_last(pos, s, max_len):
 def paged_route(dtype):
     """The kernel a CUDA call of B4, B6 or B7 launches, from q's dtype
     alone: "cluster" (decode_mma_kernel, each row's keys split over a
-    cluster) for bf16, "shared" (the shared CUDA-core body) for f32."""
-    return "cluster" if dtype == torch.bfloat16 else "shared"
+    cluster) for bf16 and fp16, "shared" (the shared CUDA-core body) for
+    f32."""
+    return "cluster" if dtype in (torch.bfloat16, torch.float16) \
+        else "shared"
 
 
 def paged_splits(P, ps, max_pos=None):
-    """The cluster of B6/B7 in bf16. The host cannot read a device `pos`,
-    so it is cut for the widest row it knows of: the table's P * ps keys,
-    or max_pos + 1 when the caller knows a bound on every row's pos (the
-    engine's scheduler does), by `row_splits` (PAGED_SPLIT_TILES). Each row
+    """The cluster of B6/B7 in bf16 and fp16. The host cannot read a
+    device `pos`, so it is cut for the widest row it knows of: the table's
+    P * ps keys, or max_pos + 1 when the caller knows a bound on every
+    row's pos (the engine's scheduler does), by `row_splits`
+    (PAGED_SPLIT_TILES). Each row
     cuts its own keys over its own count of these blocks
     (`paged_split_keys`), so a bound at or above every pos gives each row
     the cut it gets alone; a bound below a row's pos costs that row its
@@ -297,10 +312,10 @@ def paged_split_keys(pos, P, ps, cluster):
 
 
 def decode_splits(last):
-    """The cluster of B4 in bf16, cut for the longest row the host knows
-    of, keys [0, last] (`_window_last(pos, 1, len)`: min(pos, len - 1) for
-    a pos on the host, len - 1 for one on the card), by `row_splits`
-    (PAGED_SPLIT_TILES)."""
+    """The cluster of B4 in bf16 and fp16, cut for the longest row the
+    host knows of, keys [0, last] (`_window_last(pos, 1, len)`: min(pos,
+    len - 1) for a pos on the host, len - 1 for one on the card), by
+    `row_splits` (PAGED_SPLIT_TILES)."""
     return row_splits(last, PAGED_SPLIT_TILES)
 
 
@@ -322,6 +337,13 @@ def _repeat_kv(cache, nh):
     return cache if nkv == nh else cache.repeat_interleave(nh // nkv, dim=1)
 
 
+def neg_inf(dtype):
+    """NEG_INF as `dtype` holds it: -inf in fp16, whose range ends at
+    65504 (`jnp.where` rounds the reference's -1e30 so). CUDA's `where`
+    refuses a Python scalar its dtype cannot hold; -inf it takes."""
+    return float("-inf") if dtype == torch.float16 else NEG_INF
+
+
 def _masked_softmax_attend(q, cache_k, cache_v, qpos, sm_scale):
     """q [b, s, nh, hd] over [b, nkv, len, hd]; qpos broadcasts to
     [b, 1, s, 1] — key j is live for query (r, i) when j <= qpos."""
@@ -330,7 +352,7 @@ def _masked_softmax_attend(q, cache_k, cache_v, qpos, sm_scale):
     v = _repeat_kv(cache_v, nh)
     scores = (q.transpose(1, 2) @ k.transpose(-1, -2)) * sm_scale
     key_pos = torch.arange(max_len, device=q.device)
-    scores = torch.where(key_pos <= qpos, scores, NEG_INF)
+    scores = torch.where(key_pos <= qpos, scores, neg_inf(scores.dtype))
     probs = torch.softmax(scores.float(), dim=-1)
     return (probs.to(v.dtype) @ v).transpose(1, 2)
 
@@ -409,7 +431,7 @@ def _decode_kernel(q, cache_k, cache_v, pos_t, splits, scale):
         out.data_ptr(), b, nh, nkv, max_len, hd, _DTYPES[q.dtype],
         PAGED_SPLIT_TILES, splits, scale)
     _raise_on(rc, "decode_attention")
-    launches["decode_attention"] += 1
+    _count("decode_attention", q.dtype)
     return out
 
 
@@ -425,7 +447,7 @@ def _window_kernel(q, cache_k, cache_v, pos_t, splits, scale):
         out.data_ptr(), b, s, nh, nkv, max_len, hd, _DTYPES[q.dtype],
         WINDOW_SPLIT_TILES, splits, scale)
     _raise_on(rc, "window_attention")
-    launches["window_attention"] += 1
+    _count("window_attention", q.dtype)
     return out
 
 
@@ -466,7 +488,7 @@ def _paged_kernel(q, pool_k, pool_v, block_tables, pos_t, splits, scale,
             _DTYPES[q.dtype], PAGED_SPLIT_TILES, splits, scale)
         name = "paged_decode_attention"
     _raise_on(rc, name)
-    launches[name] += 1
+    _count(name, q.dtype)
     return out
 
 
@@ -573,8 +595,8 @@ def _decode_host_splits(q, pos, max_len):
 
 
 def _window_host_splits(q, pos, s, max_len):
-    """B5's cluster as the host knows it."""
-    if q.dtype != torch.bfloat16:
+    """B5's cluster as the host knows it (1 for f32's shared body)."""
+    if paged_route(q.dtype) != "cluster":
         return 1
     return window_splits(_window_last(pos, s, max_len))
 
@@ -591,11 +613,12 @@ def _paged_host_splits(q, P, ps, max_pos):
 def decode_attention(q, cache_k, cache_v, pos, scale=None):
     """B4: single-query attention of q [b, 1, nh, hd] over the contiguous
     cache [b, nkv, len, hd], keys [0, pos[r]] for row r. The kernel follows
-    `paged_route`: in bf16 the keys of each (kv head, row) arrive by TMA and
-    are split over `decode_splits` blocks of one cluster; f32 runs the
-    shared body. Each row cuts its keys over its own `row_splits` of the
-    cluster's blocks, so its result is the same in any batch. Cache slots
-    past a row's pos are never part of its result, whatever they hold."""
+    `paged_route`: in bf16 and fp16 the keys of each (kv head, row)
+    arrive by TMA and are split over `decode_splits` blocks of one
+    cluster; f32 runs the shared body. Each row cuts its keys over its own
+    `row_splits` of the cluster's blocks, so its result is the same in any
+    batch. Cache slots past a row's pos are never part of its result,
+    whatever they hold."""
     b, s, nh, hd = q.shape
     if s != 1:
         raise ValueError(f"decode attention takes one query per row, got {s}")
@@ -623,10 +646,10 @@ def window_attention(q, cache_k, cache_v, pos, scale=None):
     """B5: attention of a short query window q [b, s, nh, hd] over the
     contiguous cache: query i of row r sits at pos[r] + i and attends keys
     [0, pos[r] + i]; the walk stops at the last query's watermark, clamped
-    to the cache end. The kernel takes s * (nh // nkv) <= 64. In bf16 the
-    keys of each (kv head, row) are split over the row's own `row_splits`
-    of a cluster of `window_splits` blocks, which combine their partial
-    softmax sums in a fixed order."""
+    to the cache end. The kernel takes s * (nh // nkv) <= 64. In bf16 and
+    fp16 the keys of each (kv head, row) are split over the row's own
+    `row_splits` of a cluster of `window_splits` blocks, which combine
+    their partial softmax sums in a fixed order."""
     b, s, nh, hd = q.shape
     if cache_k.dim() != 4 or cache_k.shape[0] != b or \
             cache_v.shape != cache_k.shape:
@@ -658,8 +681,8 @@ def paged_decode_attention(q, pool_k, pool_v, block_tables, pos, scale=None,
     B7: with k_scale / v_scale [num_pages, nkv] f32 the pools are int8
     codes (scale 0 reads as zeros).
 
-    The kernel follows `paged_route`: in bf16 the keys of each (kv head,
-    row) are split over the row's own `row_splits` of a cluster of
+    The kernel follows `paged_route`: in bf16 and fp16 the keys of each (kv
+    head, row) are split over the row's own `row_splits` of a cluster of
     `paged_splits` blocks (cut for max_pos, an int bound on pos known to
     the caller, when given), B7's
     scales folded into the scores and probabilities; f32 runs the shared

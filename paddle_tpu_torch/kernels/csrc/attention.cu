@@ -14,11 +14,14 @@
 //       an int8 pool with per-(page, kv head) absmax scales sk, sv [NP, nkv]
 //       (dequant = code * scale / 127).
 //
-// In bf16, B5 has a kernel of its own, window_mma_kernel, and B4, B6 and B7
-// share decode_mma_kernel (the keys of each row split over a thread-block
-// cluster, tensor-core products; B4's keys arrive by TMA, B6's and B7's by
-// cp.async through the block table: their designs are written out above
-// them). f32 runs one shared body:
+// In bf16 and fp16, B5 has a kernel of its own, window_mma_kernel, and B4,
+// B6 and B7 share decode_mma_kernel (the keys of each row split over a
+// thread-block cluster, tensor-core products; B4's keys arrive by TMA, B6's
+// and B7's by cp.async through the block table: their designs are written
+// out above them), each templated on its 16-bit type T (`hopper::Elem<T>`:
+// the mma's operand type, the rounding of P and of the output, B7's
+// widening of codes; the shared-memory layouts are the same, both types
+// being 2 bytes). f32 runs one shared body:
 //
 // Design (B4-B7 in f32; in bf16 B4/B6/B7 with `splits` 0, which
 // kernels/sweep_decode.py times beside the cluster kernel): one block of 256
@@ -52,6 +55,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 #include <type_traits>
 
@@ -393,7 +397,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_q8_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B5 in bf16: the keys split across a cluster, scores and P.V on mma.sync
+// B5 in bf16 and fp16: the keys split across a cluster, scores and P.V on
+// mma.sync
 // ---------------------------------------------------------------------------
 //
 // One block per (kv head, row, split); the blocks of a (kv head, row) form
@@ -412,10 +417,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_attention_q8_kernel(
 // padded to 16-row tiles; four warps share each tile of keys: a warp takes
 // one 16-row tile and 64 / KG keys of it (KG = 4, 2, 1 for 1, 2, 3-4 row
 // tiles), with its Q fragments in registers for the whole walk. S = Q K^T
-// and O += P V run as mma.m16n8k16 (bf16 in, f32 sums); S stays in
+// and O += P V run as mma.m16n8k16 (T in, f32 sums); S stays in
 // registers, is masked by select after the exp (a masked key adds exactly
 // 0, also in a row that sees no key of the split: its m stays -1e30, its l
-// 0), and P is rounded to bf16 for the product, as the Pallas kernel does
+// 0), and P is rounded to T for the product, as the Pallas kernel does
 // (p.astype(v.dtype)). Each warp keeps its own (m, l, O) in f32 and leaves
 // it in shared memory; after a cluster barrier, block z combines rows z,
 // z + nsplit, ...: a warp a row, one lane per (split z < ns, warp) partial
@@ -455,10 +460,8 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
   return (uint32_t)(r * Win<HD>::kChunks + (c ^ (r & 7))) * 16;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+using hopper::Elem;
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -468,14 +471,15 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-template <int HD, int KG>
+template <typename T, int HD, int KG>
 __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ pos,
-    __nv_bfloat16* __restrict__ out, int s, int nh, int nkv, int len,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const int* __restrict__ pos,
+    T* __restrict__ out, int s, int nh, int nkv, int len,
     int split_tiles, float scale) {
   using namespace hopper;
   using W = Win<HD>;
+  constexpr bool kF16 = Elem<T>::kF16;
   constexpr int kW = kWinKeys / KG;   // keys of a tile a warp takes
   constexpr int kNT = kW / 8;         // its n8 tiles of scores
   constexpr int kKC = HD / 16;        // k16 steps over head_dim
@@ -576,8 +580,8 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
           ldsm_x4(bk, ks + swz<HD>(kq * kW + j * 16 + (mat / 2) * 8 +
                                        lane % 8,
                                    2 * kc + mat % 2));
-          mma_16816(sc[2 * j], qf[kc], bk[0], bk[1]);
-          mma_16816(sc[2 * j + 1], qf[kc], bk[2], bk[3]);
+          mma_16816<kF16>(sc[2 * j], qf[kc], bk[0], bk[1]);
+          mma_16816<kF16>(sc[2 * j + 1], qf[kc], bk[2], bk[3]);
         }
       // online softmax in base 2; a key past a row's limit is -1e30 and
       // adds exactly 0
@@ -616,21 +620,22 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
         o[d][0] *= a0; o[d][1] *= a0;
         o[d][2] *= a1; o[d][3] *= a1;
       }
-      // O += P V, P rounded to bf16
+      // O += P V, P rounded to T
 #pragma unroll
       for (int j = 0; j < kW / 16; ++j) {
-        const uint32_t pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
-                                pack_bf16(sc[2 * j][2], sc[2 * j][3]),
-                                pack_bf16(sc[2 * j + 1][0], sc[2 * j + 1][1]),
-                                pack_bf16(sc[2 * j + 1][2], sc[2 * j + 1][3])};
+        const uint32_t pa[4] = {
+            Elem<T>::pack(sc[2 * j][0], sc[2 * j][1]),
+            Elem<T>::pack(sc[2 * j][2], sc[2 * j][3]),
+            Elem<T>::pack(sc[2 * j + 1][0], sc[2 * j + 1][1]),
+            Elem<T>::pack(sc[2 * j + 1][2], sc[2 * j + 1][3])};
 #pragma unroll
         for (int dd = 0; dd < kDT / 2; ++dd) {
           uint32_t bv[4];
           ldsm_x4_t(bv, vs + swz<HD>(kq * kW + j * 16 + (mat % 2) * 8 +
                                          lane % 8,
                                      2 * dd + mat / 2));
-          mma_16816(o[2 * dd], pa, bv[0], bv[1]);
-          mma_16816(o[2 * dd + 1], pa, bv[2], bv[3]);
+          mma_16816<kF16>(o[2 * dd], pa, bv[0], bv[1]);
+          mma_16816<kF16>(o[2 * dd + 1], pa, bv[2], bv[3]);
         }
       }
     }
@@ -699,26 +704,26 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
         acc[0] += wp * t.x; acc[1] += wp * t.y;
       }
     }
-    __nv_bfloat16* dst = out + q_off(r) + lane * kCols;
+    T* dst = out + q_off(r) + lane * kCols;
 #pragma unroll
     for (int c = 0; c < kCols; c += 2)
-      *reinterpret_cast<uint32_t*>(dst + c) =
-          pack_bf16(acc[c] / L, acc[c + 1] / L);
+      Elem<T>::store2(dst + c, acc[c] / L, acc[c + 1] / L);
   }
   cluster_sync();   // no block leaves while another reads its partials
 }
 
 // ---------------------------------------------------------------------------
-// B4, B6 and B7 in bf16: each row's keys split across a cluster, mma.sync
+// B4, B6 and B7 in bf16 and fp16: each row's keys split across a cluster,
+// mma.sync
 // ---------------------------------------------------------------------------
 //
-// decode_mma_kernel<Keys, HD, KG, kTop> replaces _decode_kernel (B4,
-// quantized_matmul.py:253) with Keys = CacheKeys (the contiguous cache,
-// copied by TMA), _paged_decode_kernel (B6, :529) with Keys =
-// PagedKeys<bf16> and _paged_decode_kernel_q8 (B7, :595) with Keys =
-// PagedKeys<int8_t> (codes, per-(page, kv head) scales sk, sv), for a bf16
-// query; f32 keeps the shared body. The key source is the only difference:
-// the products, the softmax, the merge and the combine are one body.
+// decode_mma_kernel<T, Keys, HD, KG, kTop> replaces _decode_kernel (B4,
+// quantized_matmul.py:253) with Keys = CacheKeys<T> (the contiguous cache,
+// copied by TMA), _paged_decode_kernel (B6, :529) with Keys = PagedKeys<T> and
+// _paged_decode_kernel_q8 (B7, :595) with Keys = PagedKeys<int8_t> (codes,
+// per-(page, kv head) scales sk, sv), for a query in T, bf16 or fp16; f32
+// keeps the shared body. The key source is the only difference: the products,
+// the softmax, the merge and the combine are one body.
 //
 // What bounds it: bytes, sum_r (last_r + 1) * nkv * hd * 2 (K and V) * (2 or
 // 1), last_r = min(pos[r], keys - 1) (keys: the cache's len, or the table's
@@ -774,7 +779,7 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
 //   past `last` are zeroed in shared memory before P V, where p = 0 times a
 //   NaN would still be NaN.
 //
-// Products run as mma.sync m16n8k16 (bf16 in, f32 sums) as in
+// Products run as mma.sync m16n8k16 (T in, f32 sums) as in
 // window_mma_kernel: the g = nh / nkv query rows (at most 64) padded to
 // 16-row tiles, KG warps sharing each tile of keys, Q's fragments read once
 // from device memory into registers. At g <= 8 (Llama-2-7B: g = 1) the rows
@@ -782,18 +787,24 @@ __global__ void __launch_bounds__(kWinThreads) window_mma_kernel(
 // (`mma_16816_top`, kTop): half the accumulators and Q registers. The
 // kernel is byte-bound; the products move no bytes.
 //
-// B7 never dequantizes a page. A code widens exactly to bf16 (|c| <= 127) in
-// the registers of a fragment (a byte permute and a subtract, as B8's GEMV
-// does). S = Q K^T sums over head_dim in a permuted order in which each
-// thread's K fragment of a k16 step is 4 consecutive codes of one key (one
-// 16-byte read serves 4 steps), Q's fragments following the same order. In
-// O += P V the output columns of each group of four n8 tiles are permuted so
-// that one 32-bit read of a key row gives a thread its code for all four.
-// Each key's score is multiplied by its page's sk / 127 (with the softmax
-// scale), each key's p by its page's sv / 127 before it is rounded to bf16
-// for P V, and l sums the unscaled p, as the Pallas kernel folds them: a
-// page with scale 0 gives its keys score 0 and value 0, as its dequantized
-// page does. A tile's scales arrive with its codes, 4 bytes a key.
+// B7 never dequantizes a page. A code widens exactly to T (|c| <= 127) in the
+// registers of a fragment (`Elem<T>::widen`: byte permutes and one subtract,
+// in f32 for bf16 as B8's GEMV does, in fp16 for fp16). S = Q K^T sums over
+// head_dim in a permuted order in which each thread's K fragment of a k16 step
+// is 4 consecutive codes of one key (one 16-byte read serves 4 steps), Q's
+// fragments following the same order. In O += P V the output columns of each
+// group of four n8 tiles are permuted so that one 32-bit read of a key row
+// gives a thread its code for all four. Each key's score is multiplied by its
+// page's sk / 127 (with the softmax scale), each key's p by its page's sv /
+// 127 before it is rounded to T for P V, and l sums the unscaled p, as the
+// Pallas kernel folds them: a page with scale 0 gives its keys score 0 and
+// value 0, as its dequantized page does. A tile's scales arrive with its
+// codes, 4 bytes a key. In fp16, p sv / 127 falls below fp16's normal range
+// (6.1e-5) sooner than p does, where its rounding error is at most 2^-25
+// absolute: at most 127 2^-25 (4e-6) of output a key (|c| <= 127, l >= 1),
+// 8e-3 for a 2048-key row all one way, inside the bar of 2^-6 of the output's
+// largest entry (at least 1.6e-2) that the kernels are held to. So fp16 keeps
+// bf16's order; the Pallas kernel rounds p and scales the f32 product.
 //
 // The end: each warp leaves its (m, l, O) in shared memory over the ring
 // and the warps of a row tile merge theirs (`merge_warps`); a row with one
@@ -851,7 +862,7 @@ __device__ __forceinline__ void leave_partial(float* slot, int gq, int qq,
 // tile's first slot for the cluster's combine: O in place (each element has
 // one owner), then m and l after a barrier (every thread reads them first).
 // The caller's cluster barrier publishes it.
-template <int HD, int KG, typename Dst>
+template <typename T, int HD, int KG, typename Dst>
 __device__ __forceinline__ void merge_warps(float* slots, int rows, int tid,
                                             bool out, Dst dst) {
   using W = Win<HD>;
@@ -869,7 +880,7 @@ __device__ __forceinline__ void merge_warps(float* slots, int rows, int tid,
       o += w * s0[k * W::kSlotFloats + 32 + rr * W::kAccLd + c];
       l += w * s0[k * W::kSlotFloats + 16 + rr];
     }
-    if (out) dst(r)[c] = __float2bfloat16(o / l);
+    if (out) dst(r)[c] = Elem<T>::from_f(o / l);
     else s0[32 + rr * W::kAccLd + c] = o;
   }
   if (out) return;
@@ -897,7 +908,7 @@ __device__ __forceinline__ void merge_warps(float* slots, int rows, int tid,
 // columns loaded before any is summed. M the largest m, L = sum l e^(m -
 // M), out = sum O e^(m - M) / L in split order, so the result does not
 // depend on block timing. dst(r): row r's output.
-template <int HD, int KG, typename Dst>
+template <typename T, int HD, int KG, typename Dst>
 __device__ __forceinline__ void combine_splits(float* slots, int rows, int z,
                                                int nsplit, int ns, int warp,
                                                int lane, Dst dst) {
@@ -940,11 +951,10 @@ __device__ __forceinline__ void combine_splits(float* slots, int rows, int z,
         acc[2] += wp * t[p].z; acc[3] += wp * t[p].w;
       }
     }
-    __nv_bfloat16* d = dst(r) + lane * kCols;
+    T* d = dst(r) + lane * kCols;
 #pragma unroll
     for (int c = 0; c < kCols; c += 2)
-      *reinterpret_cast<uint32_t*>(d + c) =
-          pack_bf16(acc[c] / L, acc[c + 1] / L);
+      Elem<T>::store2(d + c, acc[c] / L, acc[c + 1] / L);
   }
 }
 
@@ -986,8 +996,8 @@ __device__ __forceinline__ uint32_t tma_swz(int t, int c) {
 }
 
 // B6's and B7's keys: the page pool [NP, nkv, ps, hd] through the block
-// table bt [b, P], copied with cp.async (B7: KVT = int8_t, with the scales
-// sk, sv [NP, nkv]; null for B6)
+// table bt [b, P], copied with cp.async (B6: KVT = the query's type; B7:
+// KVT = int8_t, with the scales sk, sv [NP, nkv]; null for B6)
 template <typename KVT_>
 struct PagedKeys {
   using KVT = KVT_;
@@ -1001,10 +1011,12 @@ struct PagedKeys {
   __device__ __forceinline__ int keys() const { return P * ps; }
 };
 
-// B4's keys: the contiguous cache [b, nkv, len, hd] through two tensor maps
-// over its [b * nkv][len][hd] view, boxes of 64 keys x 64 columns
+// B4's keys: the contiguous cache [b, nkv, len, hd] in T through two
+// tensor maps over its [b * nkv][len][hd] view, boxes of 64 keys x 64
+// columns
+template <typename T>
 struct CacheKeys {
-  using KVT = __nv_bfloat16;
+  using KVT = T;
   static constexpr bool kTma = true;
   CUtensorMap k, v;
   int len;
@@ -1021,18 +1033,32 @@ constexpr int decode_smem() {
   return Keys::kTma ? 1024 + T::kScaleAt + T::kStages * 8 : T::kSmem;
 }
 
+// Blocks an SM the kernel is compiled for: B7's g <= 8 body at head_dim 128
+// sizes its 3-stage ring for 3 blocks an SM (PagedTile), which 168
+// registers a thread allow; bf16 compiles to 168 unbounded, fp16's
+// widening took it to 176 (2 blocks) until bounded here
+template <typename Keys, int HD, bool kTop>
+constexpr int decode_min_blocks() {
+  return sizeof(typename Keys::KVT) == 1 && HD == 128 && kTop ? 3 : 1;
+}
+
 // kTop: the g <= 8 query rows fill rows 0-7 of the single 16-row tile, so
 // the products keep rows 0-7 only (mma_16816_top): half the accumulator and
 // Q registers, which lets more blocks share an SM
-template <typename Keys, int HD, int KG, bool kTop>
-__global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __grid_constant__ Keys keys,
-    const int* __restrict__ pos, __nv_bfloat16* __restrict__ out, int nh,
+template <typename E, typename Keys, int HD, int KG, bool kTop>
+__global__ void __launch_bounds__(kWinThreads,
+                                  decode_min_blocks<Keys, HD, kTop>())
+    decode_mma_kernel(
+    const E* __restrict__ q, const __grid_constant__ Keys keys,
+    const int* __restrict__ pos, E* __restrict__ out, int nh,
     int nkv, int split_tiles, float scale) {
   using namespace hopper;
   using KVT = typename Keys::KVT;
   using T = PagedTile<KVT, HD>;
   constexpr bool kQ8 = T::kQ8;
+  constexpr bool kF16 = Elem<E>::kF16;
+  static_assert(kQ8 || std::is_same<KVT, E>::value,
+                "a float pool holds the query's type");
   constexpr bool kTma = Keys::kTma;
   constexpr int kStages = T::kStages;
   constexpr int kW = kWinKeys / KG;   // keys of a tile a warp takes
@@ -1041,7 +1067,7 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
   constexpr int kDT = HD / 8;         // n8 tiles of the output
   constexpr int kE = kTop ? 2 : 4;    // C-fragment elements kept a tile
   static_assert(!kTop || KG == 4, "kTop: one row tile");
-  static_assert(!kTma || !kQ8, "the TMA source copies bf16 keys");
+  static_assert(!kTma || !kQ8, "the TMA source copies 16-bit keys");
   extern __shared__ __align__(128) uint8_t decode_smem_raw[];
   uint8_t* ring = kTma ? align1024(decode_smem_raw) : decode_smem_raw;
   // B7: each stage's k and v scales; TMA: each stage's barrier
@@ -1177,8 +1203,8 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
   // d (+)= A B on the kept rows
   auto mma = [&](float (&d)[kE], const uint32_t (&a)[kE], uint32_t b0,
                  uint32_t b1) {
-    if constexpr (kTop) mma_16816_top(d, a[0], a[1], b0, b1);
-    else mma_16816(d, a, b0, b1);
+    if constexpr (kTop) mma_16816_top<kF16>(d, a[0], a[1], b0, b1);
+    else mma_16816<kF16>(d, a, b0, b1);
   };
   const float sl2 = scale * kLog2e / (kQ8 ? 127.f : 1.f);
   float o[kDT][kE];
@@ -1243,8 +1269,8 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
                                 : kc % 4 == 2 ? w4.z
                                               : w4.w) ^
                                0x80808080u;
-            mma(sc[j], qf[kc], widen_pair(w, w, 0, 1),
-                widen_pair(w, w, 2, 3));
+            mma(sc[j], qf[kc], Elem<E>::widen(w, w, 0, 1),
+                Elem<E>::widen(w, w, 2, 3));
           }
         }
       } else {
@@ -1298,7 +1324,7 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
       for (int d = 0; d < kDT; ++d)
 #pragma unroll
         for (int e = 0; e < kE; ++e) o[d][e] *= e < 2 ? a0 : a1;
-      // O += P V, P rounded to bf16 (B7: each key's p times its page's
+      // O += P V, P rounded to E (B7: each key's p times its page's
       // sv / 127 first); pa: P's A fragment of k16 step j (kTop: rows 0-7)
 #pragma unroll
       for (int j = 0; j < kW / 16; ++j) {
@@ -1312,13 +1338,13 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
         }
         uint32_t pa[kE];
         if constexpr (kTop) {
-          pa[0] = pack_bf16(sc[2 * j][0] * v0, sc[2 * j][1] * v1);
-          pa[1] = pack_bf16(sc[2 * j + 1][0] * v8, sc[2 * j + 1][1] * v9);
+          pa[0] = Elem<E>::pack(sc[2 * j][0] * v0, sc[2 * j][1] * v1);
+          pa[1] = Elem<E>::pack(sc[2 * j + 1][0] * v8, sc[2 * j + 1][1] * v9);
         } else {
-          pa[0] = pack_bf16(sc[2 * j][0] * v0, sc[2 * j][1] * v1);
-          pa[1] = pack_bf16(sc[2 * j][2] * v0, sc[2 * j][3] * v1);
-          pa[2] = pack_bf16(sc[2 * j + 1][0] * v8, sc[2 * j + 1][1] * v9);
-          pa[3] = pack_bf16(sc[2 * j + 1][2] * v8, sc[2 * j + 1][3] * v9);
+          pa[0] = Elem<E>::pack(sc[2 * j][0] * v0, sc[2 * j][1] * v1);
+          pa[1] = Elem<E>::pack(sc[2 * j][2] * v0, sc[2 * j][3] * v1);
+          pa[2] = Elem<E>::pack(sc[2 * j + 1][0] * v8, sc[2 * j + 1][1] * v9);
+          pa[3] = Elem<E>::pack(sc[2 * j + 1][2] * v8, sc[2 * j + 1][3] * v9);
         }
         if constexpr (kQ8) {
           // codes of key `key` at columns 32 grp + 4 gq .. + 3
@@ -1334,8 +1360,8 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
             const uint32_t w8 = vword(t + 8, grp), w9 = vword(t + 9, grp);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-              mma(o[grp * 4 + i], pa, widen_pair(w0, w1, i, i),
-                  widen_pair(w8, w9, i, i));
+              mma(o[grp * 4 + i], pa, Elem<E>::widen(w0, w1, i, i),
+                  Elem<E>::widen(w8, w9, i, i));
           }
         } else {
           const uint32_t vs = smem_u32(vt);
@@ -1371,11 +1397,11 @@ __global__ void __launch_bounds__(kWinThreads) decode_mma_kernel(
       leave_partial<HD, kQ8, kE>(slots + warp * Win<HD>::kSlotFloats, gq,
                                  qq, m0, m1, l0, l1, o);
     __syncthreads();
-    merge_warps<HD, KG>(slots, rows, tid, ns == 1, dst);
+    merge_warps<E, HD, KG>(slots, rows, tid, ns == 1, dst);
   }
   if (ns == 1) return;
   cluster_sync();
-  combine_splits<HD, KG>(slots, rows, z, nsplit, ns, warp, lane, dst);
+  combine_splits<E, HD, KG>(slots, rows, z, nsplit, ns, warp, lane, dst);
   cluster_sync();   // no block leaves while another reads its partials
 }
 
@@ -1418,34 +1444,49 @@ void launch_window_f32(const void* q, const void* k, const void* v,
                (const int*)pos, (float*)out, s, nh, nkv, len, scale);
 }
 
-// bf16: the key-split tensor-core kernel, `splits` blocks a cluster
-template <int HD, int KG>
+// bf16 and fp16 (T): the key-split tensor-core kernel, `splits` blocks a
+// cluster
+template <typename T, int HD, int KG>
 cudaError_t launch_window_mma(const void* q, const void* k, const void* v,
                               const void* pos, void* out, int b, int s,
                               int nh, int nkv, int len, int split_tiles,
                               int splits, float scale, cudaStream_t st) {
-  hopper::opt_in_smem<window_mma_kernel<HD, KG>>(Win<HD>::kSmem);
+  hopper::opt_in_smem<window_mma_kernel<T, HD, KG>>(Win<HD>::kSmem);
   return hopper::launch_cluster(
-      window_mma_kernel<HD, KG>, dim3(nkv, b, splits), dim3(kWinThreads),
-      Win<HD>::kSmem, st, dim3(1, 1, splits), q, k, v, pos, out, s, nh, nkv,
-      len, split_tiles, scale);
+      window_mma_kernel<T, HD, KG>, dim3(nkv, b, splits), dim3(kWinThreads),
+      Win<HD>::kSmem, st, dim3(1, 1, splits), (const T*)q, (const T*)k,
+      (const T*)v, pos, (T*)out, s, nh, nkv, len, split_tiles, scale);
 }
 
 // KG, the warps that share a tile of keys: 4 / the 16-row tiles (3 -> 4)
-template <int HD>
-cudaError_t launch_window_bf16(const void* q, const void* k, const void* v,
-                               const void* pos, void* out, int b, int s,
-                               int nh, int nkv, int len, int split_tiles,
-                               int splits, float scale, cudaStream_t st) {
+template <typename T, int HD>
+cudaError_t launch_window_16(const void* q, const void* k, const void* v,
+                             const void* pos, void* out, int b, int s,
+                             int nh, int nkv, int len, int split_tiles,
+                             int splits, float scale, cudaStream_t st) {
   const int tiles = (s * (nh / nkv) + 15) / 16;
   if (tiles == 1)
-    return launch_window_mma<HD, 4>(q, k, v, pos, out, b, s, nh, nkv, len,
-                                    split_tiles, splits, scale, st);
+    return launch_window_mma<T, HD, 4>(q, k, v, pos, out, b, s, nh, nkv, len,
+                                       split_tiles, splits, scale, st);
   if (tiles == 2)
-    return launch_window_mma<HD, 2>(q, k, v, pos, out, b, s, nh, nkv, len,
-                                    split_tiles, splits, scale, st);
-  return launch_window_mma<HD, 1>(q, k, v, pos, out, b, s, nh, nkv, len,
-                                  split_tiles, splits, scale, st);
+    return launch_window_mma<T, HD, 2>(q, k, v, pos, out, b, s, nh, nkv, len,
+                                       split_tiles, splits, scale, st);
+  return launch_window_mma<T, HD, 1>(q, k, v, pos, out, b, s, nh, nkv, len,
+                                     split_tiles, splits, scale, st);
+}
+
+template <typename T>
+cudaError_t launch_window_split(const void* q, const void* k, const void* v,
+                                const void* pos, void* out, int b, int s,
+                                int nh, int nkv, int len, int hd,
+                                int split_tiles, int splits, float scale,
+                                cudaStream_t st) {
+  return hd == 128 ? launch_window_16<T, 128>(q, k, v, pos, out, b, s, nh,
+                                              nkv, len, split_tiles, splits,
+                                              scale, st)
+                   : launch_window_16<T, 64>(q, k, v, pos, out, b, s, nh,
+                                             nkv, len, split_tiles, splits,
+                                             scale, st);
 }
 
 template <typename T, int HD>
@@ -1470,43 +1511,44 @@ void launch_paged_q8(const void* q, const void* pk, const void* pv,
                (const int*)pos, (T*)out, nh, nkv, ps, P, scale);
 }
 
-// B4, B6 and B7 in bf16: the key-split kernel over key source `keys`,
-// `splits` blocks a cluster
-template <typename Keys, int HD, int KG, bool kTop>
+// B4, B6 and B7 in bf16 and fp16 (T, the query's type): the key-split
+// kernel over key source `keys`, `splits` blocks a cluster
+template <typename T, typename Keys, int HD, int KG, bool kTop>
 cudaError_t launch_decode_mma(const void* q, const Keys& keys,
                               const void* pos, void* out, int b, int nh,
                               int nkv, int split_tiles, int splits,
                               float scale, cudaStream_t st) {
   constexpr int kSmem = decode_smem<Keys, HD>();
-  hopper::opt_in_smem<decode_mma_kernel<Keys, HD, KG, kTop>>(kSmem);
+  hopper::opt_in_smem<decode_mma_kernel<T, Keys, HD, KG, kTop>>(kSmem);
   return hopper::launch_cluster(
-      decode_mma_kernel<Keys, HD, KG, kTop>, dim3(nkv, b, splits),
-      dim3(kWinThreads), kSmem, st, dim3(1, 1, splits), q, keys, pos, out,
-      nh, nkv, split_tiles, scale);
+      decode_mma_kernel<T, Keys, HD, KG, kTop>, dim3(nkv, b, splits),
+      dim3(kWinThreads), kSmem, st, dim3(1, 1, splits), (const T*)q, keys,
+      pos, (T*)out, nh, nkv, split_tiles, scale);
 }
 
 // KG as for B5: 4 / the 16-row tiles of the g query rows (3 -> 4); g <= 8
 // keeps rows 0-7 of its tile only (kTop)
-template <typename Keys, int HD>
-cudaError_t launch_decode_bf16(const void* q, const Keys& keys,
-                               const void* pos, void* out, int b, int nh,
-                               int nkv, int split_tiles, int splits,
-                               float scale, cudaStream_t st) {
+template <typename T, typename Keys, int HD>
+cudaError_t launch_decode_16(const void* q, const Keys& keys,
+                             const void* pos, void* out, int b, int nh,
+                             int nkv, int split_tiles, int splits,
+                             float scale, cudaStream_t st) {
   const int g = nh / nkv, tiles = (g + 15) / 16;
   if (g <= 8)
-    return launch_decode_mma<Keys, HD, 4, true>(
+    return launch_decode_mma<T, Keys, HD, 4, true>(
         q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
   if (tiles == 1)
-    return launch_decode_mma<Keys, HD, 4, false>(
+    return launch_decode_mma<T, Keys, HD, 4, false>(
         q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
   if (tiles == 2)
-    return launch_decode_mma<Keys, HD, 2, false>(
+    return launch_decode_mma<T, Keys, HD, 2, false>(
         q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
-  return launch_decode_mma<Keys, HD, 1, false>(
+  return launch_decode_mma<T, Keys, HD, 1, false>(
       q, keys, pos, out, b, nh, nkv, split_tiles, splits, scale, st);
 }
 
-template <typename KVT>
+// B6 (KVT = T) and B7 (KVT = int8_t) for a query in T
+template <typename T, typename KVT>
 cudaError_t launch_paged_split(const void* q, const void* pk, const void* pv,
                                const void* sk, const void* sv, const void* bt,
                                const void* pos, void* out, int b, int nh,
@@ -1515,36 +1557,38 @@ cudaError_t launch_paged_split(const void* q, const void* pk, const void* pv,
                                cudaStream_t st) {
   const PagedKeys<KVT> keys{(const KVT*)pk, (const KVT*)pv, (const float*)sk,
                             (const float*)sv, (const int*)bt, ps, P};
-  return hd == 128 ? launch_decode_bf16<PagedKeys<KVT>, 128>(
+  return hd == 128 ? launch_decode_16<T, PagedKeys<KVT>, 128>(
                          q, keys, pos, out, b, nh, nkv, split_tiles, splits,
                          scale, st)
-                   : launch_decode_bf16<PagedKeys<KVT>, 64>(
+                   : launch_decode_16<T, PagedKeys<KVT>, 64>(
                          q, keys, pos, out, b, nh, nkv, split_tiles, splits,
                          scale, st);
 }
 
-// B4 in bf16: the tensor maps of k and v, viewed as [b * nkv][len][hd], in
-// boxes of 64 keys x 64 columns, 128-byte swizzle; keys past len read as
-// zeros. cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses a map.
+// B4 in bf16 and fp16: the tensor maps of k and v, viewed as [b * nkv][len]
+// [hd], in boxes of 64 keys x 64 columns, 128-byte swizzle; keys past len
+// read as zeros. cudaErrorInvalidValue when cuTensorMapEncodeTiled refuses
+// a map.
+template <typename T>
 cudaError_t launch_cache_split(const void* q, const void* k, const void* v,
                                const void* pos, void* out, int b, int nh,
                                int nkv, int len, int hd, int split_tiles,
                                int splits, float scale, cudaStream_t st) {
-  CacheKeys keys;
+  CacheKeys<T> keys;
   keys.len = len;
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)len,
                               (cuuint64_t)b * nkv};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2, (cuuint64_t)len * hd * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)kWinKeys, 1};
   for (int i = 0; i < 2; ++i)
-    if (!hopper::make_map(i ? &keys.v : &keys.k,
-                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, i ? v : k,
-                          dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    if (!hopper::make_map(i ? &keys.v : &keys.k, Elem<T>::kMap, 3,
+                          i ? v : k, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B))
       return cudaErrorInvalidValue;
-  return hd == 128 ? launch_decode_bf16<CacheKeys, 128>(
+  return hd == 128 ? launch_decode_16<T, CacheKeys<T>, 128>(
                          q, keys, pos, out, b, nh, nkv, split_tiles, splits,
                          scale, st)
-                   : launch_decode_bf16<CacheKeys, 64>(
+                   : launch_decode_16<T, CacheKeys<T>, 64>(
                          q, keys, pos, out, b, nh, nkv, split_tiles, splits,
                          scale, st);
 }
@@ -1555,15 +1599,22 @@ bool shape_ok(int rows, int hd) {
 
 // B4, B6 and B7 take `splits`: 1 to kMaxSplits (the caller's
 // `decode_splits` / `paged_splits`) runs the key-split kernel over a
-// cluster of that many blocks (bf16 only), each row cut over its own
+// cluster of that many blocks (bf16 and fp16), each row cut over its own
 // row_splits(tiles, split_tiles) of them (split_tiles >= 1; 1 gives every
 // row min(splits, its tiles), the sweeps' forced counts); 0 runs the shared
 // body, f32's route (kernels/sweep_decode.py also times it in bf16, beside
-// the key-split kernel)
+// the key-split kernel; fp16 has no shared body)
 bool splits_ok(int dtype, int split_tiles, int splits) {
-  return splits >= 0 && splits <= kMaxSplits && split_tiles >= 1 &&
-         (dtype == 1 || splits == 0);
+  if (splits < 0 || splits > kMaxSplits || split_tiles < 1) return false;
+  if (dtype == 0) return splits == 0;
+  if (dtype == 1) return true;
+  return dtype == 2 && splits >= 1;
 }
+
+// the cluster kernels' 16-bit types, by dtype code: 1 bf16, 2 fp16
+#define PT_SPLIT(LAUNCH, ...)                                      \
+  (dtype == 2 ? LAUNCH<__half>(__VA_ARGS__)                         \
+              : LAUNCH<__nv_bfloat16>(__VA_ARGS__))
 
 bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype,
               int split_tiles, int splits) {
@@ -1573,7 +1624,8 @@ bool paged_ok(int nh, int nkv, int ps, int P, int hd, int dtype,
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. dtype: 0 = float32, 1 = bfloat16.
+// Plain C entry points, loaded with ctypes. dtype: 0 = float32, 1 =
+// bfloat16, 2 = float16.
 // Each returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
 // a shape the kernels do not take); the Python wrapper raises when it is not 0.
 
@@ -1599,34 +1651,31 @@ extern "C" int pt_decode_attention(const void* q, const void* k,
     PT_DISPATCH(launch_decode, q, k, v, pos, out, b, nh, nkv, len, scale, st)
   } else {
     const cudaError_t e =
-        launch_cache_split(q, k, v, pos, out, b, nh, nkv, len, hd,
-                           split_tiles, splits, scale, st);
+        PT_SPLIT(launch_cache_split, q, k, v, pos, out, b, nh, nkv, len, hd,
+                 split_tiles, splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
 }
 
 // B5 takes `splits` (1 to kMaxSplits, the caller's `window_splits`): the
-// blocks, and the cluster, over the keys of each (kv head, row) in bf16,
-// each row cut over its own row_splits(tiles, split_tiles) of them; f32
-// runs the shared body and takes 1
+// blocks, and the cluster, over the keys of each (kv head, row) in bf16 and
+// fp16, each row cut over its own row_splits(tiles, split_tiles) of them;
+// f32 runs the shared body and takes 1
 extern "C" int pt_window_attention(const void* q, const void* k,
                                    const void* v, const void* pos, void* out,
                                    int b, int s, int nh, int nkv, int len,
                                    int hd, int dtype, int split_tiles,
                                    int splits, float scale, void* stream) {
   if (nkv < 1 || nh % nkv || !shape_ok(s * (nh / nkv), hd) || splits < 1 ||
-      splits > kMaxSplits || split_tiles < 1 || (dtype != 1 && splits != 1))
+      splits > kMaxSplits || split_tiles < 1 || dtype < 0 || dtype > 2 ||
+      (dtype == 0 && splits != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1) {
+  if (dtype != 0) {
     const cudaError_t e =
-        hd == 128 ? launch_window_bf16<128>(q, k, v, pos, out, b, s, nh, nkv,
-                                            len, split_tiles, splits, scale,
-                                            st)
-                  : launch_window_bf16<64>(q, k, v, pos, out, b, s, nh, nkv,
-                                           len, split_tiles, splits, scale,
-                                           st);
+        PT_SPLIT(launch_window_split, q, k, v, pos, out, b, s, nh, nkv, len,
+                 hd, split_tiles, splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   } else if (hd == 128) {
     launch_window_f32<128>(q, k, v, pos, out, b, s, nh, nkv, len, scale, st);
@@ -1650,9 +1699,14 @@ extern "C" int pt_paged_decode_attention(const void* q, const void* pk,
     PT_DISPATCH(launch_paged, q, pk, pv, bt, pos, out, b, nh, nkv, ps, P,
                 scale, st)
   } else {
-    const cudaError_t e = launch_paged_split<__nv_bfloat16>(
-        q, pk, pv, nullptr, nullptr, bt, pos, out, b, nh, nkv, ps, P, hd,
-        split_tiles, splits, scale, st);
+    const cudaError_t e =
+        dtype == 2
+            ? launch_paged_split<__half, __half>(
+                  q, pk, pv, nullptr, nullptr, bt, pos, out, b, nh, nkv, ps,
+                  P, hd, split_tiles, splits, scale, st)
+            : launch_paged_split<__nv_bfloat16, __nv_bfloat16>(
+                  q, pk, pv, nullptr, nullptr, bt, pos, out, b, nh, nkv, ps,
+                  P, hd, split_tiles, splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();
@@ -1670,9 +1724,14 @@ extern "C" int pt_paged_decode_attention_q8(
     PT_DISPATCH(launch_paged_q8, q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv,
                 ps, P, scale, st)
   } else {
-    const cudaError_t e = launch_paged_split<int8_t>(
-        q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv, ps, P, hd, split_tiles,
-        splits, scale, st);
+    const cudaError_t e =
+        dtype == 2
+            ? launch_paged_split<__half, int8_t>(
+                  q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv, ps, P, hd,
+                  split_tiles, splits, scale, st)
+            : launch_paged_split<__nv_bfloat16, int8_t>(
+                  q, pk, pv, sk, sv, bt, pos, out, b, nh, nkv, ps, P, hd,
+                  split_tiles, splits, scale, st);
     if (e != cudaSuccess) return (int)e;
   }
   return (int)cudaGetLastError();

@@ -108,42 +108,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 // tensor-core and copy helpers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// B1's 16-bit input types: bf16 and fp16 share the wgmma layouts and the
-// swizzled tiles (2 bytes a value); they differ in the instruction's type
-// suffix, the tensor map's type and the rounding of P and of the output
-template <typename T>
-struct Elem;
-template <>
-struct Elem<bf16> {
-  static constexpr bool kF16 = false;
-  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    return pack_bf16(lo, hi);
-  }
-  static __device__ __forceinline__ void store2(bf16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-};
-template <>
-struct Elem<__half> {
-  static constexpr bool kF16 = true;
-  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    return pack_f16(lo, hi);
-  }
-  static __device__ __forceinline__ void store2(__half* p, float a, float b) {
-    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-  }
-};
+// B1's 16-bit input types, bf16 and fp16 (`hopper::Elem`): the same
+// wgmma layouts and swizzled tiles; the instruction's type suffix, the
+// tensor map's type and the rounding of P and of the output differ
+using hopper::Elem;
 
 // a descriptor of a tile whose rows are RowB bytes: the 128-byte swizzle
 // (64 columns of 16-bit values) or, at head_dim 32, the 64-byte one

@@ -28,6 +28,8 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -340,35 +342,50 @@ __device__ __forceinline__ void wgmma_rs_n128(
 }
 #undef HOPPER_WGMMA_RS_N128
 
-// ---- mma.sync, ldmatrix, cp.async, streamed loads (B5, B8's GEMV) ---------
+// ---- mma.sync, ldmatrix, cp.async, streamed loads (B4-B7, B8's GEMV) -------
 
-// d[16 x 8] += A[16 x 16] B[16 x 8], bf16 in, f32 sums. Thread t = 4 g + q
-// of the warp holds A rows g and g + 8 at columns (2q, 2q + 1) (a[0], a[1])
-// and (2q + 8, 2q + 9) (a[2], a[3]); B rows (2q, 2q + 1) (b0) and (2q + 8,
-// 2q + 9) (b1) of column g; d rows g (d[0], d[1]) and g + 8 (d[2], d[3]) at
-// columns (2q, 2q + 1). The low half of a register is the lower index.
+// d[16 x 8] += A[16 x 16] B[16 x 8], bf16 in (F16: fp16 in), f32 sums.
+// Thread t = 4 g + q of the warp holds A rows g and g + 8 at columns (2q,
+// 2q + 1) (a[0], a[1]) and (2q + 8, 2q + 9) (a[2], a[3]); B rows (2q, 2q +
+// 1) (b0) and (2q + 8, 2q + 9) (b1) of column g; d rows g (d[0], d[1]) and
+// g + 8 (d[2], d[3]) at columns (2q, 2q + 1). The low half of a register is
+// the lower index.
+#define HOPPER_MMA_16816(TY)                                                 \
+  asm volatile(                                                              \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                      \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1))
+template <bool F16 = false>
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (F16)
+    HOPPER_MMA_16816("f16");
+  else
+    HOPPER_MMA_16816("bf16");
 }
+#undef HOPPER_MMA_16816
 
 // the same product for an A whose rows 8-15 are zero (its registers a1 and
 // a3): d holds rows 0-7 of the sum (D's registers d0, d1); rows 8-15 go to
 // two scratch registers and are dropped
+#define HOPPER_MMA_16816_TOP(TY)                                             \
+  asm volatile(                                                              \
+      "mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "            \
+      "{%0, %1, %2, %3}, {%4, %5, %6, %5}, {%7, %8}, {%0, %1, %9, %9};\n"    \
+      : "+f"(d[0]), "+f"(d[1]), "=f"(x), "=f"(y)                            \
+      : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f))
+template <bool F16 = false>
 __device__ __forceinline__ void mma_16816_top(float (&d)[2], uint32_t a0,
                                               uint32_t a2, uint32_t b0,
                                               uint32_t b1) {
   float x, y;
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %5}, {%7, %8}, {%0, %1, %9, %9};\n"
-      : "+f"(d[0]), "+f"(d[1]), "=f"(x), "=f"(y)
-      : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
+  if constexpr (F16)
+    HOPPER_MMA_16816_TOP("f16");
+  else
+    HOPPER_MMA_16816_TOP("bf16");
 }
+#undef HOPPER_MMA_16816_TOP
 
 // four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8. Lane t receives, of each matrix, row t / 4 at
@@ -435,6 +452,66 @@ __device__ __forceinline__ uint32_t widen_pair(uint32_t a, uint32_t b, int ia,
       __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7540u + ib)) - 8388736.f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
 }
+
+// the same pair as fp16, exactly: 0x64xx is the fp16 value 1024 + xx = 1152
+// + c, so byte permutes place each code under 0x64 and one fp16 subtract of
+// 1152 leaves c (|c| <= 128 is exact in fp16; the bf16 form above keeps the
+// top half of an f32, which is no fp16)
+__device__ __forceinline__ uint32_t widen_pair_f16(uint32_t a, uint32_t b,
+                                                   int ia, int ib) {
+  const uint32_t lo_hi = __byte_perm(a, b, (uint32_t)(ia | ((4 + ib) << 4)));
+  const uint32_t w = __byte_perm(lo_hi, 0x64646464u, 0x4140u);
+  const __half2 c = __hsub2(*reinterpret_cast<const __half2*>(&w),
+                            __float2half2_rn(1152.f));
+  return *reinterpret_cast<const uint32_t*>(&c);
+}
+
+// The 16-bit element types of the tensor-core kernels (B1's wgmma body,
+// B4-B7's mma.sync bodies): bf16 and fp16 share every layout and swizzled
+// tile (2 bytes a value); they differ in the instruction's type suffix
+// (kF16), the tensor map's type, the rounding of P and of the output
+// (pack, store2, from_f) and the exact widening of int8 codes (widen).
+template <typename T>
+struct Elem;
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void store2(__nv_bfloat16* p, float a,
+                                                float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from_f(float x) {
+    return __float2bfloat16(x);
+  }
+  static __device__ __forceinline__ uint32_t widen(uint32_t a, uint32_t b,
+                                                   int ia, int ib) {
+    return widen_pair(a, b, ia, ib);
+  }
+};
+template <>
+struct Elem<__half> {
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  static __device__ __forceinline__ void store2(__half* p, float a, float b) {
+    *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+  }
+  static __device__ __forceinline__ __half from_f(float x) {
+    return __float2half_rn(x);
+  }
+  static __device__ __forceinline__ uint32_t widen(uint32_t a, uint32_t b,
+                                                   int ia, int ib) {
+    return widen_pair_f16(a, b, ia, ib);
+  }
+};
 
 // ---- thread-block clusters ---------------------------------------------------
 

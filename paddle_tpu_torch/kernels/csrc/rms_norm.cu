@@ -16,16 +16,16 @@
 // outputs stay those of the plain path. B10 computes in f32 and rounds dx
 // to x's dtype and dw to w's dtype once each.
 //
-// What bounds them: bytes. B9 reads x and w once and writes y (and r): about
-// 4 bytes an element in bf16 against a dozen flops, far below the ~295 flops
-// a byte at which the H100's bf16 tensor cores would become the limit. B10
-// reads x, g, w and r and writes dx (6 bytes an element) plus dw.
+// What bounds them: bytes. B9 reads x and w once and writes y (and r): about 4
+// bytes an element in bf16 or fp16 against a dozen flops, far below the ~295
+// flops a byte at which the H100's bf16 tensor cores would become the limit.
+// B10 reads x, g, w and r and writes dx (6 bytes an element) plus dw.
 //
-// B9: one block per row. Each thread loads its 16-byte vectors of the row
-// (8 bf16 or 4 f32) into registers, sums their squares in f32, the block
-// reduces by warp shuffles and one shared-memory step, and the thread writes
-// y from the registers it already holds: x is read once. At decode (8 rows)
-// the kernel is latency-bound: one launch is what counts there.
+// B9: one block per row. Each thread loads its 16-byte vectors of the row (8
+// bf16 or fp16, or 4 f32) into registers, sums their squares in f32, the block
+// reduces by warp shuffles and one shared-memory step, and the thread writes y
+// from the registers it already holds: x is read once. At decode (8 rows) the
+// kernel is latency-bound: one launch is what counts there.
 //
 // B10. The Pallas grid carries dw from one row block to the next in the same
 // output block, which serialises it (on one TPU core that is the grid's
@@ -56,14 +56,15 @@
 //     block timing: two calls give the same bits. The partials move
 //     clusters x H x 8 bytes (0.5 MB at 33 clusters and H 4096), against
 //     the 100.7 MB the bound counts, and no second launch reads them.
-// Gate (checked by the wrapper, again here): bf16 or f32, x, g and w of one
-// dtype, H % 8 == 0, H <= 16384, rows 16-byte aligned (row strides a
+// Gate (checked by the wrapper, again here): bf16, fp16 or f32, x, g and w
+// of one dtype, H % 8 == 0, H <= 16384, rows 16-byte aligned (row strides a
 // multiple of 8 elements), any row count. Calls that share `counter` and
 // `part` must not run concurrently: the wrapper keeps one pair a (device,
 // stream) (`rms_norm._bwd_scratch`), and calls on one stream run in order.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -74,10 +75,12 @@ constexpr int kMaxH = 16384;
 constexpr int kMaxThreads = 512;   // a block's threads; up to 8 vectors each
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 template <typename T> struct Vec;
 template <> struct Vec<float> { static constexpr int n = 4; };
 template <> struct Vec<bf16> { static constexpr int n = 8; };
+template <> struct Vec<f16> { static constexpr int n = 8; };
 
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -93,6 +96,16 @@ __device__ __forceinline__ void load_vec(const bf16* p, float* out) {
     out[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void load_vec(const f16* p, float* out) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
 __device__ __forceinline__ void store_vec(float* p, const float* in) {
   *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
 }
@@ -104,8 +117,16 @@ __device__ __forceinline__ void store_vec(bf16* p, const float* in) {
     h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = v;
 }
+__device__ __forceinline__ void store_vec(f16* p, const float* in) {
+  uint4 v;
+  __half2* h = reinterpret_cast<__half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = __floats2half2_rn(in[2 * i], in[2 * i + 1]);
+  *reinterpret_cast<uint4*>(p) = v;
+}
 
-// a stored 16-byte vector (4 f32 or 8 bf16) as floats
+// a stored 16-byte vector (4 f32, or 8 bf16 or fp16) as floats
 __device__ __forceinline__ void unpack(const uint4& v, float* out, float) {
   out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
   out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
@@ -119,6 +140,15 @@ __device__ __forceinline__ void unpack(const uint4& v, float* out, bf16) {
     out[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void unpack(const uint4& v, float* out, f16) {
+  const __half2* h = reinterpret_cast<const __half2*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
 // two consecutive dw entries, rounded once to T
 __device__ __forceinline__ void store_pair(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
@@ -126,11 +156,17 @@ __device__ __forceinline__ void store_pair(float* p, float2 v) {
 __device__ __forceinline__ void store_pair(bf16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
 }
+__device__ __forceinline__ void store_pair(f16* p, float2 v) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v.x, v.y);
+}
 
 // x rounded to T and back to f32 (the composite's cast to x's dtype)
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, bf16) {
   return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ float round_to(float x, f16) {
+  return __half2float(__float2half_rn(x));
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -505,8 +541,8 @@ int launch_bwd(const void* x, const void* w, const void* r, const void* g,
 #define PT_BWD(NV, S)                                                      \
   err = bwd_launch<T, NV, S>(x, w, r, g, dx, dw, part, counter, rows, H,   \
                              ldx, ldg, blocks, cluster, p, st)
-  // NV 8 only in f32: bf16 rows of H <= 16384 take at most 4 vectors a
-  // thread of 512
+  // NV 8 only in f32: bf16 and fp16 rows of H <= 16384 take at most 4
+  // vectors a thread of 512
   if (p.S == 2) {
     switch (p.NV) {
       case 1: PT_BWD(1, 2); break;
@@ -535,15 +571,16 @@ int launch_bwd(const void* x, const void* w, const void* r, const void* g,
 
 }  // namespace
 
-// B9. dtype 0: f32, 1: bf16. r may be null (nothing stored).
+// B9. dtype 0: f32, 1: bf16, 2: fp16. r may be null (nothing stored).
 extern "C" int pt_rms_norm_fwd(const void* x, const void* w, void* y, void* r,
                                int rows, int H, int ldx, int dtype, float eps,
                                void* stream) {
   if (bad_shape(rows, H, ldx, x) || (uintptr_t)w % 16 != 0 ||
-      (uintptr_t)y % 16 != 0 || (dtype != 0 && dtype != 1))
+      (uintptr_t)y % 16 != 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1) return launch_fwd<bf16>(x, w, y, r, rows, H, ldx, eps, st);
+  if (dtype == 2) return launch_fwd<f16>(x, w, y, r, rows, H, ldx, eps, st);
   return launch_fwd<float>(x, w, y, r, rows, H, ldx, eps, st);
 }
 
@@ -560,13 +597,15 @@ extern "C" int pt_rms_norm_bwd(const void* x, const void* w, const void* r,
       (uintptr_t)w % 16 != 0 || (uintptr_t)dx % 16 != 0 ||
       (uintptr_t)dw % 8 != 0 || (uintptr_t)part % 8 != 0 || blocks < 1 ||
       (cluster != 1 && cluster != 2 && cluster != kMaxCluster) ||
-      blocks % cluster ||
-      (dtype != 0 && dtype != 1))
+      blocks % cluster || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 1)
     return launch_bwd<bf16>(x, w, r, g, dx, dw, part, counter, rows, H, ldx,
                             ldg, blocks, cluster, st);
+  if (dtype == 2)
+    return launch_bwd<f16>(x, w, r, g, dx, dw, part, counter, rows, H, ldx,
+                           ldg, blocks, cluster, st);
   return launch_bwd<float>(x, w, r, g, dx, dw, part, counter, rows, H, ldx,
                            ldg, blocks, cluster, st);
 }

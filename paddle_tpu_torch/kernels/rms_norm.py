@@ -16,7 +16,7 @@ norm's backward B10 (the counterpart of the reference Paddle's CUDA
 Routing is by the tensors' device, as for the other kernels: CPU tensors
 go to the plain versions, CUDA tensors to the hand-written kernels in
 `csrc/rms_norm.cu` or to an error. The kernels take x, w (and g) of one
-dtype, bf16 or f32, a contiguous last dim H with H % 8 == 0 and
+dtype, bf16, fp16 or f32, a contiguous last dim H with H % 8 == 0 and
 H <= 16384, rows 16-byte aligned, any row count. Nothing falls back.
 
 Rounding: B9 and its plain version round as the composite does,
@@ -26,7 +26,9 @@ dx = r * (gw - x * r^2 * mean(gw * x)) with gw = g * w, dw = sum_rows(g *
 x * r), dx rounded to x's dtype and dw to w's.
 
 `launches["rms_norm_fwd"]` / `["rms_norm_bwd"]` count the wrappers' calls
-that launched a kernel (a plain call counts nothing).
+that launched a kernel (a plain call counts nothing);
+`variant_launches["rms_norm_fwd_f16"]` / `["rms_norm_bwd_f16"]` count those
+in fp16 beside them.
 """
 
 from __future__ import annotations
@@ -38,11 +40,12 @@ from paddle_tpu_torch.kernels.attention import _on_card, _raise_on, _tracing
 
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "rms_norm_fwd_plain",
            "rms_norm_bwd_plain", "rms_norm", "supports", "launches",
-           "reset_launches",
+           "variant_launches", "reset_launches",
            "MAX_HIDDEN", "bwd_plan", "bwd_grid", "bwd_rows"]
 
 MAX_HIDDEN = 16384
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype codes of the C entry points
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # B10 (csrc/rms_norm.cu, mirrored there): threads a block, shared memory
 # the ring of x and g may take, blocks a cluster
 BWD_MAX_THREADS = 512
@@ -50,6 +53,8 @@ BWD_RING_BYTES = 192 * 1024
 BWD_CLUSTER = 4
 
 launches = {"rms_norm_fwd": 0, "rms_norm_bwd": 0}
+# the launches in fp16, counted beside the totals
+variant_launches = {"rms_norm_fwd_f16": 0, "rms_norm_bwd_f16": 0}
 _sm_count = {}
 # B10's arrival counter (int32 [1], left at 0 by every call) and its f32
 # scratch for the clusters' dw partials, one pair a (device, stream)
@@ -57,8 +62,14 @@ _scratch = {}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name, dtype):
+    launches[name] += 1
+    variant_launches[f"{name}_f16"] += dtype == torch.float16
 
 
 # ---------------------------------------------------------------------------
@@ -114,11 +125,12 @@ def _check_shapes(x2d, w, *others):
 
 def _off_gate(w, *rows):
     """Why B9/B10 do not take w and the rows, by shape and dtype only, as
-    the error to raise, or None: one dtype, bf16 or f32; H % 8 == 0 and
-    H <= MAX_HIDDEN."""
+    the error to raise, or None: one dtype, bf16, fp16 or f32; H % 8 == 0
+    and H <= MAX_HIDDEN."""
     h = w.shape[-1]
     if w.dtype not in _DTYPES:
-        return TypeError(f"kernel takes bfloat16 or float32, got {w.dtype}")
+        return TypeError(f"kernel takes bfloat16, float16 or float32, got "
+                         f"{w.dtype}")
     if h % 8 or h > MAX_HIDDEN:
         return ValueError(f"kernel takes H % 8 == 0 and H <= {MAX_HIDDEN}, "
                           f"got {h}")
@@ -172,7 +184,7 @@ def rms_norm_fwd(x2d, w, eps, save_r=True):
         w.data_ptr(), y.data_ptr(), 0 if r is None else r.data_ptr(), rows,
         h, _ld(x2d), _DTYPES[w.dtype], float(eps))
     _raise_on(rc, "rms_norm_fwd")
-    launches["rms_norm_fwd"] += 1
+    _count("rms_norm_fwd", w.dtype)
     return y, r
 
 
@@ -260,7 +272,7 @@ def rms_norm_bwd(x2d, w, r, g2d):
         part.data_ptr(), counter.data_ptr(), rows, h, _ld(x2d), _ld(g2d),
         blocks, cluster, _DTYPES[w.dtype])
     _raise_on(rc, "rms_norm_bwd")
-    launches["rms_norm_bwd"] += 1
+    _count("rms_norm_bwd", w.dtype)
     return dx, dw
 
 

@@ -123,14 +123,14 @@ PAGED_SCALES = [("        if (cq == 0) {", "        if (false) {", 1),
 PAGED_STAGES = {n: [("  static constexpr int kStages = HD == 128 ? (kQ8 ? 3 : 2) "
                      ": 4;", f"  static constexpr int kStages = {n};", 1)]
                 for n in (2, 3, 4)}
-PAGED_FULL_TILE = [("  if (g <= 8)\n    return launch_decode_mma<Keys, HD, 4, true>",
-                    "  if (false)\n    return launch_decode_mma<Keys, HD, 4, true>",
-                    1)]
-PAGED_CAP = [("__global__ void __launch_bounds__(kWinThreads) "
-               "decode_mma_kernel(",
+PAGED_FULL_TILE = [("  if (g <= 8)\n    return launch_decode_mma<T, Keys, HD, "
+                    "4, true>", "  if (false)\n    return launch_decode_mma<T, "
+                    "Keys, HD, 4, true>", 1)]
+PAGED_CAP = [("__global__ void __launch_bounds__(kWinThreads,\n"
+               "                                  decode_min_blocks<Keys, HD, "
+               "kTop>())",
                "__global__ void __launch_bounds__(kWinThreads, kTop && "
-               "sizeof(typename Keys::KVT) == 1 ? 4 : 1) decode_mma_kernel(",
-               1)]
+               "sizeof(typename Keys::KVT) == 1 ? 4 : 1)", 1)]
 PAGED_VARIANTS = {"without the products and softmax": PAGED_PRODUCTS,
                   "without the combine": B5_COMBINE,
                   "the loads alone": PAGED_PRODUCTS + B5_COMBINE,

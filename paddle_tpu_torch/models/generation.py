@@ -230,7 +230,8 @@ def _masked_attention(q, cache_k, cache_v, pos):
     key_pos = torch.arange(max_len, device=q.device)
     rows = torch.arange(s, device=q.device).reshape(1, 1, s, 1)
     qpos = torch.as_tensor(pos, device=q.device).reshape(-1, 1, 1, 1) + rows
-    scores = torch.where(key_pos <= qpos, scores, NEG_INF)
+    scores = torch.where(key_pos <= qpos, scores,
+                         attn_k.neg_inf(scores.dtype))
     probs = torch.softmax(scores.float(), dim=-1)
     return (probs.to(cache_v.dtype) @ cache_v).transpose(1, 2)
 

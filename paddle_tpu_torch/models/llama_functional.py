@@ -35,6 +35,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.kernels import attention as attn_k
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.kernels import rms_norm as rn
 
@@ -173,7 +174,8 @@ def sdpa_reference(q, k, v, causal=False, scale=None):
     """`nn.functional.flash_attention._sdpa_reference` (:22) without dropout
     and mask: q [B, L, H, D], k/v [B, Lk, Hk, D] (kv heads repeated for
     GQA). Scores in the inputs' dtype, softmax in f32, probabilities cast
-    back before P·V; causal is tril(k=Lk-Lq), masked scores at -1e30."""
+    back before P·V; causal is tril(k=Lk-Lq), masked scores at -1e30
+    (-inf in fp16: `attention.neg_inf`)."""
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
@@ -185,7 +187,7 @@ def sdpa_reference(q, k, v, causal=False, scale=None):
         ql, kl = logits.shape[-2], logits.shape[-1]
         keep = torch.ones(ql, kl, dtype=torch.bool,
                           device=q.device).tril(kl - ql)
-        logits = torch.where(keep, logits, -1e30)
+        logits = torch.where(keep, logits, attn_k.neg_inf(logits.dtype))
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return (probs @ vh).transpose(1, 2)
 

@@ -55,9 +55,10 @@ __all__ = ["KVHandoff", "LocalTransport", "StoreTransport",
            "PrefillWorker", "DecodeWorker", "DisaggServer"]
 
 # the numpy dtype names the reference writes into the header, for the pool
-# leaves there are: f32 or bf16 pages, an int8 pool's codes and f32 scales
+# leaves there are: f32, bf16 or fp16 pages, an int8 pool's codes and f32
+# scales
 _WIRE_DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
-                torch.int8: "int8"}
+                torch.float16: "float16", torch.int8: "int8"}
 _FROM_WIRE = {v: k for k, v in _WIRE_DTYPES.items()}
 
 

@@ -3,7 +3,7 @@ JAX package, on the CPU, in f32 (the tiny ARGS/ENGINE_KW of
 tests/test_disagg_router.py).
 
   - wire format: `KVHandoff.to_bytes()` equals the JAX package's byte for
-    byte (f32, bf16 and int8-pool pages, the same `sent_at`), and a blob
+    byte (f32, bf16, fp16 and int8-pool pages, the same `sent_at`), and a blob
     from either package decodes in the other;
   - a JAX `PrefillWorker`'s blobs seated in the port's `DecodeWorker`
     continue to the JAX monolithic engine's greedy tokens;
@@ -107,7 +107,7 @@ def _handoffs(kind):
         tk = QuantizedKVPage(*map(_torch_bits, leaves[:2]))
         tv = QuantizedKVPage(*map(_torch_bits, leaves[2:]))
     else:
-        dt = np.float32 if kind == "float32" else ml_dtypes.bfloat16
+        dt = ml_dtypes.bfloat16 if kind == "bfloat16" else np.dtype(kind)
         jk, jv = (rng.standard_normal(shape).astype(dt) for _ in range(2))
         tk, tv = _torch_bits(jk), _torch_bits(jv)
     meta = dict(request_id=f"r-{kind}", prompt_ids=[5, 1, 9, 3],
@@ -125,7 +125,7 @@ def _leaf_bits(x):
     return np.ascontiguousarray(x).view(np.uint8)
 
 
-@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "float16", "int8"])
 def test_wire_format_is_the_references(kind):
     pkg, jpkg = _handoffs(kind)
     blob = pkg.to_bytes()

@@ -32,7 +32,13 @@ def cuda():
 def _bf16_bar(ref):
     # two bf16 units in the last place at the largest output: the plain
     # version rounds its scores and probabilities to bf16, the kernel not
+    # (fp16 is held to the same bar: its unit is 8 times smaller)
     return 2.0 ** -6 * max(1.0, ref.abs().max().item())
+
+
+# B4-B7's dtypes: bf16 and fp16 take the cluster kernels, f32 the shared
+# body
+ATTN_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 # B4-B7 cases on the card: (nkv, g, hd, ps, P, rows). First the cases these
@@ -55,9 +61,10 @@ PAGED_Q8_CARD_CASES += _NEW_CASES
 
 
 def _paged_ok(out, again, ref, ref32, dtype):
-    """bf16 (paged_mma_kernel): each head_dim vector within 2^-6 of its own
-    max |plain| against the plain version run in f32, the whole output
-    within the bf16 bar of the plain version, a second call bit-identical;
+    """bf16 and fp16 (paged_mma_kernel): each head_dim vector within 2^-6
+    of its own max |plain| against the plain version run in f32, the whole
+    output within the bf16 bar of the plain version, a second call
+    bit-identical;
     f32 (the shared body): within 1e-5, both summing in f32 in different
     orders."""
     assert torch.isfinite(out).all()
@@ -68,7 +75,7 @@ def _paged_ok(out, again, ref, ref32, dtype):
             <= _bf16_bar(ref) and torch.equal(out, again))
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("nkv,g,hd,ps,P,rows", PAGED_CARD_CASES)
 def test_kernels_match_plain_on_card(cuda, dtype, nkv, g, hd, ps, P, rows):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -101,7 +108,7 @@ def test_kernels_match_plain_on_card(cuda, dtype, nkv, g, hd, ps, P, rows):
     assert _paged_ok(out, again, ref, ref32, dtype)
     for got, want in pairs:
         # f32: both sum in f32, in different orders
-        bar = _bf16_bar(want) if dtype == torch.bfloat16 else 1e-5
+        bar = _bf16_bar(want) if dtype != torch.float32 else 1e-5
         assert (got.float() - want.float()).abs().max().item() <= bar
     assert {k: at.launches[k] - before[k] for k in before} == {
         "decode_attention": 1, "window_attention": 1,
@@ -112,8 +119,10 @@ def test_kernel_checks_on_card(cuda):
     q = torch.randn(2, 1, 4, 128, device=cuda)
     ck = torch.randn(2, 2, 64, 128, device=cuda)
     pos = torch.tensor([3, 4], dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        at.decode_attention(q.half(), ck.half(), ck.half(), pos)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        at.decode_attention(q.double(), ck.double(), ck.double(), pos)
+    with pytest.raises(TypeError, match="dtype mismatch"):
+        at.decode_attention(q.half(), ck.bfloat16(), ck.bfloat16(), pos)
     with pytest.raises(ValueError, match="contiguous"):
         at.decode_attention(q, ck.transpose(2, 3).contiguous().transpose(2, 3),
                             ck, pos)
@@ -126,12 +135,13 @@ def test_kernel_checks_on_card(cuda):
                             ck, ck, pos)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("case", range(len(cs.B4_CASES)))
 def test_decode_kernel_edges_on_card(cuda, dtype, case):
     """B4 at chip_smoke's B4_CASES (a 1029-key cache, g = 1, 2, 4, 8, 64,
     both head dims, rows at 0, mid-tile and len - 1, a pos past the cache's
-    end): bf16 (decode_mma_kernel, keys by TMA) each head_dim vector within
+    end): bf16 and fp16 (decode_mma_kernel, keys by TMA) each head_dim
+    vector within
     2^-6 of its own max |plain| against the plain version run in f32, the
     whole output within the bf16 bar, a second call bit-identical; f32
     (the shared body) within 1e-5. Over the cache with NaN past each row's
@@ -152,11 +162,12 @@ def test_decode_kernel_edges_on_card(cuda, dtype, case):
     assert torch.equal(out, over_nan)
 
 
-def test_decode_bar_rejects_planted_faults_on_card(cuda):
-    """chip_smoke's B4 bar on the card: the split model passes, a split
-    dropped, a split's weight wrong, a key past a row's end and the V rows
-    past pos left in P V over NaN each fail."""
-    cs.phase_b4_bar_teeth(torch, cuda)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_bar_rejects_planted_faults_on_card(cuda, dtype):
+    """chip_smoke's B4 bar on the card, in bf16 and fp16: the split model
+    passes, a split dropped, a split's weight wrong, a key past a row's end
+    and the V rows past pos left in P V over NaN each fail."""
+    cs.phase_b4_bar_teeth(torch, cuda, dtype)
 
 
 def _q8_pool(g, cuda, n_pages, nkv, ps, hd):
@@ -165,7 +176,7 @@ def _q8_pool(g, cuda, n_pages, nkv, ps, hd):
     return codes, torch.rand(n_pages, nkv, generator=g, device=cuda) + 0.5
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("nkv,g,hd,ps,P,rows", PAGED_Q8_CARD_CASES)
 def test_paged_q8_kernel_matches_plain_on_card(cuda, dtype, nkv, g, hd, ps,
                                                P, rows):
@@ -198,6 +209,50 @@ def test_paged_q8_kernel_matches_plain_on_card(cuda, dtype, nkv, g, hd, ps,
     assert _paged_ok(out, again, ref, ref32, dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_paged_q8_widens_every_code_exactly_on_card(cuda, dtype):
+    """B7's widening of int8 codes into the query's 16-bit type (fp16: its
+    own exact form, not bf16's), at every code from -127 to 127. V: one
+    key a row (p = 1), v_scale 127 (a code's value is the code), so each
+    output element is one code, exactly. K: every code in the pool's
+    keys, the output within the bar of the plain version run in f32."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    codes = torch.arange(-127, 128, device=cuda, dtype=torch.int8)
+    b, nkv, hd, ps = 2, 2, 128, 16                 # 512 V values a key slot
+    vals = torch.cat([codes, codes.flip(0), codes[:2]])    # 512 entries
+    pv = torch.zeros(1 + b, nkv, ps, hd, dtype=torch.int8, device=cuda)
+    pv[1:, :, 0] = vals.reshape(b, nkv, hd)
+    pk = torch.randint(-127, 128, pv.shape, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    ones = torch.full((1 + b, nkv), 127.0, device=cuda)
+    bt = torch.arange(1, 1 + b, dtype=torch.int32, device=cuda)[:, None]
+    q = torch.randn(b, 1, nkv, hd, generator=gen, device=cuda).to(dtype)
+    pos = torch.zeros(b, dtype=torch.int32, device=cuda)
+    out = at.paged_decode_attention(q, pk, pv, bt, pos, k_scale=ones,
+                                    v_scale=ones)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 0].float(),
+                       vals.reshape(b, nkv, hd).float())
+    # K: every code in row 0's first two keys (each kv head), the rest
+    # random; rows of 64 and 41 keys
+    pk = torch.randint(-127, 128, (1 + 4 * b, nkv, ps, hd), generator=gen,
+                       device=cuda, dtype=torch.int8)
+    pk[1, :, :2] = vals.reshape(2, 2, hd).transpose(0, 1)
+    pv = torch.randint(-127, 128, pk.shape, generator=gen, device=cuda,
+                       dtype=torch.int8)
+    sk = torch.rand(1 + 4 * b, nkv, generator=gen, device=cuda) + 0.5
+    sv = torch.rand(1 + 4 * b, nkv, generator=gen, device=cuda) + 0.5
+    bt = torch.arange(1, 1 + 4 * b, dtype=torch.int32,
+                      device=cuda).reshape(b, 4)
+    pos = torch.tensor([63, 40], dtype=torch.int32, device=cuda)
+    out = at.paged_decode_attention(q, pk, pv, bt, pos, k_scale=sk,
+                                    v_scale=sv)
+    ref32 = at.paged_decode_attention_plain(q.float(), pk, pv, bt, pos,
+                                            k_scale=sk, v_scale=sv)
+    torch.cuda.synchronize()
+    assert cs.flash_row_ratio(torch, out, ref32, 2.0 ** -6) <= 1.0
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (8, 1000, 999),
                                    (13, 130, 520), (16, 4096, 11008),
@@ -225,7 +280,7 @@ def test_weight_only_matmul_matches_plain_on_card(cuda, dtype, m, k, n):
 
 # B5 at the edges of the bf16 kernel's key split and row tiles
 # (chip_smoke.B5_CASES), in bf16 and f32
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
 @pytest.mark.parametrize("case", range(len(cs.B5_CASES)))
 def test_window_kernel_edges_on_card(cuda, dtype, case):
     """Each head_dim vector within its bar of the plain version run in f32
@@ -242,7 +297,7 @@ def test_window_kernel_edges_on_card(cuda, dtype, case):
     dname = str(dtype).replace("torch.", "")
     assert cs.row_ratio(torch, out, at.window_attention_plain,
                         (q, ck, cv, pos), dname) <= 1.0
-    bar = _bf16_bar(ref) if dtype == torch.bfloat16 else 1e-5 * max(
+    bar = _bf16_bar(ref) if dtype != torch.float32 else 1e-5 * max(
         1.0, ref.abs().max().item())
     assert (out.float() - ref.float()).abs().max().item() <= bar
     assert torch.equal(out, again)
@@ -348,8 +403,8 @@ def test_quantized_kernel_checks_on_card(cuda):
     q = torch.randn(2, 1, 4, 128, device=cuda)
     bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
     pos = torch.tensor([3, 9], dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        at.paged_decode_attention(q.half(), pk, pk, bt, pos, k_scale=sk,
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        at.paged_decode_attention(q.double(), pk, pk, bt, pos, k_scale=sk,
                                   v_scale=sk)
     with pytest.raises(ValueError, match="contiguous"):
         at.paged_decode_attention(q, pk.transpose(2, 3).contiguous()
@@ -556,7 +611,8 @@ def _rms_check(x, w, g, dname):
     return y, r
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
 @pytest.mark.parametrize("rows,h", [(8, 4096), (1, 128), (4097, 2048),
                                     (300, 16384), (33, 8), (700, 11008)])
 def test_rms_norm_kernels_match_plain_on_card(cuda, dtype, rows, h):
@@ -634,8 +690,10 @@ def test_rms_norm_autograd_on_card(cuda):
 def test_rms_norm_kernel_checks_on_card(cuda):
     x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
     w = torch.ones(64, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        rn.rms_norm_fwd(x.half(), w.half(), 1e-6)
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        rn.rms_norm_fwd(x.double(), w.double(), 1e-6)
+    with pytest.raises(TypeError, match="dtype mismatch"):
+        rn.rms_norm_fwd(x.half(), w, 1e-6)
     with pytest.raises(TypeError, match="dtype mismatch"):
         rn.rms_norm_fwd(x.float(), w, 1e-6)
     with pytest.raises(ValueError, match="H % 8"):
@@ -724,7 +782,8 @@ def test_every_kernel_launches_on_its_tensors_card(second_card):
 
 def test_bf16_rows_do_not_depend_on_their_batch_on_card(cuda):
     """Fault C2: `chip_smoke.phase_c2` on the card: one row through B4,
-    B5, B6 and B7 in bf16 gives the same bits alone, among 7 rows with the
+    B5, B6 and B7 in bf16 and in fp16 gives the same bits alone, among 7
+    rows with the
     batch's max_pos and among 3 with pos on the card, at 7B's and GPT-2's
     decode shapes; one x row through B8's GEMV the same bits at M = 1, 8,
     9 and 16."""

@@ -207,8 +207,9 @@ def test_kernel_gate():
     w = torch.ones(64, dtype=torch.bfloat16)
     rn._check_kernel(w, x)
     rn._check_kernel(w, torch.zeros(4, 128, dtype=torch.bfloat16)[:, :64])
-    with pytest.raises(TypeError, match="bfloat16 or float32"):
-        rn._check_kernel(w.half(), x.half())
+    rn._check_kernel(w.half(), x.half())
+    with pytest.raises(TypeError, match="bfloat16, float16 or float32"):
+        rn._check_kernel(w.double(), x.double())
     with pytest.raises(TypeError, match="dtype mismatch"):
         rn._check_kernel(w, x.float())
     with pytest.raises(ValueError, match="H % 8"):
@@ -345,7 +346,8 @@ def test_gate_predicate_decides_by_shape_and_dtype_alone():
     assert rn.supports(torch.zeros(64, 4, dtype=bf).T, w)
     assert rn.supports(torch.zeros(4, 72, dtype=bf)[:, 1:65], w)
     assert not rn.supports(x.float(), w)              # mixed dtypes
-    assert not rn.supports(x.half(), w.half())        # neither bf16 nor f32
+    assert rn.supports(x.half(), w.half())
+    assert not rn.supports(x.double(), w.double())    # none of bf16/fp16/f32
     assert not rn.supports(torch.zeros(4, 60, dtype=bf),
                            torch.ones(60, dtype=bf))  # H % 8
     h = rn.MAX_HIDDEN + 8
@@ -397,8 +399,10 @@ def test_a_gated_call_reaches_the_kernel_and_an_off_gate_call_never(
     F.rms_norm(odd, paddle.ones([60]))                  # H % 8
     F.rms_norm(x, w.astype("bfloat16"))                 # mixed dtypes
     F.rms_norm(x)                                       # weight=None
-    F.rms_norm(x.astype("float16"), w.astype("float16"))
+    F.rms_norm(x.astype("float64"), w.astype("float64"))
     assert len(calls) == n
+    F.rms_norm(x.astype("float16"), w.astype("float16"))
+    assert calls[-1] == ((2, 3, 64), True, True, 1e-6)
 
 
 def test_x_and_weight_on_different_devices_raise():
